@@ -1,0 +1,22 @@
+"""foundationdb_tpu_torch: the PyTorch + CUDA port of foundationdb_tpu.
+
+The Resolver's per-batch MVCC conflict check on the tiered, exact
+configuration, on an NVIDIA Hopper card, with hand-written CUDA kernels
+(kernels/csrc) and plain PyTorch versions beside them for the CPU. The
+package imports torch and numpy only: nothing of JAX or of the JAX
+package, whose modules it mirrors path for path.
+
+    from foundationdb_tpu_torch import make_conflict_set
+    cs = make_conflict_set(config)                 # on the card
+    cs = make_conflict_set(config, device="cpu")   # plain versions
+"""
+
+from foundationdb_tpu_torch.config import KernelConfig
+from foundationdb_tpu_torch.models.conflict_set import (
+    HistoryOverflowError,
+    TorchConflictSet,
+    make_conflict_set,
+)
+
+__all__ = ["KernelConfig", "HistoryOverflowError", "TorchConflictSet",
+           "make_conflict_set"]

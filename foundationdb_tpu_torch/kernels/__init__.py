@@ -1,0 +1,236 @@
+"""Build, load and count the hand-written Hopper kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, at first CUDA use, and loaded
+with `ctypes`. The sources are built in parallel (one `nvcc` each, all
+started together) into `kernels/build/`, under a file name that carries
+a hash of the sources, so an edited kernel is never served from a stale
+library. Nothing is built or loaded when the module is imported: the
+CPU paths never touch it.
+
+Every C entry point takes device pointers and the CUDA stream as
+`void*`, launches on that stream (PyTorch's current stream), does not
+synchronise, allocates nothing, and returns `cudaGetLastError()`; the
+wrapper raises on any non-zero code.
+
+`COUNTS` holds one plain integer per kernel entry. A wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that
+its main path went through the kernels (`reset_counts` / `counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps")
+#: widest packed key (uint32 words) the CUDA kernels are instantiated for
+#: (max_key_bytes <= 28); the plain versions take any width
+MAX_WORDS = 8
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signatures: entry point -> (library, argtypes)
+_SIGNATURES = {
+    # keys, m, w, queries, q, right, out, stream
+    "ks_search": ("keysearch", [_P, _I, _I, _P, _I, _I, _P, _P]),
+    # table, levels, m, lo, hi, q, op_min, out, stream
+    "ks_query": ("keysearch", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    # keys, m, w, table, levels, rb, re, q, out, stream
+    "ks_probe": ("keysearch", [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P]),
+    # values, table, m, level, half, op_min, stream
+    "rm_build_level": ("rangemax_build", [_P, _P, _I, _I, _I, _I, _P]),
+    # lo, hi, val, n, leaves, table, stream
+    "mc_scatter": ("min_cover", [_P, _P, _P, _I, _I, _P, _P]),
+    # table, leaves, level, stream
+    "mc_sweep_level": ("min_cover", [_P, _I, _I, _P]),
+    # a_keys, a_val, na, b_keys, b_val, nb, w, floor, keep_at, row_pos,
+    # row_val, stream
+    "mm_mark": ("merge_maps",
+                [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    # a_keys, b_keys, na, nb, w, row_pos, row_val, keep_at, dest, cap,
+    # out_keys, out_val, stream
+    "mm_scatter": ("merge_maps",
+                   [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
+}
+
+
+@dataclasses.dataclass
+class KernelInfo:
+    """One kernel entry as the launch ledger reports it."""
+
+    name: str
+    source: str     # path in the repository
+    replaces: str   # file:line of the JAX program it stands in for
+
+
+#: every kernel entry of the port, in the order the ledger prints them
+KERNELS = {
+    k.name: k for k in (
+        KernelInfo("keysearch.search",
+                   "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
+                   "foundationdb_tpu/ops/keys.py:50"),
+        KernelInfo("keysearch.query",
+                   "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
+                   "foundationdb_tpu/ops/rangemax.py:71"),
+        KernelInfo("keysearch.probe",
+                   "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
+                   "foundationdb_tpu/ops/history.py:77"),
+        KernelInfo("rangemax_build",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax_build.cu",
+                   "foundationdb_tpu/ops/rangemax.py:30"),
+        KernelInfo("min_cover",
+                   "foundationdb_tpu_torch/kernels/csrc/min_cover.cu",
+                   "foundationdb_tpu/ops/segtree.py:25"),
+        KernelInfo("merge_maps",
+                   "foundationdb_tpu_torch/kernels/csrc/merge_maps.cu",
+                   "foundationdb_tpu/ops/delta.py:378"),
+    )
+}
+
+#: launches per kernel entry since the last reset_counts()
+COUNTS = {name: 0 for name in KERNELS}
+
+_LIBS: dict = {}
+_FNS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def counts() -> dict:
+    return dict(COUNTS)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for part in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(part.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}.{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> dict:
+    """Compile every missing library, one `nvcc` per source, all at once.
+
+    Returns {source: compiler log} for what was built this call (the
+    `-Xptxas -v` register and spill report). Raises with the compiler's
+    output if any build fails.
+    """
+    BUILD.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        (BUILD / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+def _fn(entry: str):
+    """The ctypes function for a C entry point, building on first use."""
+    fn = _FNS.get(entry)
+    if fn is not None:
+        return fn
+    with _LOCK:
+        if entry not in _FNS:
+            build_all()
+            lib_name, argtypes = _SIGNATURES[entry]
+            lib = _LIBS.get(lib_name)
+            if lib is None:
+                lib = _LIBS[lib_name] = ctypes.CDLL(str(_lib_path(lib_name)))
+            f = getattr(lib, entry)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _FNS[entry] = f
+    return _FNS[entry]
+
+
+def launch(entry: str, count: str, *args) -> None:
+    """Call a C entry point with tensors/ints on the current stream.
+
+    Tensors pass as their data pointer; the stream is appended. `count`
+    names the COUNTS slot this launch adds one to.
+    """
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+              for a in args]
+    with torch.cuda.device(dev):
+        err = _fn(entry)(*c_args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    COUNTS[count] += 1
+
+
+def check_cuda(name: str, *tensors, dtype=torch.int32) -> torch.device:
+    """The wrapper contract: every tensor on one CUDA device, contiguous,
+    of the kernel's dtype. Returns that device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    return dev
+
+
+def check_words(name: str, w: int) -> None:
+    if not 1 <= w <= MAX_WORDS:
+        raise ValueError(
+            f"{name}: key width {w} words outside the kernel's 1..{MAX_WORDS}"
+        )

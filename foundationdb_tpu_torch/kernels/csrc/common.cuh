@@ -1,0 +1,90 @@
+// Shared device helpers of the conflict kernels.
+//
+// Packed keys are rows of W uint32 words: big-endian byte words, then one
+// length word. Row-major comparison word by word, as unsigned, is FDB's key
+// order (byte-lexicographic, shorter first at equal prefixes); the all-ones
+// row is the +inf sentinel. This is K1 (foundationdb_tpu/ops/keys.py:31,46
+// lex_less / lex_eq), inlined into every kernel that compares keys rather
+// than launched on its own. PyTorch holds the words as int32 bit patterns;
+// the kernels read them as uint32, so 0xFFFFFFFF compares greatest.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fdb {
+
+constexpr int32_t VERSION_NEG = -2147483647;  // -(2**31) + 1
+constexpr int32_t INT32_POS = 2147483647;
+constexpr int32_t INT32_NEG = -2147483647;
+constexpr int kThreads = 256;
+
+__host__ __device__ inline int blocks_for(long long n) {
+  return static_cast<int>((n + kThreads - 1) / kThreads);
+}
+
+// a < b for W-word keys, a in registers, b in memory.
+template <int W>
+__device__ __forceinline__ bool less_rm(const uint32_t (&a)[W],
+                                        const uint32_t* b) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    uint32_t bi = __ldg(b + i);
+    if (a[i] != bi) return a[i] < bi;
+  }
+  return false;
+}
+
+// b < a for W-word keys, b in memory, a in registers.
+template <int W>
+__device__ __forceinline__ bool less_mr(const uint32_t* b,
+                                        const uint32_t (&a)[W]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    uint32_t bi = __ldg(b + i);
+    if (bi != a[i]) return bi < a[i];
+  }
+  return false;
+}
+
+template <int W>
+__device__ __forceinline__ void load_key(uint32_t (&k)[W], const uint32_t* p) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) k[i] = __ldg(p + i);
+}
+
+// numpy.searchsorted over sorted rows keys[0..m): the first index whose
+// row is >= q (left) or > q (right).
+template <int W, bool RIGHT>
+__device__ __forceinline__ int search(const uint32_t* keys, int m,
+                                      const uint32_t (&q)[W]) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    const uint32_t* row = keys + static_cast<size_t>(mid) * W;
+    bool go_right = RIGHT ? !less_rm<W>(q, row) : less_mr<W>(row, q);
+    if (go_right) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int floor_log2(int n) {  // n >= 1
+  return 31 - __clz(n);
+}
+
+}  // namespace fdb
+
+// Run the statement(s) for the runtime key width w (1..8, kernels.MAX_WORDS
+// on the Python side), with the compile-time constant W bound to it.
+#define FDB_DISPATCH_W(w, ...)                               \
+  switch (w) {                                               \
+    case 1: { constexpr int W = 1; __VA_ARGS__; } break;     \
+    case 2: { constexpr int W = 2; __VA_ARGS__; } break;     \
+    case 3: { constexpr int W = 3; __VA_ARGS__; } break;     \
+    case 4: { constexpr int W = 4; __VA_ARGS__; } break;     \
+    case 5: { constexpr int W = 5; __VA_ARGS__; } break;     \
+    case 6: { constexpr int W = 6; __VA_ARGS__; } break;     \
+    case 7: { constexpr int W = 7; __VA_ARGS__; } break;     \
+    case 8: { constexpr int W = 8; __VA_ARGS__; } break;     \
+    default: return cudaErrorInvalidValue;                   \
+  }

@@ -1,0 +1,192 @@
+"""Device-resident MVCC write history: one tier of the conflict set state.
+
+Port of foundationdb_tpu/ops/history.py. A tier is a piecewise-constant
+map keyspace -> last-commit version, held as sorted boundary keys with
+per-segment versions (the reference's version-annotated skip list,
+fdbserver/SkipList.cpp, as flat arrays): `main_keys[i]` starts a segment
+of version `main_ver[i]`, NEG before the first boundary, sentinel rows
+at the tail.
+
+* `query_reads_vmax` — the max version over the segments a read range
+  intersects (the CheckMax contract, SkipList.cpp:695-759): kernel A's
+  fused probe entry on CUDA tensors.
+* `merge_maps` — the pointwise max of two maps with GC and canonical
+  compaction (mergeWriteConflictRanges + removeBefore, SkipList.cpp:
+  430-441, 576-608, and the delta -> main fold): kernel D on CUDA
+  tensors.
+
+The CPU tensors take the plain versions beside them. `oldest` is a host
+int (every floor comes from host-packed batch arguments); `overflow` is
+a 0-d bool tensor on the state's device, latched by merges and read by
+the host only where it already synchronises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from foundationdb_tpu_torch import kernels
+from foundationdb_tpu_torch.config import KernelConfig
+from foundationdb_tpu_torch.ops import keys as K
+from foundationdb_tpu_torch.ops import rangemax
+
+VERSION_NEG = -(2**31) + 1
+
+
+class VersionHistory(NamedTuple):
+    main_keys: torch.Tensor   # [M, W] int32 words, sorted, sentinel tail
+    main_ver: torch.Tensor    # [M] int32 — version of [key_i, key_{i+1})
+    oldest: int               # MVCC floor offset the tier was GC'd at
+    overflow: torch.Tensor    # [] bool — some merge exceeded capacity
+
+
+def empty(capacity: int, key_words: int, device, oldest: int = VERSION_NEG
+          ) -> VersionHistory:
+    return VersionHistory(
+        main_keys=K.sentinel_like(capacity, key_words, device),
+        main_ver=torch.full((capacity,), VERSION_NEG, dtype=torch.int32,
+                            device=device),
+        oldest=oldest,
+        overflow=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+def init(config: KernelConfig, device) -> VersionHistory:
+    return empty(config.history_capacity, config.key_words, device)
+
+
+def boundary_count(state: VersionHistory) -> torch.Tensor:
+    """[] int64 live (non-sentinel) rows of one tier."""
+    live = ~torch.all(state.main_keys == K.SENTINEL_WORD, dim=-1)
+    return live.sum()
+
+
+# ---------------------------------------------------------------------------
+# K4: the history probe
+
+def query_reads_vmax_plain(keys: torch.Tensor, table: torch.Tensor,
+                           rb: torch.Tensor, re: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel A's probe entry."""
+    il = K.searchsorted_plain(keys, rb, side="right") - 1
+    ir = K.searchsorted_plain(keys, re, side="left") - 1
+    return rangemax.query_plain(table, torch.clamp(il, min=0), ir + 1,
+                                op="max")
+
+
+def query_reads_vmax(state: VersionHistory, rb: torch.Tensor,
+                     re: torch.Tensor, table: torch.Tensor = None
+                     ) -> torch.Tensor:
+    """[Q] int32: max version over history segments intersecting
+    [rb, re) per read range (before the snapshot compare).
+
+    il = search_right(rb) - 1, ir = search_left(re) - 1, then a max
+    query over [max(il, 0), ir + 1). `table` is the prebuilt range-max
+    table of `state.main_ver` (built here when None).
+    """
+    keys = state.main_keys
+    if table is None:
+        table = rangemax.build(state.main_ver, op="max")
+    if rb.shape != re.shape or rb.ndim != 2 or rb.shape[1] != keys.shape[1]:
+        raise ValueError("query_reads_vmax: rb, re must be [Q, W]")
+    if keys.device.type == "cpu":
+        return query_reads_vmax_plain(keys, table, rb, re)
+    kernels.check_cuda("query_reads_vmax", keys, table, rb, re)
+    kernels.check_words("query_reads_vmax", keys.shape[1])
+    out = torch.empty((rb.shape[0],), dtype=torch.int32, device=keys.device)
+    kernels.launch("ks_probe", "keysearch.probe", keys, keys.shape[0],
+                   keys.shape[1], table, table.shape[0], rb, re, rb.shape[0],
+                   out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7(j) / K9: the map merge
+
+def merge_maps_plain(a_keys, a_val, b_keys, b_val, *, floor: int,
+                     capacity: int):
+    """Plain version of kernel D: (keys [cap, W], ver [cap], count []).
+
+    Mark: per input row (A rows, then B rows) its merge position, value
+    in force and keep flag; then an exclusive scan of the keep flags in
+    merge order gives each kept row its output slot.
+    """
+    na, nb = a_keys.shape[0], b_keys.shape[0]
+    dev = a_val.device
+    rows = torch.cat([a_keys, b_keys])
+    own_a = torch.arange(na + nb, device=dev) < na
+    idx = torch.cat([torch.arange(na, device=dev), torch.arange(nb, device=dev)])
+    a_l = K.searchsorted_plain(a_keys, rows, side="left").to(torch.int64)
+    a_r = K.searchsorted_plain(a_keys, rows, side="right").to(torch.int64)
+    b_l = K.searchsorted_plain(b_keys, rows, side="left").to(torch.int64)
+    b_r = K.searchsorted_plain(b_keys, rows, side="right").to(torch.int64)
+    pos = idx + torch.where(own_a, b_l, a_r)
+
+    def val_before(vals, n):  # value of row n-1, NEG for n == 0
+        padded = torch.cat([
+            torch.full((1,), VERSION_NEG, dtype=torch.int32, device=dev), vals
+        ])
+        return padded[n]
+
+    def gc(v):
+        return torch.where(v < floor, torch.full_like(v, VERSION_NEG), v)
+
+    at = gc(torch.maximum(val_before(a_val, a_r), val_before(b_val, b_r)))
+    before = gc(torch.maximum(val_before(a_val, a_l), val_before(b_val, b_l)))
+    real = rows[:, -1] != K.SENTINEL_WORD
+    first = torch.where(own_a, idx == a_l, (idx == b_l) & (a_l == a_r))
+    keep = real & first & (at != before)
+    keep_at = torch.zeros((na + nb,), dtype=torch.int32, device=dev)
+    keep_at[pos] = keep.to(torch.int32)
+
+    dest = torch.cumsum(keep_at, 0, dtype=torch.int32) - keep_at
+    d = dest[pos].to(torch.int64)
+    take = keep & (d < capacity)
+    out_keys = K.sentinel_like(capacity, a_keys.shape[1], dev)
+    out_val = torch.full((capacity,), VERSION_NEG, dtype=torch.int32,
+                         device=dev)
+    out_keys[d[take]] = rows[take]
+    out_val[d[take]] = at[take]
+    return out_keys, out_val, keep_at.sum()
+
+
+def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
+               b_keys: torch.Tensor, b_val: torch.Tensor, *, floor: int,
+               capacity: int):
+    """The pointwise max of two sorted piecewise-constant maps.
+
+    a/b keys: [Na, W] / [Nb, W] sorted (duplicate keys allowed: the last
+    row of a key is in force; sentinel tail), values [Na] / [Nb] int32.
+    Values under `floor` become NEG; the result keeps only the first row
+    of each key whose value differs from the previous key's value, in
+    key order, compacted into [capacity] rows (sentinel/NEG tail).
+
+    Returns (keys [capacity, W], ver [capacity], count [] int) where
+    count is the number of rows the canonical map needs: count >
+    capacity means rows were dropped and the caller must latch overflow.
+    """
+    w = a_keys.shape[1]
+    if b_keys.shape[1] != w or a_val.shape[0] != a_keys.shape[0] \
+            or b_val.shape[0] != b_keys.shape[0]:
+        raise ValueError("merge_maps: mismatched shapes")
+    if a_keys.device.type == "cpu":
+        return merge_maps_plain(a_keys, a_val, b_keys, b_val, floor=floor,
+                                capacity=capacity)
+    kernels.check_cuda("merge_maps", a_keys, a_val, b_keys, b_val)
+    kernels.check_words("merge_maps", w)
+    dev = a_keys.device
+    na, nb = a_keys.shape[0], b_keys.shape[0]
+    keep_at = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    row_pos = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    row_val = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    kernels.launch("mm_mark", "merge_maps", a_keys, a_val, na, b_keys, b_val,
+                   nb, w, floor, keep_at, row_pos, row_val)
+    dest = torch.cumsum(keep_at, 0, dtype=torch.int32) - keep_at
+    out_keys = K.sentinel_like(capacity, w, dev)
+    out_val = torch.full((capacity,), VERSION_NEG, dtype=torch.int32,
+                         device=dev)
+    kernels.launch("mm_scatter", "merge_maps", a_keys, b_keys, na, nb, w,
+                   row_pos, row_val, keep_at, dest, capacity, out_keys,
+                   out_val)
+    return out_keys, out_val, keep_at.sum()

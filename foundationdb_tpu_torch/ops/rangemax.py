@@ -1,0 +1,109 @@
+"""Sparse-table range-max/min: O(M log M) build, O(1) vectorized query.
+
+Port of foundationdb_tpu/ops/rangemax.py (`build`, `query`): the doubling
+table `t[k, i] = op(values[i : i + 2**k])`, clamped at the array end,
+answers "op over [lo, hi)" with two lookups. The history probe uses the
+max form, the intra-batch fixpoint the min form.
+
+`build` is kernel B (kernels/csrc/rangemax_build.cu, one launch per
+level) and `query` is kernel A's query entry (kernels/csrc/keysearch.cu)
+on CUDA tensors; `build_plain` / `query_plain` serve CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from foundationdb_tpu_torch import kernels
+
+INT32_NEG = -(2**31) + 1
+INT32_POS = 2**31 - 1
+
+_IDENT = {"max": INT32_NEG, "min": INT32_POS}
+
+
+def _num_levels(m: int) -> int:
+    return max(1, (m - 1).bit_length() + 1)
+
+
+def _op(op: str):
+    if op == "max":
+        return torch.maximum
+    if op == "min":
+        return torch.minimum
+    raise ValueError(op)
+
+
+def build_plain(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
+    """Plain version of kernel B: values [M] int32 -> table [L, M]."""
+    fn = _op(op)
+    m = values.shape[0]
+    levels = [values]
+    for k in range(1, _num_levels(m)):
+        prev = levels[-1]
+        half = min(1 << (k - 1), m - 1)
+        shifted = torch.cat([prev[half:], prev[-1:].expand(half)])
+        levels.append(fn(prev, shifted))
+    return torch.stack(levels)
+
+
+def build(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
+    """The doubling table of `values` ([M] int32) -> [L, M] int32."""
+    _op(op)
+    if values.ndim != 1 or values.shape[0] < 1:
+        raise ValueError(f"build: values shape {tuple(values.shape)}")
+    if values.device.type == "cpu":
+        return build_plain(values, op=op)
+    kernels.check_cuda("rangemax.build", values)
+    m = values.shape[0]
+    table = torch.empty((_num_levels(m), m), dtype=torch.int32,
+                        device=values.device)
+    for k in range(table.shape[0]):
+        half = min(1 << (k - 1), m - 1) if k else 0
+        kernels.launch("rm_build_level", "rangemax_build", values, table, m,
+                       k, half, int(op == "min"))
+    return table
+
+
+def _floor_log2(n: torch.Tensor, max_levels: int) -> torch.Tensor:
+    """floor(log2(n)) for n >= 1, clipped to [0, max_levels - 1].
+
+    Exact for every int32 n: float64 holds n exactly, and frexp's
+    exponent e (n = mantissa * 2**e, mantissa in [0.5, 1)) is
+    floor(log2(n)) + 1.
+    """
+    k = torch.frexp(n.to(torch.float64)).exponent.to(torch.int64) - 1
+    return k.clamp(0, max_levels - 1)
+
+
+def query_plain(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+                op: str = "max") -> torch.Tensor:
+    """Plain version of kernel A's query entry: op over [lo, hi) per
+    element; the op identity where the range is empty."""
+    fn = _op(op)
+    levels, m = table.shape
+    loc = lo.to(torch.int64).clamp(0, m)
+    hic = hi.to(torch.int64).clamp(0, m)
+    length = torch.clamp(hic - loc, min=1)
+    k = _floor_log2(length, levels)
+    a = loc.clamp(0, m - 1)
+    b = (hic - (torch.ones_like(k) << k)).clamp(0, m - 1)
+    flat = table.reshape(-1)
+    got = fn(flat[k * m + a], flat[k * m + b])
+    ident = torch.full_like(got, _IDENT[op])
+    return torch.where(hic > loc, got, ident)
+
+
+def query(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+          op: str = "max") -> torch.Tensor:
+    """op over table's base values on [lo, hi) per element -> [Q] int32."""
+    _op(op)
+    if table.ndim != 2 or lo.shape != hi.shape or lo.ndim != 1:
+        raise ValueError("query: table [L, M] and lo, hi [Q] expected")
+    if table.device.type == "cpu":
+        return query_plain(table, lo, hi, op=op)
+    kernels.check_cuda("rangemax.query", table, lo, hi)
+    out = torch.empty(lo.shape, dtype=torch.int32, device=table.device)
+    kernels.launch("ks_query", "keysearch.query", table, table.shape[0],
+                   table.shape[1], lo, hi, lo.shape[0], int(op == "min"), out)
+    return out

@@ -1,0 +1,143 @@
+"""The hand-written kernels on the card, held against their plain versions.
+
+Marked `cuda`: every test needs a CUDA card and skips without one (the
+check runs inside the `cuda_device` fixture, never at import). On the
+card: `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
+(this file needs nothing from tests/conftest.py, which imports JAX). The CPU
+tests (test_torch_ops.py) pin the plain versions to the JAX package;
+these pin each kernel to its plain version, exactly, and show that a
+CUDA tensor launches the kernel (its count moves) instead of falling
+back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from foundationdb_tpu_torch import kernels, make_conflict_set
+from foundationdb_tpu_torch.config import KernelConfig
+from foundationdb_tpu_torch.ops import group as G
+from foundationdb_tpu_torch.ops import history as H
+from foundationdb_tpu_torch.ops import keys as K
+from foundationdb_tpu_torch.ops import rangemax as R
+from foundationdb_tpu_torch.ops import segtree as S
+from foundationdb_tpu_torch.testing.benchgen import (
+    int_keys_packed,
+    skiplist_style_batch,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.reset_counts()
+    return torch.device("cuda")
+
+
+def sorted_keys(rng, n, cap, dev):
+    ks = np.unique(rng.integers(0, 1 << 20, size=n))
+    table = np.full((cap, 3), 0xFFFFFFFF, np.uint32)
+    table[: len(ks)] = int_keys_packed(ks, 8, 3)
+    return torch.from_numpy(table.view(np.int32)).to(dev), len(ks)
+
+
+def assert_launched_and_equal(name, got, want):
+    assert kernels.COUNTS[name] > 0, name
+    assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_search(cuda_device, side):
+    rng = np.random.default_rng(1)
+    keys, n = sorted_keys(rng, 5000, 6000, cuda_device)
+    q = torch.cat([keys[rng.integers(0, n, 500)],
+                   sorted_keys(rng, 500, 600, cuda_device)[0]])
+    assert_launched_and_equal(
+        "keysearch.search", K.searchsorted(keys, q, side=side),
+        K.searchsorted_plain(keys, q, side=side))
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("m", [1, 3, 1000, 4096])
+def test_build_and_query(cuda_device, op, m):
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    tab = R.build(vals, op=op)
+    assert_launched_and_equal("rangemax_build", tab,
+                              R.build_plain(vals, op=op))
+    lo = torch.randint(-2, m + 2, (3000,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    hi = torch.randint(-2, m + 2, (3000,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    assert_launched_and_equal("keysearch.query", R.query(tab, lo, hi, op=op),
+                              R.query_plain(tab, lo, hi, op=op))
+
+
+def test_probe(cuda_device):
+    rng = np.random.default_rng(2)
+    keys, n = sorted_keys(rng, 5000, 6000, cuda_device)
+    ver = torch.randint(0, 10**6, (6000,), device=cuda_device,
+                        dtype=torch.int32)
+    tab = R.build_plain(ver, op="max")
+    b = rng.integers(0, 1 << 20, 2000)
+    rb = torch.from_numpy(int_keys_packed(b, 8, 3).view(np.int32))
+    re = torch.from_numpy(int_keys_packed(b + rng.integers(1, 5000, 2000), 8,
+                                          3).view(np.int32))
+    rb, re = rb.to(cuda_device), re.to(cuda_device)
+    hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                            torch.tensor(False, device=cuda_device))
+    assert_launched_and_equal("keysearch.probe",
+                              H.query_reads_vmax(hist, rb, re, tab),
+                              H.query_reads_vmax_plain(keys, tab, rb, re))
+
+
+def test_min_cover(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    lo = torch.randint(-4, 4100, (5000,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    hi = lo + torch.randint(-2, 300, (5000,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+    val = torch.randint(0, 5000, (5000,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    assert_launched_and_equal("min_cover", S.min_cover(4096, lo, hi, val),
+                              S.min_cover_plain(4096, lo, hi, val))
+
+
+def test_merge_maps(cuda_device):
+    rng = np.random.default_rng(4)
+    a, na = sorted_keys(rng, 3000, 4000, cuda_device)
+    b, nb = sorted_keys(rng, 800, 1000, cuda_device)
+    av = torch.randint(0, 5000, (4000,), device=cuda_device, dtype=torch.int32)
+    bv = torch.randint(0, 5000, (1000,), device=cuda_device, dtype=torch.int32)
+    cw = torch.rand((1000,), device=cuda_device) < 0.9
+    cov = G._coverage(b, b.roll(-1, 0).contiguous(), cw, 6000)
+    for bk, bval, cap in ((b, bv, 4000), (cov[0], cov[1], 4000),
+                          (b, bv, 1000)):
+        got = H.merge_maps(a, av, bk, bval, floor=2500, capacity=cap)
+        want = H.merge_maps_plain(a, av, bk, bval, floor=2500, capacity=cap)
+        for g, w in zip(got, want):
+            assert_launched_and_equal("merge_maps", g, w)
+
+
+def test_stream_matches_cpu_plain_path(cuda_device):
+    cfg = KernelConfig(max_key_bytes=8, max_txns=1024, max_reads=1024,
+                       max_writes=1024, history_capacity=12 * 1024,
+                       delta_capacity=12 * 1024, window_versions=5000,
+                       compact_interval=3)
+    rng = np.random.default_rng(5)
+    gpu = make_conflict_set(cfg, "cuda", device=cuda_device)
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    for i in range(7):
+        pb = skiplist_style_batch(rng, cfg, 1024, version=1000 * (i + 1),
+                                  keyspace=4000, snapshot_lag=2000)
+        got, want = gpu.resolve_packed(pb), cpu.resolve_packed(pb)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for name, n in kernels.counts().items():
+        assert n > 0, name

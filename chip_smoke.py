@@ -4,25 +4,37 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
-csrc` and runs four phases, failing (non-zero exit, no result line) on
+csrc` and runs these phases, failing (non-zero exit, no result line) on
 any fault:
 
 1. environment: the card's fingerprint and `nvidia-smi` name / power;
-2. kernels: every kernel entry on seeded random inputs at the bench
-   shapes (65,536-txn batches, 8-byte keys, 786,432-row tiers), held
-   exactly against its plain PyTorch version on the same CUDA tensors,
-   and timed beside its bound, the plain version and, where one exists,
-   a single PyTorch call computing the same function;
-3. the main path at full width: a 65,536-txn skiplist-style stream
-   through `make_conflict_set(cfg, "cuda")`, launch counts reset just
-   before and read just after; the first compact_interval + 1 batches
-   must be field-for-field identical to the plain path on the CPU;
-4. a reduced-shape stream (2,048 txns) through `resolve()` that must
-   match the copied ConflictOracle verdict for verdict.
+2. kernels: every kernel entry on seeded inputs at the bench shapes
+   (65,536-txn batches, 8-byte keys, 786,432-row tiers; kernel E over a
+   group of 8 YCSB-E batches, kernel F over a zipf batch), held exactly
+   against its plain PyTorch version on the same CUDA tensors, and
+   timed beside its bound, the plain version and, where one exists, a
+   single PyTorch call computing the same function;
+3. the uniform stream at full width: 65,536-txn skiplist-style batches
+   through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
+   rangemax self-check, timed), launch counts reset just before and
+   read just after; the first compact_interval + 1 batches must be
+   field-for-field identical to the plain path on the CPU;
+4. the hot-key stream (bench `zipf`): groups of 8 zipf-1.1 batches with
+   the fixpoint latch and read dedup, every field identical to the
+   exact configuration on the card, the first group to the CPU plain
+   path; then a dedup cap under the stream's distinct count, so every
+   group trips and falls back, with the same results;
+5. the range-scan stream (bench `ycsb_e`): groups of 8 YCSB-E batches
+   with the endpoint sweep, delta spill and the latch, every group
+   identical to the probe path on the card and the first to the CPU
+   plain path, the stream classified range_heavy and routed to cuda;
+6. a reduced-shape contended stream (2,048 txns) through `resolve()`,
+   exact, latched + dedup, and sweep + spill: each must match the
+   copied ConflictOracle verdict for verdict.
 
-The last three lines are the kernel ledger (JSON), the card's name and
-power limit, and `{"ok": true, "device": {...}}`. Exits non-zero
-without a result when no CUDA device is present.
+The last lines are the streams' numbers (JSON), the kernel ledger
+(JSON), the card's name and power limit, and `{"ok": true, "device":
+{...}}`. Exits non-zero without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -49,6 +61,14 @@ SNAPSHOT_LAG = 400_000
 KEYSPACE = 1_000_000
 COMPACT_INTERVAL = 8
 N_BATCHES = 24
+GROUP = 8                   # batches per fused dispatch (bench BENCH_FUSE)
+ZIPF = 1.1
+ZIPF_KEYSPACE = 10_000_000
+ZIPF_BATCHES = 16
+ZIPF_UNROLL = 8
+TRIP_U = 16_384             # a dedup cap under the zipf stream's count
+YCSB_GROUPS = 4
+YCSB_UNROLL = 14
 
 
 def log(*a):
@@ -165,11 +185,16 @@ def int_keys(v):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def phase_kernels(device) -> dict:
-    """Every kernel entry vs its plain version at bench shapes, timed."""
+def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int) -> dict:
+    """Every kernel entry vs its plain version at bench shapes, timed.
+
+    Kernel F (read_dedup) takes the reads of one zipf batch and kernel E
+    (sweep_ranks) the reads of one group of YCSB-E batches: the inputs
+    the hot-key and range-scan paths give them."""
     import torch
 
-    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch import interop, kernels
+    from foundationdb_tpu_torch.ops import delta as D
     from foundationdb_tpu_torch.ops import group as G
     from foundationdb_tpu_torch.ops import history as H
     from foundationdb_tpu_torch.ops import keys as K
@@ -315,33 +340,243 @@ def phase_kernels(device) -> dict:
                               capacity=M)
     for part, g, w in zip(("keys", "ver", "count"), got, want):
         exact(f"merge_maps delta+coverage {part}", g, w)
+
+    def both(name, got, want):
+        return max(exact(f"{name} [{i}]", g, w)
+                   for i, (g, w) in enumerate(zip(got, want)))
+
+    # -- E: one group's main-tier ranks, against a main tier dense in the
+    #    YCSB keyspace, so both ends tie with main boundaries often
+    sk = torch.unique(torch.randint(0, KEYSPACE + 1, (M,), generator=gen,
+                                    device=device))[: 3 * M // 4]
+    sweep_main = K.sentinel_like(M, W, device)
+    sweep_main[: sk.shape[0]] = int_keys(sk)
+
+    def flat(key):
+        a = np.stack([b.device_args()[key] for b in ycsb_group])
+        return interop.to_torch(a.reshape(-1, *a.shape[2:]), device)
+
+    srb, sre, srv = flat("read_begin"), flat("read_end"), flat("read_valid")
+    r, live = srb.shape[0], int(srv.sum())
+    ties = [int((K.searchsorted(sweep_main, q, side="left")
+                 != K.searchsorted(sweep_main, q, side="right"))[srv].sum())
+            for q in (srb, sre)]
+    log(f"  sweep_ranks input: {r} reads ({live} live) of a group of "
+        f"{len(ycsb_group)}; {ties[0]} begins and {ties[1]} ends equal a "
+        f"main boundary of {sk.shape[0]}")
+    entry("sweep_ranks",
+          lambda: D.sweep_read_ranks(sweep_main, srb, sre, srv),
+          lambda: D.sweep_read_ranks_plain(sweep_main, srb, sre, srv),
+          n_bytes=2 * r * W * 4 + r + M * W * 4 + 2 * r * 4,
+          n_ops=2 * live * steps * W, check=both)
+
+    # -- F: one zipf batch's reads, the dedup cap the stream sizes, and a
+    #    cap under the distinct count (the tripping case)
+    dk = torch.unique(torch.randint(0, ZIPF_KEYSPACE, (M,), generator=gen,
+                                    device=device))[: 3 * M // 4]
+    dkeys = K.sentinel_like(M, W, device)
+    dkeys[: dk.shape[0]] = int_keys(dk)
+    dhist = H.VersionHistory(dkeys, ver, H.VERSION_NEG,
+                             torch.zeros((), dtype=torch.bool, device=device))
+    args = zipf_batch.device_args()
+    zrb, zre, zrv = (interop.to_torch(args[k], device)
+                     for k in ("read_begin", "read_end", "read_valid"))
+    rows = D.dedup_rows(zrb, zre, zrv)
+    n_uniq = None
+    for u in (TRIP_U, dedup_u):
+        got = D.dedup_vmax(dhist, tab, zrb, zre, zrv, u)
+        want = D.dedup_vmax_plain(dkeys, tab, rows, u)
+        both(f"read_dedup U={u}", got, want)
+        n_uniq = int(got[1])
+    nr = zrb.shape[0]
+    pairs = np.concatenate([args["read_begin"][args["read_valid"]],
+                            args["read_end"][args["read_valid"]]], axis=1)
+    if n_uniq != len(np.unique(pairs, axis=0)):
+        fail(f"read_dedup: n_uniq {n_uniq} is not numpy's distinct count")
+    log(f"  read_dedup input: {nr} reads, {n_uniq} distinct live (begin, "
+        f"end) rows (numpy agrees); U = {dedup_u} and {TRIP_U} (trips)")
+    touched = min(M * W, 2 * n_uniq * steps * W)
+    entry("read_dedup",
+          lambda: D.dedup_vmax(dhist, tab, zrb, zre, zrv, dedup_u),
+          lambda: D.dedup_vmax_plain(dkeys, tab, rows, dedup_u),
+          n_bytes=2 * nr * W * 4 + nr + touched * 4 + 2 * n_uniq * 4
+          + nr * 4,
+          n_ops=2 * W * nr + 2 * n_uniq * steps * W,
+          library=lambda: torch.unique(rows, dim=0, return_inverse=True),
+          check=both)
     return ledger
 
 
-# ---------------------------------------------------------------------------
-# the main path
+def phase_torch_ops(device) -> dict:
+    """K10 (the version rebase of both tiers) and K21 (the live-boundary
+    counts of both tiers): plain torch ops in the port, timed at the
+    tiers' size beside their byte bound."""
+    import torch
 
-def bench_config(n: int):
+    from foundationdb_tpu_torch.models.conflict_set import _rebase_tiered
+    from foundationdb_tpu_torch.ops import delta as D
+    from foundationdb_tpu_torch.ops import history as H
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+
+    def tier(n_live):
+        keys, _ = random_sorted_keys(gen, n_live, M, device)
+        ver = torch.randint(0, 1 << 30, (M,), generator=gen, device=device,
+                            dtype=torch.int32)
+        ver[n_live:] = H.VERSION_NEG
+        return H.VersionHistory(keys, ver, 5, torch.zeros(
+            (), dtype=torch.bool, device=device))
+
+    state = D.TieredState(main=tier(M // 2), delta=tier(M // 2))
+    rows = {}
+    for name, fn, n_bytes in (
+            ("K10 _rebase_tiered", lambda: _rebase_tiered(state, 1 << 29),
+             2 * M * 4 * 2),
+            ("K21 boundary_counts", lambda: D.boundary_counts(state),
+             2 * M * W * 4 + 2 * 8)):
+        t = device_ms(fn)
+        b, by = bound_ms(n_bytes, 0)
+        rows[name] = dict(ms=t, bound_ms=b, bound_by=by)
+        log(f"  {name:22s} device {t * 1e3:9.1f} us  bound {b * 1e3:7.1f} us"
+            f" ({by}), both tiers of {M} rows")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the main paths
+
+def bench_config(n: int, **kw):
     from foundationdb_tpu_torch.config import KernelConfig
 
-    return KernelConfig(
-        max_key_bytes=KEY_BYTES, max_txns=n, max_reads=n, max_writes=n,
-        history_capacity=12 * n, delta_capacity=12 * n,
-        window_versions=WINDOW, fixpoint_unroll=3,
-        compact_interval=COMPACT_INTERVAL,
-    )
+    return KernelConfig(**{
+        "max_key_bytes": KEY_BYTES, "max_txns": n, "max_reads": n,
+        "max_writes": n, "history_capacity": 12 * n,
+        "delta_capacity": 12 * n, "window_versions": WINDOW,
+        "fixpoint_unroll": 3, "compact_interval": COMPACT_INTERVAL, **kw,
+    })
+
+
+def zipf_stream(cfg, n: int, seed: int = 0, start: int = 0) -> list:
+    """bench `zipf`: one point read and one point write per txn, zipf 1.1
+    over 10M keys."""
+    from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
+
+    rng = np.random.default_rng(seed)
+    return [skiplist_style_batch(rng, cfg, B,
+                                 version=(start + i + 1) * VERSION_STEP,
+                                 keyspace=ZIPF_KEYSPACE, zipf=ZIPF,
+                                 snapshot_lag=SNAPSHOT_LAG,
+                                 key_bytes=KEY_BYTES) for i in range(n)]
+
+
+def ycsb_stream(cfg, n: int, seed: int = 0, start: int = 0) -> list:
+    """bench `ycsb_e`: 95% of txns scan up to 100 keys from a zipf 1.1
+    start, every txn inserts one fresh key, keyspace 1M."""
+    from foundationdb_tpu_torch.testing.benchgen import ycsb_batch
+
+    rng = np.random.default_rng(seed)
+    frontier, out = KEYSPACE // 2, []
+    for i in range(n):
+        b = ycsb_batch(rng, cfg, B, "ycsb_e",
+                       version=(start + i + 1) * VERSION_STEP,
+                       keyspace=KEYSPACE, zipf=ZIPF, scan_max=100,
+                       snapshot_lag=SNAPSHOT_LAG, key_bytes=KEY_BYTES,
+                       insert_frontier=frontier)
+        frontier += b.n_writes
+        out.append(b)
+    return out
+
+
+def dedup_size(batches) -> tuple:
+    """bench's dedup cap: the stream's most distinct (begin, end) read
+    rows in one batch, to the next power of two (dedup stays off past
+    half the batch, and then this path would not run: fail)."""
+    max_uniq = max(
+        len(np.unique(np.concatenate([b.read_begin[: b.n_reads],
+                                      b.read_end[: b.n_reads]], axis=1),
+                      axis=0)) for b in batches)
+    if max_uniq > B // 2:
+        fail(f"zipf stream has {max_uniq} distinct reads per batch; bench "
+             "would not arm read dedup")
+    return 1 << (max_uniq - 1).bit_length(), max_uniq
+
+
+def groups_of(batches) -> list:
+    from foundationdb_tpu_torch.utils.packing import stack_device_args
+
+    return [stack_device_args(batches[i:i + GROUP])
+            for i in range(0, len(batches), GROUP)]
 
 
 def verdict_fields(out) -> dict:
     return {f: getattr(out, f).cpu() for f in out._fields}
 
 
+def same_fields(tag: str, got: dict, want: dict) -> None:
+    import torch
+
+    for f, v in want.items():
+        if not torch.equal(got[f], v):
+            fail(f"{tag}: field {f} differs")
+
+
+def same_state(tag: str, got, want) -> None:
+    for tier, g, w in zip(("main", "delta"), got, want):
+        for part, a, b in zip(("keys", "ver", "oldest", "overflow"), g, w):
+            if not np.array_equal(a, b):
+                fail(f"{tag}: {tier} {part} differs")
+
+
+def require_launched(tag: str, launches: dict, unused=()) -> None:
+    for name, n in launches.items():
+        if name not in unused and n <= 0:
+            fail(f"{name}: not launched on the {tag} path")
+
+
+def run_groups(cs, groups) -> tuple:
+    """Each stacked group through resolve_group_args, synchronised:
+    (seconds per group, verdict fields per group, both tiers after the
+    first group)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+
+    times, outs, first = [], [], None
+    for i, g in enumerate(groups):
+        t0 = time.perf_counter()
+        out = cs.resolve_group_args(g)
+        if cs.device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(verdict_fields(out))
+        if i == 0:
+            first = interop.tiered_state_to_numpy(cs.state)
+    return times, outs, first
+
+
+def watch_occupancy(cs) -> list:
+    """(main, delta) live rows just before each compaction of `cs` (one
+    sync each): the peak delta occupancy of an untimed run."""
+    from foundationdb_tpu_torch.ops import delta as D
+
+    peaks, compact = [], cs.compact_history
+
+    def sampled():
+        peaks.append([int(c) for c in D.boundary_counts(cs.state)])
+        compact()
+
+    cs.compact_history = sampled
+    return peaks
+
+
 def phase_stream(device) -> dict:
-    """The full-width stream; returns what the ledger needs."""
+    """The full-width uniform stream; returns what the ledger needs."""
     import torch
 
     from foundationdb_tpu_torch import interop, kernels, make_conflict_set
     from foundationdb_tpu_torch.ops import delta as D
+    from foundationdb_tpu_torch.ops import rangemax
     from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
 
     cfg = bench_config(B)
@@ -352,7 +587,23 @@ def phase_stream(device) -> dict:
                              key_bytes=KEY_BYTES)
         for i in range(N_BATCHES)
     ]
+    key = (str(device), cfg.history_capacity)
+    if key in rangemax._SELFTEST_OK:
+        fail("the rangemax self-check ran before the first conflict set")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     cs = make_conflict_set(cfg, "cuda")
+    torch.cuda.synchronize()
+    ctor_ms = (time.perf_counter() - t0) * 1e3
+    if key not in rangemax._SELFTEST_OK:
+        fail("the constructor did not run the rangemax self-check")
+    t0 = time.perf_counter()
+    rangemax.flat_gather_selftest(cfg.history_capacity, device=device,
+                                  force=True)
+    selftest_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  K20 self-check at m={cfg.history_capacity}, 8,192 queries: ran "
+        f"in the constructor ({ctor_ms:.1f} ms with the state's "
+        f"allocation); alone {selftest_ms:.1f} ms")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_counts()
@@ -370,9 +621,7 @@ def phase_stream(device) -> dict:
     launches = kernels.counts()
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{name}: not launched on the main path")
+    require_launched("uniform", launches, ("sweep_ranks", "read_dedup"))
     log(f"  {N_BATCHES} batches x {B} txns; launches on the main path: "
         f"{launches}")
 
@@ -380,17 +629,11 @@ def phase_stream(device) -> dict:
     cpu = make_conflict_set(cfg, "cuda", device="cpu")
     t0 = time.perf_counter()
     for i, b in enumerate(batches[:n_cmp]):
-        want = verdict_fields(cpu.resolve_packed(b))
-        for f, v in want.items():
-            if not torch.equal(gpu_outs[i][f], v):
-                fail(f"batch {i}: field {f} differs from the CPU plain path")
+        same_fields(f"uniform batch {i} vs the CPU plain path", gpu_outs[i],
+                    verdict_fields(cpu.resolve_packed(b)))
     cpu_s = time.perf_counter() - t0
-    cpu_state = interop.tiered_state_to_numpy(cpu.state)
-    for tier, got, want in zip(("main", "delta"), gpu_state, cpu_state):
-        for part, g, w in zip(("keys", "ver", "oldest", "overflow"), got, want):
-            if not np.array_equal(g, w):
-                fail(f"after batch {n_cmp - 1}: {tier} {part} differs from "
-                     "the CPU plain path")
+    same_state(f"uniform, after batch {n_cmp - 1}, vs the CPU plain path",
+               gpu_state, interop.tiered_state_to_numpy(cpu.state))
     log(f"  first {n_cmp} batches (one compaction inside) identical to the "
         f"CPU plain path, field by field, and both tiers identical row for "
         f"row after them ({cpu_s:.1f} s on the CPU)")
@@ -412,21 +655,8 @@ def phase_stream(device) -> dict:
         f"{occupancy} of ({cfg.history_capacity}, {cfg.delta_capacity}); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     log(f"  compactions {cs.metrics.counters['compactions']}")
-    prof = profile_batches(cs, batches, device, ms)
-    return dict(launches=launches, ms_per_batch=ms, profile=prof)
-
-
-def profile_batches(cs, batches, device, wall_ms: float) -> dict:
-    """Device time by kernel over two more batches (torch.profiler): the
-    device's busy and idle share against the unprofiled wall time per
-    batch, and the share of the library sorts and scans."""
-    from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
-
-    cfg = cs.config
-    rng = np.random.default_rng(1)
-    base = int(batches[-1].version)
-    extra = [skiplist_style_batch(rng, cfg, B,
-                                  version=base + (i + 1) * VERSION_STEP,
+    extra = [skiplist_style_batch(np.random.default_rng(1), cfg, B,
+                                  version=(N_BATCHES + i + 1) * VERSION_STEP,
                                   keyspace=KEYSPACE,
                                   snapshot_lag=SNAPSHOT_LAG,
                                   key_bytes=KEY_BYTES) for i in range(2)]
@@ -435,42 +665,223 @@ def profile_batches(cs, batches, device, wall_ms: float) -> dict:
         for b in extra:
             cs.resolve_packed(b)
 
+    # K21 runs on each overflow check, K10 on each rebase
+    checks, rebases = (cs.metrics.main_occupancy.count,
+                       cs.metrics.counters["rebases"])
+    prof = profile_run(run, ms, len(extra))
+    return dict(launches=launches, batches=N_BATCHES, ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3, selftest_ms=selftest_ms,
+                ctor_ms=ctor_ms, overflow_checks=checks, rebases=rebases,
+                **prof)
+
+
+def profile_run(run, wall_ms: float, n_batches: int) -> dict:
+    """Device time by kernel over run() (torch.profiler): the device's
+    busy and idle share against the unprofiled wall time per batch, and
+    the share of the library sorts and scans."""
     by_name = device_time_by_name(run)
-    total = sum(by_name.values()) / 1e3 / len(extra)   # ms per batch
+    total = sum(by_name.values()) / 1e3 / n_batches   # ms per batch
     if total <= 0:
         fail("the profiler recorded no device time for the stream")
     lib = sum(t for k, t in by_name.items()
               if any(s in k.lower() for s in ("sort", "radix", "scan")))
-    lib_ms = lib / 1e3 / len(extra)
-    log(f"  profiler over 2 batches: device busy {total:.3f} ms/batch of "
-        f"{wall_ms:.3f} ms wall (idle share {1 - total / wall_ms:.3f}); "
-        f"library sort/scan {lib_ms:.3f} ms/batch = "
-        f"{lib_ms / total:.3f} of device time")
-    for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
-        log(f"    {t / 1e3 / len(extra):9.3f} ms/batch  {k[:100]}")
+    lib_ms = lib / 1e3 / n_batches
+    log(f"  profiler over {n_batches} more batches: device busy "
+        f"{total:.3f} ms/batch of {wall_ms:.3f} ms wall (idle share "
+        f"{1 - total / wall_ms:.3f}); library sort/scan {lib_ms:.3f} "
+        f"ms/batch = {lib_ms / total:.3f} of device time")
+    for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {t / 1e3 / n_batches:9.3f} ms/batch  {k[:100]}")
     return {"device_ms_per_batch": total, "idle_share": 1 - total / wall_ms,
             "sort_scan_ms_per_batch": lib_ms,
             "sort_scan_share_of_device": lib_ms / total}
 
 
+def group_timing(tag: str, times: list) -> float:
+    """Steady-state ms/batch: the median over the groups after the first
+    (each group synchronised, its wall time over its batches)."""
+    per = [t / GROUP * 1e3 for t in times]
+    ms = statistics.median(per[1:])
+    log(f"  {tag}: {ms:.3f} ms/batch steady state (groups 1..), "
+        f"{B / (ms / 1e3):,.0f} txn/s; per group {[round(x, 3) for x in per]}"
+        " ms/batch")
+    return ms
+
+
+def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
+    """bench `zipf` through the latched + dedup config, in groups of 8."""
+    import torch
+
+    from foundationdb_tpu_torch import interop, kernels, make_conflict_set
+
+    cfg = bench_config(B, fixpoint_unroll=ZIPF_UNROLL, fixpoint_latch=True,
+                       dedup_reads=dedup_u)
+    groups = groups_of(batches)
+    cs = make_conflict_set(cfg, "cuda")
+    cs.prewarm_exact(groups[0])
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    times, outs, first = run_groups(cs, groups)
+    launches = kernels.counts()
+    require_launched("hot-key", launches, ("sweep_ranks",))
+    counters = dict(cs.metrics.counters)
+    log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
+        f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
+        f"{launches}")
+    log(f"  counters {counters}")
+    ms = group_timing("latched + dedup", times)
+
+    # the exact configuration on the card: every field, and the state
+    # (unroll 1: the host loop then runs to the real fixpoint depth)
+    ex = make_conflict_set(cfg.scaled(fixpoint_latch=False, dedup_reads=0,
+                                      fixpoint_unroll=1), "cuda")
+    peaks = watch_occupancy(ex)
+    ex_times, ex_outs, _ = run_groups(ex, groups)
+    for i, (g, w) in enumerate(zip(outs, ex_outs)):
+        same_fields(f"hot-key group {i} vs the exact config", g, w)
+    same_state("hot-key stream vs the exact config",
+               interop.tiered_state_to_numpy(cs.state),
+               interop.tiered_state_to_numpy(ex.state))
+    fx, efx = cs.metrics.fixpoint, ex.metrics.fixpoint
+    log(f"  every group identical to the exact config on the card (its "
+        f"groups: {[round(t / GROUP * 1e3, 3) for t in ex_times]} ms/batch"
+        f"); fixpoint depth on the exact config (unroll 1, so the host loop "
+        f"finds it): max {efx.max_applications} applications/batch, "
+        f"{efx.applications} over {efx.batches} batches; latched: "
+        f"{fx.applications} applications over {fx.batches} batches")
+    log(f"  (main, delta) live rows before each compaction: {peaks}")
+
+    # the CPU plain path on the first group
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    t0 = time.perf_counter()
+    same_fields("hot-key group 0 vs the CPU plain path", outs[0],
+                verdict_fields(cpu.resolve_group_args(groups[0])))
+    same_state("hot-key group 0 vs the CPU plain path", first,
+               interop.tiered_state_to_numpy(cpu.state))
+    log(f"  group 0 identical to the CPU plain path, fields and tiers "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # a dedup cap under the distinct count: every group trips
+    tr = make_conflict_set(cfg.scaled(dedup_reads=TRIP_U), "cuda")
+    _, tr_outs, tr_first = run_groups(tr, groups[:1])
+    tc = tr.metrics.counters
+    if not tc["latchTrips"] == tc["exactFallbacks"] > 0:
+        fail(f"U={TRIP_U}: expected every group to trip, counters {tc}")
+    same_fields(f"U={TRIP_U} group 0 vs the latched run", tr_outs[0],
+                outs[0])
+    same_state(f"U={TRIP_U} group 0 vs the latched run", tr_first, first)
+    log(f"  U = {TRIP_U}: latchTrips {tc['latchTrips']} == exactFallbacks "
+        f"{tc['exactFallbacks']}, results identical")
+
+    extra = groups_of(zipf_stream(cfg, GROUP, seed=1, start=len(batches)))
+    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
+    committed = [int(x) for o in outs for x in o["committed_count"]]
+    log(f"  committed/batch {committed}")
+    return dict(launches=launches, batches=len(batches), ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3, dedup_reads=dedup_u,
+                max_distinct_reads=max_uniq,
+                latch_trips=counters["latchTrips"],
+                exact_fallbacks=counters["exactFallbacks"],
+                exact_max_applications=efx.max_applications,
+                peak_delta_rows=max(p[1] for p in peaks),
+                trip_run={"dedup_reads": TRIP_U,
+                          "latch_trips": tc["latchTrips"],
+                          "exact_fallbacks": tc["exactFallbacks"]},
+                **prof)
+
+
+def phase_range_scan(device, batches) -> dict:
+    """bench `ycsb_e` through the sweep + spill + latch config, groups
+    of 8."""
+    import torch
+
+    from foundationdb_tpu_torch import interop, kernels, make_conflict_set
+    from foundationdb_tpu_torch.models.conflict_set import (
+        backend_for_profile,
+        profile_batch,
+    )
+    from foundationdb_tpu_torch.ops import delta as D
+
+    cfg = bench_config(B, fixpoint_unroll=YCSB_UNROLL, fixpoint_latch=True,
+                       range_sweep=True, delta_spill=True)
+    prof_name = profile_batch(batches[0])
+    routed = backend_for_profile(prof_name, cfg)
+    if (prof_name, routed) != ("range_heavy", "cuda"):
+        fail(f"ycsb_e classified {prof_name} -> {routed}")
+    log(f"  contention profile {prof_name} -> routed {routed}")
+    groups = groups_of(batches)
+    cs = make_conflict_set(cfg, "cuda")
+    cs.prewarm_exact(groups[0])
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    times, outs, first = run_groups(cs, groups)
+    launches = kernels.counts()
+    require_launched("range-scan", launches, ("read_dedup",))
+    counters = dict(cs.metrics.counters)
+    log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
+        f"launches: {launches}")
+    log(f"  counters {counters}; sweep rows per group "
+        f"{D.sweep_rows_per_group(cfg.history_capacity, GROUP, B)}")
+    ms = group_timing("sweep + spill + latch", times)
+
+    # the probe path on the card: every group, and the state
+    probe = make_conflict_set(cfg.scaled(range_sweep=False), "cuda")
+    peaks = watch_occupancy(probe)
+    probe_times, probe_outs, _ = run_groups(probe, groups)
+    for i, (g, w) in enumerate(zip(outs, probe_outs)):
+        same_fields(f"range-scan group {i} vs the probe path", g, w)
+    same_state("range-scan stream vs the probe path",
+               interop.tiered_state_to_numpy(cs.state),
+               interop.tiered_state_to_numpy(probe.state))
+    log(f"  every group identical to the probe path on the card (its "
+        f"groups: {[round(t / GROUP * 1e3, 3) for t in probe_times]} "
+        "ms/batch)")
+    log(f"  (main, delta) live rows before each compaction: {peaks} of "
+        f"({cfg.history_capacity}, {cfg.delta_capacity})")
+
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    t0 = time.perf_counter()
+    same_fields("range-scan group 0 vs the CPU plain path", outs[0],
+                verdict_fields(cpu.resolve_group_args(groups[0])))
+    same_state("range-scan group 0 vs the CPU plain path", first,
+               interop.tiered_state_to_numpy(cpu.state))
+    log(f"  group 0 identical to the CPU plain path, fields and tiers "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    extra = groups_of(ycsb_stream(cfg, GROUP, seed=1, start=len(batches)))
+    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
+    committed = [int(x) for o in outs for x in o["committed_count"]]
+    log(f"  committed/batch {committed}")
+    fx = cs.metrics.fixpoint
+    log(f"  fixpoint: {fx.applications} applications over {fx.batches} "
+        "batches (latched)")
+    return dict(launches=launches, batches=len(batches), ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3, spills=counters["spills"],
+                sweep_groups=counters["sweepGroups"],
+                compactions=counters["compactions"],
+                latch_trips=counters["latchTrips"],
+                exact_fallbacks=counters["exactFallbacks"],
+                peak_delta_rows=max(p[1] for p in peaks), **prof)
+
+
 def phase_oracle(device) -> None:
-    """2,048-txn stream through resolve(): verdicts and conflict reports
-    identical to the copied ConflictOracle."""
+    """2,048-txn contended stream through resolve() on three configs
+    (exact; latched + dedup; sweep + spill + latch): verdicts and
+    conflict reports identical to the copied ConflictOracle."""
     from foundationdb_tpu_torch import make_conflict_set
     from foundationdb_tpu_torch.models.types import CommitTransaction
     from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
     from foundationdb_tpu_torch.utils.packing import unpack_key
 
     n = 2048
-    cfg = bench_config(n).scaled(compact_interval=3)
+    base = bench_config(n).scaled(compact_interval=3)
     rng = np.random.default_rng(7)
-    cs = make_conflict_set(cfg, "cuda")
-    oracle = make_conflict_set(cfg, "cpu")
-    n_conflict = 0
+    oracle = make_conflict_set(base, "cpu")
+    stream = []
     for i in range(8):
         # versions start past the snapshot lag: commit versions and read
         # snapshots are non-negative, as the oracle's background 0 assumes
-        pb = skiplist_style_batch(rng, cfg, n,
+        pb = skiplist_style_batch(rng, base, n,
                                   version=SNAPSHOT_LAG + (i + 1) * VERSION_STEP,
                                   keyspace=20_000, range_len=3,
                                   snapshot_lag=SNAPSHOT_LAG,
@@ -486,17 +897,50 @@ def phase_oracle(device) -> None:
             )
             for t in range(n)
         ]
-        got = cs.resolve(txns, int(pb.version))
-        want = oracle.resolve(txns, int(pb.version))
-        if got.verdicts != want.verdicts:
-            fail(f"oracle batch {i}: verdicts differ")
-        if got.conflicting_key_ranges != want.conflicting_key_ranges:
-            fail(f"oracle batch {i}: conflicting key ranges differ")
-        n_conflict += sum(int(v) == 0 for v in got.verdicts)
+        stream.append((txns, int(pb.version),
+                       oracle.resolve(txns, int(pb.version))))
+    n_conflict = sum(int(v) == 0 for _, _, w in stream for v in w.verdicts)
     if n_conflict == 0:
         fail("oracle stream produced no conflicts; it checks nothing")
-    log(f"  8 batches x {n} txns identical to ConflictOracle "
-        f"({n_conflict} conflicts)")
+    configs = {
+        "exact": base,
+        "latched + dedup": base.scaled(fixpoint_latch=True,
+                                       fixpoint_unroll=4, dedup_reads=n),
+        "sweep + spill + latch": base.scaled(
+            range_sweep=True, delta_spill=True, fixpoint_latch=True,
+            fixpoint_unroll=4, delta_capacity=6 * n, compact_interval=0),
+    }
+    for name, cfg in configs.items():
+        cs = make_conflict_set(cfg, "cuda")
+        for i, (txns, version, want) in enumerate(stream):
+            got = cs.resolve(txns, version)
+            if got.verdicts != want.verdicts:
+                fail(f"oracle batch {i} ({name}): verdicts differ")
+            if got.conflicting_key_ranges != want.conflicting_key_ranges:
+                fail(f"oracle batch {i} ({name}): conflicting key ranges "
+                     "differ")
+        c = cs.metrics.counters
+        log(f"  {name}: 8 batches x {n} txns identical to ConflictOracle "
+            f"({n_conflict} conflicts; latchTrips {c['latchTrips']}, "
+            f"spills {c['spills']}, sweepGroups {c['sweepGroups']})")
+
+
+def build_summary(built: dict) -> None:
+    """Per source: the most registers any instantiation uses, and any
+    spill (-Xptxas -v)."""
+    import re as _re
+
+    for name, text in sorted(built.items()):
+        regs = [int(x) for x in _re.findall(r"Used (\d+) registers", text)]
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line and not _re.search(
+                      r"0 bytes spill stores, 0 bytes spill loads", line)]
+        errors = [line.strip() for line in text.splitlines()
+                  if "error" in line]
+        log(f"  [{name}] {len(regs)} kernels, max {max(regs or [0])} "
+            f"registers; spills: {spills or 'none'}")
+        for line in errors:
+            log(f"  [{name}] {line}")
 
 
 def main() -> int:
@@ -517,26 +961,39 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in built.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  [{name}] {line.strip()}")
+    build_summary(built)
+    cfg = bench_config(B)
+    zipf = zipf_stream(cfg, ZIPF_BATCHES)
+    ycsb = ycsb_stream(cfg, YCSB_GROUPS * GROUP)
+    dedup_u, max_uniq = dedup_size(zipf)
     log("== 2. kernels vs plain versions (bench shapes)")
-    ledger = phase_kernels(device)
-    log("== 3. full-width stream")
-    stream = phase_stream(device)
-    log("== 4. reduced-shape stream vs ConflictOracle")
+    ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u)
+    torch_ops = phase_torch_ops(device)
+    log("== 3. uniform stream (bench default, exact)")
+    uniform = phase_stream(device)
+    log("== 4. hot-key stream (bench zipf: latch + read dedup)")
+    hot = phase_hot_key(device, zipf, dedup_u, max_uniq)
+    log("== 5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
+    scan = phase_range_scan(device, ycsb)
+    log("== 6. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
+    path_of = {"read_dedup": hot, "sweep_ranks": scan}
     rows = []
     for name, info in kernels.KERNELS.items():
+        path = path_of.get(name, uniform)
         rows.append(dict(name=name, route="cuda", source=info.source,
                          replaces=info.replaces,
-                         launches=stream["launches"][name], **ledger[name]))
-    print(json.dumps({"stream": {"ms_per_batch": stream["ms_per_batch"],
-                                 "txn_per_s": B / stream["ms_per_batch"] * 1e3,
-                                 **stream["profile"]}}), flush=True)
+                         launches=path["launches"][name], **ledger[name]))
+    streams = {}
+    for tag, st in (("uniform", uniform), ("hot_key", hot),
+                    ("range_scan", scan)):
+        streams[tag] = {k: v for k, v in st.items() if k != "launches"}
+        streams[tag]["launches_per_batch"] = {
+            k: n / st["batches"] for k, n in st["launches"].items()}
+    print(json.dumps({"streams": streams, "torch_ops": torch_ops}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(devmod.nvidia_smi_name_power(device.index or 0), flush=True)
     print(json.dumps({"ok": True, "device": {

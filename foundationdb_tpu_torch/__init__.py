@@ -1,7 +1,9 @@
 """foundationdb_tpu_torch: the PyTorch + CUDA port of foundationdb_tpu.
 
-The Resolver's per-batch MVCC conflict check on the tiered, exact
-configuration, on an NVIDIA Hopper card, with hand-written CUDA kernels
+The Resolver's per-batch MVCC conflict check on the tiered
+configuration (exact, and the hot-key and range-scan profiles: fixpoint
+latch with exact fallback, read dedup, endpoint sweep, delta spill), on
+an NVIDIA Hopper card, with hand-written CUDA kernels
 (kernels/csrc) and plain PyTorch versions beside them for the CPU. The
 package imports torch and numpy only: nothing of JAX or of the JAX
 package, whose modules it mirrors path for path.

@@ -5,8 +5,9 @@ host packer pads variable-size batches up to these caps. Mirrors the role
 the reference's knobs play for the resolver
 (fdbclient/ServerKnobs.cpp:36-44 — MVCC window knobs). The field set and
 the validation are identical to the JAX package's KernelConfig, so one
-set of arguments configures both; the port serves the tiered exact
-path only and refuses the variant knobs where it is constructed
+set of arguments configures both; the port serves the tiered path
+with the latch, dedup, sweep and spill knobs, and refuses short-span
+ops and sharding where it is constructed
 (models/conflict_set.TorchConflictSet).
 """
 
@@ -55,8 +56,10 @@ class KernelConfig:
     #: checking convergence (ops/group.resolve_group). Exactness never
     #: depends on it: deeper conflict chains continue in the loop.
     fixpoint_unroll: int = 3
-    #: Variant of the JAX package: the fixpoint without its residual
-    #: loop, refusing unconverged batches. Not ported: refused if True.
+    #: The fixpoint without its residual loop: exactly fixpoint_unroll
+    #: applications, a batch that has not converged by then trips the
+    #: unconverged latch (state unchanged) and the conflict set re-runs
+    #: the group on the exact configuration.
     fixpoint_latch: bool = False
     #: > 0 selects the delta-tiered history (ops/delta.py): each batch's
     #: writes land in a delta tier of this boundary capacity, queried
@@ -65,14 +68,16 @@ class KernelConfig:
     #: batch, window-trimmed); overflow raises, never truncates. The port
     #: serves only this path.
     delta_capacity: int = 0
-    #: Variant of the JAX package: read-range dedup before the main-tier
-    #: probe. Not ported: refused if non-zero.
+    #: > 0: only this many distinct (begin, end) read ranges per batch
+    #: probe the main tier (the hot-key profile); a batch with more trips
+    #: the unconverged latch and the group re-runs exactly.
     dedup_reads: int = 0
-    #: Variant of the JAX package: the sorted-endpoint sweep probe of the
-    #: main tier. Not ported: refused if True.
+    #: The endpoint sweep probe of the main tier: every read of a group
+    #: gets its main ranks in one launch, then one table query per read
+    #: (the range-scan profile). Not a latch source.
     range_sweep: bool = False
-    #: Variant of the JAX package: compaction forced before a dispatch
-    #: that could overflow the delta tier. Not ported: refused if True.
+    #: Compact before a dispatch whose worst-case boundary count could
+    #: overflow the delta tier, instead of raising.
     delta_spill: bool = False
     #: Host folds delta into main after at least this many batches have
     #: resolved since the last compaction (a group of G counts G). 0 =

@@ -33,7 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps")
+SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps",
+           "sweep_ranks", "read_dedup")
 #: widest packed key (uint32 words) the CUDA kernels are instantiated for
 #: (max_key_bytes <= 28); the plain versions take any width
 MAX_WORDS = 8
@@ -67,6 +68,15 @@ _SIGNATURES = {
     # out_keys, out_val, stream
     "mm_scatter": ("merge_maps",
                    [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
+    # keys, m, w, rb, re, rvalid, r, il, ir, stream
+    "sw_ranks": ("sweep_ranks", [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
+    # rows, perm, n, w, head, n_uniq, stream
+    "dd_heads": ("read_dedup", [_P, _P, _I, _I, _P, _P, _P]),
+    # rows, perm, head, rank_incl, n, w, u, urb, ure, uh_in, stream
+    "dd_compact": ("read_dedup",
+                   [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    # vmax_u, uh_in, n, u, vmax, stream
+    "dd_gather": ("read_dedup", [_P, _P, _I, _I, _P, _P]),
 }
 
 
@@ -100,6 +110,12 @@ KERNELS = {
         KernelInfo("merge_maps",
                    "foundationdb_tpu_torch/kernels/csrc/merge_maps.cu",
                    "foundationdb_tpu/ops/delta.py:378"),
+        KernelInfo("sweep_ranks",
+                   "foundationdb_tpu_torch/kernels/csrc/sweep_ranks.cu",
+                   "foundationdb_tpu/ops/delta.py:172"),
+        KernelInfo("read_dedup",
+                   "foundationdb_tpu_torch/kernels/csrc/read_dedup.cu",
+                   "foundationdb_tpu/ops/delta.py:120"),
     )
 }
 
@@ -194,6 +210,13 @@ def _fn(entry: str):
             f.restype = ctypes.c_int
             _FNS[entry] = f
     return _FNS[entry]
+
+
+def load_all() -> None:
+    """Build what is missing and load every library and entry point, so
+    the first launch of any kernel costs no build and no dlopen."""
+    for entry in _SIGNATURES:
+        _fn(entry)
 
 
 def launch(entry: str, count: str, *args) -> None:

@@ -15,10 +15,22 @@ ConflictBatch, fdbserver/include/fdbserver/ConflictSet.h:30-75).
   verdict: `resolve()` refuses to externalize decisions computed
   against a truncated history, and the kernel-only paths check every
   OVERFLOW_CHECK_INTERVAL batches. Overflow raises, never truncates.
+* The hot-key and range-scan profiles: `fixpoint_latch` and
+  `dedup_reads` may refuse a group (`unconverged`, state unchanged);
+  the dispatch then re-runs the same arguments on the exact
+  configuration, so no latched verdict is ever handed out.
+  `range_sweep` swaps the main-tier probe for the endpoint sweep, and
+  `delta_spill` compacts before a dispatch whose worst-case boundary
+  count could overflow the delta tier.
+* On the card the constructor runs the rangemax self-check (K20) at
+  history capacity before the first decision.
 
-The port serves the exact tiered configuration only: a config with a
-variant knob set (short-span ops, fixpoint latch, read dedup, range
-sweep, delta spill, sharding) or without a delta tier is refused.
+The profile router (`profile_batch`, `profile_transactions`,
+`backend_for_profile`, `fallback_free`) is the JAX package's host-side
+classifier, copied: it answers "cuda" where the JAX one answers "tpu".
+
+Refused, not ported yet: short-span ops, sharding, and a config without
+a delta tier (the classic single-tier kernel).
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from foundationdb_tpu_torch import interop
+from foundationdb_tpu_torch import interop, kernels
 from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.device import resolve_device
 from foundationdb_tpu_torch.models.types import (
@@ -40,6 +52,7 @@ from foundationdb_tpu_torch.ops import conflict as C
 from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
+from foundationdb_tpu_torch.ops import rangemax
 from foundationdb_tpu_torch.utils import packing
 
 # Rebase when offsets pass 2**30 (the window is ~5e6; huge margin).
@@ -50,8 +63,7 @@ REBASE_THRESHOLD = 1 << 30
 OVERFLOW_CHECK_INTERVAL = 32
 
 #: config knobs selecting kernel variants the port does not serve yet
-_VARIANT_KNOBS = ("short_span_limit", "fixpoint_latch", "dedup_reads",
-                  "range_sweep", "delta_spill")
+_VARIANT_KNOBS = ("short_span_limit",)
 
 
 class Stage:
@@ -83,7 +95,16 @@ class KernelStageMetrics:
     """
 
     COUNTERS = ("resolveBatches", "groupDispatches", "compactions",
-                "rebases", "overflowRaised")
+                # pressure-driven compactions (delta_spill), counted in
+                # compactions too
+                "spills",
+                # overflow-check syncs where the live delta count
+                # tightened the host-side spill bound
+                "spillBoundAnchors",
+                # groups dispatched through the endpoint sweep probe
+                "sweepGroups",
+                "latchTrips", "exactFallbacks", "rebases",
+                "overflowRaised")
 
     def __init__(self):
         self.counters = {name: 0 for name in self.COUNTERS}
@@ -175,10 +196,20 @@ class TorchConflictSet:
         self.config = config
         self.base_version = base_version
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the card's table build and query held against numpy before
+            # the first decision (the CPU lanes call it directly)
+            rangemax.flat_gather_selftest(config.history_capacity,
+                                          device=self.device)
         self.state = D.init(config, self.device)
         self.metrics = KernelStageMetrics()
         self._batches_since_check = 0
         self._batches_since_compact = 0
+        #: conservative live-boundary bound of the delta tier since the
+        #: last compaction (2 * max_writes per dispatched batch): the
+        #: delta_spill pressure signal, host arithmetic only, so a spill
+        #: decision never costs a device sync
+        self._spill_bound_rows = 0
 
     # -- ConflictBatch-equivalent API -----------------------------------
 
@@ -228,58 +259,130 @@ class TorchConflictSet:
         version rebasing)."""
         return self.resolve_args(batch.device_args())
 
-    def resolve_args(self, args: dict) -> C.BatchVerdict:
+    def resolve_args(self, args: dict,
+                     check_latch: bool = True) -> C.BatchVerdict:
         """One batch's device_args (numpy, or already converted by
         interop.device_args_to_torch) through the tiered kernel."""
         stacked = {k: v[None] if isinstance(v, torch.Tensor)
                    else np.asarray(v)[None] for k, v in args.items()}
-        outs = self._dispatch_tiered(stacked)
+        outs = self._dispatch_tiered(stacked, check_latch=check_latch)
         return C.BatchVerdict(*(getattr(outs, f)[0]
                                 for f in C.BatchVerdict._fields))
 
-    def resolve_group_args(self, stacked_args: dict) -> G.GroupVerdict:
+    def resolve_group_args(self, stacked_args: dict,
+                           check_latch: bool = True) -> G.GroupVerdict:
         """G stacked batches (versions ascending) in one dispatch: one
-        main-table build, then the per-batch loop."""
-        return self._dispatch_tiered(stacked_args)
+        main-table build, then the per-batch loop.
 
-    def _dispatch_tiered(self, stacked_args: dict) -> G.GroupVerdict:
-        """Run one stacked group on the tiered kernel; the overflow check
-        every OVERFLOW_CHECK_INTERVAL batches and auto-compaction every
-        config.compact_interval batches."""
-        g = interop.device_args_to_torch(stacked_args, self.device)
-        kb = int(g["version"].shape[0])
-        t0 = time.perf_counter()
-        self.state, outs = D.resolve_group_tiered(
+        With the fixpoint latch or read dedup a group may come back
+        refused (`unconverged`, state unchanged); by default this
+        re-runs it on the exact configuration, so the caller never sees
+        a latched verdict. `check_latch=False` hands back the refused
+        group as it is (the caller falls back itself)."""
+        return self._dispatch_tiered(stacked_args, check_latch=check_latch)
+
+    def _run_tiered(self, g: dict, latch: bool, dedup: int):
+        return D.resolve_group_tiered(
             self.state, g, fixpoint_unroll=self.config.fixpoint_unroll,
+            fixpoint_latch=latch, dedup_reads=dedup,
+            range_sweep=self.config.range_sweep,
             stats=self.metrics.fixpoint,
         )
-        self.metrics.kernel.sample(time.perf_counter() - t0)
+
+    def _dispatch_tiered(self, stacked_args: dict,
+                         check_latch: bool = True) -> G.GroupVerdict:
+        """Run one stacked group on the tiered kernel, honouring the
+        latch contract: a group the fixpoint latch or the dedup latch
+        refused is re-run, same arguments and same input state, on the
+        exact configuration (latch off, dedup 0; the sweep stays, it is
+        not a latch source). Delta spill compacts first when the group
+        could overflow the delta tier; the overflow check every
+        OVERFLOW_CHECK_INTERVAL batches and auto-compaction every
+        config.compact_interval batches follow."""
+        cfg = self.config
+        g = interop.device_args_to_torch(stacked_args, self.device)
+        kb = int(g["version"].shape[0])
+        if cfg.delta_spill:
+            # each batch adds at most 2 * max_writes boundary rows: fold
+            # delta into main before a group that could pass capacity;
+            # only a single group whose own bound exceeds it still
+            # reaches the overflow raise
+            add = 2 * cfg.max_writes * kb
+            if self._spill_bound_rows + add > cfg.delta_capacity:
+                self.compact_history()
+                self.metrics.add("spills")
+            self._spill_bound_rows += add
+        if cfg.range_sweep:
+            self.metrics.add("sweepGroups")
+        latched = bool(cfg.fixpoint_latch or cfg.dedup_reads)
+        t0 = time.perf_counter()
+        state2, outs = self._run_tiered(g, cfg.fixpoint_latch,
+                                        cfg.dedup_reads)
         self.metrics.add("groupDispatches")
-        self._batches_since_check += kb
-        if self._batches_since_check >= OVERFLOW_CHECK_INTERVAL:
-            self.check_overflow()
+        if latched and check_latch and bool(outs.unconverged.any()):
+            self.metrics.add("latchTrips")
+            self.metrics.add("exactFallbacks")
+            state2, outs = self._run_tiered(g, False, 0)
+        self.metrics.kernel.sample(time.perf_counter() - t0)
+        self.state = state2
+        self._batches_since_check += kb - 1
+        self._maybe_check_overflow()
+        # auto-compaction counts batches (a group of G counts G)
         self._batches_since_compact += kb
-        interval = self.config.compact_interval
+        interval = cfg.compact_interval
         if interval and self._batches_since_compact >= interval:
             self.compact_history()
         return outs
 
+    def prewarm_exact(self, stacked_args: dict) -> None:
+        """Make the exact fallback ready before a latch can trip.
+
+        The JAX package compiles its exact program here by running it
+        once and discarding the result. The port has nothing to compile:
+        on the card this builds (where missing) and loads every kernel
+        library, so a fallback costs no nvcc and no dlopen. It runs no
+        resolve and leaves the state untouched; on the CPU it does
+        nothing. `stacked_args` is accepted for the JAX signature."""
+        del stacked_args
+        if self.device.type == "cuda":
+            kernels.load_all()
+
     def compact_history(self) -> None:
         """Fold the delta tier into main (ops/delta.compact)."""
         self._batches_since_compact = 0
+        self._spill_bound_rows = 0
         self.metrics.add("compactions")
         self.state = D.compact(self.state)
+
+    def _re_anchor_spill_bound(self, d_live: float) -> None:
+        """Tighten the spill bound to the delta tier's real occupancy,
+        read on the sync the overflow check already paid: every
+        dispatched batch has completed there, so the live count is
+        exact. min(bound, live) stays conservative; spill timing moves
+        compaction points only, never decisions."""
+        bound = int(d_live)
+        if bound < self._spill_bound_rows:
+            self._spill_bound_rows = bound
+            self.metrics.add("spillBoundAnchors")
+
+    def _maybe_check_overflow(self) -> None:
+        self._batches_since_check += 1
+        if self._batches_since_check >= OVERFLOW_CHECK_INTERVAL:
+            self.check_overflow()
 
     def check_overflow(self) -> None:
         """Device sync: raise if a merge ever exceeded a tier's capacity
         (a latched delta overflow survives compaction in main's flag).
-        Samples tier occupancy and device memory on the same sync."""
+        Samples tier occupancy and device memory, and re-anchors the
+        spill bound, on the same sync."""
         self._batches_since_check = 0
         tripped = bool(self.state.main.overflow) or bool(
             self.state.delta.overflow)
         m_cnt, d_cnt = D.boundary_counts(self.state)
+        d_live = float(d_cnt)
         self.metrics.main_occupancy.sample(float(m_cnt))
-        self.metrics.delta_occupancy.sample(float(d_cnt))
+        self.metrics.delta_occupancy.sample(d_live)
+        self._re_anchor_spill_bound(d_live)
         self.metrics.sample_device_memory(self.device)
         if tripped:
             self._raise_overflow()
@@ -377,3 +480,182 @@ def make_conflict_set(config: KernelConfig, backend: str = "cuda",
     if backend == "cpu":
         return CpuConflictSet(config)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+# ---------------------------------------------------------------------------
+# Contention-profile routing: a host-side classifier of a batch's
+# contention regime (hot keys, wide scans, neither) and the backend
+# that serves it, copied from the JAX package. Both profiles stay on
+# the card once the config carries the structure each needs: read
+# dedup for hot_key, the endpoint sweep for range_heavy.
+
+
+def _fold_key64(data, jj=None):
+    """Fold each key row of a [N, ncol] big-endian word array into one
+    int64 anchored at the first varying word: the one classifier core
+    that `profile_batch` (packed words) and `profile_transactions` (raw
+    key bytes packed to words) both run, so the two agree on every
+    keyspace.
+
+    Keyspaces with a common prefix keep leading words constant, so the
+    span window anchors at the first word that varies. The successor
+    word joins the low slot only when it varies in the sample: a
+    constant successor (the zero padding past short keys, say) would
+    scale every span by 2^32. Duplicate detection does not use this
+    fold: _classify compares full key rows.
+
+    jj: optional (j, use_succ) from a previous call, so range end keys
+    fold through the same window as their begin keys.
+    Returns (vals [N] int64, (j, use_succ)).
+    """
+    ncol = data.shape[1]
+    if jj is None:
+        j = 0
+        while j < ncol - 1 and len(np.unique(data[:, j])) == 1:
+            j += 1
+        use_succ = j + 1 < ncol and len(np.unique(data[:, j + 1])) > 1
+        jj = (j, use_succ)
+    j, use_succ = jj
+    if use_succ:
+        hi, lo = data[:, j], data[:, j + 1]
+    else:
+        # the varying word is effectively the last one: it must occupy
+        # the low slot or every span scales by 2^32
+        hi, lo = np.zeros(len(data), np.int64), data[:, j]
+    return (hi << 32) | lo, jj
+
+
+def _keys_to_words(keys, width: int):
+    """Raw key bytes -> [N, width] int64 big-endian uint32 words, zero-
+    padded: the word layout utils/packing gives a PackedBatch's key
+    tensors (minus the length word), so _fold_key64 sees the same
+    representation from both classifiers."""
+    out = np.zeros((len(keys), width), np.int64)
+    for i, k in enumerate(keys):
+        padded = k.ljust(width * 4, b"\0")[: width * 4]
+        out[i] = np.frombuffer(padded, dtype=">u4").astype(np.int64)
+    return out
+
+
+#: classification thresholds shared by both classifiers: a duplicate
+#: write-key rate above DUP_HOT is hot-key contention, and a mean read
+#: span above SPAN_RANGE keyspace units is range-heavy (point reads span
+#: 1-2 units, scans tens to hundreds).
+PROFILE_DUP_HOT = 0.25
+PROFILE_SPAN_RANGE = 32
+
+
+def _classify(wrows, rbvals, revals) -> str:
+    """Shared threshold logic: `wrows` is the [N, ncol] write-key word
+    array (duplicates by exact row uniqueness), while spans use the
+    folded int64 window."""
+    if len(wrows):
+        dup = 1.0 - len(np.unique(wrows, axis=0)) / len(wrows)
+        if dup > PROFILE_DUP_HOT:
+            return "hot_key"
+    if len(rbvals):
+        span = float(np.mean(np.minimum(
+            np.maximum(revals - rbvals, 0), 1 << 20
+        )))
+        if span > PROFILE_SPAN_RANGE:
+            return "range_heavy"
+    return "uniform"
+
+
+def profile_batch(batch, sample: int = 2048) -> str:
+    """Classify a PackedBatch's contention regime: "uniform" |
+    "hot_key" | "range_heavy". Host-side, O(sample)."""
+    nw = max(1, batch.n_writes)
+    nr = max(1, batch.n_reads)
+
+    def words(arr, n):
+        a = arr[: min(n, sample)].astype(np.int64)
+        return a[:, :-1] if a.shape[1] > 1 else a  # drop the length word
+
+    rb, jj = _fold_key64(words(batch.read_begin, nr))
+    re, _ = _fold_key64(words(batch.read_end, nr), jj)
+    return _classify(words(batch.write_begin, nw), rb, re)
+
+
+def profile_transactions(txns, sample: int = 512) -> str:
+    """profile_batch for raw CommitTransaction lists (the resolver's
+    input). Host-side, O(sample). Packs the sampled keys into the word
+    representation a PackedBatch carries and runs the same _fold_key64
+    core, so routing on raw transactions and on the packed batch agree."""
+    writes = [
+        r[0] for t in txns[:sample] for r in t.write_conflict_ranges
+    ][:sample]
+    reads = [
+        r for t in txns[:sample] for r in t.read_conflict_ranges
+    ][:sample]
+    if len(writes) < 16 and not reads:
+        return "uniform"
+    width = max(
+        [1] + [-(-len(k) // 4) for k in writes]
+        + [-(-len(b) // 4) for b, _ in reads]
+        + [-(-len(e) // 4) for _, e in reads]
+    )
+    # a sample of under 16 writes gives a duplicate rate too noisy to use
+    wrows = _keys_to_words(writes if len(writes) >= 16 else [], width)
+    if reads:
+        rbvals, jj = _fold_key64(
+            _keys_to_words([b for b, _ in reads], width)
+        )
+        revals, _ = _fold_key64(
+            _keys_to_words([e for _, e in reads], width), jj
+        )
+    else:
+        rbvals = revals = _keys_to_words([], width)[:, 0]
+    return _classify(wrows, rbvals, revals)
+
+
+def backend_for_profile(profile: str, config=None) -> str:
+    """The backend that serves a contention profile: "cuda" (this
+    package's conflict set on the card) or "cpu" (the host oracle).
+
+    * uniform always stays on the card;
+    * hot_key stays on the card with the tiered kernel plus read dedup
+      (`dedup_reads > 0`): the dedup probe's searches scale with the
+      distinct ranges, the delta tier with the distinct boundaries;
+    * range_heavy stays on the card with the tiered kernel plus the
+      endpoint sweep (`range_sweep`): one rank launch per group and one
+      table query per read, whatever the scan width.
+    """
+    if profile == "uniform":
+        return "cuda"
+    if (
+        profile == "hot_key"
+        and config is not None
+        and getattr(config, "delta_capacity", 0) > 0
+        and getattr(config, "dedup_reads", 0) > 0
+    ):
+        return "cuda"
+    if (
+        profile == "range_heavy"
+        and config is not None
+        and getattr(config, "delta_capacity", 0) > 0
+        and getattr(config, "range_sweep", False)
+    ):
+        return "cuda"
+    return "cpu"
+
+
+def fallback_free(config) -> bool:
+    """True when this config leaves the router nothing to route away:
+    its profile resolves on the card (the dedup probe for hot_key, the
+    endpoint sweep for range_heavy) and delta pressure spills and
+    compacts instead of raising.
+
+    dedup_reads and range_sweep are per-profile probe choices and
+    exclusive on one instance: a deployment covers every profile by
+    routing per stream and configuring the probe for the profile it
+    routed."""
+    return bool(
+        config is not None
+        and getattr(config, "delta_capacity", 0) > 0
+        and getattr(config, "delta_spill", False)
+        and (
+            getattr(config, "dedup_reads", 0) > 0
+            or getattr(config, "range_sweep", False)
+        )
+    )

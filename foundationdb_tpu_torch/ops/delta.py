@@ -1,18 +1,31 @@
 """Delta-tiered conflict resolution: the port's main path.
 
-Port of foundationdb_tpu/ops/delta.py for the exact configuration
-(dedup_reads=0, no range sweep). History is two tiers:
+Port of foundationdb_tpu/ops/delta.py. History is two tiers:
 
 * `main` — the big compacted tier, immutable during a group: its
   range-max table is built once per group (kernel B) and every batch
-  probes it with kernel A's fused probe;
+  probes it;
 * `delta` — the boundaries written since the last compaction: each
-  batch resolves against it with the exact group kernel at G=1
+  batch resolves against it with the group kernel at G=1
   (ops/group.resolve_group) and merges its committed writes into it.
 
+The main-tier probe has three forms, one per contention profile:
+
+* exact (`dedup_reads=0`, no sweep): kernel A's fused probe per read;
+* read dedup (`dedup_reads=U`, the hot-key profile): the batch's
+  distinct (begin, end) ranges found by kernel F (`read_dedup`), only
+  those probed, each read's max version gathered back; more than U
+  distinct live ranges trips the latch (K12);
+* endpoint sweep (`range_sweep`, the range-scan profile): kernel E
+  (`sweep_ranks`) gives every read of the group its main-tier ranks in
+  one launch before the loop, and each batch's probe is one table query
+  (K11). The sweep is not a latch source.
+
 `resolve_group_tiered` is a host loop over the group's batches (the JAX
-program's lax.scan); `compact` folds delta into main with kernel D.
-Decisions are bit-identical to the JAX tiered kernel.
+program's lax.scan) carrying the group-wide trip: with the fixpoint
+latch or dedup armed, a tripped group hands back both tiers unchanged
+and the caller re-runs it exactly. `compact` folds delta into main with
+kernel D. Decisions are bit-identical to the JAX tiered kernel.
 """
 
 from __future__ import annotations
@@ -21,9 +34,11 @@ from typing import NamedTuple
 
 import torch
 
+from foundationdb_tpu_torch import kernels
 from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
+from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax
 
 VERSION_NEG = H.VERSION_NEG
@@ -49,15 +64,173 @@ def init(config: KernelConfig, device) -> TieredState:
     )
 
 
+def dedup_rows(rb, re, rvalid) -> torch.Tensor:
+    """[NR, 2W] rows of the read ranges: begin words then end words,
+    dead reads all sentinel (so they sort last and count as one)."""
+    return torch.cat([torch.where(rvalid[:, None], rb, K.SENTINEL_WORD),
+                      torch.where(rvalid[:, None], re, K.SENTINEL_WORD)],
+                     dim=1).contiguous()
+
+
+def dedup_vmax_plain(main_keys, main_tab, rows, dedup: int):
+    """Plain version of kernel F around kernel A's probe: (vmax [NR],
+    n_uniq []). `rows` as dedup_rows gives them."""
+    nr, w2 = rows.shape
+    w = w2 // 2
+    dev = rows.device
+    perm = K.lex_sort_perm(rows)
+    s = rows[perm]
+    head = torch.ones((nr,), dtype=torch.bool, device=dev)
+    if nr > 1:
+        head[1:] = torch.any(s[1:] != s[:-1], dim=-1)
+    live = s[:, w - 1] != K.SENTINEL_WORD
+    uh = torch.cumsum(head.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_uniq = (head & live).sum(dtype=torch.int32)
+    take = head & live & (uh < dedup)
+    urb = K.sentinel_like(dedup, w, dev)
+    ure = K.sentinel_like(dedup, w, dev)
+    urb[uh[take].to(torch.int64)] = s[take, :w]
+    ure[uh[take].to(torch.int64)] = s[take, w:]
+    uh_in = torch.empty_like(uh)
+    uh_in[perm] = uh
+    vmax_u = H.query_reads_vmax_plain(main_keys, main_tab, urb, ure)
+    return vmax_u[uh_in.clamp(0, dedup - 1).to(torch.int64)], n_uniq
+
+
+def dedup_vmax(main: H.VersionHistory, main_tab, rb, re, rvalid,
+               dedup: int):
+    """Each read's max main-tier version, probing only the distinct live
+    (begin, end) ranges: (vmax [NR] int32, n_uniq [] int32).
+
+    n_uniq counts the distinct live rows exactly; when it is at most
+    `dedup` every live read's vmax equals the undeduplicated probe's.
+    Past it the ranks >= dedup share the last buffer row (the latch
+    discards that batch). Liveness is `rvalid`, the reads as packed,
+    not the too-old-masked reads: a too-old txn's reads count.
+    CUDA tensors run kernel F's three entries around kernel A's probe.
+    """
+    if dedup <= 0:
+        raise ValueError("dedup_vmax needs dedup >= 1")
+    nr, w = rb.shape
+    rows = dedup_rows(rb, re, rvalid)
+    if rows.device.type == "cpu":
+        return dedup_vmax_plain(main.main_keys, main_tab, rows, dedup)
+    kernels.check_cuda("dedup_vmax", main.main_keys, main_tab, rows)
+    kernels.check_words("dedup_vmax", w)
+    dev = rows.device
+    perm = K.lex_sort_perm(rows)
+    head = torch.empty((nr,), dtype=torch.int32, device=dev)
+    n_uniq = torch.zeros((), dtype=torch.int32, device=dev)
+    kernels.launch("dd_heads", "read_dedup", rows, perm, nr, w, head, n_uniq)
+    rank_incl = torch.cumsum(head, 0, dtype=torch.int32)
+    urb = K.sentinel_like(dedup, w, dev)
+    ure = K.sentinel_like(dedup, w, dev)
+    uh_in = torch.empty((nr,), dtype=torch.int32, device=dev)
+    kernels.launch("dd_compact", "read_dedup", rows, perm, head, rank_incl,
+                   nr, w, dedup, urb, ure, uh_in)
+    vmax_u = H.query_reads_vmax(main, urb, ure, main_tab)
+    vmax = torch.empty((nr,), dtype=torch.int32, device=dev)
+    kernels.launch("dd_gather", "read_dedup", vmax_u, uh_in, nr, dedup, vmax)
+    return vmax, n_uniq
+
+
+def _main_stale(main: H.VersionHistory, main_tab, rb, re, rsnap, rvalid,
+                dedup: int):
+    """Probe the (immutable) main tier for one batch's read ranges.
+
+    Returns (stale [NR] bool, dedup_ok [] bool). With dedup=0 every live
+    range pays its own probe; with dedup=U only the distinct ranges are
+    probed (dedup_vmax), and more than U distinct live ranges sets
+    dedup_ok False: the caller's latch.
+    """
+    if dedup == 0:
+        vmax = H.query_reads_vmax(main, rb, re, main_tab)
+        return (vmax > rsnap) & rvalid, torch.ones(
+            (), dtype=torch.bool, device=rb.device)
+    vmax, n_uniq = dedup_vmax(main, main_tab, rb, re, rvalid, dedup)
+    return (vmax > rsnap) & rvalid, n_uniq <= dedup
+
+
+def sweep_read_ranks_plain(main_keys, rb, re, rvalid):
+    """Plain version of kernel E: (il, ir) [R] int32, (-1, -1) on dead
+    reads."""
+    il = K.searchsorted_plain(main_keys, rb, side="right") - 1
+    ir = K.searchsorted_plain(main_keys, re, side="left") - 1
+    dead = torch.full_like(il, -1)
+    return torch.where(rvalid, il, dead), torch.where(rvalid, ir, dead)
+
+
+def sweep_read_ranks(main_keys, rb, re, rvalid):
+    """Main-tier ranks of a whole group's read ranges, one launch.
+
+    main_keys: [M, W] sorted main boundaries (sentinel tail); rb, re:
+    [R, W] read begins/ends (R = all batches' reads, flattened); rvalid:
+    [R] liveness. Returns (il, ir) int32 [R] with
+    il = searchsorted_right(main, rb) - 1 and
+    ir = searchsorted_left(main, re) - 1 on every live read — the JAX
+    co-sort's tie order re < main < rb — and (-1, -1) on dead reads
+    (JAX leaves those arbitrary; callers mask them). CUDA tensors run
+    kernel E.
+    """
+    if rb.shape != re.shape or rb.ndim != 2 or rb.shape[1] != \
+            main_keys.shape[1] or rvalid.shape != rb.shape[:1]:
+        raise ValueError("sweep_read_ranks: rb, re [R, W], rvalid [R]")
+    if main_keys.device.type == "cpu":
+        return sweep_read_ranks_plain(main_keys, rb, re, rvalid)
+    kernels.check_cuda("sweep_read_ranks", main_keys, rb, re)
+    kernels.check_cuda("sweep_read_ranks", rvalid, dtype=torch.bool)
+    kernels.check_words("sweep_read_ranks", rb.shape[1])
+    r = rb.shape[0]
+    il = torch.empty((r,), dtype=torch.int32, device=rb.device)
+    ir = torch.empty((r,), dtype=torch.int32, device=rb.device)
+    kernels.launch("sw_ranks", "sweep_ranks", main_keys, main_keys.shape[0],
+                   main_keys.shape[1], rb, re, rvalid, r, il, ir)
+    return il, ir
+
+
+def attach_sweep_ranks(main: H.VersionHistory, g: dict) -> dict:
+    """The whole group's main-tier ranks against the immutable main
+    tier, attached to the stacked tree as "sweep_il"/"sweep_ir" ([G,
+    NR]) for batch_body's sweep probe: one kernel E launch per group."""
+    gn, nr, w = g["read_begin"].shape
+    il, ir = sweep_read_ranks(
+        main.main_keys,
+        g["read_begin"].reshape(gn * nr, w),
+        g["read_end"].reshape(gn * nr, w),
+        g["read_valid"].reshape(gn * nr),
+    )
+    out = dict(g)
+    out["sweep_il"] = il.reshape(gn, nr)
+    out["sweep_ir"] = ir.reshape(gn, nr)
+    return out
+
+
+def sweep_rows_per_group(m: int, gn: int, nr: int) -> int:
+    """The sweep's structural size: main boundaries plus two endpoints
+    per read of the group — the rows the JAX co-sort sorts, and the
+    rows kernel E's searches range over (the perf ledger's count)."""
+    return m + 2 * gn * nr
+
+
 def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
-               delta: H.VersionHistory, xs: dict, b: int, *,
-               fixpoint_unroll: int = 3, stats: G.FixpointStats = None):
+               carry, xs: dict, b: int, *,
+               fixpoint_unroll: int = 3, fixpoint_latch: bool = False,
+               dedup_reads: int = 0, range_sweep: bool = False,
+               stats: G.FixpointStats = None):
     """One batch of the tiered loop: probe the immutable main tier, then
     resolve against (and merge committed writes into) the delta tier.
 
-    xs = one batch's arguments (no leading axis); b = the txn capacity.
-    Returns (delta', GroupVerdict with [1]-leading leaves).
+    carry = (delta, trip [] bool); xs = one batch's arguments (no
+    leading axis; with `range_sweep` also its "sweep_il"/"sweep_ir");
+    b = the txn capacity. An unconverged batch keeps its own delta
+    unchanged (on the device) and sets the trip; later batches of the
+    group still run against that delta, as in the JAX scan.
+    Returns ((delta', trip'), GroupVerdict with [1]-leading leaves).
     """
+    delta, trip = carry
+    xs = dict(xs)
+    sweep_il = xs.pop("sweep_il", None)
+    sweep_ir = xs.pop("sweep_ir", None)
     # per-read snapshots (padding rows carry read_txn == b)
     snap_pad = torch.cat([
         xs["snapshot"],
@@ -65,36 +238,73 @@ def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
                    device=xs["snapshot"].device),
     ])
     rsnap = snap_pad[xs["read_txn"].to(torch.int64).clamp(0, b)]
-    vmax = H.query_reads_vmax(main, xs["read_begin"], xs["read_end"],
-                              main_tab)
-    stale_main = (vmax > rsnap) & xs["read_valid"]
+    if range_sweep:
+        vmax = rangemax.query(main_tab, torch.clamp(sweep_il, min=0),
+                              sweep_ir + 1, op="max")
+        stale_main = (vmax > rsnap) & xs["read_valid"]
+        dedup_ok = None
+    else:
+        stale_main, dedup_ok = _main_stale(
+            main, main_tab, xs["read_begin"], xs["read_end"], rsnap,
+            xs["read_valid"], dedup_reads,
+        )
     g1 = {k: (v[None] if isinstance(v, torch.Tensor) else [v])
           for k, v in xs.items()}
-    return G.resolve_group(delta, g1, fixpoint_unroll=fixpoint_unroll,
-                           extra_stale=stale_main[None], stats=stats)
+    delta2, out = G.resolve_group(
+        delta, g1, fixpoint_unroll=fixpoint_unroll,
+        fixpoint_latch=fixpoint_latch, extra_stale=stale_main[None],
+        stats=stats, defer_trip=True,
+    )
+    trip2 = trip | out.unconverged[0]
+    if dedup_ok is not None:
+        trip2 = trip2 | ~dedup_ok
+    return (delta2, trip2), out
 
 
 def resolve_group_tiered(state: TieredState, g: dict, *,
                          fixpoint_unroll: int = 3,
+                         fixpoint_latch: bool = False,
+                         dedup_reads: int = 0, range_sweep: bool = False,
                          stats: G.FixpointStats = None):
     """Resolve G stacked batches (versions ascending) against the tiered
-    history. Returns (state', GroupVerdict with [G]-leading leaves)."""
+    history. Returns (state', GroupVerdict with [G]-leading leaves).
+
+    `unconverged` is the group-wide trip (some batch's fixpoint latch,
+    or more than `dedup_reads` distinct live ranges in some batch),
+    broadcast over G. With the latch or dedup armed a tripped group
+    returns the input state unchanged, both tiers: this reads the trip
+    once per group (one sync), and the caller re-runs the group on the
+    exact configuration (fixpoint_latch off, dedup_reads 0).
+    """
     gn, b = g["txn_valid"].shape
     if gn > MAX_GROUP_TIERED:
         raise ValueError(f"group of {gn} > MAX_GROUP_TIERED {MAX_GROUP_TIERED}")
     # main is immutable for the whole group: one table build
     main_tab = rangemax.build(state.main.main_ver, op="max")
-    delta = state.delta
+    if range_sweep:
+        if dedup_reads:
+            raise ValueError("range_sweep and dedup_reads are exclusive")
+        g = attach_sweep_ranks(state.main, g)
+    carry = (state.delta,
+             torch.zeros((), dtype=torch.bool, device=main_tab.device))
     outs = []
     for i in range(gn):
         xs = {k: v[i] for k, v in g.items()}
-        delta, out = batch_body(state.main, main_tab, delta, xs, b,
-                                fixpoint_unroll=fixpoint_unroll, stats=stats)
+        carry, out = batch_body(
+            state.main, main_tab, carry, xs, b,
+            fixpoint_unroll=fixpoint_unroll, fixpoint_latch=fixpoint_latch,
+            dedup_reads=dedup_reads, range_sweep=range_sweep, stats=stats,
+        )
         outs.append(out)
+    delta, trip = carry
     cat = {f: torch.cat([getattr(o, f) for o in outs])
            for f in G.GroupVerdict._fields}
     cat["overflow"] = cat["overflow"] | state.main.overflow
-    return TieredState(main=state.main, delta=delta), G.GroupVerdict(**cat)
+    cat["unconverged"] = trip.repeat(gn)
+    new_state = TieredState(main=state.main, delta=delta)
+    if (fixpoint_latch or dedup_reads) and bool(trip):
+        new_state = state
+    return new_state, G.GroupVerdict(**cat)
 
 
 def compact(state: TieredState) -> TieredState:

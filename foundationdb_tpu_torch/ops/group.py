@@ -1,8 +1,8 @@
-"""Exact batch resolution against one history tier, at G=1.
+"""Batch resolution against one history tier, at G=1.
 
-Port of foundationdb_tpu/ops/group.py `resolve_group` for one batch and
-the exact configuration (no short-span ops, no fixpoint latch, no
-cross-batch phase — those wait in ROADMAP queue 1). The JAX program
+Port of foundationdb_tpu/ops/group.py `resolve_group` for one batch
+(G=1), exact or with the fixpoint latch (short-span ops and the
+cross-batch phase of G>1 wait in ROADMAP queue 1). The JAX program
 co-sorts the tier with every endpoint of the batch because binary
 search and scatter were dear on its platform; here the positions come
 from kernel A's searches instead, and the phases are:
@@ -19,7 +19,11 @@ from kernel A's searches instead, and the phases are:
       earlier writer in the batch intersects t's reads, each application
       being kernel C (writer cover) -> kernel B (min table) -> kernel A
       (min query); `fixpoint_unroll` applications, then a host loop
-      until nothing changes (one device sync per iteration);
+      until nothing changes (one device sync per iteration). With
+      `fixpoint_latch` there is no host loop: exactly `fixpoint_unroll`
+      applications, and a batch whose last application still changed
+      something is unconverged — the input tier comes back unchanged
+      and the caller re-runs it exactly;
   (f) the first conflicting read per txn, verdicts and counts;
   (g) the committed writes' coverage at the batch version folded into
       the tier by kernel D, with GC at the batch floor.
@@ -54,7 +58,7 @@ class GroupVerdict(NamedTuple):
     conflict_count: torch.Tensor      # [G] int32
     too_old_count: torch.Tensor       # [G] int32
     overflow: torch.Tensor            # [G] bool
-    unconverged: torch.Tensor         # [G] bool — always False (exact)
+    unconverged: torch.Tensor         # [G] bool — a latch tripped
 
 
 @dataclasses.dataclass
@@ -89,8 +93,9 @@ def _pad(x: torch.Tensor, fill) -> torch.Tensor:
 
 
 def resolve_group(state: H.VersionHistory, g: dict, *,
-                  fixpoint_unroll: int = 3, extra_stale=None,
-                  stats: FixpointStats = None):
+                  fixpoint_unroll: int = 3, fixpoint_latch: bool = False,
+                  extra_stale=None, stats: FixpointStats = None,
+                  defer_trip: bool = False):
     """Resolve one batch (a stacked tree with G == 1) against `state`.
 
     `g` holds torch leaves with a leading [1] axis (interop.
@@ -98,6 +103,14 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     `extra_stale` ([1, NR] bool or None) are read hits probed against
     history this call's `state` does not hold (the main tier); they are
     masked by read liveness and count like hits on `state`.
+
+    With `fixpoint_latch`, an unconverged batch sets `unconverged` and
+    returns the input tier unchanged: this call reads the flag (one
+    sync) and hands back `state` itself. `defer_trip=True` is for a
+    caller that owns the trip (ops/delta.resolve_group_tiered): the
+    tier's tensors are restored on the device without a sync, its host
+    floor `oldest` advances regardless, and the caller restores the
+    whole state of a tripped group from its own single sync.
 
     Returns (new_state, GroupVerdict) with [1]-leading leaves.
     """
@@ -178,12 +191,18 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
         cur, hits = apply(prev)
         applications += 1
     loop_iterations = 0
-    while not torch.equal(cur, prev):
-        prev = cur
-        cur, hits = apply(prev)
-        applications += 1
-        loop_iterations += 1
+    if fixpoint_latch:
+        # no residual loop: convergence is checked, not assumed
+        unconverged = torch.any(cur != prev)
+    else:
+        unconverged = torch.zeros((), dtype=torch.bool, device=dev)
+        while not torch.equal(cur, prev):
+            prev = cur
+            cur, hits = apply(prev)
+            applications += 1
+            loop_iterations += 1
     # `hits` are the hits of `prev`, which equals the fixpoint `cur`
+    # (unless the latch tripped, and then nothing of this batch is used)
     committed = cur
     final_same = hits & ok_r
     if stats is not None:
@@ -238,8 +257,16 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
         conflict_count=conflict_count[None],
         too_old_count=too_old_count[None],
         overflow=overflow[None],
-        unconverged=torch.zeros((1,), dtype=torch.bool, device=dev),
+        unconverged=unconverged[None],
     )
+    if fixpoint_latch:
+        if not defer_trip:
+            return (state if bool(unconverged) else new_state), out
+        new_state = new_state._replace(
+            main_keys=torch.where(unconverged, state.main_keys, new_keys),
+            main_ver=torch.where(unconverged, state.main_ver, new_ver),
+            overflow=torch.where(unconverged, state.overflow, overflow),
+        )
     return new_state, out
 
 

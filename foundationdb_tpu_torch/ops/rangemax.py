@@ -8,13 +8,17 @@ max form, the intra-batch fixpoint the min form.
 `build` is kernel B (kernels/csrc/rangemax_build.cu, one launch per
 level) and `query` is kernel A's query entry (kernels/csrc/keysearch.cu)
 on CUDA tensors; `build_plain` / `query_plain` serve CPU tensors.
+`flat_gather_selftest` checks both against numpy brute force before a
+conflict set serves its first decision.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from foundationdb_tpu_torch import kernels
+from foundationdb_tpu_torch.device import resolve_device
 
 INT32_NEG = -(2**31) + 1
 INT32_POS = 2**31 - 1
@@ -107,3 +111,40 @@ def query(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
     kernels.launch("ks_query", "keysearch.query", table, table.shape[0],
                    table.shape[1], lo, hi, lo.shape[0], int(op == "min"), out)
     return out
+
+
+_SELFTEST_OK: set = set()
+
+
+def flat_gather_selftest(m: int, *, queries: int = 8192, sample: int = 256,
+                         force: bool = False, device=None) -> None:
+    """Start-up check of `build` and `query` at m values against numpy
+    brute force, once per (device, m) per process (K20, the JAX
+    package's flat_gather_selftest, with the same seeded inputs).
+
+    On the card it runs kernel B and kernel A's query entry at the
+    history capacity; on the CPU the plain versions. `device` None means
+    the card. Raises RuntimeError on a mismatch, so a conflict set never
+    serves decisions from a table it cannot read back.
+    """
+    dev = resolve_device(device)
+    key = (str(dev), int(m))
+    if key in _SELFTEST_OK and not force:
+        return
+    rng = np.random.default_rng(0xC0FFEE)
+    vals = rng.integers(0, 2**30, size=m).astype(np.int32)
+    qlo = rng.integers(0, max(m - 1, 1), size=queries).astype(np.int32)
+    qlen = rng.integers(1, max(m // 2, 2), size=queries).astype(np.int32)
+    qhi = np.minimum(qlo + qlen, m).astype(np.int32)
+    tab = build(torch.from_numpy(vals).to(dev), op="max")
+    got = query(tab, torch.from_numpy(qlo).to(dev),
+                torch.from_numpy(qhi).to(dev), op="max").cpu().numpy()
+    for i in rng.integers(0, queries, size=sample):
+        want = int(vals[qlo[i]:qhi[i]].max())
+        if got[i] != want:
+            raise RuntimeError(
+                f"rangemax self-check failed at m={m} on {dev}: query "
+                f"[{qlo[i]},{qhi[i]}) got {got[i]} want {want}; refusing "
+                "to serve conflict decisions"
+            )
+    _SELFTEST_OK.add(key)

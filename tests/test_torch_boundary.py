@@ -24,6 +24,7 @@ import torch
 
 from foundationdb_tpu_torch import kernels, make_conflict_set
 from foundationdb_tpu_torch.config import KernelConfig
+from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
@@ -99,11 +100,15 @@ def test_missing_card_raises(monkeypatch):
 
 
 def test_variant_knobs_are_refused():
-    for kw in ({"fixpoint_latch": True}, {"dedup_reads": 8},
-               {"range_sweep": True}, {"delta_spill": True},
-               {"short_span_limit": 4}, {"delta_capacity": 0}):
+    """The variants not ported yet are refused; the latch, dedup, sweep
+    and spill knobs are served (tests/test_torch_variants.py)."""
+    for kw in ({"short_span_limit": 4}, {"n_shards": 2},
+               {"delta_capacity": 0}):
         with pytest.raises(ValueError):
             make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
+    for kw in ({"fixpoint_latch": True}, {"dedup_reads": 8},
+               {"range_sweep": True}, {"delta_spill": True}):
+        make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -126,6 +131,9 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     hist = H.VersionHistory(keys, vals, H.VERSION_NEG, torch.tensor(False))
     H.query_reads_vmax(hist, q, q, tab)
     H.merge_maps(keys, vals, keys[:8], vals[:8], floor=0, capacity=64)
+    live = torch.ones((q.shape[0],), dtype=torch.bool)
+    D.sweep_read_ranks(keys, q, q, live)
+    D.dedup_vmax(hist, tab, q, q, live, 8)
     assert kernels.counts() == {name: 0 for name in kernels.KERNELS}
 
 

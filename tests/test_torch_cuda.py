@@ -18,6 +18,7 @@ import torch
 
 from foundationdb_tpu_torch import kernels, make_conflict_set
 from foundationdb_tpu_torch.config import KernelConfig
+from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
@@ -26,7 +27,9 @@ from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
+    ycsb_batch,
 )
+from foundationdb_tpu_torch.utils.packing import stack_device_args
 
 pytestmark = pytest.mark.cuda
 
@@ -139,5 +142,114 @@ def test_stream_matches_cpu_plain_path(cuda_device):
         got, want = gpu.resolve_packed(pb), cpu.resolve_packed(pb)
         for f in want._fields:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    # the exact uniform path launches every kernel but the two variant
+    # probes (sweep_ranks, read_dedup: test_variant_stream_... below)
     for name, n in kernels.counts().items():
-        assert n > 0, name
+        assert (n > 0) == (name not in ("sweep_ranks", "read_dedup")), name
+
+
+def test_sweep_ranks(cuda_device):
+    """Kernel E against its plain version: reads beginning and ending on
+    main boundaries (both ties), outside the tier, dead reads, and an
+    empty main tier."""
+    rng = np.random.default_rng(6)
+    keys, n = sorted_keys(rng, 3000, 4000, cuda_device)
+    ks = keys[:n]
+    r = 6000
+    b = rng.integers(0, 1 << 20, r)
+    rb = torch.from_numpy(int_keys_packed(b, 8, 3).view(np.int32))
+    re = torch.from_numpy(int_keys_packed(b + rng.integers(1, 9000, r), 8,
+                                          3).view(np.int32))
+    rb, re = rb.to(cuda_device), re.to(cuda_device)
+    rb[::4] = ks[torch.from_numpy(rng.integers(0, n, len(range(0, r, 4))))
+                 .to(cuda_device)]
+    re[1::4] = ks[torch.from_numpy(rng.integers(0, n, len(range(1, r, 4))))
+                  .to(cuda_device)]
+    rvalid = torch.from_numpy(rng.random(r) < 0.9).to(cuda_device)
+    empty = K.sentinel_like(4000, 3, cuda_device)
+    for main in (keys, empty):
+        got = D.sweep_read_ranks(main, rb, re, rvalid)
+        want = D.sweep_read_ranks_plain(main, rb, re, rvalid)
+        for g, w in zip(got, want):
+            assert_launched_and_equal("sweep_ranks", g, w)
+
+
+@pytest.mark.parametrize("u", [4096, 64])
+def test_read_dedup(cuda_device, u):
+    """Kernel F against its plain version, U above the distinct count
+    and below it (the tripping case: the vmax of every row still agrees,
+    and n_uniq is exact)."""
+    rng = np.random.default_rng(7)
+    keys, n = sorted_keys(rng, 3000, 4000, cuda_device)
+    ver = torch.randint(0, 10**6, (4000,), device=cuda_device,
+                        dtype=torch.int32)
+    tab = R.build_plain(ver, op="max")
+    hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                            torch.tensor(False, device=cuda_device))
+    nr = 8192
+    pool = rng.integers(0, 1 << 20, 900)
+    b = pool[rng.integers(0, len(pool), nr)]
+    rb = torch.from_numpy(int_keys_packed(b, 8, 3).view(np.int32))
+    re = torch.from_numpy(int_keys_packed(
+        b + rng.integers(1, 3, nr) * 1000, 8, 3).view(np.int32))
+    rb, re = rb.to(cuda_device), re.to(cuda_device)
+    rvalid = torch.from_numpy(rng.random(nr) < 0.8).to(cuda_device)
+    vmax, n_uniq = D.dedup_vmax(hist, tab, rb, re, rvalid, u)
+    rows = D.dedup_rows(rb, re, rvalid)
+    want_v, want_n = D.dedup_vmax_plain(keys, tab, rows, u)
+    assert_launched_and_equal("read_dedup", vmax, want_v)
+    assert int(n_uniq) == int(want_n)
+    live = rvalid.cpu().numpy()
+    pairs = np.concatenate([rb.cpu().numpy()[live], re.cpu().numpy()[live]],
+                           axis=1)
+    assert int(n_uniq) == len(np.unique(pairs, axis=0))
+    if u >= int(n_uniq):
+        exact = H.query_reads_vmax_plain(keys, tab, rb, re)
+        assert torch.equal(vmax[rvalid], exact[rvalid])
+
+
+def test_selftest_on_the_card(cuda_device):
+    R.flat_gather_selftest(50_000, device=cuda_device, force=True)
+    assert kernels.COUNTS["rangemax_build"] > 0
+    assert kernels.COUNTS["keysearch.query"] > 0
+
+
+@pytest.mark.parametrize("profile", ["hot_key", "range_scan"])
+def test_variant_stream_matches_cpu_plain_path(cuda_device, profile):
+    """A latched zipf stream with read dedup, and a YCSB-E stream with
+    the sweep and spill, in groups of 3: the card and the CPU plain path
+    field for field, counters alike, kernels E/F launched."""
+    n = 1024
+    kw = dict(max_key_bytes=8, max_txns=n, max_reads=n, max_writes=n,
+              history_capacity=12 * n, window_versions=5000,
+              fixpoint_latch=True)
+    if profile == "hot_key":
+        kw.update(delta_capacity=12 * n, compact_interval=3,
+                  fixpoint_unroll=3, dedup_reads=256)
+    else:
+        kw.update(delta_capacity=8 * n, compact_interval=0,
+                  fixpoint_unroll=6, range_sweep=True, delta_spill=True)
+    cfg = KernelConfig(**kw)
+    rng = np.random.default_rng(8)
+    batches = []
+    for i in range(9):
+        v = 1000 * (i + 1)
+        if profile == "hot_key":
+            batches.append(skiplist_style_batch(
+                rng, cfg, n, version=v, keyspace=100_000, zipf=1.1,
+                snapshot_lag=2000))
+        else:
+            batches.append(ycsb_batch(rng, cfg, n, "ycsb_e", version=v,
+                                      keyspace=50_000, snapshot_lag=2000))
+    gpu = make_conflict_set(cfg, "cuda", device=cuda_device)
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    kernels.reset_counts()
+    for lo in range(0, 9, 3):
+        stacked = stack_device_args(batches[lo:lo + 3])
+        got = gpu.resolve_group_args(stacked)
+        want = cpu.resolve_group_args(stacked)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert gpu.metrics.counters == cpu.metrics.counters
+    name = "read_dedup" if profile == "hot_key" else "sweep_ranks"
+    assert kernels.COUNTS[name] > 0

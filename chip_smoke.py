@@ -10,7 +10,9 @@ any fault:
 1. environment: the card's fingerprint and `nvidia-smi` name / power;
 2. kernels: every kernel entry on seeded inputs at the bench shapes
    (65,536-txn batches, 8-byte keys, 786,432-row tiers; kernel E over a
-   group of 8 YCSB-E batches, kernel F over a zipf batch), held exactly
+   group of 8 YCSB-E batches, kernel F over a zipf batch, kernels G and
+   H over the 2,097,152-rank endpoint space of a group of 8 uniform
+   batches), held exactly
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
    single PyTorch call computing the same function;
@@ -28,9 +30,24 @@ any fault:
    with the endpoint sweep, delta spill and the latch, every group
    identical to the probe path on the card and the first to the CPU
    plain path, the stream classified range_heavy and routed to cuda;
-6. a reduced-shape contended stream (2,048 txns) through `resolve()`,
-   exact, latched + dedup, and sweep + spill: each must match the
-   copied ConflictOracle verdict for verdict.
+6. the classic uniform stream (bench `BENCH_KERNEL=classic`, no delta
+   tier): the uniform batches in groups of 8 through the group kernel
+   with its cross-batch phase (kernels G and H), every field identical
+   to the same batches one at a time (`resolve_batch`) on the card, the
+   single tier identical after every group, every batch identical to
+   the tiered uniform stream of phase 3, group 0 to the CPU plain path;
+7. the classic hot-key stream (bench `BENCH_KERNEL=classic
+   BENCH_MODE=zipf`: the latch, unroll 8, groups of 8): identical to the
+   exact classic config on the card, and a forced-trip run (unroll 1)
+   whose groups fall back with the same results;
+8. the wire Resolver role's default shape (16-byte keys, 1,024 txns,
+   4,096 reads and writes, a 65,536-row tier, no delta tier) through
+   `resolve()`, verdicts and conflict reports identical to the copied
+   ConflictOracle, with p50 / p99 ms per batch;
+9. a reduced-shape contended stream (2,048 txns) through `resolve()`,
+   exact, latched + dedup, sweep + spill, and classic (one batch at a
+   time, and groups of 4 through `resolve_group_args`): each must match
+   the copied ConflictOracle verdict for verdict.
 
 The last lines are the streams' numbers (JSON), the kernel ledger
 (JSON), the card's name and power limit, and `{"ok": true, "device":
@@ -69,6 +86,16 @@ ZIPF_UNROLL = 8
 TRIP_U = 16_384             # a dedup cap under the zipf stream's count
 YCSB_GROUPS = 4
 YCSB_UNROLL = 14
+# the wire ResolverRole's default KernelConfig (cluster/multiprocess.py
+# of the JAX package) and its MVCC window
+ROLE_TXNS = 1024
+ROLE_RANGES = 4096
+ROLE_KEY_BYTES = 16
+ROLE_HISTORY = 1 << 16
+ROLE_WINDOW = 5_000_000
+ROLE_BATCHES = 64
+ROLE_KEYSPACE = 20_000
+ROLE_VERSION_STEP = 100_000
 
 
 def log(*a):
@@ -185,12 +212,15 @@ def int_keys(v):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int) -> dict:
+def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
+                  uniform_group) -> dict:
     """Every kernel entry vs its plain version at bench shapes, timed.
 
-    Kernel F (read_dedup) takes the reads of one zipf batch and kernel E
-    (sweep_ranks) the reads of one group of YCSB-E batches: the inputs
-    the hot-key and range-scan paths give them."""
+    Kernel F (read_dedup) takes the reads of one zipf batch, kernel E
+    (sweep_ranks) the reads of one group of YCSB-E batches, and kernels
+    G and H (rangemax2, seg_fold) the group-wide endpoint ranks of a
+    group of 8 uniform batches: the inputs the hot-key, range-scan and
+    classic paths give them."""
     import torch
 
     from foundationdb_tpu_torch import interop, kernels
@@ -203,11 +233,16 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(20261017)
     ledger = {}
+    per_call = {}   # launches of one call of each entry's wrapper
 
-    def entry(name, kern, plain, n_bytes, n_ops, library=None, check=None):
-        got, want = kern(), plain()
+    def entry(name, kern, plain, n_bytes, n_ops, library=None, check=None,
+              detail=False):
+        before = kernels.COUNTS[name]
+        got = kern()
+        per_call[name] = kernels.COUNTS[name] - before
+        want = plain()
         err = (check or exact)(name, got, want)
-        if kernels.COUNTS[name] <= 0:
+        if per_call[name] <= 0:
             fail(f"{name}: no launch counted")
         t_k = device_ms(kern)
         t_call = event_ms(kern)
@@ -220,6 +255,10 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int) -> dict:
             f"gaps {t_call * 1e3:9.1f} us)  bound {b * 1e3:7.1f} us ({by})  "
             f"plain {t_p * 1e3:10.1f} us  library "
             + (f"{t_l * 1e3:.1f} us" if t_l is not None else "none"))
+        if detail:   # the wrapper's device work by kernel, one call
+            for k, t in sorted(device_time_by_name(kern).items(),
+                               key=lambda kv: -kv[1]):
+                log(f"      {t:8.1f} us  {k[:90]}")
 
     steps = M.bit_length()
     # -- A.search at its main-path shape: K6's W=1 left search of the
@@ -404,7 +443,246 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int) -> dict:
           n_ops=2 * W * nr + 2 * n_uniq * steps * W,
           library=lambda: torch.unique(rows, dim=0, return_inverse=True),
           check=both)
+
+    # -- G and H: the cross-batch phase of a classic group of 8 uniform
+    #    batches, over its group-wide endpoint ranks (2G(NR+NW) rows)
+    ranks, n_map = group_ranks(uniform_group, device)
+    nr = B
+    rrb, rre = ranks[1][0], ranks[1][1]        # batch 1's reads
+    # G's values: random int32 versions, all but surely distinct per
+    # chunk, so a wrong chunk, superchunk or table level shows (a map of
+    # a few versions could answer right from the wrong entry)
+    seg = torch.randint(H.VERSION_NEG, rangemax.INT32_POS, (n_map,),
+                        generator=gen, device=device, dtype=torch.int32)
+    # spans within a chunk (the point reads), past it, and empty ones
+    qlo, qhi = rrb.clone(), rre.clone()
+    wide = torch.arange(0, nr, 4, device=device)
+    qhi[wide] = (qlo[wide] + torch.randint(
+        33, 200_000, (wide.shape[0],), generator=gen, device=device,
+        dtype=torch.int32)).clamp(max=n_map)
+    empty = torch.arange(1, nr, 16, device=device)
+    qhi[empty] = qlo[empty] - torch.randint(0, 3, (empty.shape[0],),
+                                            generator=gen, device=device,
+                                            dtype=torch.int32)
+    span = (qhi - qlo).clamp(min=0)
+    log(f"  rangemax2 input: {n_map} ranks (a group of {GROUP}) of random "
+        f"int32 versions, {nr} queries: {int((span == 0).sum())} empty, "
+        f"{int(((span > 0) & (span <= 32)).sum())} within a chunk, "
+        f"{int((span > 32).sum())} wider (max {int(span.max())})")
+    nc = -(-n_map // rangemax.CHUNK)
+    ns = -(-n_map // rangemax.SUPER)
+    ls = rangemax._num_levels(ns)
+
+    def rm2_check(op):
+        def check(name, got, want):
+            if len(got) == 2:   # a CPU tensor: build2 is the plain version
+                return max(exact(name + " fine", got[0], want[0]),
+                           exact(name + " coarse", got[1], want[1]))
+            chunk, table = rm2_expected(want, op)
+            return max(exact(name + " chunk maxima", got[1], chunk),
+                       exact(name + " table", got[2], table))
+        return check
+
+    entry("rangemax2.build",
+          lambda: rangemax.build2(seg, op="max"),
+          lambda: rangemax.build2_plain(seg, op="max"),
+          n_bytes=4 * (n_map + nc + ls * ns), n_ops=n_map + nc + ls * ns,
+          check=rm2_check("max"), detail=True)
+    rm2_check("min")("rangemax2.build min", rangemax.build2(seg, op="min"),
+                     rangemax.build2_plain(seg, op="min"))
+    tabs, plain_tabs = rangemax.build2(seg, op="max"), rangemax.build2_plain(
+        seg, op="max")
+    rows = rangemax2_rows(qlo, qhi, n_map)
+    entry("rangemax2.query",
+          lambda: rangemax.query2(tabs, qlo, qhi, op="max"),
+          lambda: rangemax.query2_plain(plain_tabs, qlo, qhi, op="max"),
+          n_bytes=nr * 12 + rows * 4, n_ops=rows)
+    exact("rangemax2.query min",
+          rangemax.query2(rangemax.build2(seg, op="min"), qlo, qhi, op="min"),
+          rangemax.query2_plain(rangemax.build2_plain(seg, op="min"), qlo,
+                                qhi, op="min"))
+    # H: the last batch's committed writes over the map batches 0 .. 6
+    # left (folded at ascending versions, as the group loop does), then
+    # the same with one write over the whole space
+    hmap = torch.full((n_map,), H.VERSION_NEG, dtype=torch.int32,
+                      device=device)
+    for i in range(GROUP - 1):
+        cwi = torch.rand((B,), generator=gen, device=device) < 0.97
+        G.seg_fold_plain(hmap, ranks[i][2], ranks[i][3], cwi, 3_000_000 + i)
+    wb1, we1 = ranks[GROUP - 1][2], ranks[GROUP - 1][3]
+    cw1 = torch.rand((B,), generator=gen, device=device) < 0.97
+    covered = int(G.seg_fold_plain(torch.zeros_like(hmap), wb1, we1, cw1,
+                                   1).sum())
+    log(f"  seg_fold input: {B} writes ({int(cw1.sum())} committed) "
+        f"covering {covered} of {n_map} ranks, over a map of "
+        f"{int(hmap.unique().numel())} distinct versions")
+    scratch = G.seg_fold_scratch(n_map, device)
+    painted, painted_p = hmap.clone(), hmap.clone()   # the same each call
+    entry("seg_fold",
+          lambda: G.seg_fold(painted, wb1, we1, cw1, 3_200_000, scratch),
+          lambda: G.seg_fold_plain(painted_p, wb1, we1, cw1, 3_200_000),
+          n_bytes=9 * B + 4 * covered, n_ops=2 * int(cw1.sum()) + covered,
+          detail=True)
+    wb_all, we_all, cw_all = wb1.clone(), we1.clone(), cw1.clone()
+    wb_all[0], we_all[0], cw_all[0] = 0, n_map - 1, True
+    exact("seg_fold whole-space write",
+          G.seg_fold(hmap.clone(), wb_all, we_all, cw_all, 3_200_000,
+                     scratch),
+          G.seg_fold_plain(hmap.clone(), wb_all, we_all, cw_all, 3_200_000))
+    if scratch is not None:   # the card's kernel; None on the CPU
+        exact("seg_fold scratch left zero", scratch,
+              torch.zeros_like(scratch))
     return ledger
+
+
+def _launch_bytes(entry: str, a: list) -> int:
+    """The bytes one launch of a C entry point must move, from its
+    arguments as kernels.launch gets them: its inputs read once and its
+    outputs written once, as the phase-2 bounds count them, leaving out
+    what depends on the data (a query's partial chunks, the ranks a fold
+    paints, the distinct rows of a dedup), so it is a floor."""
+    if entry == "ks_search":             # keys, m, w, queries, q, ...
+        m, w, q = a[1], a[2], a[4]
+        return 4 * (m * w + q * w + q)
+    if entry == "ks_query":              # table, levels, m, lo, hi, q, ...
+        return 4 * 5 * a[5]
+    if entry == "ks_probe":              # keys, m, w, table, levels, rb,
+        m, w, q = a[1], a[2], a[7]       # re, q, out
+        touched = min(m * w, 2 * q * (m.bit_length() + 1) * w)
+        return 4 * (touched + 2 * q * w + 3 * q)
+    if entry == "rm_build_level":        # values, table, m, level, ...
+        return 4 * a[2] * (2 if a[3] == 0 else 1)
+    if entry == "mc_scatter":            # lo, hi, val, n, leaves, table
+        return 4 * (3 * a[3] + a[4])
+    if entry == "mm_mark":               # a_keys, a_val, na, b_keys,
+        return 4 * (a[2] + a[5]) * (a[6] + 1)   # b_val, nb, w, ...
+    if entry == "mm_scatter":            # ..., w (4), ..., cap (9), ...
+        return 4 * a[9] * (a[4] + 1)
+    if entry == "sw_ranks":              # keys, m, w, rb, re, rvalid, r
+        m, w, r = a[1], a[2], a[6]
+        return 4 * (2 * r * w + m * w + 2 * r) + r
+    if entry == "dd_heads":              # rows, perm, n, w, ...
+        return 4 * 2 * a[2] * a[3]
+    if entry == "dd_gather":             # vmax_u, uh_in, n, u, vmax
+        return 4 * a[2]
+    if entry == "rm2_chunks":            # values, m, chunk, nc, table, ns
+        return 4 * (a[1] + a[3] + a[5])
+    if entry == "rm2_levels":            # table, ns, levels, op_min
+        return 4 * a[1] * (a[2] - 1)
+    if entry == "rm2_query":             # ..., lo, hi, q (8), ...
+        return 12 * a[8]
+    if entry == "sf_scatter":            # wb, we, cw, nw, ...
+        return 9 * a[3]
+    return 0  # mc_sweep_level, dd_compact, sf_scan_sums, sf_paint
+
+
+#: the byte floor of every launch since reset_launches()
+LAUNCH_BYTES = {"total": 0}
+
+
+def count_launch_bytes() -> None:
+    """Wrap kernels.launch so each launch also adds its byte floor to
+    LAUNCH_BYTES. The wrapper's own count is untouched: the original
+    launch still adds one to COUNTS, and only there."""
+    from foundationdb_tpu_torch import kernels
+
+    launch = kernels.launch
+
+    def counted(entry, count, *args):
+        launch(entry, count, *args)
+        LAUNCH_BYTES["total"] += _launch_bytes(entry, list(args))
+
+    kernels.launch = counted
+
+
+def reset_launches() -> None:
+    from foundationdb_tpu_torch import kernels
+
+    kernels.reset_counts()
+    LAUNCH_BYTES["total"] = 0
+
+
+def launch_totals() -> tuple:
+    """(launches per kernel, the byte floor of those launches)."""
+    from foundationdb_tpu_torch import kernels
+
+    return kernels.counts(), LAUNCH_BYTES["total"]
+
+
+def device_bound_per_batch(stream: dict) -> float:
+    """The per-batch device bound of a stream's kernels: the byte floor
+    of every launch of its main-path run (each launch's own shape) over
+    the card's memory rate, per batch. The library sorts and scans
+    between the launches are not in it."""
+    return (stream["launch_bytes"] / HBM_BYTES_PER_S * 1e3
+            / stream["batches"])
+
+
+def group_ranks(batches, device):
+    """The group-wide dense ranks of every live endpoint of a group of
+    batches, as the classic group kernel computes them: [batch][rb, re,
+    wb, we] rank tensors, and the map size 2G(NR+NW)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import keys as K
+
+    gn = len(batches)
+    rows, lives = [], []
+    for pb in batches:
+        a = interop.device_args_to_torch(pb.device_args(), device)
+        rows.append(torch.cat([a["read_begin"], a["read_end"],
+                               a["write_begin"], a["write_end"]]))
+        lives.append(torch.cat([a["read_valid"], a["read_valid"],
+                                a["write_valid"], a["write_valid"]]))
+    pts = torch.where(torch.cat(lives)[:, None], torch.cat(rows),
+                      K.SENTINEL_WORD).contiguous()
+    grank = G._group_ranks(pts, gn)[0].reshape(gn, -1)
+    nr, nw = batches[0].read_begin.shape[0], batches[0].write_begin.shape[0]
+    cuts = (0, nr, 2 * nr, 2 * nr + nw, 2 * nr + 2 * nw)
+    return ([[grank[i, cuts[j]:cuts[j + 1]].contiguous() for j in range(4)]
+             for i in range(gn)], pts.shape[0])
+
+
+def rangemax2_rows(lo, hi, m: int) -> int:
+    """Values, chunk maxima and table entries kernel G's query must read
+    for these ranges (the data-dependent part of its byte bound): every
+    row of a range with no whole chunk; else the partial head and tail
+    chunks' rows, plus every chunk maximum of a range with no whole
+    superchunk, else the partial superchunks' chunk maxima and two
+    table entries."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import rangemax as R
+
+    lo = lo.to(torch.int64).clamp(0, m)
+    hi = hi.to(torch.int64).clamp(0, m)
+    c0, c1 = (lo + R.CHUNK - 1) // R.CHUNK, hi // R.CHUNK
+    s0, s1 = (c0 + R.CHUNK - 1) // R.CHUNK, c1 // R.CHUNK
+    chunks = torch.where(s0 < s1, (s0 * R.CHUNK - c0) + (c1 - s1 * R.CHUNK)
+                         + 2, c1 - c0)
+    split = (c0 * R.CHUNK - lo) + (hi - c1 * R.CHUNK) + chunks
+    rows = torch.where(c0 < c1, split, hi - lo)
+    return int(torch.where(hi > lo, rows, 0).sum())
+
+
+def rm2_expected(plain, op: str):
+    """What kernel G builds, from the plain (JAX-layout) structure: the
+    chunk maxima (the top fine level every CHUNK rows) and kernel B's
+    plain table over the op of each superchunk's CHUNK chunk maxima."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import rangemax as R
+
+    chunk = plain[0][R.CHUNK_BITS][::R.CHUNK].contiguous()
+    ns = -(-chunk.shape[0] // R.CHUNK)
+    pad = torch.full((ns * R.CHUNK,), R.INT32_POS if op == "min"
+                     else R.INT32_NEG, dtype=torch.int32, device=chunk.device)
+    pad[:chunk.shape[0]] = chunk
+    sup = pad.reshape(ns, R.CHUNK)
+    sup = sup.amin(dim=1) if op == "min" else sup.amax(dim=1)
+    return chunk, R.build_plain(sup.contiguous(), op=op)
 
 
 def phase_torch_ops(device) -> dict:
@@ -522,10 +800,24 @@ def same_fields(tag: str, got: dict, want: dict) -> None:
 
 
 def same_state(tag: str, got, want) -> None:
-    for tier, g, w in zip(("main", "delta"), got, want):
+    """Both tiers (tiered), or the single tier (classic), row for row."""
+    if not isinstance(got[0], tuple):
+        got, want, names = (got,), (want,), ("tier",)
+    else:
+        names = ("main", "delta")
+    for tier, g, w in zip(names, got, want):
         for part, a, b in zip(("keys", "ver", "oldest", "overflow"), g, w):
             if not np.array_equal(a, b):
                 fail(f"{tag}: {tier} {part} differs")
+
+
+def state_of(cs):
+    """The conflict set's history as numpy (either path)."""
+    return cs.store_state()[0]
+
+
+#: the kernels only the classic group kernel at G > 1 launches
+CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 
 
 def require_launched(tag: str, launches: dict, unused=()) -> None:
@@ -536,11 +828,9 @@ def require_launched(tag: str, launches: dict, unused=()) -> None:
 
 def run_groups(cs, groups) -> tuple:
     """Each stacked group through resolve_group_args, synchronised:
-    (seconds per group, verdict fields per group, both tiers after the
+    (seconds per group, verdict fields per group, the history after the
     first group)."""
     import torch
-
-    from foundationdb_tpu_torch import interop
 
     times, outs, first = [], [], None
     for i, g in enumerate(groups):
@@ -551,7 +841,7 @@ def run_groups(cs, groups) -> tuple:
         times.append(time.perf_counter() - t0)
         outs.append(verdict_fields(out))
         if i == 0:
-            first = interop.tiered_state_to_numpy(cs.state)
+            first = state_of(cs)
     return times, outs, first
 
 
@@ -570,23 +860,28 @@ def watch_occupancy(cs) -> list:
     return peaks
 
 
-def phase_stream(device) -> dict:
-    """The full-width uniform stream; returns what the ledger needs."""
+def uniform_stream(cfg, n: int, seed: int = 0, start: int = 0) -> list:
+    """bench's default stream: one point read and one point write per
+    txn, uniform over 1M keys."""
+    from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
+
+    rng = np.random.default_rng(seed)
+    return [skiplist_style_batch(rng, cfg, B,
+                                 version=(start + i + 1) * VERSION_STEP,
+                                 keyspace=KEYSPACE, snapshot_lag=SNAPSHOT_LAG,
+                                 key_bytes=KEY_BYTES) for i in range(n)]
+
+
+def phase_stream(device, batches) -> dict:
+    """The full-width uniform stream; returns what the ledger needs, and
+    every batch's verdict fields under "outs"."""
     import torch
 
     from foundationdb_tpu_torch import interop, kernels, make_conflict_set
     from foundationdb_tpu_torch.ops import delta as D
     from foundationdb_tpu_torch.ops import rangemax
-    from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
 
     cfg = bench_config(B)
-    rng = np.random.default_rng(0)
-    batches = [
-        skiplist_style_batch(rng, cfg, B, version=(i + 1) * VERSION_STEP,
-                             keyspace=KEYSPACE, snapshot_lag=SNAPSHOT_LAG,
-                             key_bytes=KEY_BYTES)
-        for i in range(N_BATCHES)
-    ]
     key = (str(device), cfg.history_capacity)
     if key in rangemax._SELFTEST_OK:
         fail("the rangemax self-check ran before the first conflict set")
@@ -601,12 +896,16 @@ def phase_stream(device) -> dict:
     rangemax.flat_gather_selftest(cfg.history_capacity, device=device,
                                   force=True)
     selftest_ms = (time.perf_counter() - t0) * 1e3
-    log(f"  K20 self-check at m={cfg.history_capacity}, 8,192 queries: ran "
-        f"in the constructor ({ctor_ms:.1f} ms with the state's "
-        f"allocation); alone {selftest_ms:.1f} ms")
+    m = cfg.history_capacity
+    selftest_bound, _ = bound_ms(
+        (1 + rangemax._num_levels(m)) * m * 4 + 8192 * 12, 0)
+    log(f"  K20 self-check at m={m}, 8,192 queries: ran in the constructor "
+        f"({ctor_ms:.1f} ms with the state's allocation); alone "
+        f"{selftest_ms:.1f} ms; its device bound {selftest_bound * 1e3:.1f}"
+        " us (bytes: the values, the table and the queries once)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_counts()
+    reset_launches()
     n_cmp = COMPACT_INTERVAL + 1
     per_batch, gpu_outs, occupancy = [], [], []
     for i, b in enumerate(batches):
@@ -618,10 +917,11 @@ def phase_stream(device) -> dict:
         occupancy.append([int(c) for c in D.boundary_counts(cs.state)])
         if i == n_cmp - 1:
             gpu_state = interop.tiered_state_to_numpy(cs.state)
-    launches = kernels.counts()
+    launches, launch_bytes = launch_totals()
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
-    require_launched("uniform", launches, ("sweep_ranks", "read_dedup"))
+    require_launched("uniform", launches,
+                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY))
     log(f"  {N_BATCHES} batches x {B} txns; launches on the main path: "
         f"{launches}")
 
@@ -655,11 +955,7 @@ def phase_stream(device) -> dict:
         f"{occupancy} of ({cfg.history_capacity}, {cfg.delta_capacity}); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     log(f"  compactions {cs.metrics.counters['compactions']}")
-    extra = [skiplist_style_batch(np.random.default_rng(1), cfg, B,
-                                  version=(N_BATCHES + i + 1) * VERSION_STEP,
-                                  keyspace=KEYSPACE,
-                                  snapshot_lag=SNAPSHOT_LAG,
-                                  key_bytes=KEY_BYTES) for i in range(2)]
+    extra = uniform_stream(cfg, 2, seed=1, start=N_BATCHES)
 
     def run():
         for b in extra:
@@ -669,10 +965,12 @@ def phase_stream(device) -> dict:
     checks, rebases = (cs.metrics.main_occupancy.count,
                        cs.metrics.counters["rebases"])
     prof = profile_run(run, ms, len(extra))
-    return dict(launches=launches, batches=N_BATCHES, ms_per_batch=ms,
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=N_BATCHES, ms_per_batch=ms,
                 txn_per_s=B / ms * 1e3, selftest_ms=selftest_ms,
+                selftest_bound_ms=selftest_bound,
                 ctor_ms=ctor_ms, overflow_checks=checks, rebases=rebases,
-                **prof)
+                outs=gpu_outs, **prof)
 
 
 def profile_run(run, wall_ms: float, n_batches: int) -> dict:
@@ -720,10 +1018,10 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     cs = make_conflict_set(cfg, "cuda")
     cs.prewarm_exact(groups[0])
     torch.cuda.synchronize()
-    kernels.reset_counts()
+    reset_launches()
     times, outs, first = run_groups(cs, groups)
-    launches = kernels.counts()
-    require_launched("hot-key", launches, ("sweep_ranks",))
+    launches, launch_bytes = launch_totals()
+    require_launched("hot-key", launches, ("sweep_ranks", *CLASSIC_ONLY))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
@@ -777,7 +1075,8 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
     committed = [int(x) for o in outs for x in o["committed_count"]]
     log(f"  committed/batch {committed}")
-    return dict(launches=launches, batches=len(batches), ms_per_batch=ms,
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(batches), ms_per_batch=ms,
                 txn_per_s=B / ms * 1e3, dedup_reads=dedup_u,
                 max_distinct_reads=max_uniq,
                 latch_trips=counters["latchTrips"],
@@ -813,10 +1112,10 @@ def phase_range_scan(device, batches) -> dict:
     cs = make_conflict_set(cfg, "cuda")
     cs.prewarm_exact(groups[0])
     torch.cuda.synchronize()
-    kernels.reset_counts()
+    reset_launches()
     times, outs, first = run_groups(cs, groups)
-    launches = kernels.counts()
-    require_launched("range-scan", launches, ("read_dedup",))
+    launches, launch_bytes = launch_totals()
+    require_launched("range-scan", launches, ("read_dedup", *CLASSIC_ONLY))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"launches: {launches}")
@@ -855,7 +1154,8 @@ def phase_range_scan(device, batches) -> dict:
     fx = cs.metrics.fixpoint
     log(f"  fixpoint: {fx.applications} applications over {fx.batches} "
         "batches (latched)")
-    return dict(launches=launches, batches=len(batches), ms_per_batch=ms,
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(batches), ms_per_batch=ms,
                 txn_per_s=B / ms * 1e3, spills=counters["spills"],
                 sweep_groups=counters["sweepGroups"],
                 compactions=counters["compactions"],
@@ -864,14 +1164,245 @@ def phase_range_scan(device, batches) -> dict:
                 peak_delta_rows=max(p[1] for p in peaks), **prof)
 
 
+def phase_classic(device, batches, tiered_outs: list) -> dict:
+    """bench `BENCH_KERNEL=classic` on the uniform batches: groups of 8
+    through the classic group kernel, held to the same batches one at a
+    time, to the tiered stream and (group 0) to the CPU plain path."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels, make_conflict_set
+    from foundationdb_tpu_torch.ops import history as H
+
+    cfg = bench_config(B, delta_capacity=0)
+    groups = groups_of(batches)
+    cs = make_conflict_set(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    times, outs, maps, occupancy = [], [], [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        out = cs.resolve_group_args(g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(verdict_fields(out))
+        maps.append(state_of(cs))
+        occupancy.append(int(H.boundary_count(cs.state)))
+    launches, launch_bytes = launch_totals()
+    peak = torch.cuda.max_memory_allocated(device)
+    cs.check_overflow()
+    require_launched("classic uniform", launches,
+                     ("sweep_ranks", "read_dedup"))
+    log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} "
+        f"(history {cfg.history_capacity}, no delta tier); launches: "
+        f"{launches}")
+    ms = group_timing("classic G=8", times)
+
+    # (a) the same batches one at a time (resolve_batch, K15) on the card
+    one = make_conflict_set(cfg, "cuda")
+    per_batch = []
+    for i, pb in enumerate(batches):
+        t0 = time.perf_counter()
+        got = verdict_fields(one.resolve_packed(pb))
+        torch.cuda.synchronize()
+        per_batch.append(time.perf_counter() - t0)
+        gi, j = divmod(i, GROUP)
+        same_fields(f"classic batch {i} G=8 vs G=1", got,
+                    {f: v[j] for f, v in outs[gi].items()
+                     if f != "unconverged"})
+        if j == GROUP - 1:
+            same_state(f"classic group {gi}: G=8 vs G=1", maps[gi],
+                       state_of(one))
+    ms1 = statistics.median(per_batch[GROUP:]) * 1e3
+    log(f"  every batch identical to G=1 (resolve_batch) on the card, the "
+        f"tier identical row for row after every group; G=1 {ms1:.3f} "
+        f"ms/batch steady state (batches {GROUP}..), "
+        f"{B / (ms1 / 1e3):,.0f} txn/s")
+    # (b) the tiered uniform stream of phase 3 (both exact)
+    for i, want in enumerate(tiered_outs):
+        gi, j = divmod(i, GROUP)
+        same_fields(f"classic batch {i} vs the tiered stream",
+                    {f: v[j] for f, v in outs[gi].items()}, want)
+    log(f"  all {len(batches)} batches identical to the tiered uniform "
+        "stream, field by field")
+    # (c) group 0 on the CPU plain path
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    t0 = time.perf_counter()
+    same_fields("classic group 0 vs the CPU plain path", outs[0],
+                verdict_fields(cpu.resolve_group_args(groups[0])))
+    same_state("classic group 0 vs the CPU plain path", maps[0],
+               state_of(cpu))
+    log(f"  group 0 identical to the CPU plain path, fields and tier "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    log(f"  live rows of the tier after each group {occupancy} of "
+        f"{cfg.history_capacity}; peak device memory {peak / 2**20:.1f} MiB")
+    fx = cs.metrics.fixpoint
+    log(f"  fixpoint: {fx.applications} applications over {fx.batches} "
+        f"batches (max {fx.max_applications}/batch)")
+    extra = groups_of(uniform_stream(cfg, GROUP, seed=1, start=len(batches)))
+    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(batches), ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3, g1_ms_per_batch=ms1,
+                g1_txn_per_s=B / ms1 * 1e3, peak_rows=max(occupancy),
+                peak_device_mib=peak / 2**20, **prof)
+
+
+def phase_classic_hot(device, batches) -> dict:
+    """bench `BENCH_KERNEL=classic BENCH_MODE=zipf`: the latch at unroll
+    8 on the classic group kernel, groups of 8, against the exact classic
+    config; then a forced-trip run at unroll 1."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels, make_conflict_set
+
+    cfg = bench_config(B, delta_capacity=0, fixpoint_unroll=ZIPF_UNROLL,
+                       fixpoint_latch=True)
+    groups = groups_of(batches)
+    cs = make_conflict_set(cfg, "cuda")
+    cs.prewarm_exact(groups[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    times, outs, _ = run_groups(cs, groups)
+    launches, launch_bytes = launch_totals()
+    require_launched("classic hot-key", launches,
+                     ("sweep_ranks", "read_dedup"))
+    counters = dict(cs.metrics.counters)
+    log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
+        f"counters {counters}; launches: {launches}")
+    ms = statistics.mean(t / GROUP * 1e3 for t in times)
+    log(f"  latched: {ms:.3f} ms/batch (mean over the {len(groups)} groups: "
+        f"{[round(t / GROUP * 1e3, 3) for t in times]})")
+    ex = make_conflict_set(cfg.scaled(fixpoint_latch=False, fixpoint_unroll=1),
+                           "cuda")
+    ex_times, ex_outs, _ = run_groups(ex, groups)
+    for i, (g, w) in enumerate(zip(outs, ex_outs)):
+        same_fields(f"classic hot-key group {i} vs the exact config", g, w)
+    same_state("classic hot-key stream vs the exact config", state_of(cs),
+               state_of(ex))
+    efx = ex.metrics.fixpoint
+    log(f"  every group identical to the exact classic config on the card "
+        f"(its groups: {[round(t / GROUP * 1e3, 3) for t in ex_times]} "
+        f"ms/batch; depth max {efx.max_applications} applications/batch)")
+    tr = make_conflict_set(cfg.scaled(fixpoint_unroll=1), "cuda")
+    tr_times, tr_outs, _ = run_groups(tr, groups)
+    tc = tr.metrics.counters
+    if not tc["latchTrips"] == tc["exactFallbacks"] >= 1:
+        fail(f"classic forced trip: expected a fallback, counters {tc}")
+    for i, (g, w) in enumerate(zip(tr_outs, ex_outs)):
+        same_fields(f"classic forced-trip group {i} vs the exact config",
+                    g, w)
+    same_state("classic forced-trip stream vs the exact config",
+               state_of(tr), state_of(ex))
+    log(f"  unroll 1 (forced trip): latchTrips {tc['latchTrips']} == "
+        f"exactFallbacks {tc['exactFallbacks']}, results identical "
+        f"({[round(t / GROUP * 1e3, 3) for t in tr_times]} ms/batch)")
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(batches), ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3,
+                latch_trips=counters["latchTrips"],
+                exact_ms_per_batch=statistics.mean(
+                    t / GROUP * 1e3 for t in ex_times),
+                exact_max_applications=efx.max_applications,
+                trip_run={"fixpoint_unroll": 1,
+                          "latch_trips": tc["latchTrips"],
+                          "exact_fallbacks": tc["exactFallbacks"]})
+
+
+def role_stream(seed: int = 11) -> list:
+    """Seeded CommitTransaction batches at the wire Resolver role's
+    shape: 1,024 txns of 1-3 reads (a point or a short scan) and 1-2
+    point writes over 15-byte keys with a common prefix (a point write's
+    end key, the key and a zero byte, fills the 16 bytes exactly)."""
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+
+    rng = np.random.default_rng(seed)
+
+    def key(i):
+        return b"\x02tbl/" + int(i).to_bytes(10, "big")
+
+    out = []
+    for b in range(ROLE_BATCHES):
+        version = ROLE_WINDOW // 2 + (b + 1) * ROLE_VERSION_STEP
+        txns = []
+        for t in range(ROLE_TXNS):
+            reads = []
+            for _ in range(int(rng.integers(1, 4))):
+                k = int(rng.integers(0, ROLE_KEYSPACE))
+                reads.append((key(k), key(k + int(rng.integers(1, 12)))))
+            writes = [(key(k), key(k) + b"\x00") for k in
+                      rng.integers(0, ROLE_KEYSPACE, int(rng.integers(1, 3)))]
+            txns.append(CommitTransaction(
+                read_conflict_ranges=reads, write_conflict_ranges=writes,
+                read_snapshot=version - int(rng.integers(1, 4)
+                                            * ROLE_VERSION_STEP),
+                report_conflicting_keys=bool(t % 3 == 0)))
+        out.append((txns, version))
+    return out
+
+
+def phase_resolver_role(device) -> dict:
+    """The wire ResolverRole's default conflict set on the card, through
+    resolve() (pack, K15, reply assembly), against the oracle."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels, make_conflict_set
+    from foundationdb_tpu_torch.config import KernelConfig
+    from foundationdb_tpu_torch.ops import history as H
+
+    cfg = KernelConfig(max_key_bytes=ROLE_KEY_BYTES, max_txns=ROLE_TXNS,
+                       max_reads=ROLE_RANGES, max_writes=ROLE_RANGES,
+                       history_capacity=ROLE_HISTORY,
+                       window_versions=ROLE_WINDOW)
+    stream = role_stream()
+    cs = make_conflict_set(cfg, "cuda")
+    oracle = make_conflict_set(cfg, "cpu")
+    torch.cuda.synchronize()
+    reset_launches()
+    times, n_conflict, occupancy = [], 0, []
+    for i, (txns, version) in enumerate(stream):
+        t0 = time.perf_counter()
+        got = cs.resolve(txns, version)
+        times.append(time.perf_counter() - t0)
+        occupancy.append(int(H.boundary_count(cs.state)))
+        want = oracle.resolve(txns, version)
+        if got.verdicts != want.verdicts:
+            fail(f"resolver-role batch {i}: verdicts differ from the oracle")
+        if got.conflicting_key_ranges != want.conflicting_key_ranges:
+            fail(f"resolver-role batch {i}: conflicting key ranges differ")
+        n_conflict += sum(int(v) == 0 for v in got.verdicts)
+    launches, launch_bytes = launch_totals()
+    cs.check_overflow()
+    if n_conflict == 0:
+        fail("resolver-role stream produced no conflicts; it checks nothing")
+    steady = sorted(times[1:])
+    p50 = statistics.median(steady) * 1e3
+    p99 = steady[min(len(steady) - 1, int(0.99 * len(steady)))] * 1e3
+    log(f"  {len(stream)} batches x {ROLE_TXNS} txns (W = "
+        f"{cfg.key_words}, history {cfg.history_capacity}, window "
+        f"{ROLE_WINDOW}) identical to ConflictOracle, reports included "
+        f"({n_conflict} conflicts); resolve() p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms per batch (batches 1..); tier peak "
+        f"{max(occupancy)} live rows of {ROLE_HISTORY}; launches {launches}")
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(stream), p50_ms=p50,
+                p99_ms=p99, conflicts=n_conflict, peak_rows=max(occupancy))
+
+
 def phase_oracle(device) -> None:
-    """2,048-txn contended stream through resolve() on three configs
-    (exact; latched + dedup; sweep + spill + latch): verdicts and
-    conflict reports identical to the copied ConflictOracle."""
+    """2,048-txn contended stream through resolve() on four configs
+    (exact; latched + dedup; sweep + spill + latch; classic): verdicts
+    and conflict reports identical to the copied ConflictOracle; and the
+    classic config in groups of 4 (resolve_group_args), verdicts
+    identical."""
     from foundationdb_tpu_torch import make_conflict_set
     from foundationdb_tpu_torch.models.types import CommitTransaction
     from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
-    from foundationdb_tpu_torch.utils.packing import unpack_key
+    from foundationdb_tpu_torch.utils.packing import (
+        pack_batch,
+        stack_device_args,
+        unpack_key,
+    )
 
     n = 2048
     base = bench_config(n).scaled(compact_interval=3)
@@ -909,6 +1440,7 @@ def phase_oracle(device) -> None:
         "sweep + spill + latch": base.scaled(
             range_sweep=True, delta_spill=True, fixpoint_latch=True,
             fixpoint_unroll=4, delta_capacity=6 * n, compact_interval=0),
+        "classic": base.scaled(delta_capacity=0),
     }
     for name, cfg in configs.items():
         cs = make_conflict_set(cfg, "cuda")
@@ -923,6 +1455,21 @@ def phase_oracle(device) -> None:
         log(f"  {name}: 8 batches x {n} txns identical to ConflictOracle "
             f"({n_conflict} conflicts; latchTrips {c['latchTrips']}, "
             f"spills {c['spills']}, sweepGroups {c['sweepGroups']})")
+    # the classic group kernel: groups of 4 through resolve_group_args
+    cs = make_conflict_set(configs["classic"], "cuda")
+    for lo in range(0, len(stream), 4):
+        part = stream[lo:lo + 4]
+        out = cs.resolve_group_args(stack_device_args([
+            pack_batch(txns, version, cs.base_version, cs.config)
+            for txns, version, _ in part]))
+        verdict = out.verdict.cpu().numpy()
+        for j, (txns, _, want) in enumerate(part):
+            if [int(v) for v in verdict[j, :len(txns)]] != [
+                    int(v) for v in want.verdicts]:
+                fail(f"oracle batch {lo + j} (classic, G=4): verdicts "
+                     "differ")
+    log(f"  classic, groups of 4: 8 batches x {n} txns identical to "
+        f"ConflictOracle, verdict for verdict")
 
 
 def build_summary(built: dict) -> None:
@@ -959,27 +1506,37 @@ def main() -> int:
     log("  " + json.dumps(fp))
     log("== build")
     t0 = time.perf_counter()
+    count_launch_bytes()
     built = kernels.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     build_summary(built)
     cfg = bench_config(B)
     zipf = zipf_stream(cfg, ZIPF_BATCHES)
     ycsb = ycsb_stream(cfg, YCSB_GROUPS * GROUP)
+    uni = uniform_stream(cfg, N_BATCHES)
     dedup_u, max_uniq = dedup_size(zipf)
     log("== 2. kernels vs plain versions (bench shapes)")
-    ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u)
+    ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u,
+                           uni[:GROUP])
     torch_ops = phase_torch_ops(device)
     log("== 3. uniform stream (bench default, exact)")
-    uniform = phase_stream(device)
+    uniform = phase_stream(device, uni)
     log("== 4. hot-key stream (bench zipf: latch + read dedup)")
     hot = phase_hot_key(device, zipf, dedup_u, max_uniq)
     log("== 5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
     scan = phase_range_scan(device, ycsb)
-    log("== 6. reduced-shape stream vs ConflictOracle")
+    log("== 6. classic uniform stream (bench BENCH_KERNEL=classic)")
+    classic = phase_classic(device, uni, uniform.pop("outs"))
+    log("== 7. classic hot-key stream (bench classic zipf: latch)")
+    classic_hot = phase_classic_hot(device, zipf)
+    log("== 8. the wire Resolver role's shape vs ConflictOracle")
+    role = phase_resolver_role(device)
+    log("== 9. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
-    path_of = {"read_dedup": hot, "sweep_ranks": scan}
+    path_of = {"read_dedup": hot, "sweep_ranks": scan,
+               **{name: classic for name in CLASSIC_ONLY}}
     rows = []
     for name, info in kernels.KERNELS.items():
         path = path_of.get(name, uniform)
@@ -988,10 +1545,14 @@ def main() -> int:
                          launches=path["launches"][name], **ledger[name]))
     streams = {}
     for tag, st in (("uniform", uniform), ("hot_key", hot),
-                    ("range_scan", scan)):
+                    ("range_scan", scan), ("classic_uniform", classic),
+                    ("classic_hot_key", classic_hot),
+                    ("resolver_role", role)):
         streams[tag] = {k: v for k, v in st.items() if k != "launches"}
         streams[tag]["launches_per_batch"] = {
             k: n / st["batches"] for k, n in st["launches"].items()}
+        streams[tag]["kernel_bound_ms_per_batch"] = device_bound_per_batch(
+            st)
     print(json.dumps({"streams": streams, "torch_ops": torch_ops}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

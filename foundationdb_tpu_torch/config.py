@@ -5,7 +5,8 @@ host packer pads variable-size batches up to these caps. Mirrors the role
 the reference's knobs play for the resolver
 (fdbclient/ServerKnobs.cpp:36-44 — MVCC window knobs). The field set and
 the validation are identical to the JAX package's KernelConfig, so one
-set of arguments configures both; the port serves the tiered path
+set of arguments configures both; the port serves the classic
+single-tier path (delta_capacity 0, the default) and the tiered path
 with the latch, dedup, sweep and spill knobs, and refuses short-span
 ops and sharding where it is constructed
 (models/conflict_set.TorchConflictSet).
@@ -65,8 +66,9 @@ class KernelConfig:
     #: writes land in a delta tier of this boundary capacity, queried
     #: beside the main tier and folded into it by compaction. Must hold
     #: the boundaries written between compactions (<= 2 * max_writes per
-    #: batch, window-trimmed); overflow raises, never truncates. The port
-    #: serves only this path.
+    #: batch, window-trimmed); overflow raises, never truncates. 0 selects
+    #: the classic single-tier kernel (ops/conflict.resolve_batch, and
+    #: the group kernel at G > 1).
     delta_capacity: int = 0
     #: > 0: only this many distinct (begin, end) read ranges per batch
     #: probe the main tier (the hot-key profile); a batch with more trips

@@ -1,10 +1,12 @@
 """State and arguments carried across from the JAX package, as numpy.
 
 The port's counterpart of carrying weights: a conflict set's history
-(a JAX `TieredState`, read out as numpy arrays) becomes the port's state
-on a given device, so a resolver can move between the two packages
-mid-stream with identical decisions after the move. Everything here
-takes and gives numpy only; nothing imports JAX.
+(a JAX `VersionHistory` on the classic path or `TieredState` on the
+tiered one, read out as numpy arrays) becomes the port's state on a
+given device, so a resolver can move between the two packages
+mid-stream with identical decisions after the move
+(`TorchConflictSet.load_state` / `store_state` call these). Everything
+here takes and gives numpy only; nothing imports JAX.
 
 Key words are uint32 on the numpy side and int32 bit patterns on the
 torch side (ops/keys.py); versions are int32 offsets on both.
@@ -80,3 +82,4 @@ def history_to_numpy(h: H.VersionHistory):
 
 def tiered_state_to_numpy(state: D.TieredState):
     return history_to_numpy(state.main), history_to_numpy(state.delta)
+

@@ -34,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps",
-           "sweep_ranks", "read_dedup")
+           "sweep_ranks", "read_dedup", "rangemax2", "seg_fold")
 #: widest packed key (uint32 words) the CUDA kernels are instantiated for
 #: (max_key_bytes <= 28); the plain versions take any width
 MAX_WORDS = 8
@@ -77,6 +77,21 @@ _SIGNATURES = {
                    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
     # vmax_u, uh_in, n, u, vmax, stream
     "dd_gather": ("read_dedup", [_P, _P, _I, _I, _P, _P]),
+    # values, m, chunk, nc, table, ns, op_min, stream
+    "rm2_chunks": ("rangemax2", [_P, _I, _P, _I, _P, _I, _I, _P]),
+    # table, ns, levels, op_min, stream
+    "rm2_levels": ("rangemax2", [_P, _I, _I, _I, _P]),
+    # values, m, chunk, nc, table, ns, lo, hi, q, op_min, out, stream
+    "rm2_query": ("rangemax2",
+                  [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P]),
+    # n -> scratch words (no stream: a host query, see size())
+    "sf_scratch_words": ("seg_fold", [_I]),
+    # wb, we, cw, nw, n, scratch, stream
+    "sf_scatter": ("seg_fold", [_P, _P, _P, _I, _I, _P, _P]),
+    # scratch, n, stream
+    "sf_scan_sums": ("seg_fold", [_P, _I, _P]),
+    # scratch, n, version, seg_ver, stream
+    "sf_paint": ("seg_fold", [_P, _I, _I, _P, _P]),
 }
 
 
@@ -116,6 +131,15 @@ KERNELS = {
         KernelInfo("read_dedup",
                    "foundationdb_tpu_torch/kernels/csrc/read_dedup.cu",
                    "foundationdb_tpu/ops/delta.py:120"),
+        KernelInfo("rangemax2.build",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax2.cu",
+                   "foundationdb_tpu/ops/rangemax.py:119"),
+        KernelInfo("rangemax2.query",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax2.cu",
+                   "foundationdb_tpu/ops/rangemax.py:145"),
+        KernelInfo("seg_fold",
+                   "foundationdb_tpu_torch/kernels/csrc/seg_fold.cu",
+                   "foundationdb_tpu/ops/group.py:588"),
     )
 }
 
@@ -234,6 +258,15 @@ def launch(entry: str, count: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     COUNTS[count] += 1
+
+
+def size(entry: str, *ints: int) -> int:
+    """Call a C entry point that answers a size on the host (no launch,
+    no stream, not counted): the kernel's own sizing of its scratch."""
+    n = _fn(entry)(*(int(i) for i in ints))
+    if n < 0:
+        raise RuntimeError(f"{entry}{ints}: invalid size {n}")
+    return n
 
 
 def check_cuda(name: str, *tensors, dtype=torch.int32) -> torch.device:

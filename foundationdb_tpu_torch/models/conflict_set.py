@@ -1,14 +1,19 @@
 """TorchConflictSet: the host-facing conflict-detection object of the port.
 
-Port of the tiered, exact surface of foundationdb_tpu.models.
-conflict_set.TpuConflictSet: persistent two-tier MVCC write history on a
-device plus a batch-at-a-time detect API (the reference's ConflictSet +
+Port of foundationdb_tpu.models.conflict_set.TpuConflictSet on one
+device: persistent MVCC write history on a device plus a
+batch-at-a-time detect API (the reference's ConflictSet +
 ConflictBatch, fdbserver/include/fdbserver/ConflictSet.h:30-75).
 
-* State is an ops.delta.TieredState on `device` (the card unless the
-  caller asks for the CPU); every batch runs the tiered kernel
-  (ops/delta.py) and the host folds delta into main every
-  `config.compact_interval` batches.
+* With `delta_capacity > 0` (tiered) the state is an ops.delta.
+  TieredState on `device` (the card unless the caller asks for the
+  CPU); every batch runs the tiered kernel (ops/delta.py) and the host
+  folds delta into main every `config.compact_interval` batches.
+* With `delta_capacity == 0` (classic, the config's default) the state
+  is one ops.history.VersionHistory tier: a batch runs
+  ops/conflict.resolve_batch (K15), a stacked group the group kernel at
+  G > 1 with its cross-batch phase (ops/group.py, K14), and
+  `resolve_args_scan` K batches in order.
 * Versions are int32 offsets of `base_version`; `_maybe_rebase` shifts
   every stored offset (NEG stays NEG) when the chain drifts too far.
 * Capacity overflow is latched on the device and surfaced in every
@@ -18,7 +23,8 @@ ConflictBatch, fdbserver/include/fdbserver/ConflictSet.h:30-75).
 * The hot-key and range-scan profiles: `fixpoint_latch` and
   `dedup_reads` may refuse a group (`unconverged`, state unchanged);
   the dispatch then re-runs the same arguments on the exact
-  configuration, so no latched verdict is ever handed out.
+  configuration, so no latched verdict is ever handed out (on the
+  classic path, `resolve_group_args` with the fixpoint latch).
   `range_sweep` swaps the main-tier probe for the endpoint sweep, and
   `delta_spill` compacts before a dispatch whose worst-case boundary
   count could overflow the delta tier.
@@ -29,8 +35,7 @@ The profile router (`profile_batch`, `profile_transactions`,
 `backend_for_profile`, `fallback_free`) is the JAX package's host-side
 classifier, copied: it answers "cuda" where the JAX one answers "tpu".
 
-Refused, not ported yet: short-span ops, sharding, and a config without
-a delta tier (the classic single-tier kernel).
+Refused, not ported yet: short-span ops and sharding.
 """
 
 from __future__ import annotations
@@ -88,10 +93,11 @@ class KernelStageMetrics:
     """Per-stage telemetry of the resolve paths.
 
     pack / kernel / fence are host wall-clock seconds: "kernel" covers
-    the dispatch of the tiered kernel (asynchronous on the card except
-    the fixpoint loop's syncs), "fence" the reply assembly that waits
-    for the verdicts. Occupancy and device memory are sampled on the
-    overflow-check syncs; `fixpoint` counts the fixpoint's depth.
+    the dispatch of the tiered or classic kernel (asynchronous on the
+    card except the fixpoint loop's and the latch's syncs), "fence" the
+    reply assembly that waits for the verdicts. Occupancy and device
+    memory are sampled on the overflow-check syncs; `fixpoint` counts
+    the fixpoint's depth.
     """
 
     COUNTERS = ("resolveBatches", "groupDispatches", "compactions",
@@ -172,11 +178,6 @@ def _rebase_tiered(state: D.TieredState, delta: int) -> D.TieredState:
 
 
 def _check_config(config: KernelConfig) -> None:
-    if config.delta_capacity <= 0:
-        raise ValueError(
-            "the port serves the tiered path only (delta_capacity > 0); "
-            "the classic single-tier kernel is not ported yet"
-        )
     if config.n_shards > 1:
         raise ValueError("the sharded kernel is not ported yet")
     for knob in _VARIANT_KNOBS:
@@ -188,7 +189,7 @@ def _check_config(config: KernelConfig) -> None:
 
 
 class TorchConflictSet:
-    """Batch MVCC conflict detection with device-resident tiered history."""
+    """Batch MVCC conflict detection with device-resident history."""
 
     def __init__(self, config: KernelConfig, base_version: int = 0, *,
                  device=None):
@@ -201,7 +202,9 @@ class TorchConflictSet:
             # the first decision (the CPU lanes call it directly)
             rangemax.flat_gather_selftest(config.history_capacity,
                                           device=self.device)
-        self.state = D.init(config, self.device)
+        self.tiered = config.delta_capacity > 0
+        self.state = (D.init(config, self.device) if self.tiered
+                      else H.init(config, self.device))
         self.metrics = KernelStageMetrics()
         self._batches_since_check = 0
         self._batches_since_compact = 0
@@ -210,6 +213,35 @@ class TorchConflictSet:
         #: delta_spill pressure signal, host arithmetic only, so a spill
         #: decision never costs a device sync
         self._spill_bound_rows = 0
+
+    # -- state carried across from the JAX package ----------------------
+
+    def load_state(self, state, base_version: int,
+                   batches_since_compact: int = 0,
+                   spill_bound_rows: int = 0) -> None:
+        """Take over a JAX `TpuConflictSet`'s history (same config)
+        mid-stream.
+
+        `state` is, as numpy, the JAX state's leaves: a classic
+        `VersionHistory`'s four (`[np.asarray(x) for x in jax_cs.state]`),
+        or a tiered (main leaves, delta leaves) pair. The counters are
+        the JAX set's (`base_version`, `_batches_since_compact`,
+        `_spill_bound_rows`), so versions rebase, the delta tier
+        compacts and spills at the same points after the move."""
+        if self.tiered:
+            self.state = interop.tiered_state_from_numpy(*state, self.device)
+        else:
+            self.state = interop.history_from_numpy(*state, self.device)
+        self.base_version = int(base_version)
+        self._batches_since_compact = int(batches_since_compact)
+        self._spill_bound_rows = int(spill_bound_rows)
+
+    def store_state(self):
+        """(state as numpy, base_version): the state in the leaf order
+        load_state takes (and the JAX package's history leaves have)."""
+        state = (interop.tiered_state_to_numpy(self.state) if self.tiered
+                 else interop.history_to_numpy(self.state))
+        return state, self.base_version
 
     # -- ConflictBatch-equivalent API -----------------------------------
 
@@ -225,7 +257,11 @@ class TorchConflictSet:
         )
         self.metrics.pack.sample(time.perf_counter() - t0)
         self.metrics.add("resolveBatches")
-        out = self.resolve_args(batch.device_args())
+        if self.tiered:
+            out = self.resolve_args(batch.device_args())
+        else:
+            # the reply assembly below reads the overflow flag itself
+            out = self._resolve_classic(batch.device_args())
         t2 = time.perf_counter()
         result = self._assemble_result(
             batch, out,
@@ -240,18 +276,20 @@ class TorchConflictSet:
     def _maybe_rebase(self, version: int) -> None:
         if version - self.base_version > REBASE_THRESHOLD:
             delta = version - self.base_version - (1 << 20)
-            self.state = _rebase_tiered(self.state, delta)
+            self.state = (_rebase_tiered(self.state, delta) if self.tiered
+                          else _rebase(self.state, delta))
             self.base_version += delta
             self.metrics.add("rebases")
 
     def _raise_overflow(self) -> None:
         self._batches_since_check = 0
         self.metrics.add("overflowRaised")
+        cap = f"history_capacity={self.config.history_capacity}"
+        if self.tiered:
+            cap += f" / delta_capacity={self.config.delta_capacity}"
         raise HistoryOverflowError(
-            f"history_capacity={self.config.history_capacity} / "
-            f"delta_capacity={self.config.delta_capacity} exceeded; "
-            "increase it (or lower the MVCC window / write rate, or "
-            "compact the delta tier more often)"
+            f"{cap} exceeded; increase it (or lower the MVCC window / "
+            "write rate, or compact the delta tier more often)"
         )
 
     def resolve_packed(self, batch: packing.PackedBatch) -> C.BatchVerdict:
@@ -262,24 +300,105 @@ class TorchConflictSet:
     def resolve_args(self, args: dict,
                      check_latch: bool = True) -> C.BatchVerdict:
         """One batch's device_args (numpy, or already converted by
-        interop.device_args_to_torch) through the tiered kernel."""
+        interop.device_args_to_torch) through the tiered kernel, or on
+        the classic path through resolve_batch (exact: the classic
+        single batch has no latch, as in the JAX package)."""
+        if not self.tiered:
+            out = self._resolve_classic(args)
+            self.metrics.add("resolveBatches")
+            self._maybe_check_overflow()
+            return out
         stacked = {k: v[None] if isinstance(v, torch.Tensor)
                    else np.asarray(v)[None] for k, v in args.items()}
         outs = self._dispatch_tiered(stacked, check_latch=check_latch)
         return C.BatchVerdict(*(getattr(outs, f)[0]
                                 for f in C.BatchVerdict._fields))
 
+    def _resolve_classic(self, args: dict) -> C.BatchVerdict:
+        t0 = time.perf_counter()
+        self.state, out = C.resolve_batch(
+            self.state, args, fixpoint_unroll=self.config.fixpoint_unroll,
+            stats=self.metrics.fixpoint)
+        self.metrics.kernel.sample(time.perf_counter() - t0)
+        return out
+
+    def resolve_args_scan(self, stacked_args: dict):
+        """K batches stacked on a leading axis, resolved in order in one
+        dispatch: batch i + 1 sees batch i's merged writes.
+
+        Classic: K resolve_batch calls (the JAX package's _resolve_scan),
+        a BatchVerdict with [K]-leading leaves. Tiered: the tiered group
+        kernel, a GroupVerdict, as in the JAX package."""
+        if self.tiered:
+            return self._dispatch_tiered(stacked_args)
+        g = interop.device_args_to_torch(stacked_args, self.device)
+        kb = int(np.asarray(g["version"]).shape[0])
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(kb):
+            self.state, out = C.resolve_batch(
+                self.state, {k: v[i] for k, v in g.items()},
+                fixpoint_unroll=self.config.fixpoint_unroll,
+                stats=self.metrics.fixpoint)
+            outs.append(out)
+        self.metrics.kernel.sample(time.perf_counter() - t0)
+        self.metrics.add("groupDispatches")
+        self._batches_since_check += kb - 1
+        self._maybe_check_overflow()
+        return C.BatchVerdict(*(torch.stack([getattr(o, f) for o in outs])
+                                for f in C.BatchVerdict._fields))
+
     def resolve_group_args(self, stacked_args: dict,
                            check_latch: bool = True) -> G.GroupVerdict:
-        """G stacked batches (versions ascending) in one dispatch: one
-        main-table build, then the per-batch loop.
+        """G stacked batches (versions ascending) in one dispatch.
 
-        With the fixpoint latch or read dedup a group may come back
-        refused (`unconverged`, state unchanged); by default this
-        re-runs it on the exact configuration, so the caller never sees
-        a latched verdict. `check_latch=False` hands back the refused
-        group as it is (the caller falls back itself)."""
-        return self._dispatch_tiered(stacked_args, check_latch=check_latch)
+        Tiered: one main-table build, then the per-batch loop. Classic:
+        the group kernel (ops/group.resolve_group; G <= MAX_GROUP,
+        versions strictly ascending or ValueError), one merge per group.
+
+        With the fixpoint latch (or, tiered, read dedup) a group may come
+        back refused (`unconverged`, state unchanged); by default this
+        re-runs it on the exact configuration, same arguments and same
+        input state, so the caller never sees a latched verdict.
+        `check_latch=False` hands back the refused group as it is (the
+        caller falls back itself)."""
+        if self.tiered:
+            return self._dispatch_tiered(stacked_args,
+                                         check_latch=check_latch)
+        return self._dispatch_classic(stacked_args, check_latch=check_latch)
+
+    def _run_classic(self, g: dict, latch: bool):
+        return G.resolve_group(
+            self.state, g, fixpoint_unroll=self.config.fixpoint_unroll,
+            fixpoint_latch=latch, stats=self.metrics.fixpoint,
+        )
+
+    def _dispatch_classic(self, stacked_args: dict,
+                          check_latch: bool = True) -> G.GroupVerdict:
+        """One stacked group on the classic group kernel, honouring the
+        latch contract as _dispatch_tiered does; the overflow check
+        every OVERFLOW_CHECK_INTERVAL batches follows (a group of G
+        counts G)."""
+        g = interop.device_args_to_torch(stacked_args, self.device)
+        versions = np.asarray(g["version"]).astype(np.int64).reshape(-1)
+        if np.any(np.diff(versions) <= 0):
+            raise ValueError(
+                f"group versions must ascend strictly, got {versions.tolist()}"
+                " (the cross-batch fold paints each batch's version over "
+                "the earlier ones)")
+        latch = self.config.fixpoint_latch
+        t0 = time.perf_counter()
+        state2, outs = self._run_classic(g, latch)
+        self.metrics.add("groupDispatches")
+        if latch and check_latch and bool(outs.unconverged.any()):
+            self.metrics.add("latchTrips")
+            self.metrics.add("exactFallbacks")
+            state2, outs = self._run_classic(g, False)
+        self.metrics.kernel.sample(time.perf_counter() - t0)
+        self.state = state2
+        self._batches_since_check += len(versions) - 1
+        self._maybe_check_overflow()
+        return outs
 
     def _run_tiered(self, g: dict, latch: bool, dedup: int):
         return D.resolve_group_tiered(
@@ -342,13 +461,17 @@ class TorchConflictSet:
         on the card this builds (where missing) and loads every kernel
         library, so a fallback costs no nvcc and no dlopen. It runs no
         resolve and leaves the state untouched; on the CPU it does
-        nothing. `stacked_args` is accepted for the JAX signature."""
+        nothing. `stacked_args` is accepted for the JAX signature. The
+        classic path's fallback is served the same way."""
         del stacked_args
         if self.device.type == "cuda":
             kernels.load_all()
 
     def compact_history(self) -> None:
-        """Fold the delta tier into main (ops/delta.compact)."""
+        """Fold the delta tier into main (ops/delta.compact); nothing on
+        the classic path, which has one tier."""
+        if not self.tiered:
+            return
         self._batches_since_compact = 0
         self._spill_bound_rows = 0
         self.metrics.add("compactions")
@@ -373,9 +496,17 @@ class TorchConflictSet:
     def check_overflow(self) -> None:
         """Device sync: raise if a merge ever exceeded a tier's capacity
         (a latched delta overflow survives compaction in main's flag).
-        Samples tier occupancy and device memory, and re-anchors the
-        spill bound, on the same sync."""
+        Samples tier occupancy and device memory, and (tiered)
+        re-anchors the spill bound, on the same sync."""
         self._batches_since_check = 0
+        if not self.tiered:
+            tripped = bool(self.state.overflow)
+            self.metrics.main_occupancy.sample(
+                float(H.boundary_count(self.state)))
+            self.metrics.sample_device_memory(self.device)
+            if tripped:
+                self._raise_overflow()
+            return
         tripped = bool(self.state.main.overflow) or bool(
             self.state.delta.overflow)
         m_cnt, d_cnt = D.boundary_counts(self.state)

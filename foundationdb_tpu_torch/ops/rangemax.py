@@ -10,6 +10,17 @@ level) and `query` is kernel A's query entry (kernels/csrc/keysearch.cu)
 on CUDA tensors; `build_plain` / `query_plain` serve CPU tensors.
 `flat_gather_selftest` checks both against numpy brute force before a
 conflict set serves its first decision.
+
+`build2` / `query2` (K14, the JAX package's two-level table) answer the
+same exact queries over the group kernel's cross-batch map, which is
+rebuilt once per batch at up to 2.1M leaves. On the card kernel G
+(kernels/csrc/rangemax2.cu) builds the 32-row chunk maxima and a
+doubling table over 1024-row superchunk maxima in two launches, and its
+query entry reads the partial chunks and superchunks from the values
+and the chunk maxima. `build2_plain` / `query2_plain` keep the JAX
+layout (the fine levels and the coarse table over the chunk maxima), so
+the CPU tests hold them against the JAX functions directly; a structure
+is queried on the device that built it.
 """
 
 from __future__ import annotations
@@ -110,6 +121,118 @@ def query(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
     out = torch.empty(lo.shape, dtype=torch.int32, device=table.device)
     kernels.launch("ks_query", "keysearch.query", table, table.shape[0],
                    table.shape[1], lo, hi, lo.shape[0], int(op == "min"), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K14: the two-level table
+
+CHUNK_BITS = 5
+CHUNK = 1 << CHUNK_BITS
+#: rows per superchunk of kernel G's table (kSuper in rangemax2.cu)
+SUPER = CHUNK * CHUNK
+
+
+def build2_plain(values: torch.Tensor, *, op: str = "max"):
+    """Plain version of the two-level build, in the JAX layout:
+    (fine [CHUNK_BITS + 1, M2], coarse [Lc, M2 // CHUNK]), M2 the length
+    padded up to a CHUNK multiple with the op identity; fine[k][i] = op
+    over values[i : i + 2**k] (identity past M2), coarse = build over
+    the chunk maxima fine[CHUNK_BITS][::CHUNK]."""
+    fn = _op(op)
+    ident = _IDENT[op]
+    m = values.shape[0]
+    m2 = -(-m // CHUNK) * CHUNK
+    base = torch.cat([values, torch.full((m2 - m,), ident, dtype=values.dtype,
+                                         device=values.device)])
+    levels = [base]
+    for k in range(1, CHUNK_BITS + 1):
+        prev = levels[-1]
+        half = 1 << (k - 1)
+        shifted = torch.cat([prev[half:], torch.full(
+            (half,), ident, dtype=prev.dtype, device=prev.device)])
+        levels.append(fn(prev, shifted))
+    fine = torch.stack(levels)
+    coarse = build_plain(fine[CHUNK_BITS][::CHUNK].contiguous(), op=op)
+    return fine, coarse
+
+
+def query2_plain(tables, lo: torch.Tensor, hi: torch.Tensor, *,
+                 op: str = "max") -> torch.Tensor:
+    """Plain version of the two-level query against a build2_plain
+    structure: spans <= CHUNK from the fine table; wider spans as the
+    head chunk-span, the contained chunks (coarse) and the tail
+    chunk-span, an overlapping cover, exact for max and min."""
+    fine, coarse = tables
+    fn = _op(op)
+    m2 = fine.shape[1]
+    loc = lo.to(torch.int64).clamp(0, m2)
+    hic = hi.to(torch.int64).clamp(0, m2)
+    length = torch.clamp(hic - loc, min=1)
+    ks = _floor_log2(torch.clamp(length, max=CHUNK), CHUNK_BITS + 1)
+    a = loc.clamp(0, m2 - 1)
+    b = (hic - (torch.ones_like(ks) << ks)).clamp(0, m2 - 1)
+    flat = fine.reshape(-1)
+    top = CHUNK_BITS * m2
+    short = fn(flat[ks * m2 + a], flat[ks * m2 + b])
+    head = flat[top + a]
+    tail = flat[top + (hic - CHUNK).clamp(0, m2 - 1)]
+    c0 = (loc + CHUNK - 1) >> CHUNK_BITS
+    c1 = hic >> CHUNK_BITS
+    mid = query_plain(coarse, c0, c1, op=op)
+    wide = fn(fn(head, tail), mid)
+    out = torch.where(length <= CHUNK, short, wide)
+    return torch.where(hic > loc, out, torch.full_like(out, _IDENT[op]))
+
+
+def build2(values: torch.Tensor, *, op: str = "max"):
+    """The two-level structure of `values` ([M] int32, M >= 1).
+
+    On the card: (values, chunk maxima [ceil(M / CHUNK)], the doubling
+    table [L, ceil(M / SUPER)] over the superchunk maxima), two launches
+    of kernel G. On the CPU: build2_plain's JAX layout. Pass the result
+    to query2 on the same device."""
+    _op(op)
+    if values.ndim != 1 or values.shape[0] < 1:
+        raise ValueError(f"build2: values shape {tuple(values.shape)}")
+    if values.device.type == "cpu":
+        return build2_plain(values, op=op)
+    kernels.check_cuda("rangemax.build2", values)
+    if values.data_ptr() % 16:   # kernel G reads whole 16-byte words
+        values = values.clone()
+    m = values.shape[0]
+    nc, ns = -(-m // CHUNK), -(-m // SUPER)
+    levels = _num_levels(ns)
+    chunk = torch.empty((nc,), dtype=torch.int32, device=values.device)
+    table = torch.empty((levels, ns), dtype=torch.int32, device=values.device)
+    op_min = int(op == "min")
+    kernels.launch("rm2_chunks", "rangemax2.build", values, m, chunk, nc,
+                   table, ns, op_min)
+    kernels.launch("rm2_levels", "rangemax2.build", table, ns, levels, op_min)
+    return values, chunk, table
+
+
+def query2(tables, lo: torch.Tensor, hi: torch.Tensor, *,
+           op: str = "max") -> torch.Tensor:
+    """Exact op over [lo, hi) per element against a build2 structure ->
+    [Q] int32; the op identity where the range is empty."""
+    _op(op)
+    if lo.shape != hi.shape or lo.ndim != 1:
+        raise ValueError("query2: a build2 structure and lo, hi [Q] expected")
+    if tables[0].device.type == "cpu":
+        return query2_plain(tables, lo, hi, op=op)
+    if len(tables) != 3:
+        raise ValueError("query2: not a structure build2 made on the card")
+    values, chunk, table = tables
+    kernels.check_cuda("rangemax.query2", values, chunk, table, lo, hi)
+    m = values.shape[0]
+    if (values.ndim != 1 or chunk.shape != (-(-m // CHUNK),)
+            or table.ndim != 2 or table.shape[1] != -(-m // SUPER)):
+        raise ValueError("query2: not a structure build2 made on the card")
+    out = torch.empty(lo.shape, dtype=torch.int32, device=values.device)
+    kernels.launch("rm2_query", "rangemax2.query", values, m, chunk,
+                   chunk.shape[0], table, table.shape[1], lo, hi,
+                   lo.shape[0], int(op == "min"), out)
     return out
 
 

@@ -25,6 +25,7 @@ import torch
 from foundationdb_tpu_torch import kernels, make_conflict_set
 from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.ops import delta as D
+from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
@@ -100,14 +101,18 @@ def test_missing_card_raises(monkeypatch):
 
 
 def test_variant_knobs_are_refused():
-    """The variants not ported yet are refused; the latch, dedup, sweep
-    and spill knobs are served (tests/test_torch_variants.py)."""
+    """The variants not ported yet (short-span ops, sharding) are
+    refused on both paths; the classic single-tier path (no delta tier)
+    and the latch, dedup, sweep and spill knobs are served
+    (tests/test_torch_classic.py, tests/test_torch_variants.py)."""
     for kw in ({"short_span_limit": 4}, {"n_shards": 2},
-               {"delta_capacity": 0}):
+               {"short_span_limit": 4, "delta_capacity": 0}):
         with pytest.raises(ValueError):
             make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
     for kw in ({"fixpoint_latch": True}, {"dedup_reads": 8},
-               {"range_sweep": True}, {"delta_spill": True}):
+               {"range_sweep": True}, {"delta_spill": True},
+               {"delta_capacity": 0},
+               {"delta_capacity": 0, "fixpoint_latch": True}):
         make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
 
 
@@ -134,6 +139,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     live = torch.ones((q.shape[0],), dtype=torch.bool)
     D.sweep_read_ranks(keys, q, q, live)
     D.dedup_vmax(hist, tab, q, q, live, 8)
+    R.query2(R.build2(vals, op="max"), lo, lo + 40, op="max")
+    G.seg_fold(vals, lo, lo + 3, lo > 4, 7)
     assert kernels.counts() == {name: 0 for name in kernels.KERNELS}
 
 

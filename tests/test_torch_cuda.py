@@ -33,6 +33,9 @@ from foundationdb_tpu_torch.utils.packing import stack_device_args
 
 pytestmark = pytest.mark.cuda
 
+#: the kernels only the classic group kernel at G > 1 launches
+CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
+
 
 @pytest.fixture
 def cuda_device():
@@ -142,10 +145,13 @@ def test_stream_matches_cpu_plain_path(cuda_device):
         got, want = gpu.resolve_packed(pb), cpu.resolve_packed(pb)
         for f in want._fields:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
-    # the exact uniform path launches every kernel but the two variant
-    # probes (sweep_ranks, read_dedup: test_variant_stream_... below)
+    # the exact uniform tiered path launches every kernel but the two
+    # variant probes (sweep_ranks, read_dedup: test_variant_stream_...
+    # below) and the classic group kernel's cross phase (kernels G and
+    # H: test_classic_stream_matches_cpu_plain_path)
     for name, n in kernels.counts().items():
-        assert (n > 0) == (name not in ("sweep_ranks", "read_dedup")), name
+        assert (n > 0) == (name not in ("sweep_ranks", "read_dedup",
+                                        *CLASSIC_ONLY)), name
 
 
 def test_sweep_ranks(cuda_device):
@@ -253,3 +259,103 @@ def test_variant_stream_matches_cpu_plain_path(cuda_device, profile):
     assert gpu.metrics.counters == cpu.metrics.counters
     name = "read_dedup" if profile == "hot_key" else "sweep_ranks"
     assert kernels.COUNTS[name] > 0
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("m", [1, 33, 5000, 70_001, 2_097_152])
+def test_rangemax2(cuda_device, op, m):
+    """Kernel G against the plain two-level structure: the chunk maxima
+    and the superchunk table row for row, and every query (spans within
+    a chunk, across chunks and superchunks, empty, clipped), up to the
+    2,097,152 ranks of a bench-shape group of 8 (all 12 table levels)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    built = R.build2(vals, op=op)
+    plain = R.build2_plain(vals, op=op)
+    chunk = plain[0][R.CHUNK_BITS][::R.CHUNK]
+    assert_launched_and_equal("rangemax2.build", built[1], chunk)
+    ident = R.INT32_POS if op == "min" else R.INT32_NEG
+    ns = built[2].shape[1]
+    padded = torch.full((ns * R.CHUNK,), ident, dtype=torch.int32,
+                        device=cuda_device)
+    padded[:chunk.shape[0]] = chunk
+    fold = padded.reshape(ns, R.CHUNK)
+    fold = fold.min(dim=1).values if op == "min" else fold.max(dim=1).values
+    assert torch.equal(built[2], R.build_plain(fold, op=op))
+    q = 20_000
+    lo = torch.randint(-3, m + 40, (q,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    span = torch.randint(-4, 40, (q,), generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    span[::3] = torch.randint(0, m + 64, (len(range(0, q, 3)),),
+                              generator=gen, device=cuda_device,
+                              dtype=torch.int32)
+    span[1::3] = torch.randint(0, 3000, (len(range(1, q, 3)),),
+                               generator=gen, device=cuda_device,
+                               dtype=torch.int32)
+    hi = lo + span
+    assert_launched_and_equal("rangemax2.query",
+                              R.query2(built, lo, hi, op=op),
+                              R.query2_plain(plain, lo, hi, op=op))
+
+
+@pytest.mark.parametrize("n", [1, 4096, 20_000])
+def test_seg_fold(cuda_device, n):
+    """Kernel H against its plain version: random writes, inverted and
+    empty ones, and one write over the whole space, both painting in
+    place; one scratch serves every fold (each leaves it zero)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    nw = 3000
+    seg = torch.randint(-5, 50, (n,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    wb = torch.randint(0, n, (nw,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    we = (wb + torch.randint(-3, 300, (nw,), generator=gen,
+                             device=cuda_device, dtype=torch.int32)
+          ).clamp(0, n - 1)
+    cw = torch.rand((nw,), generator=gen, device=cuda_device) < 0.7
+    scratch = G.seg_fold_scratch(n, cuda_device)
+    for whole in (False, True):
+        if whole:
+            wb[0], we[0], cw[0] = 0, n - 1, True
+        want = G.seg_fold_plain(seg.clone(), wb, we, cw, 77)
+        got = seg.clone()
+        assert G.seg_fold(got, wb, we, cw, 77, scratch) is got
+        assert_launched_and_equal("seg_fold", got, want)
+        assert not scratch.any()
+
+
+def test_classic_stream_matches_cpu_plain_path(cuda_device):
+    """The classic single-tier path in groups of 4 (the group kernel with
+    its cross phase) and batch by batch (resolve_batch): the card and
+    the CPU plain path field for field, the tier alike, kernels G and H
+    launched by the groups."""
+    n = 1024
+    cfg = KernelConfig(max_key_bytes=8, max_txns=n, max_reads=n,
+                       max_writes=n, history_capacity=24 * n,
+                       window_versions=5000)
+    rng = np.random.default_rng(9)
+    batches = [skiplist_style_batch(rng, cfg, n, version=1000 * (i + 1),
+                                    keyspace=4000, snapshot_lag=2000)
+               for i in range(8)]
+    gpu = make_conflict_set(cfg, "cuda", device=cuda_device)
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    seq = make_conflict_set(cfg, "cuda", device=cuda_device)
+    kernels.reset_counts()
+    for lo in (0, 4):
+        stacked = stack_device_args(batches[lo:lo + 4])
+        got = gpu.resolve_group_args(stacked)
+        want = cpu.resolve_group_args(stacked)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        for i, pb in enumerate(batches[lo:lo + 4]):
+            one = seq.resolve_packed(pb)
+            for f in one._fields:
+                assert torch.equal(getattr(one, f).cpu(),
+                                   getattr(want, f)[i]), f
+    for part in ("main_keys", "main_ver"):
+        assert torch.equal(getattr(gpu.state, part).cpu(),
+                           getattr(cpu.state, part)), part
+    for name in CLASSIC_ONLY:
+        assert kernels.COUNTS[name] > 0, name

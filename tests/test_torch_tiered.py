@@ -268,13 +268,11 @@ def test_state_carried_across_from_jax():
     for txns, v in stream[:4]:
         jax_cs.resolve(txns, v)
     port = make_conflict_set(KernelConfig(**kw), "cuda", device="cpu")
-    port.state = interop.tiered_state_from_numpy(
-        [np.asarray(x) for x in jax_cs.state.main],
-        [np.asarray(x) for x in jax_cs.state.delta],
-        "cpu",
-    )
-    port.base_version = jax_cs.base_version
-    port._batches_since_compact = jax_cs._batches_since_compact
+    port.load_state(
+        ([np.asarray(x) for x in jax_cs.state.main],
+         [np.asarray(x) for x in jax_cs.state.delta]),
+        jax_cs.base_version, jax_cs._batches_since_compact,
+        jax_cs._spill_bound_rows)
     assert_state_equal(port.state, jax_cs.state)
     for txns, v in stream[4:]:
         rj, rt = jax_cs.resolve(txns, v), port.resolve(txns, v)

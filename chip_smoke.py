@@ -12,7 +12,8 @@ any fault:
    (65,536-txn batches, 8-byte keys, 786,432-row tiers; kernel E over a
    group of 8 YCSB-E batches, kernel F over a zipf batch, kernels G and
    H over the 2,097,152-rank endpoint space of a group of 8 uniform
-   batches), held exactly
+   batches, kernels I and J at a group of 8 uniform batches on 4
+   shards), held exactly
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
    single PyTorch call computing the same function;
@@ -36,18 +37,31 @@ any fault:
    to the same batches one at a time (`resolve_batch`) on the card, the
    single tier identical after every group, every batch identical to
    the tiered uniform stream of phase 3, group 0 to the CPU plain path;
+   each of G = 8 and G = 1 profiled over one more group or batch;
 7. the classic hot-key stream (bench `BENCH_KERNEL=classic
    BENCH_MODE=zipf`: the latch, unroll 8, groups of 8): identical to the
    exact classic config on the card, and a forced-trip run (unroll 1)
-   whose groups fall back with the same results;
+   whose groups fall back with the same results; one more group
+   profiled;
 8. the wire Resolver role's default shape (16-byte keys, 1,024 txns,
    4,096 reads and writes, a 65,536-row tier, no delta tier) through
    `resolve()`, verdicts and conflict reports identical to the copied
-   ConflictOracle, with p50 / p99 ms per batch;
-9. a reduced-shape contended stream (2,048 txns) through `resolve()`,
-   exact, latched + dedup, sweep + spill, and classic (one batch at a
-   time, and groups of 4 through `resolve_group_args`): each must match
-   the copied ConflictOracle verdict for verdict.
+   ConflictOracle, with p50 / p99 ms per batch; one more batch profiled;
+9. the sharded uniform stream: four resolvers on the card over the
+   keyspace quartiles (`n_shards=4`, 786,432-row tiers each), 3 groups
+   of 8 uniform batches, exact, every field identical to four
+   independent single-shard conflict sets fed batches clipped by this
+   script's numpy clip and combined here with numpy, each shard's tiers
+   identical to its own set's after every group (kernels I and J
+   launched); then 2 groups of 8 YCSB-E batches at 4 shards with sweep +
+   spill + latch, identical to the probe path on the card, and a
+   forced-trip group (the latch at unroll 1) that falls back on every
+   shard with the exact run's results;
+10. a reduced-shape contended stream (2,048 txns) through `resolve()`,
+   exact, latched + dedup, sweep + spill, classic (one batch at a
+   time, and groups of 4 through `resolve_group_args`) and sharded at 2
+   and 4 shards: each must match the copied ConflictOracle (the sharded
+   ones the copied MultiResolverOracle) verdict for verdict.
 
 The last lines are the streams' numbers (JSON), the kernel ledger
 (JSON), the card's name and power limit, and `{"ok": true, "device":
@@ -86,6 +100,9 @@ ZIPF_UNROLL = 8
 TRIP_U = 16_384             # a dedup cap under the zipf stream's count
 YCSB_GROUPS = 4
 YCSB_UNROLL = 14
+SHARDS = 4                  # resolvers of the sharded stream, on one card
+SHARD_GROUPS = 3            # uniform groups of 8 through the shards
+SHARD_YCSB_GROUPS = 2
 # the wire ResolverRole's default KernelConfig (cluster/multiprocess.py
 # of the JAX package) and its MVCC window
 ROLE_TXNS = 1024
@@ -532,6 +549,48 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     if scratch is not None:   # the card's kernel; None on the CPU
         exact("seg_fold scratch left zero", scratch,
               torch.zeros_like(scratch))
+
+    # -- I and J: the sharded path's clip and combine at a group of 8
+    #    uniform batches on 4 shards split at the keyspace quartiles
+    from foundationdb_tpu_torch.parallel import sharding as SH
+
+    ug = interop.device_args_to_torch(groups_of(uniform_group)[0], device)
+    plo, phi = SH.partition_tensors(quartiles(), bench_config(B), device)
+
+    def fields(name, got, want):
+        if isinstance(want, dict):
+            return max(exact(f"{name} {k}", got[k], want[k]) for k in want)
+        return max(exact(f"{name} {f}", getattr(got, f), getattr(want, f))
+                   for f in want._fields)
+
+    live = SH.clip_batch_plain(ug, plo, phi)["read_valid"].sum(dim=(1, 2))
+    log(f"  shard_clip input: {GROUP} uniform batches of {B} reads and "
+        f"writes, {SHARDS} shards at the quartiles; live reads per shard "
+        f"{live.tolist()}")
+    rows = 2 * GROUP * B
+    entry("shard_clip",
+          lambda: SH.clip_batch(ug, plo, phi),
+          lambda: SH.clip_batch_plain(ug, plo, phi),
+          n_bytes=clip_bytes(SHARDS, W, GROUP, B, B, B),
+          n_ops=rows * SHARDS * 5 * W, check=fields)
+    # J: the shape the combine gets on that path, verdict codes and first
+    # indices drawn at random (a tenth of txns with an intra hit)
+    codes = torch.tensor([0, 1, 3], dtype=torch.int32, device=device)
+    jv = codes[torch.randint(0, 3, (SHARDS, GROUP, B), generator=gen,
+                             device=device)]
+    jf = torch.randint(0, B, (SHARDS, GROUP, B), generator=gen,
+                       device=device, dtype=torch.int32)
+    jf[torch.rand((SHARDS, GROUP, B), generator=gen, device=device) < 0.9] = -1
+    jh = torch.rand((SHARDS, GROUP, B), generator=gen, device=device) < 0.01
+    jo = torch.zeros((SHARDS, GROUP), dtype=torch.bool, device=device)
+    jt = torch.zeros((SHARDS,), dtype=torch.bool, device=device)
+    jt[1] = True
+    jargs = (jv, jf, jh, jo, jt, ug["txn_valid"])
+    entry("shard_combine",
+          lambda: SH.combine(*jargs),
+          lambda: SH.combine_plain(*jargs),
+          n_bytes=combine_bytes(SHARDS, GROUP, B, B),
+          n_ops=SHARDS * GROUP * 3 * B, check=fields)
     return ledger
 
 
@@ -573,7 +632,25 @@ def _launch_bytes(entry: str, a: list) -> int:
         return 12 * a[8]
     if entry == "sf_scatter":            # wb, we, cw, nw, ...
         return 9 * a[3]
+    if entry == "sc_clip":
+        return clip_bytes(*(a[i] for i in (2, 3, 8, 9, 13, 14)))
+    if entry == "sc_combine":            # ..., s (6), gn, b, nr
+        return combine_bytes(*a[6:10])
     return 0  # mc_sweep_level, dd_compact, sf_scan_sums, sf_paint
+
+
+def clip_bytes(s: int, w: int, gn: int, nr: int, nw: int, b: int) -> int:
+    """Kernel I's bytes: each range read once (keys, valid byte, a read's
+    txn), its S clipped copies and the [S, G, B] has_reads written once."""
+    reads, writes = gn * nr, gn * nw
+    return (reads * (8 * w + 5) + writes * (8 * w + 1) + 8 * s * w
+            + s * ((reads + writes) * (8 * w + 1) + gn * b))
+
+
+def combine_bytes(s: int, gn: int, b: int, nr: int) -> int:
+    """Kernel J's bytes: S shards' verdicts, first indices, hits and flags
+    read once, the combined ones and the counts written once."""
+    return (s + 1) * gn * (8 * b + nr + 1) + s + gn * b + 1 + 12 * gn
 
 
 #: the byte floor of every launch since reset_launches()
@@ -687,8 +764,8 @@ def rm2_expected(plain, op: str):
 
 def phase_torch_ops(device) -> dict:
     """K10 (the version rebase of both tiers) and K21 (the live-boundary
-    counts of both tiers): plain torch ops in the port, timed at the
-    tiers' size beside their byte bound."""
+    counts of both tiers, and of 4 shards' tiers): plain torch ops in the
+    port, timed at the tiers' size beside their byte bound."""
     import torch
 
     from foundationdb_tpu_torch.models.conflict_set import _rebase_tiered
@@ -707,17 +784,23 @@ def phase_torch_ops(device) -> dict:
             (), dtype=torch.bool, device=device))
 
     state = D.TieredState(main=tier(M // 2), delta=tier(M // 2))
+    shards = (state,) + tuple(D.TieredState(main=tier(M // 2),
+                                            delta=tier(M // 4))
+                              for _ in range(SHARDS - 1))
     rows = {}
-    for name, fn, n_bytes in (
+    for name, fn, n_bytes, what in (
             ("K10 _rebase_tiered", lambda: _rebase_tiered(state, 1 << 29),
-             2 * M * 4 * 2),
+             2 * M * 4 * 2, "both tiers"),
             ("K21 boundary_counts", lambda: D.boundary_counts(state),
-             2 * M * W * 4 + 2 * 8)):
+             2 * M * W * 4 + 2 * 8, "both tiers"),
+            ("K21 boundary_counts_per_shard",
+             lambda: D.boundary_counts_per_shard(shards),
+             SHARDS * (2 * M * W * 4 + 2 * 8), f"{SHARDS} shards' tiers")):
         t = device_ms(fn)
         b, by = bound_ms(n_bytes, 0)
         rows[name] = dict(ms=t, bound_ms=b, bound_by=by)
-        log(f"  {name:22s} device {t * 1e3:9.1f} us  bound {b * 1e3:7.1f} us"
-            f" ({by}), both tiers of {M} rows")
+        log(f"  {name:29s} device {t * 1e3:9.1f} us  bound {b * 1e3:7.1f} "
+            f"us ({by}), {what} of {M} rows")
     return rows
 
 
@@ -780,6 +863,14 @@ def dedup_size(batches) -> tuple:
     return 1 << (max_uniq - 1).bit_length(), max_uniq
 
 
+def quartiles() -> list:
+    """The sharded stream's partition: the keyspace quartiles as 8-byte
+    big-endian keys (the bench keys are such integers below 2^20, so the
+    first-byte default_boundaries would put every key on shard 0)."""
+    return [(i * KEYSPACE // SHARDS).to_bytes(KEY_BYTES, "big")
+            for i in range(1, SHARDS)]
+
+
 def groups_of(batches) -> list:
     from foundationdb_tpu_torch.utils.packing import stack_device_args
 
@@ -818,6 +909,8 @@ def state_of(cs):
 
 #: the kernels only the classic group kernel at G > 1 launches
 CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
+#: the kernels only the sharded path launches
+SHARDED_ONLY = ("shard_clip", "shard_combine")
 
 
 def require_launched(tag: str, launches: dict, unused=()) -> None:
@@ -921,7 +1014,8 @@ def phase_stream(device, batches) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
     require_launched("uniform", launches,
-                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY))
+                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY,
+                      *SHARDED_ONLY))
     log(f"  {N_BATCHES} batches x {B} txns; launches on the main path: "
         f"{launches}")
 
@@ -1021,7 +1115,8 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     reset_launches()
     times, outs, first = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
-    require_launched("hot-key", launches, ("sweep_ranks", *CLASSIC_ONLY))
+    require_launched("hot-key", launches,
+                     ("sweep_ranks", *CLASSIC_ONLY, *SHARDED_ONLY))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
@@ -1115,7 +1210,8 @@ def phase_range_scan(device, batches) -> dict:
     reset_launches()
     times, outs, first = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
-    require_launched("range-scan", launches, ("read_dedup", *CLASSIC_ONLY))
+    require_launched("range-scan", launches,
+                     ("read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"launches: {launches}")
@@ -1192,7 +1288,7 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
     require_launched("classic uniform", launches,
-                     ("sweep_ranks", "read_dedup"))
+                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY))
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} "
         f"(history {cfg.history_capacity}, no delta tier); launches: "
         f"{launches}")
@@ -1200,6 +1296,8 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
 
     # (a) the same batches one at a time (resolve_batch, K15) on the card
     one = make_conflict_set(cfg, "cuda")
+    torch.cuda.synchronize()
+    reset_launches()
     per_batch = []
     for i, pb in enumerate(batches):
         t0 = time.perf_counter()
@@ -1213,11 +1311,12 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
         if j == GROUP - 1:
             same_state(f"classic group {gi}: G=8 vs G=1", maps[gi],
                        state_of(one))
+    g1_launches, g1_bytes = launch_totals()
     ms1 = statistics.median(per_batch[GROUP:]) * 1e3
     log(f"  every batch identical to G=1 (resolve_batch) on the card, the "
         f"tier identical row for row after every group; G=1 {ms1:.3f} "
         f"ms/batch steady state (batches {GROUP}..), "
-        f"{B / (ms1 / 1e3):,.0f} txn/s")
+        f"{B / (ms1 / 1e3):,.0f} txn/s; launches {g1_launches}")
     # (b) the tiered uniform stream of phase 3 (both exact)
     for i, want in enumerate(tiered_outs):
         gi, j = divmod(i, GROUP)
@@ -1239,13 +1338,21 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     fx = cs.metrics.fixpoint
     log(f"  fixpoint: {fx.applications} applications over {fx.batches} "
         f"batches (max {fx.max_applications}/batch)")
-    extra = groups_of(uniform_stream(cfg, GROUP, seed=1, start=len(batches)))
-    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
+    extra = uniform_stream(cfg, GROUP + 1, seed=1, start=len(batches))
+    prof = profile_run(lambda: cs.resolve_group_args(groups_of(
+        extra[:GROUP])[0]), ms, GROUP)
+    log("  G=1 (resolve_batch), one more batch:")
+    prof1 = profile_run(lambda: one.resolve_packed(extra[GROUP]), ms1, 1)
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=len(batches), ms_per_batch=ms,
                 txn_per_s=B / ms * 1e3, g1_ms_per_batch=ms1,
                 g1_txn_per_s=B / ms1 * 1e3, peak_rows=max(occupancy),
-                peak_device_mib=peak / 2**20, **prof)
+                peak_device_mib=peak / 2**20,
+                g1={"launches_per_batch": {
+                        k: n / len(batches) for k, n in g1_launches.items()},
+                    "kernel_bound_ms_per_batch": g1_bytes / HBM_BYTES_PER_S
+                    * 1e3 / len(batches), **prof1},
+                **prof)
 
 
 def phase_classic_hot(device, batches) -> dict:
@@ -1266,7 +1373,7 @@ def phase_classic_hot(device, batches) -> dict:
     times, outs, _ = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
     require_launched("classic hot-key", launches,
-                     ("sweep_ranks", "read_dedup"))
+                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"counters {counters}; launches: {launches}")
@@ -1297,6 +1404,8 @@ def phase_classic_hot(device, batches) -> dict:
     log(f"  unroll 1 (forced trip): latchTrips {tc['latchTrips']} == "
         f"exactFallbacks {tc['exactFallbacks']}, results identical "
         f"({[round(t / GROUP * 1e3, 3) for t in tr_times]} ms/batch)")
+    extra = groups_of(zipf_stream(cfg, GROUP, seed=1, start=len(batches)))
+    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=len(batches), ms_per_batch=ms,
                 txn_per_s=B / ms * 1e3,
@@ -1306,10 +1415,11 @@ def phase_classic_hot(device, batches) -> dict:
                 exact_max_applications=efx.max_applications,
                 trip_run={"fixpoint_unroll": 1,
                           "latch_trips": tc["latchTrips"],
-                          "exact_fallbacks": tc["exactFallbacks"]})
+                          "exact_fallbacks": tc["exactFallbacks"]},
+                **prof)
 
 
-def role_stream(seed: int = 11) -> list:
+def role_stream(seed: int = 11, n: int = ROLE_BATCHES) -> list:
     """Seeded CommitTransaction batches at the wire Resolver role's
     shape: 1,024 txns of 1-3 reads (a point or a short scan) and 1-2
     point writes over 15-byte keys with a common prefix (a point write's
@@ -1322,7 +1432,7 @@ def role_stream(seed: int = 11) -> list:
         return b"\x02tbl/" + int(i).to_bytes(10, "big")
 
     out = []
-    for b in range(ROLE_BATCHES):
+    for b in range(n):
         version = ROLE_WINDOW // 2 + (b + 1) * ROLE_VERSION_STEP
         txns = []
         for t in range(ROLE_TXNS):
@@ -1354,7 +1464,7 @@ def phase_resolver_role(device) -> dict:
                        max_reads=ROLE_RANGES, max_writes=ROLE_RANGES,
                        history_capacity=ROLE_HISTORY,
                        window_versions=ROLE_WINDOW)
-    stream = role_stream()
+    *stream, (extra, extra_version) = role_stream(n=ROLE_BATCHES + 1)
     cs = make_conflict_set(cfg, "cuda")
     oracle = make_conflict_set(cfg, "cpu")
     torch.cuda.synchronize()
@@ -1384,20 +1494,245 @@ def phase_resolver_role(device) -> dict:
         f"({n_conflict} conflicts); resolve() p50 {p50:.3f} ms, p99 "
         f"{p99:.3f} ms per batch (batches 1..); tier peak "
         f"{max(occupancy)} live rows of {ROLE_HISTORY}; launches {launches}")
+    prof = profile_run(lambda: cs.resolve(extra, extra_version), p50, 1)
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=len(stream), p50_ms=p50,
-                p99_ms=p99, conflicts=n_conflict, peak_rows=max(occupancy))
+                p99_ms=p99, conflicts=n_conflict, peak_rows=max(occupancy),
+                **prof)
+
+
+def np_lex_less(a, b):
+    """a < b for packed uint32 key rows [..., W] (numpy, broadcast): the
+    first differing word decides."""
+    a, b = np.broadcast_arrays(a, b)
+    diff = a != b
+    k = diff.argmax(axis=-1)[..., None]
+    return diff.any(axis=-1) & (np.take_along_axis(a, k, -1)[..., 0]
+                                < np.take_along_axis(b, k, -1)[..., 0])
+
+
+def np_partition():
+    """[SHARDS, W] uint32 (lo, hi) of the quartile split: b"" below shard
+    0, the +inf sentinel above the last."""
+    lo = np.zeros((SHARDS, W), np.uint32)
+    hi = np.full((SHARDS, W), 0xFFFFFFFF, np.uint32)
+    for i, key in enumerate(quartiles()):
+        v = int.from_bytes(key, "big")
+        hi[i] = lo[i + 1] = (v >> 32, v & 0xFFFFFFFF, KEY_BYTES)
+    return lo, hi
+
+
+def np_clip(g: dict, lo, hi) -> dict:
+    """This script's own clip of a stacked numpy group to one shard's
+    [lo, hi): what a commit proxy sends that resolver."""
+    out = dict(g)
+    for side in ("read", "write"):
+        b, e = g[f"{side}_begin"], g[f"{side}_end"]
+        cb = np.where(np_lex_less(b, lo)[..., None], lo, b)
+        ce = np.where(np_lex_less(e, hi)[..., None], e, hi)
+        out[f"{side}_begin"], out[f"{side}_end"] = cb, ce
+        out[f"{side}_valid"] = g[f"{side}_valid"] & np_lex_less(cb, ce)
+    gn, b = g["txn_valid"].shape
+    hits = np.zeros((gn, b + 1), bool)
+    rows, cols = np.nonzero(out["read_valid"])
+    hits[rows, g["read_txn"][rows, cols]] = True
+    out["has_reads"] = hits[:, :b]
+    return out
+
+
+def np_combine(per: list, txn_valid) -> dict:
+    """The resolvers' GroupVerdict fields combined as a commit proxy does:
+    min() verdicts, the first index the least non-negative one, hits and
+    flags OR'd, the counts taken from the combined verdict."""
+    import torch
+
+    def stack(f):
+        return np.stack([p[f].numpy() for p in per])
+
+    v = stack("verdict").min(axis=0)
+    first = stack("intra_first_range")
+    f = np.where(first < 0, 2**31 - 1, first).min(axis=0)
+    out = dict(verdict=v,
+               hist_conflict_read=stack("hist_conflict_read").any(axis=0),
+               intra_first_range=np.where(f == 2**31 - 1, -1, f),
+               committed_count=((v == 3) & txn_valid).sum(axis=1),
+               conflict_count=((v == 0) & txn_valid).sum(axis=1),
+               too_old_count=((v == 1) & txn_valid).sum(axis=1),
+               overflow=stack("overflow").any(axis=0),
+               unconverged=stack("unconverged").any(axis=0))
+    return {k: torch.from_numpy(np.ascontiguousarray(x)).to(per[0][k].dtype)
+            for k, x in out.items()}
+
+
+def shard_state(state, s: int):
+    """Shard s's (main, delta) leaves of a stacked sharded state."""
+    return tuple(tuple(x[s] for x in tier) for tier in state)
+
+
+def straddling_reads(batches) -> tuple:
+    """(live reads, reads whose range crosses a quartile boundary)."""
+    lo, _ = np_partition()
+    n = cross = 0
+    for pb in batches:
+        rb, re = pb.read_begin[: pb.n_reads], pb.read_end[: pb.n_reads]
+        n += pb.n_reads
+        cross += int(sum((np_lex_less(rb, k) & np_lex_less(k, re)).sum()
+                         for k in lo[1:]))
+    return n, cross
+
+
+def phase_sharded(device, uni, ycsb) -> dict:
+    """Four resolvers on one card over the keyspace quartiles: the
+    uniform groups (exact) against four independent single-shard sets
+    fed this script's numpy clip; YCSB-E with sweep + spill + latch
+    against the probe path; a forced-trip group."""
+    import torch
+
+    from foundationdb_tpu_torch import make_conflict_set
+    from foundationdb_tpu_torch.ops import delta as D
+
+    cfg = bench_config(B, n_shards=SHARDS)
+    bounds = quartiles()
+    batches = uni[:SHARD_GROUPS * GROUP]
+    groups = groups_of(batches)
+    cs = make_conflict_set(cfg, "cuda", shard_boundaries=bounds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    times, outs, states = [], [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        out = cs.resolve_group_args(g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(verdict_fields(out))
+        states.append(state_of(cs))
+    launches, launch_bytes = launch_totals()
+    peak = torch.cuda.max_memory_allocated(device)
+    cs.check_overflow()
+    require_launched("sharded uniform", launches,
+                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY))
+    splits = [int.from_bytes(k, "big") for k in bounds]
+    log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} on "
+        f"{SHARDS} shards split at {splits} (tiers of "
+        f"{cfg.history_capacity} rows each); launches: {launches}")
+    ms = group_timing(f"{SHARDS} shards, exact", times)
+
+    # four independent resolvers, each fed this script's clip of every
+    # batch, combined here
+    lo, hi = np_partition()
+    singles = [make_conflict_set(bench_config(B), "cuda")
+               for _ in range(SHARDS)]
+    shard_reads, phantoms = [], 0
+    for gi, g in enumerate(groups):
+        per = []
+        for s, one in enumerate(singles):
+            local = np_clip(g, lo[s], hi[s])
+            if gi == 0:
+                shard_reads.append(int(local["read_valid"].sum()))
+            per.append(verdict_fields(one.resolve_group_args(local)))
+            same_state(f"sharded group {gi}: shard {s} vs its own resolver",
+                       shard_state(states[gi], s), state_of(one))
+        want = np_combine(per, g["txn_valid"])
+        same_fields(f"sharded group {gi} vs {SHARDS} resolvers combined "
+                    "here", outs[gi], want)
+        combined = want["verdict"].numpy()
+        phantoms += int(sum(((p["verdict"].numpy() == 3) & (combined != 3)
+                             & g["txn_valid"]).sum() for p in per))
+    log(f"  every group identical to {SHARDS} independent resolvers fed "
+        f"this script's numpy clip and combined with numpy, each shard's "
+        f"tiers identical to its resolver's after every group; live reads "
+        f"per shard in group 0 {shard_reads}; {phantoms} phantom commits "
+        "(a txn merged on a shard that another shard aborted)")
+    occupancy = [[int(c) for c in x]
+                 for x in D.boundary_counts_per_shard(cs.state)]
+    log(f"  live rows per shard after the stream (main, delta): "
+        f"{occupancy}; peak device memory {peak / 2**20:.1f} MiB")
+
+    # YCSB-E scans across the quartiles: sweep + spill + latch vs probe
+    ycfg = cfg.scaled(fixpoint_unroll=YCSB_UNROLL, fixpoint_latch=True,
+                      range_sweep=True, delta_spill=True)
+    ybatches = ycsb[:SHARD_YCSB_GROUPS * GROUP]
+    n_reads, cross = straddling_reads(ybatches)
+    ygroups = groups_of(ybatches)
+    sw = make_conflict_set(ycfg, "cuda", shard_boundaries=bounds)
+    sw.prewarm_exact(ygroups[0])
+    torch.cuda.synchronize()
+    reset_launches()
+    y_times, y_outs, y_first = run_groups(sw, ygroups)
+    y_launches, _ = launch_totals()
+    for name in ("sweep_ranks", "shard_clip", "shard_combine"):
+        if y_launches[name] <= 0:
+            fail(f"{name}: not launched on the sharded range-scan path")
+    pr = make_conflict_set(ycfg.scaled(range_sweep=False), "cuda",
+                           shard_boundaries=bounds)
+    p_times, p_outs, p_first = run_groups(pr, ygroups)
+    for i, (g, w) in enumerate(zip(y_outs, p_outs)):
+        same_fields(f"sharded range-scan group {i} vs the probe path", g, w)
+    same_state("sharded range-scan group 0 vs the probe path", y_first,
+               p_first)
+    same_state("sharded range-scan stream vs the probe path", state_of(sw),
+               state_of(pr))
+    yc = dict(sw.metrics.counters)
+    y_ms = statistics.mean(t / GROUP * 1e3 for t in y_times)
+    p_ms = statistics.mean(t / GROUP * 1e3 for t in p_times)
+    log(f"  YCSB-E on {SHARDS} shards ({cross} of {n_reads} reads straddle "
+        f"a boundary): {len(ybatches)} batches identical to the probe path, "
+        f"fields and every shard's tiers; sweep {y_ms:.3f}, probe {p_ms:.3f} "
+        f"ms/batch (mean of {len(ygroups)} groups); counters {yc}")
+
+    # the latch at unroll 1 trips on some shard: every shard falls back
+    tr = make_conflict_set(cfg.scaled(fixpoint_latch=True, fixpoint_unroll=1),
+                           "cuda", shard_boundaries=bounds)
+    tr.prewarm_exact(groups[0])
+    _, tr_outs, tr_first = run_groups(tr, groups[:1])
+    tc = tr.metrics.counters
+    if not tc["latchTrips"] == tc["exactFallbacks"] == 1:
+        fail(f"sharded forced trip: expected one fallback, counters {tc}")
+    same_fields("sharded forced-trip group 0 vs the exact run", tr_outs[0],
+                outs[0])
+    same_state("sharded forced-trip group 0 vs the exact run", tr_first,
+               states[0])
+    log(f"  unroll 1 (forced trip): latchTrips {tc['latchTrips']} == "
+        f"exactFallbacks {tc['exactFallbacks']}, every shard's tiers and "
+        "every field identical to the exact run")
+
+    extra = groups_of(uniform_stream(cfg, GROUP, seed=1, start=len(uni)))
+    prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
+    c = cs.metrics.counters
+    col = cs.metrics.collective
+    log(f"  compactions {c['compactions']}; collective (kernel J alone, "
+        f"fenced) {col.total / max(col.count, 1) * 1e6:.1f} us over "
+        f"{col.count} samples")
+    return dict(launches=launches, launch_bytes=launch_bytes,
+                batches=len(batches), shards=SHARDS, ms_per_batch=ms,
+                txn_per_s=B / ms * 1e3, peak_device_mib=peak / 2**20,
+                phantom_commits=phantoms,
+                range_scan={"batches": len(ybatches), "ms_per_batch": y_ms,
+                            "probe_ms_per_batch": p_ms,
+                            "straddling_reads": cross, "reads": n_reads,
+                            "spills": yc["spills"],
+                            "latch_trips": yc["latchTrips"]},
+                trip_run={"fixpoint_unroll": 1,
+                          "latch_trips": tc["latchTrips"],
+                          "exact_fallbacks": tc["exactFallbacks"]},
+                **prof)
 
 
 def phase_oracle(device) -> None:
     """2,048-txn contended stream through resolve() on four configs
     (exact; latched + dedup; sweep + spill + latch; classic): verdicts
-    and conflict reports identical to the copied ConflictOracle; and the
+    and conflict reports identical to the copied ConflictOracle; the
     classic config in groups of 4 (resolve_group_args), verdicts
-    identical."""
+    identical; and the exact config at 2 and 4 shards, verdicts identical
+    to the copied MultiResolverOracle."""
     from foundationdb_tpu_torch import make_conflict_set
     from foundationdb_tpu_torch.models.types import CommitTransaction
     from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
+    from foundationdb_tpu_torch.testing.oracle import (
+        MultiResolverOracle,
+        OracleTxn,
+    )
     from foundationdb_tpu_torch.utils.packing import (
         pack_batch,
         stack_device_args,
@@ -1470,6 +1805,30 @@ def phase_oracle(device) -> None:
                      "differ")
     log(f"  classic, groups of 4: 8 batches x {n} txns identical to "
         f"ConflictOracle, verdict for verdict")
+    # sharded at 2 and 4 shards, split evenly over the stream's keyspace,
+    # against the multi-resolver oracle (verdicts: its conflict report is
+    # the union of the shards' reports, the set's the report of the
+    # combined hits)
+    for n_shards in (2, 4):
+        bounds = [(i * 20_000 // n_shards).to_bytes(KEY_BYTES, "big")
+                  for i in range(1, n_shards)]
+        multi = MultiResolverOracle(bounds, window=base.window_versions)
+        cs = make_conflict_set(base.scaled(n_shards=n_shards), "cuda",
+                               shard_boundaries=bounds)
+        differ = 0
+        for i, (txns, version, single) in enumerate(stream):
+            want = multi.resolve([OracleTxn(
+                t.read_conflict_ranges, t.write_conflict_ranges,
+                t.read_snapshot, t.report_conflicting_keys) for t in txns],
+                version).verdicts
+            got = [int(v) for v in cs.resolve(txns, version).verdicts]
+            if got != want:
+                fail(f"oracle batch {i} ({n_shards} shards): verdicts differ "
+                     "from MultiResolverOracle")
+            differ += sum(a != int(b) for a, b in zip(want, single.verdicts))
+        log(f"  sharded, {n_shards} shards: 8 batches x {n} txns identical "
+            f"to MultiResolverOracle ({differ} verdicts differ from the "
+            "single resolver's)")
 
 
 def build_summary(built: dict) -> None:
@@ -1500,11 +1859,15 @@ def main() -> int:
     from foundationdb_tpu_torch import kernels
 
     t_start = time.perf_counter()
+
+    def heading(title: str) -> None:
+        log(f"== {title} ({time.perf_counter() - t_start:.1f} s in)")
+
     device = devmod.resolve_device()
-    log("== 1. environment")
+    heading("1. environment")
     fp = devmod.fingerprint(device)
     log("  " + json.dumps(fp))
-    log("== build")
+    heading("build")
     t0 = time.perf_counter()
     count_launch_bytes()
     built = kernels.build_all()
@@ -1515,28 +1878,31 @@ def main() -> int:
     ycsb = ycsb_stream(cfg, YCSB_GROUPS * GROUP)
     uni = uniform_stream(cfg, N_BATCHES)
     dedup_u, max_uniq = dedup_size(zipf)
-    log("== 2. kernels vs plain versions (bench shapes)")
+    heading("2. kernels vs plain versions (bench shapes)")
     ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u,
                            uni[:GROUP])
     torch_ops = phase_torch_ops(device)
-    log("== 3. uniform stream (bench default, exact)")
+    heading("3. uniform stream (bench default, exact)")
     uniform = phase_stream(device, uni)
-    log("== 4. hot-key stream (bench zipf: latch + read dedup)")
+    heading("4. hot-key stream (bench zipf: latch + read dedup)")
     hot = phase_hot_key(device, zipf, dedup_u, max_uniq)
-    log("== 5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
+    heading("5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
     scan = phase_range_scan(device, ycsb)
-    log("== 6. classic uniform stream (bench BENCH_KERNEL=classic)")
+    heading("6. classic uniform stream (bench BENCH_KERNEL=classic)")
     classic = phase_classic(device, uni, uniform.pop("outs"))
-    log("== 7. classic hot-key stream (bench classic zipf: latch)")
+    heading("7. classic hot-key stream (bench classic zipf: latch)")
     classic_hot = phase_classic_hot(device, zipf)
-    log("== 8. the wire Resolver role's shape vs ConflictOracle")
+    heading("8. the wire Resolver role's shape vs ConflictOracle")
     role = phase_resolver_role(device)
-    log("== 9. reduced-shape stream vs ConflictOracle")
+    heading(f"9. sharded uniform stream ({SHARDS} resolvers on the card)")
+    sharded = phase_sharded(device, uni, ycsb)
+    heading("10. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
 
     path_of = {"read_dedup": hot, "sweep_ranks": scan,
-               **{name: classic for name in CLASSIC_ONLY}}
+               **{name: classic for name in CLASSIC_ONLY},
+               **{name: sharded for name in SHARDED_ONLY}}
     rows = []
     for name, info in kernels.KERNELS.items():
         path = path_of.get(name, uniform)
@@ -1547,7 +1913,7 @@ def main() -> int:
     for tag, st in (("uniform", uniform), ("hot_key", hot),
                     ("range_scan", scan), ("classic_uniform", classic),
                     ("classic_hot_key", classic_hot),
-                    ("resolver_role", role)):
+                    ("resolver_role", role), ("sharded_uniform", sharded)):
         streams[tag] = {k: v for k, v in st.items() if k != "launches"}
         streams[tag]["launches_per_batch"] = {
             k: n / st["batches"] for k, n in st["launches"].items()}

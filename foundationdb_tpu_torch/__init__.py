@@ -3,14 +3,18 @@
 The Resolver's per-batch MVCC conflict check on the tiered
 configuration (exact, and the hot-key and range-scan profiles: fixpoint
 latch with exact fallback, read dedup, endpoint sweep, delta spill), on
-an NVIDIA Hopper card, with hand-written CUDA kernels
-(kernels/csrc) and plain PyTorch versions beside them for the CPU. The
-package imports torch and numpy only: nothing of JAX or of the JAX
-package, whose modules it mirrors path for path.
+the classic single-tier one, and across several resolvers over a
+keyspace partition (parallel/sharding.py), on an NVIDIA Hopper card,
+with hand-written CUDA kernels (kernels/csrc) and plain PyTorch
+versions beside them for the CPU. The package imports torch and numpy
+only: nothing of JAX or of the JAX package, whose modules it mirrors
+path for path.
 
     from foundationdb_tpu_torch import make_conflict_set
     cs = make_conflict_set(config)                 # on the card
     cs = make_conflict_set(config, device="cpu")   # plain versions
+    cs = make_conflict_set(config.scaled(n_shards=4),
+                           shard_boundaries=[b"\x40", b"\x80", b"\xc0"])
 """
 
 from foundationdb_tpu_torch.config import KernelConfig

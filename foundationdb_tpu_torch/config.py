@@ -85,10 +85,11 @@ class KernelConfig:
     #: resolved since the last compaction (a group of G counts G). 0 =
     #: only explicit compaction.
     compact_interval: int = 8
-    #: > 1 selects the sharded kernel of the JAX package (history
-    #: partitioned by key range over a mesh). Not ported: refused.
+    #: > 1 selects the sharded kernel: history partitioned by key range
+    #: over n_shards resolvers (the JAX package's mesh axis; in the port
+    #: the leading axis of one card's tensors, parallel/sharding.py).
     n_shards: int = 0
-    #: Mesh axis name of the sharded kernel.
+    #: Mesh axis name of the JAX sharded kernel (kept for the same config).
     shard_axis: str = "resolver"
 
     def __post_init__(self):

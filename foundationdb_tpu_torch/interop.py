@@ -1,8 +1,9 @@
 """State and arguments carried across from the JAX package, as numpy.
 
 The port's counterpart of carrying weights: a conflict set's history
-(a JAX `VersionHistory` on the classic path or `TieredState` on the
-tiered one, read out as numpy arrays) becomes the port's state on a
+(a JAX `VersionHistory` on the classic path, `TieredState` on the
+tiered one, or the stacked [S, ...] `TieredState` of the sharded one,
+read out as numpy arrays) becomes the port's state on a
 given device, so a resolver can move between the two packages
 mid-stream with identical decisions after the move
 (`TorchConflictSet.load_state` / `store_state` call these). Everything
@@ -83,3 +84,37 @@ def history_to_numpy(h: H.VersionHistory):
 def tiered_state_to_numpy(state: D.TieredState):
     return history_to_numpy(state.main), history_to_numpy(state.delta)
 
+
+
+def sharded_tiered_state_from_numpy(main, delta, device) -> tuple:
+    """A JAX stacked sharded `TieredState` as numpy -> the port's S
+    shards' states on `device`.
+
+    `main` and `delta` are each the four leaves with a leading [S] axis
+    (keys [S, N, W] uint32, ver [S, N] int32, oldest [S], overflow [S]),
+    so `[np.asarray(x) for x in jax_state.main]` is accepted as it is.
+    """
+    n_shards = np.asarray(main[0]).shape[0]
+    return tuple(
+        D.TieredState(
+            main=history_from_numpy(*(np.asarray(x)[s] for x in main),
+                                    device),
+            delta=history_from_numpy(*(np.asarray(x)[s] for x in delta),
+                                     device),
+        )
+        for s in range(n_shards)
+    )
+
+
+def sharded_tiered_state_to_numpy(states):
+    """The S shards' states as the JAX stacked layout: (main leaves,
+    delta leaves), each leaf with a leading [S] axis (oldest int32,
+    overflow bool)."""
+    def stack(tiers):
+        leaves = [history_to_numpy(h) for h in tiers]
+        return (np.stack([x[0] for x in leaves]),
+                np.stack([x[1] for x in leaves]),
+                np.array([x[2] for x in leaves], np.int32),
+                np.array([x[3] for x in leaves], bool))
+
+    return stack([s.main for s in states]), stack([s.delta for s in states])

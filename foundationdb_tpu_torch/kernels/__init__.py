@@ -34,7 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps",
-           "sweep_ranks", "read_dedup", "rangemax2", "seg_fold")
+           "sweep_ranks", "read_dedup", "rangemax2", "seg_fold",
+           "shard_clip", "shard_combine")
 #: widest packed key (uint32 words) the CUDA kernels are instantiated for
 #: (max_key_bytes <= 28); the plain versions take any width
 MAX_WORDS = 8
@@ -92,6 +93,17 @@ _SIGNATURES = {
     "sf_scan_sums": ("seg_fold", [_P, _I, _P]),
     # scratch, n, version, seg_ver, stream
     "sf_paint": ("seg_fold", [_P, _I, _I, _P, _P]),
+    # lo, hi, n_shards, w, rb, re, rv, rtxn, gn, nr, wb, we, wv, nw, b,
+    # orb, ore, orv, owb, owe, owv, has_reads, stream
+    "sc_clip": ("shard_clip",
+                [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                 _P, _P, _P, _P, _P, _P, _P, _P]),
+    # verdict, first, hist, overflow, trip, txn_valid, n_shards, gn, b, nr,
+    # out_verdict, out_first, out_hist, out_overflow, trip_any, counts,
+    # stream
+    "sc_combine": ("shard_combine",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                    _P, _P, _P]),
 }
 
 
@@ -140,6 +152,12 @@ KERNELS = {
         KernelInfo("seg_fold",
                    "foundationdb_tpu_torch/kernels/csrc/seg_fold.cu",
                    "foundationdb_tpu/ops/group.py:588"),
+        KernelInfo("shard_clip",
+                   "foundationdb_tpu_torch/kernels/csrc/shard_clip.cu",
+                   "foundationdb_tpu/parallel/sharding.py:82"),
+        KernelInfo("shard_combine",
+                   "foundationdb_tpu_torch/kernels/csrc/shard_combine.cu",
+                   "foundationdb_tpu/parallel/sharding.py:276"),
     )
 }
 

@@ -28,6 +28,14 @@ ConflictBatch, fdbserver/include/fdbserver/ConflictSet.h:30-75).
   `range_sweep` swaps the main-tier probe for the endpoint sweep, and
   `delta_spill` compacts before a dispatch whose worst-case boundary
   count could overflow the delta tier.
+* With `n_shards > 1` (tiered) the state is S shards' TieredStates over
+  a keyspace partition (`shard_boundaries`, the n_shards - 1 interior
+  split keys; default parallel.sharding.default_boundaries): every
+  group is clipped to all shards by kernel I, each shard runs the
+  tiered kernel on its copy, and kernel J combines the verdicts
+  (parallel/sharding.py, K18). Compaction, rebase and the latch are
+  per shard, all shards together; a trip on any shard refuses the
+  group on all of them.
 * On the card the constructor runs the rangemax self-check (K20) at
   history capacity before the first decision.
 
@@ -35,7 +43,7 @@ The profile router (`profile_batch`, `profile_transactions`,
 `backend_for_profile`, `fallback_free`) is the JAX package's host-side
 classifier, copied: it answers "cuda" where the JAX one answers "tpu".
 
-Refused, not ported yet: short-span ops and sharding.
+Refused, not ported yet: short-span ops.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import rangemax
+from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.utils import packing
 
 # Rebase when offsets pass 2**30 (the window is ~5e6; huge margin).
@@ -95,9 +104,11 @@ class KernelStageMetrics:
     pack / kernel / fence are host wall-clock seconds: "kernel" covers
     the dispatch of the tiered or classic kernel (asynchronous on the
     card except the fixpoint loop's and the latch's syncs), "fence" the
-    reply assembly that waits for the verdicts. Occupancy and device
-    memory are sampled on the overflow-check syncs; `fixpoint` counts
-    the fixpoint's depth.
+    reply assembly that waits for the verdicts. Occupancy (the worst
+    shard's, when sharded) and device memory are sampled on the
+    overflow-check syncs, and so is `collective` on a sharded set: the
+    fenced seconds of one cross-shard combine (kernel J alone).
+    `fixpoint` counts the fixpoint's depth.
     """
 
     COUNTERS = ("resolveBatches", "groupDispatches", "compactions",
@@ -119,6 +130,8 @@ class KernelStageMetrics:
         self.fence = Stage("fenceSeconds")
         self.delta_occupancy = Stage("deltaLiveBoundaries")
         self.main_occupancy = Stage("mainLiveBoundaries")
+        self.collective = Stage("collectiveSeconds")
+        self.shard_count = 1
         self.fixpoint = G.FixpointStats()
         self.device_bytes_in_use = 0
         self.device_peak_bytes = 0
@@ -140,8 +153,9 @@ class KernelStageMetrics:
     def as_dict(self) -> dict:
         out: dict = dict(self.counters)
         for s in (self.pack, self.kernel, self.fence, self.delta_occupancy,
-                  self.main_occupancy):
+                  self.main_occupancy, self.collective):
             out[s.name] = s.as_dict()
+        out["shardCount"] = self.shard_count
         out["fixpoint"] = dataclasses.asdict(self.fixpoint)
         out["deviceBytesInUse"] = self.device_bytes_in_use
         out["devicePeakBytes"] = self.device_peak_bytes
@@ -178,8 +192,6 @@ def _rebase_tiered(state: D.TieredState, delta: int) -> D.TieredState:
 
 
 def _check_config(config: KernelConfig) -> None:
-    if config.n_shards > 1:
-        raise ValueError("the sharded kernel is not ported yet")
     for knob in _VARIANT_KNOBS:
         if getattr(config, knob):
             raise ValueError(
@@ -192,7 +204,7 @@ class TorchConflictSet:
     """Batch MVCC conflict detection with device-resident history."""
 
     def __init__(self, config: KernelConfig, base_version: int = 0, *,
-                 device=None):
+                 device=None, shard_boundaries=None):
         _check_config(config)
         self.config = config
         self.base_version = base_version
@@ -203,9 +215,22 @@ class TorchConflictSet:
             rangemax.flat_gather_selftest(config.history_capacity,
                                           device=self.device)
         self.tiered = config.delta_capacity > 0
-        self.state = (D.init(config, self.device) if self.tiered
-                      else H.init(config, self.device))
+        # the config pins n_shards > 1 to the tiered path
+        self.sharded = config.n_shards > 1
         self.metrics = KernelStageMetrics()
+        if self.sharded:
+            self.shard_boundaries = (
+                list(shard_boundaries) if shard_boundaries is not None
+                else SH.default_boundaries(config.n_shards))
+            self.state, self.part_lo, self.part_hi = SH.init_sharded_tiered(
+                config, self.shard_boundaries, self.device)
+            self.metrics.shard_count = config.n_shards
+            self._probe = None
+        elif shard_boundaries is not None:
+            raise ValueError("shard_boundaries needs config.n_shards > 1")
+        else:
+            self.state = (D.init(config, self.device) if self.tiered
+                          else H.init(config, self.device))
         self._batches_since_check = 0
         self._batches_since_compact = 0
         #: conservative live-boundary bound of the delta tier since the
@@ -224,11 +249,16 @@ class TorchConflictSet:
 
         `state` is, as numpy, the JAX state's leaves: a classic
         `VersionHistory`'s four (`[np.asarray(x) for x in jax_cs.state]`),
-        or a tiered (main leaves, delta leaves) pair. The counters are
-        the JAX set's (`base_version`, `_batches_since_compact`,
-        `_spill_bound_rows`), so versions rebase, the delta tier
-        compacts and spills at the same points after the move."""
-        if self.tiered:
+        or a tiered (main leaves, delta leaves) pair; sharded, the same
+        pair with a leading [S] axis on every leaf (the JAX stacked
+        sharded state). The counters are the JAX set's (`base_version`,
+        `_batches_since_compact`, `_spill_bound_rows`), so versions
+        rebase, the delta tier compacts and spills at the same points
+        after the move."""
+        if self.sharded:
+            self.state = interop.sharded_tiered_state_from_numpy(
+                *state, self.device)
+        elif self.tiered:
             self.state = interop.tiered_state_from_numpy(*state, self.device)
         else:
             self.state = interop.history_from_numpy(*state, self.device)
@@ -239,8 +269,12 @@ class TorchConflictSet:
     def store_state(self):
         """(state as numpy, base_version): the state in the leaf order
         load_state takes (and the JAX package's history leaves have)."""
-        state = (interop.tiered_state_to_numpy(self.state) if self.tiered
-                 else interop.history_to_numpy(self.state))
+        if self.sharded:
+            state = interop.sharded_tiered_state_to_numpy(self.state)
+        elif self.tiered:
+            state = interop.tiered_state_to_numpy(self.state)
+        else:
+            state = interop.history_to_numpy(self.state)
         return state, self.base_version
 
     # -- ConflictBatch-equivalent API -----------------------------------
@@ -276,8 +310,13 @@ class TorchConflictSet:
     def _maybe_rebase(self, version: int) -> None:
         if version - self.base_version > REBASE_THRESHOLD:
             delta = version - self.base_version - (1 << 20)
-            self.state = (_rebase_tiered(self.state, delta) if self.tiered
-                          else _rebase(self.state, delta))
+            if self.sharded:
+                self.state = tuple(_rebase_tiered(s, delta)
+                                   for s in self.state)
+            elif self.tiered:
+                self.state = _rebase_tiered(self.state, delta)
+            else:
+                self.state = _rebase(self.state, delta)
             self.base_version += delta
             self.metrics.add("rebases")
 
@@ -401,12 +440,14 @@ class TorchConflictSet:
         return outs
 
     def _run_tiered(self, g: dict, latch: bool, dedup: int):
-        return D.resolve_group_tiered(
-            self.state, g, fixpoint_unroll=self.config.fixpoint_unroll,
-            fixpoint_latch=latch, dedup_reads=dedup,
-            range_sweep=self.config.range_sweep,
-            stats=self.metrics.fixpoint,
-        )
+        kw = dict(fixpoint_unroll=self.config.fixpoint_unroll,
+                  fixpoint_latch=latch, dedup_reads=dedup,
+                  range_sweep=self.config.range_sweep,
+                  stats=self.metrics.fixpoint)
+        if self.sharded:
+            return SH.resolve_group_sharded(self.state, g, self.part_lo,
+                                            self.part_hi, **kw)
+        return D.resolve_group_tiered(self.state, g, **kw)
 
     def _dispatch_tiered(self, stacked_args: dict,
                          check_latch: bool = True) -> G.GroupVerdict:
@@ -414,8 +455,10 @@ class TorchConflictSet:
         latch contract: a group the fixpoint latch or the dedup latch
         refused is re-run, same arguments and same input state, on the
         exact configuration (latch off, dedup 0; the sweep stays, it is
-        not a latch source). Delta spill compacts first when the group
-        could overflow the delta tier; the overflow check every
+        not a latch source). Sharded, the trip is any shard's and the
+        re-run takes every shard's input state. Delta spill compacts
+        first when the group could overflow the delta tier (sharded: the
+        one host bound of all shards); the overflow check every
         OVERFLOW_CHECK_INTERVAL batches and auto-compaction every
         config.compact_interval batches follow."""
         cfg = self.config
@@ -459,30 +502,33 @@ class TorchConflictSet:
         The JAX package compiles its exact program here by running it
         once and discarding the result. The port has nothing to compile:
         on the card this builds (where missing) and loads every kernel
-        library, so a fallback costs no nvcc and no dlopen. It runs no
-        resolve and leaves the state untouched; on the CPU it does
-        nothing. `stacked_args` is accepted for the JAX signature. The
-        classic path's fallback is served the same way."""
+        library (the sharded path's kernels I and J among them), so a
+        fallback costs no nvcc and no dlopen. It runs no resolve and
+        leaves the state untouched; on the CPU it does nothing.
+        `stacked_args` is accepted for the JAX signature. The classic
+        path's fallback is served the same way."""
         del stacked_args
         if self.device.type == "cuda":
             kernels.load_all()
 
     def compact_history(self) -> None:
-        """Fold the delta tier into main (ops/delta.compact); nothing on
-        the classic path, which has one tier."""
+        """Fold the delta tier into main (ops/delta.compact; every shard,
+        when sharded); nothing on the classic path, which has one tier."""
         if not self.tiered:
             return
         self._batches_since_compact = 0
         self._spill_bound_rows = 0
         self.metrics.add("compactions")
-        self.state = D.compact(self.state)
+        self.state = (SH.compact_sharded(self.state) if self.sharded
+                      else D.compact(self.state))
 
     def _re_anchor_spill_bound(self, d_live: float) -> None:
         """Tighten the spill bound to the delta tier's real occupancy,
         read on the sync the overflow check already paid: every
         dispatched batch has completed there, so the live count is
         exact. min(bound, live) stays conservative; spill timing moves
-        compaction points only, never decisions."""
+        compaction points only, never decisions. Sharded, `d_live` is
+        the worst shard's count."""
         bound = int(d_live)
         if bound < self._spill_bound_rows:
             self._spill_bound_rows = bound
@@ -497,7 +543,9 @@ class TorchConflictSet:
         """Device sync: raise if a merge ever exceeded a tier's capacity
         (a latched delta overflow survives compaction in main's flag).
         Samples tier occupancy and device memory, and (tiered)
-        re-anchors the spill bound, on the same sync."""
+        re-anchors the spill bound, on the same sync. Sharded: overflow
+        in any shard, the worst shard's occupancy and re-anchor, and one
+        `collective` sample."""
         self._batches_since_check = 0
         if not self.tiered:
             tripped = bool(self.state.overflow)
@@ -507,16 +555,36 @@ class TorchConflictSet:
             if tripped:
                 self._raise_overflow()
             return
-        tripped = bool(self.state.main.overflow) or bool(
-            self.state.delta.overflow)
-        m_cnt, d_cnt = D.boundary_counts(self.state)
-        d_live = float(d_cnt)
-        self.metrics.main_occupancy.sample(float(m_cnt))
+        shards = self.state if self.sharded else (self.state,)
+        tripped = bool(torch.stack([t.overflow for s in shards
+                                    for t in s]).any())
+        m_cnt, d_cnt = D.boundary_counts_per_shard(shards)
+        d_live = float(d_cnt.max())
+        self.metrics.main_occupancy.sample(float(m_cnt.max()))
         self.metrics.delta_occupancy.sample(d_live)
         self._re_anchor_spill_bound(d_live)
+        if self.sharded:
+            self._sample_collective()
         self.metrics.sample_device_memory(self.device)
         if tripped:
             self._raise_overflow()
+
+    def _sample_collective(self) -> None:
+        """Time one fenced cross-shard combine (kernel J alone, on
+        verdict-shaped zeros of one batch) on the sync the overflow check
+        already paid: the `collective` stage."""
+        cfg = self.config
+        if self._probe is None:
+            self._probe = SH.combine_probe(cfg.n_shards, cfg.max_txns,
+                                           cfg.max_reads, self.device)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        self._probe()
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self.metrics.collective.sample(time.perf_counter() - t0)
 
     # -- reply assembly --------------------------------------------------
 
@@ -599,15 +667,19 @@ class CpuConflictSet:
 
 
 def make_conflict_set(config: KernelConfig, backend: str = "cuda",
-                      device=None):
+                      device=None, shard_boundaries=None):
     """The port's conflict-set factory.
 
     backend "cuda": TorchConflictSet on `device` (None = the card; a
     missing card raises unless device="cpu" is passed, which runs the
-    plain PyTorch versions on the CPU). backend "cpu": the host oracle.
+    plain PyTorch versions on the CPU), sharded over `shard_boundaries`
+    when config.n_shards > 1. backend "cpu": the host oracle (one
+    resolver's semantics; testing/oracle.MultiResolverOracle models the
+    sharded deployment).
     """
     if backend == "cuda":
-        return TorchConflictSet(config, device=device)
+        return TorchConflictSet(config, device=device,
+                                shard_boundaries=shard_boundaries)
     if backend == "cpu":
         return CpuConflictSet(config)
     raise ValueError(f"unknown backend {backend!r}")

@@ -265,7 +265,8 @@ def resolve_group_tiered(state: TieredState, g: dict, *,
                          fixpoint_unroll: int = 3,
                          fixpoint_latch: bool = False,
                          dedup_reads: int = 0, range_sweep: bool = False,
-                         stats: G.FixpointStats = None):
+                         stats: G.FixpointStats = None,
+                         defer_trip: bool = False):
     """Resolve G stacked batches (versions ascending) against the tiered
     history. Returns (state', GroupVerdict with [G]-leading leaves).
 
@@ -275,6 +276,12 @@ def resolve_group_tiered(state: TieredState, g: dict, *,
     returns the input state unchanged, both tiers: this reads the trip
     once per group (one sync), and the caller re-runs the group on the
     exact configuration (fixpoint_latch off, dedup_reads 0).
+
+    `defer_trip=True` is for a caller that owns the trip of several
+    tiered states (parallel/sharding.py: any shard's trip refuses the
+    group on every shard): nothing is read, the state comes back as the
+    group left it, and the return is (state', GroupVerdict, trip [] bool
+    on the device); restoring the input state is the caller's.
     """
     gn, b = g["txn_valid"].shape
     if gn > MAX_GROUP_TIERED:
@@ -302,6 +309,8 @@ def resolve_group_tiered(state: TieredState, g: dict, *,
     cat["overflow"] = cat["overflow"] | state.main.overflow
     cat["unconverged"] = trip.repeat(gn)
     new_state = TieredState(main=state.main, delta=delta)
+    if defer_trip:
+        return new_state, G.GroupVerdict(**cat), trip
     if (fixpoint_latch or dedup_reads) and bool(trip):
         new_state = state
     return new_state, G.GroupVerdict(**cat)
@@ -333,3 +342,12 @@ def compact(state: TieredState) -> TieredState:
 def boundary_counts(state: TieredState):
     """(main, delta) live-boundary counts, 0-d tensors."""
     return H.boundary_count(state.main), H.boundary_count(state.delta)
+
+
+def boundary_counts_per_shard(states):
+    """([S] main, [S] delta) live-boundary counts of S shards' tiered
+    states (parallel/sharding.py): the worst-shard occupancy input of
+    the sharded overflow check. The single-tier counter per shard, so
+    the liveness rule has one source."""
+    return (torch.stack([H.boundary_count(s.main) for s in states]),
+            torch.stack([H.boundary_count(s.delta) for s in states]))

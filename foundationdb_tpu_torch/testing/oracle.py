@@ -1,6 +1,6 @@
 """Pure-Python semantic oracle for MVCC conflict resolution (the port's own
-copy of foundationdb_tpu.testing.oracle: OracleTxn, VersionMap and
-ConflictOracle).
+copy of foundationdb_tpu.testing.oracle: OracleTxn, VersionMap,
+ConflictOracle and MultiResolverOracle).
 
 A deliberately simple, obviously-correct model of the reference semantics
 (fdbserver/SkipList.cpp ConflictBatch + SkipList, fdbserver/Resolver.actor.cpp
@@ -205,3 +205,66 @@ class ConflictOracle:
             self.history.gc(self.oldest)
 
         return OracleBatchResult(verdict, conflicting, combined)
+
+
+class MultiResolverOracle:
+    """n independent ConflictOracles over a keyspace partition.
+
+    Models the reference's multi-resolver deployment exactly: the proxy
+    clips each transaction's conflict ranges to every resolver's partition
+    (ResolutionRequestBuilder, fdbserver/CommitProxyServer.actor.cpp:
+    105-261 — a resolver only sees the pieces inside its key range) and
+    combines the per-resolver verdicts with min()
+    (determineCommittedTransactions :1551-1567). Each shard oracle keeps
+    its own history: a txn that passes on shard A has its writes merged
+    there even if shard B aborts it — the reference's phantom-commit
+    behavior, preserved deliberately.
+    """
+
+    def __init__(self, boundaries: list, window: int = 5_000_000):
+        # boundaries: n_shards-1 ascending interior split keys (bytes).
+        self.boundaries = list(boundaries)
+        self.shards = [ConflictOracle(window) for _ in range(len(boundaries) + 1)]
+
+    def _clip(self, ranges, s: int):
+        lo = self.boundaries[s - 1] if s > 0 else b""
+        hi = self.boundaries[s] if s < len(self.boundaries) else None
+        out = []
+        for i, (b, e) in enumerate(ranges):
+            cb = max(b, lo)
+            ce = e if hi is None else min(e, hi)
+            if cb < ce:
+                out.append((i, (cb, ce)))
+        return out
+
+    def resolve(self, txns: list[OracleTxn], version: int) -> OracleBatchResult:
+        n = len(txns)
+        verdict = [COMMITTED] * n
+        conflicting: dict[int, list[int]] = {}
+        for s, shard in enumerate(self.shards):
+            local_txns = []
+            read_index_maps = []
+            for tr in txns:
+                reads = self._clip(tr.read_conflict_ranges, s)
+                writes = self._clip(tr.write_conflict_ranges, s)
+                read_index_maps.append([i for i, _ in reads])
+                local_txns.append(
+                    OracleTxn(
+                        read_conflict_ranges=[r for _, r in reads],
+                        write_conflict_ranges=[r for _, r in writes],
+                        read_snapshot=tr.read_snapshot,
+                        report_conflicting_keys=tr.report_conflicting_keys,
+                    )
+                )
+            res = shard.resolve(local_txns, version)
+            for t in range(n):
+                verdict[t] = min(verdict[t], res.verdicts[t])
+            for t, idxs in res.conflicting_ranges.items():
+                remapped = [read_index_maps[t][i] for i in idxs]
+                conflicting.setdefault(t, []).extend(remapped)
+        conflicting = {
+            t: sorted(set(v))
+            for t, v in conflicting.items()
+            if verdict[t] == CONFLICT
+        }
+        return OracleBatchResult(verdict, conflicting, [])

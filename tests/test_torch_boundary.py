@@ -30,6 +30,7 @@ from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
+from foundationdb_tpu_torch.parallel import sharding as SH
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "foundationdb_tpu_torch"
@@ -101,18 +102,21 @@ def test_missing_card_raises(monkeypatch):
 
 
 def test_variant_knobs_are_refused():
-    """The variants not ported yet (short-span ops, sharding) are
-    refused on both paths; the classic single-tier path (no delta tier)
-    and the latch, dedup, sweep and spill knobs are served
-    (tests/test_torch_classic.py, tests/test_torch_variants.py)."""
-    for kw in ({"short_span_limit": 4}, {"n_shards": 2},
-               {"short_span_limit": 4, "delta_capacity": 0}):
+    """The variant not ported yet (short-span ops) is refused on every
+    path, with shards too; the classic single-tier path (no delta tier),
+    the latch, dedup, sweep and spill knobs and the sharded path are
+    served (tests/test_torch_classic.py, tests/test_torch_variants.py,
+    tests/test_torch_sharding.py)."""
+    for kw in ({"short_span_limit": 4},
+               {"short_span_limit": 4, "delta_capacity": 0},
+               {"short_span_limit": 4, "n_shards": 2}):
         with pytest.raises(ValueError):
             make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
     for kw in ({"fixpoint_latch": True}, {"dedup_reads": 8},
                {"range_sweep": True}, {"delta_spill": True},
                {"delta_capacity": 0},
-               {"delta_capacity": 0, "fixpoint_latch": True}):
+               {"delta_capacity": 0, "fixpoint_latch": True},
+               {"n_shards": 2}):
         make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
 
 
@@ -141,6 +145,15 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     D.dedup_vmax(hist, tab, q, q, live, 8)
     R.query2(R.build2(vals, op="max"), lo, lo + 40, op="max")
     G.seg_fold(vals, lo, lo + 3, lo > 4, 7)
+    g = {"read_begin": q[None], "read_end": q[None], "read_valid": live[None],
+         "read_txn": torch.zeros((1, q.shape[0]), dtype=torch.int32),
+         "write_begin": q[None], "write_end": q[None],
+         "write_valid": live[None],
+         "txn_valid": torch.ones((1, 4), dtype=torch.bool)}
+    SH.clip_batch(g, keys[[0, 20]], keys[[20, 63]])
+    v = torch.zeros((2, 1, 4), dtype=torch.int32)
+    f = torch.zeros((2, 1), dtype=torch.bool)
+    SH.combine(v, v, f[..., None], f, f[:, 0], g["txn_valid"])
     assert kernels.counts() == {name: 0 for name in kernels.KERNELS}
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from foundationdb_tpu_torch import kernels, make_conflict_set
+from foundationdb_tpu_torch import interop, kernels, make_conflict_set
 from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import group as G
@@ -24,6 +24,7 @@ from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
+from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
@@ -35,6 +36,8 @@ pytestmark = pytest.mark.cuda
 
 #: the kernels only the classic group kernel at G > 1 launches
 CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
+#: the kernels only the sharded path launches
+SHARDED_ONLY = ("shard_clip", "shard_combine")
 
 
 @pytest.fixture
@@ -147,11 +150,12 @@ def test_stream_matches_cpu_plain_path(cuda_device):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     # the exact uniform tiered path launches every kernel but the two
     # variant probes (sweep_ranks, read_dedup: test_variant_stream_...
-    # below) and the classic group kernel's cross phase (kernels G and
-    # H: test_classic_stream_matches_cpu_plain_path)
+    # below), the classic group kernel's cross phase (kernels G and H:
+    # test_classic_stream_matches_cpu_plain_path) and the sharded path's
+    # clip and combine (kernels I and J: test_sharded_stream_...)
     for name, n in kernels.counts().items():
         assert (n > 0) == (name not in ("sweep_ranks", "read_dedup",
-                                        *CLASSIC_ONLY)), name
+                                        *CLASSIC_ONLY, *SHARDED_ONLY)), name
 
 
 def test_sweep_ranks(cuda_device):
@@ -358,4 +362,92 @@ def test_classic_stream_matches_cpu_plain_path(cuda_device):
         assert torch.equal(getattr(gpu.state, part).cpu(),
                            getattr(cpu.state, part)), part
     for name in CLASSIC_ONLY:
+        assert kernels.COUNTS[name] > 0, name
+
+
+@pytest.mark.parametrize("bounds", [[], [1000, 2000, 3000], [2**31 + 5]])
+def test_shard_clip(cuda_device, bounds):
+    """Kernel I against its plain version on a group of 3 scan batches:
+    ranges straddling and touching the boundaries, keys with the high
+    bit set, dead rows, one shard and the sentinel hi."""
+    n = 1024
+    cfg = KernelConfig(max_key_bytes=8, max_txns=n, max_reads=n,
+                       max_writes=n, history_capacity=n)
+    rng = np.random.default_rng(len(bounds))
+    batches = [skiplist_style_batch(rng, cfg, n - 10 * i, version=10 * (i + 1),
+                                    keyspace=4000, range_len=300,
+                                    snapshot_lag=5) for i in range(3)]
+    for pb in batches:
+        pb.read_begin[::7] = int_keys_packed(np.array(bounds or [9]), 8, 3)[0]
+        pb.write_end[::5] = int_keys_packed(np.array([2**31 + 7]), 8, 3)[0]
+        pb.read_valid[::11] = False
+    g = interop.device_args_to_torch(stack_device_args(batches), cuda_device)
+    keys = [int(x).to_bytes(8, "big") for x in bounds]
+    lo, hi = SH.partition_tensors(keys, cfg, cuda_device)
+    got = SH.clip_batch(g, lo, hi)
+    want = SH.clip_batch_plain(g, lo, hi)
+    assert kernels.COUNTS["shard_clip"] == 1
+    for k in SH.CLIPPED:
+        assert torch.equal(got[k], want[k]), k
+    assert bool(want["read_valid"].any())
+
+
+@pytest.mark.parametrize("s,gn,b,nr", [(1, 1, 16, 32), (4, 8, 1000, 2500),
+                                       (5, 3, 100, 70)])
+def test_shard_combine(cuda_device, s, gn, b, nr):
+    """Kernel J against its plain version: rows not a multiple of 32,
+    more reads than txns and fewer."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s * gn)
+
+    def rand(*shape, p):
+        return torch.rand(shape, generator=gen, device=cuda_device) < p
+
+    codes = torch.tensor([0, 1, 3], dtype=torch.int32, device=cuda_device)
+    verdict = codes[torch.randint(0, 3, (s, gn, b), generator=gen,
+                                  device=cuda_device)]
+    first = torch.randint(-1, nr, (s, gn, b), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    first[rand(s, gn, b, p=0.5)] = -1
+    args = (verdict, first, rand(s, gn, nr, p=0.1), rand(s, gn, p=0.2),
+            rand(s, p=0.3), rand(gn, b, p=0.8))
+    got, want = SH.combine(*args), SH.combine_plain(*args)
+    assert kernels.COUNTS["shard_combine"] == 1
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("latched", [False, True])
+def test_sharded_stream_matches_cpu_plain_path(cuda_device, latched):
+    """Four shards at the keyspace quartiles, groups of 3: the card and
+    the CPU plain path field for field, every shard's tiers alike,
+    kernels I and J launched; latched with a dedup cap that trips."""
+    n = 1024
+    kw = dict(max_key_bytes=8, max_txns=n, max_reads=n, max_writes=n,
+              history_capacity=12 * n, delta_capacity=12 * n,
+              window_versions=5000, compact_interval=3, n_shards=4)
+    if latched:
+        kw.update(fixpoint_latch=True, fixpoint_unroll=2, dedup_reads=64)
+    cfg = KernelConfig(**kw)
+    keys = [int(i * 1000).to_bytes(8, "big") for i in (1, 2, 3)]
+    rng = np.random.default_rng(10)
+    batches = [skiplist_style_batch(rng, cfg, n, version=1000 * (i + 1),
+                                    keyspace=4000, range_len=40,
+                                    snapshot_lag=2000) for i in range(9)]
+    gpu = make_conflict_set(cfg, "cuda", device=cuda_device,
+                            shard_boundaries=keys)
+    cpu = make_conflict_set(cfg, "cuda", device="cpu", shard_boundaries=keys)
+    kernels.reset_counts()
+    for lo in range(0, 9, 3):
+        stacked = stack_device_args(batches[lo:lo + 3])
+        got = gpu.resolve_group_args(stacked)
+        want = cpu.resolve_group_args(stacked)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        for a, b in zip(gpu.store_state()[0], cpu.store_state()[0]):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y)
+    assert gpu.metrics.counters == cpu.metrics.counters
+    if latched:
+        assert gpu.metrics.counters["exactFallbacks"] > 0
+    for name in SHARDED_ONLY:
         assert kernels.COUNTS[name] > 0, name

@@ -13,15 +13,18 @@ any fault:
    group of 8 YCSB-E batches, kernel F over a zipf batch, kernels G and
    H over the 2,097,152-rank endpoint space of a group of 8 uniform
    batches, kernels I and J at a group of 8 uniform batches on 4
-   shards), held exactly
+   shards, kernel L over a uniform batch's 262,144 endpoint rows, kernel
+   D's merge_writes entry at 655,360 + 131,072 rows and kernel M at
+   262,144 leaves and 65,536 queries, the reference scripts' shapes),
+   held exactly
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
    single PyTorch call computing the same function;
 3. the uniform stream at full width: 65,536-txn skiplist-style batches
    through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
    rangemax self-check, timed), launch counts reset just before and
-   read just after; the first compact_interval + 1 batches must be
-   field-for-field identical to the plain path on the CPU;
+   read just after; the first 5 batches must be field-for-field
+   identical to the plain path on the CPU;
 4. the hot-key stream (bench `zipf`): groups of 8 zipf-1.1 batches with
    the fixpoint latch and read dedup, every field identical to the
    exact configuration on the card, the first group to the CPU plain
@@ -57,7 +60,16 @@ any fault:
    spill + latch, identical to the probe path on the card, and a
    forced-trip group (the latch at unroll 1) that falls back on every
    shard with the exact run's results;
-10. a reduced-shape contended stream (2,048 txns) through `resolve()`,
+10. the short-span streams: the widest live span of the uniform stream
+   (tiered and classic groups of 8) sets S, the smallest power of two
+   >= 4 at or above it; kernel K held to its plain version at the
+   uniform batch's shapes; the uniform stream at S tiered (24 batches),
+   classic (3 groups of 8) and on 4 shards (1 group), every field and
+   tier identical to the same batches at S = 0 on the card (phases 3, 6
+   and 9), batch or group 0 to the CPU plain path, kernels K and L
+   launched and C and G not; a YCSB-E group of 2 at S must raise
+   HistoryOverflowError (and does not at S = 0);
+11. a reduced-shape contended stream (2,048 txns) through `resolve()`,
    exact, latched + dedup, sweep + spill, classic (one batch at a
    time, and groups of 4 through `resolve_group_args`) and sharded at 2
    and 4 shards: each must match the copied ConflictOracle (the sharded
@@ -70,7 +82,9 @@ The last lines are the streams' numbers (JSON), the kernel ledger
 
 from __future__ import annotations
 
+import functools
 import json
+import re
 import statistics
 import sys
 import time
@@ -91,6 +105,10 @@ VERSION_STEP = 200_000
 SNAPSHOT_LAG = 400_000
 KEYSPACE = 1_000_000
 COMPACT_INTERVAL = 8
+#: uniform batches the CPU plain path repeats in phase 3 (the CPU checks
+#: are most of the script's time; compaction is held to its plain
+#: version in phase 2 and card to card in phases 3, 6 and 10)
+N_CPU_CHECK = 5
 N_BATCHES = 24
 GROUP = 8                   # batches per fused dispatch (bench BENCH_FUSE)
 ZIPF = 1.1
@@ -113,6 +131,10 @@ ROLE_WINDOW = 5_000_000
 ROLE_BATCHES = 64
 ROLE_KEYSPACE = 20_000
 ROLE_VERSION_STEP = 100_000
+
+
+#: the script's start on the host clock
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -144,41 +166,126 @@ def event_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_time_by_name(fn) -> dict:
-    """{kernel name: device microseconds} of what fn() launches, from
-    torch.profiler (kernels, memsets and copies on the card)."""
+#: a profiler record of one of the port's kernels: its demangled name
+#: starts with the kernel's own, in the sources' unnamed namespace
+PORT_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+
+
+@functools.lru_cache(maxsize=None)
+def port_kernel_names() -> frozenset:
+    """The __global__ functions of the port's kernel sources."""
+    from foundationdb_tpu_torch import kernels
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)")
+    return frozenset(name for src in kernels.SOURCES for name in
+                     pat.findall((kernels.CSRC / f"{src}.cu").read_text()))
+
+
+#: Each profiler session opens with a host op and WARM_KERNELS short
+#: spin kernels (left out of its results) and idles SESSION_PAD_S before
+#: and after fn(). On the card's machine a session can lose its first
+#: device records: Kineto counts them "Out-of-range" of the session's
+#: window (shown with KINETO_LOG_LEVEL=0), up to all ten of a short
+#: session late in a run, whatever the idle pad before them. The spin
+#: kernels take that loss; one of them on record shows that fn()'s
+#: records are whole
+WARM_KERNELS = 64
+SESSION_PAD_S = 0.02
+
+
+def device_time_by_name(fn) -> tuple:
+    """({kernel name: device microseconds} of what fn() launches, from
+    torch.profiler (kernels, memsets and copies on the card); {kernel
+    function: records} of the session's launches of the port's kernels;
+    the opening spin kernels on record)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ours = port_kernel_names()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1)
+        for _ in range(WARM_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(SESSION_PAD_S)
         fn()
         torch.cuda.synchronize()
-    out = {}
+        time.sleep(SESSION_PAD_S)
+        torch.zeros(1)
+    out, n_ours, n_spin = {}, {}, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in ev.key:
+            n_spin += ev.count
             continue
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
         out[ev.key] = out.get(ev.key, 0.0) + t
-    return out
+        m = PORT_KERNEL.match(ev.key)
+        if m and m.group(1) in ours:
+            n_ours[m.group(1)] = n_ours.get(m.group(1), 0) + ev.count
+    return out, n_ours, n_spin
 
 
-def device_ms(fn, reps: int = 10) -> float:
+#: the profiler sessions taken again: what each recorded against the
+#: launches counted over it
+RETAKES = []
+#: the opening spin kernels lost, one entry per session that lost any
+WARM_LOST = []
+
+
+def profiled(fn) -> dict:
+    """device_time_by_name(fn), held to what kernels.COUNTS counted over
+    the same session: the profiler's records of the port's kernels must
+    number exactly the launches counted, one of the opening spin kernels
+    at least must be on record, and the session must record some device
+    work. A session that fails is taken again (logged, and
+    kept in RETAKES), up to four sessions in all; then the script
+    fails."""
+    from foundationdb_tpu_torch import kernels
+
+    for attempt in range(4):
+        before = dict(kernels.COUNTS)
+        by_name, records, n_spin = device_time_by_name(fn)
+        per_entry = {k: n - before[k] for k, n in kernels.COUNTS.items()
+                     if n != before[k]}
+        recorded, launched = sum(records.values()), sum(per_entry.values())
+        busy = sum(by_name.values())
+        if n_spin < WARM_KERNELS:
+            WARM_LOST.append(WARM_KERNELS - n_spin)
+        if recorded == launched and n_spin > 0 and busy > 0:
+            return by_name
+        RETAKES.append(dict(recorded=recorded, launched=launched,
+                            spin_recorded=n_spin, device_us=busy,
+                            at_s=time.perf_counter() - T_START))
+        log(f"    (profiler session {attempt + 1}, "
+            f"{RETAKES[-1]['at_s']:.1f} s in: {recorded} records of the "
+            f"port's kernels for {launched} launches, {n_spin} of "
+            f"{WARM_KERNELS} spin kernels, {busy:.1f} us of device time; "
+            f"launched by entry {per_entry}, recorded by kernel "
+            f"{records})")
+    fail("four profiler sessions in a row disagree with the launch "
+         f"counts: {RETAKES[-4:]}")
+
+
+def device_ms(fn, reps: int = 10, sessions: int = 1) -> float:
     """Mean device milliseconds per call of fn(): the summed duration of
-    the work it puts on the card, without the host's launch gaps."""
+    the work it puts on the card, without the host's launch gaps, from
+    checked profiler sessions (`profiled`); with `sessions` > 1 the
+    median over that many."""
     fn()
 
     def many():
         for _ in range(reps):
             fn()
 
-    total_us = sum(device_time_by_name(many).values())
-    if total_us <= 0:
-        fail("the profiler recorded no device time")
-    return total_us / 1e3 / reps
+    return statistics.median(sum(profiled(many).values()) / 1e3 / reps
+                             for _ in range(sessions))
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -229,6 +336,40 @@ def int_keys(v):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def measure(ledger: dict, name: str, kern, plain, *,
+            n_bytes: float, n_ops: float, library=None, check=None,
+            detail: bool = False) -> None:
+    """One kernel entry's ledger row: kern() against plain() (exact unless
+    `check` says otherwise), the launches of one call, the device time,
+    the per-call time with launch gaps, the plain version's and the
+    library call's time, and the bound from n_bytes and n_ops."""
+    from foundationdb_tpu_torch import kernels
+
+    before = kernels.COUNTS[name]
+    got = kern()
+    per_call = kernels.COUNTS[name] - before
+    want = plain()
+    err = (check or exact)(name, got, want)
+    if per_call <= 0:
+        fail(f"{name}: no launch counted")
+    t_k = device_ms(kern, sessions=3)
+    t_call = event_ms(kern)
+    t_p = device_ms(plain, reps=3)
+    t_l = device_ms(library, sessions=3) if library is not None else None
+    b, by = bound_ms(n_bytes, n_ops)
+    ledger[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                        bound_ms=b, bound_by=by, library_ms=t_l,
+                        launches_per_call=per_call)
+    log(f"  {name:18s} device {t_k * 1e3:9.1f} us (per call with launch "
+        f"gaps {t_call * 1e3:9.1f} us)  bound {b * 1e3:7.1f} us ({by})  "
+        f"plain {t_p * 1e3:10.1f} us  library "
+        + (f"{t_l * 1e3:.1f} us" if t_l is not None else "none"))
+    if detail:   # the wrapper's device work by kernel, one call
+        for k, t in sorted(profiled(kern).items(),
+                           key=lambda kv: -kv[1]):
+            log(f"      {t:8.1f} us  {k[:90]}")
+
+
 def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
                   uniform_group) -> dict:
     """Every kernel entry vs its plain version at bench shapes, timed.
@@ -250,32 +391,10 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(20261017)
     ledger = {}
-    per_call = {}   # launches of one call of each entry's wrapper
 
-    def entry(name, kern, plain, n_bytes, n_ops, library=None, check=None,
-              detail=False):
-        before = kernels.COUNTS[name]
-        got = kern()
-        per_call[name] = kernels.COUNTS[name] - before
-        want = plain()
-        err = (check or exact)(name, got, want)
-        if per_call[name] <= 0:
-            fail(f"{name}: no launch counted")
-        t_k = device_ms(kern)
-        t_call = event_ms(kern)
-        t_p = device_ms(plain, reps=3)
-        t_l = device_ms(library) if library is not None else None
-        b, by = bound_ms(n_bytes, n_ops)
-        ledger[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                            bound_ms=b, bound_by=by, library_ms=t_l)
-        log(f"  {name:18s} device {t_k * 1e3:9.1f} us (per call with launch "
-            f"gaps {t_call * 1e3:9.1f} us)  bound {b * 1e3:7.1f} us ({by})  "
-            f"plain {t_p * 1e3:10.1f} us  library "
-            + (f"{t_l * 1e3:.1f} us" if t_l is not None else "none"))
-        if detail:   # the wrapper's device work by kernel, one call
-            for k, t in sorted(device_time_by_name(kern).items(),
-                               key=lambda kv: -kv[1]):
-                log(f"      {t:8.1f} us  {k[:90]}")
+    def entry(name, kern, plain, n_bytes, n_ops, **kw):
+        measure(ledger, name, kern, plain, n_bytes=n_bytes, n_ops=n_ops,
+                **kw)
 
     steps = M.bit_length()
     # -- A.search at its main-path shape: K6's W=1 left search of the
@@ -591,6 +710,106 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           lambda: SH.combine_plain(*jargs),
           n_bytes=combine_bytes(SHARDS, GROUP, B, B),
           n_ops=SHARDS * GROUP * 3 * B, check=fields)
+
+    # -- L: sort_ranks over one uniform batch's 262,144 endpoint rows
+    #    (the reference's profile_serialized.py shape), dead rows masked
+    a0 = interop.device_args_to_torch(uniform_group[0].device_args(), device)
+    pts = torch.cat([a0["read_begin"], a0["read_end"], a0["write_begin"],
+                     a0["write_end"]]).contiguous()
+    pvalid = torch.cat([a0["read_valid"], a0["read_valid"],
+                        a0["write_valid"], a0["write_valid"]])
+    p = pts.shape[0]
+    masked = torch.where(pvalid[:, None], pts, K.SENTINEL_WORD)
+    ucount = int(K.sort_ranks_plain(pts, pvalid)[2])
+    log(f"  sort_ranks input: {p} x {W}-word endpoint rows of a uniform "
+        f"batch, {int(pvalid.sum())} valid, {ucount} distinct")
+    entry("sort_ranks",
+          lambda: K.sort_ranks(pts, pvalid),
+          lambda: K.sort_ranks_plain(pts, pvalid),
+          n_bytes=p * (2 * W * 4 + 4 + 1) + 4,
+          n_ops=p * W * (p.bit_length() - 1),
+          library=lambda: torch.unique(masked, dim=0, return_inverse=True),
+          check=both, detail=True)
+
+    # -- D's mm_mark_runs: merge_writes of 131,072 run bounds into a tier
+    #    of 655,360 live rows (profile_serialized.py's 655K + 131K), an
+    #    eighth of the bounds equal to tier keys, GC at a floor
+    n_runs = M // 6                        # 131,072 at bench shape
+    wt_keys, n_wt = random_sorted_keys(gen, M - n_runs, M, device)
+    wt_ver = torch.randint(0, 1_000_000, (M,), generator=gen, device=device,
+                           dtype=torch.int32)
+    wt_ver[n_wt:] = H.VERSION_NEG
+    fresh = torch.randint(0, 1 << 40, (n_runs,), generator=gen,
+                          device=device)
+    on_tier = torch.randint(0, n_wt, (n_runs // 8,), generator=gen,
+                            device=device)
+    tier_ints = ((wt_keys[on_tier, 0].to(torch.int64) & 0xFFFFFFFF) << 32) \
+        | (wt_keys[on_tier, 1].to(torch.int64) & 0xFFFFFFFF)
+    bounds = torch.unique(torch.cat([fresh[: n_runs - on_tier.shape[0]],
+                                     tier_ints]))
+    bounds = bounds[: bounds.shape[0] // 2 * 2]
+    runs = K.sentinel_like(n_runs, W, device)
+    runs[: bounds.shape[0]] = int_keys(bounds)
+    whist = H.VersionHistory(wt_keys, wt_ver, 0, torch.zeros(
+        (), dtype=torch.bool, device=device))
+    log(f"  merge_writes input: {n_wt} live tier rows of {M}, "
+        f"{bounds.shape[0]} run bounds ({int(torch.isin(bounds, tier_ints).sum())}"
+        " equal to tier keys), version 1,200,000, floor 200,000")
+
+    def history_parts(name, got, want):
+        return max(exact(f"{name} keys", got.main_keys, want.main_keys),
+                   exact(f"{name} ver", got.main_ver, want.main_ver),
+                   exact(f"{name} overflow", got.overflow, want.overflow))
+
+    entry("merge_writes",
+          lambda: H.merge_writes(whist, runs, 1_200_000, 200_000),
+          lambda: H.merge_writes_plain(whist, runs, 1_200_000, 200_000),
+          n_bytes=2 * M * (W + 1) * 4 + n_runs * W * 4,
+          n_ops=(M + n_runs) * 2 * (M.bit_length() + 1) * W,
+          check=history_parts)
+
+    # -- M: the radix-4 table at 262,144 leaves, 65,536 queries of 1..63
+    #    (experiments6.py's shapes), and its cover of 65,536 intervals
+    leaves4 = 4 * B                         # 262,144 at bench shape
+    vals4 = torch.randint(0, 1 << 30, (leaves4,), generator=gen,
+                          device=device, dtype=torch.int32)
+    lv4 = rangemax._num_levels4(leaves4)
+    entry("rangemax4.build",
+          lambda: rangemax.build4(vals4, op="max"),
+          lambda: rangemax.build4_plain(vals4, op="max"),
+          n_bytes=(1 + lv4) * leaves4 * 4, n_ops=3 * (lv4 - 1) * leaves4)
+    exact("rangemax4.build min", rangemax.build4(vals4, op="min"),
+          rangemax.build4_plain(vals4, op="min"))
+    tab4 = rangemax.build4_plain(vals4, op="max")
+    q4 = B
+    qlo4 = torch.randint(0, leaves4 - 1, (q4,), generator=gen, device=device,
+                         dtype=torch.int32)
+    qhi4 = (qlo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
+                                 dtype=torch.int32)).clamp(max=leaves4)
+    entry("rangemax4.query",
+          lambda: rangemax.query4(tab4, qlo4, qhi4, op="max"),
+          lambda: rangemax.query4_plain(tab4, qlo4, qhi4, op="max"),
+          n_bytes=q4 * 4 * 7, n_ops=q4 * 4)
+    exact("rangemax4.query min",
+          rangemax.query4(rangemax.build4_plain(vals4, op="min"), qlo4, qhi4,
+                          op="min"),
+          rangemax.query4_plain(rangemax.build4_plain(vals4, op="min"), qlo4,
+                                qhi4, op="min"))
+    ilo4 = torch.randint(0, leaves4 - 64, (q4,), generator=gen,
+                         device=device, dtype=torch.int32)
+    ihi4 = ilo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
+                                dtype=torch.int32)
+    ival4 = torch.randint(0, q4, (q4,), generator=gen, device=device,
+                          dtype=torch.int32)
+    nlev4 = segtree._cover4_levels(leaves4)
+    entry("rangemax4.cover",
+          lambda: segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
+          lambda: segtree.min_cover4_plain(leaves4, ilo4, ihi4, ival4),
+          n_bytes=3 * q4 * 4 + leaves4 * 4,
+          n_ops=4 * q4 + 3 * (nlev4 - 1) * leaves4)
+    exact("rangemax4.cover vs min_cover",
+          segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
+          segtree.min_cover(leaves4, ilo4, ihi4, ival4))
     return ledger
 
 
@@ -666,8 +885,10 @@ def count_launch_bytes() -> None:
     launch = kernels.launch
 
     def counted(entry, count, *args):
+        before = kernels.COUNTS[count]
         launch(entry, count, *args)
-        LAUNCH_BYTES["total"] += _launch_bytes(entry, list(args))
+        if kernels.COUNTS[count] != before:
+            LAUNCH_BYTES["total"] += _launch_bytes(entry, list(args))
 
     kernels.launch = counted
 
@@ -911,6 +1132,13 @@ def state_of(cs):
 CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 #: the kernels only the sharded path launches
 SHARDED_ONLY = ("shard_clip", "shard_combine")
+#: the kernels only the short-span variant launches
+SHORT_SPAN_ONLY = ("short_span.range", "short_span.cover")
+#: the kernels no resolver path launches: the reference's scripts alone
+#: reach K16 and K19, so their path launches are 0 (phase 2's one call
+#: each is in launches_per_call)
+OFF_PATH = ("merge_writes", "rangemax4.build", "rangemax4.query",
+            "rangemax4.cover")
 
 
 def require_launched(tag: str, launches: dict, unused=()) -> None:
@@ -1008,29 +1236,30 @@ def phase_stream(device, batches) -> dict:
         per_batch.append(time.perf_counter() - t0)
         gpu_outs.append(verdict_fields(out))
         occupancy.append([int(c) for c in D.boundary_counts(cs.state)])
-        if i == n_cmp - 1:
+        if i == N_CPU_CHECK - 1:
             gpu_state = interop.tiered_state_to_numpy(cs.state)
     launches, launch_bytes = launch_totals()
     peak = torch.cuda.max_memory_allocated(device)
+    final = state_of(cs)
     cs.check_overflow()
     require_launched("uniform", launches,
                      ("sweep_ranks", "read_dedup", *CLASSIC_ONLY,
-                      *SHARDED_ONLY))
+                      *SHARDED_ONLY, *SHORT_SPAN_ONLY, *OFF_PATH))
     log(f"  {N_BATCHES} batches x {B} txns; launches on the main path: "
         f"{launches}")
 
-    # the CPU plain path on the first compact_interval + 1 batches
+    # the CPU plain path on the first N_CPU_CHECK batches
     cpu = make_conflict_set(cfg, "cuda", device="cpu")
     t0 = time.perf_counter()
-    for i, b in enumerate(batches[:n_cmp]):
+    for i, b in enumerate(batches[:N_CPU_CHECK]):
         same_fields(f"uniform batch {i} vs the CPU plain path", gpu_outs[i],
                     verdict_fields(cpu.resolve_packed(b)))
     cpu_s = time.perf_counter() - t0
-    same_state(f"uniform, after batch {n_cmp - 1}, vs the CPU plain path",
-               gpu_state, interop.tiered_state_to_numpy(cpu.state))
-    log(f"  first {n_cmp} batches (one compaction inside) identical to the "
-        f"CPU plain path, field by field, and both tiers identical row for "
-        f"row after them ({cpu_s:.1f} s on the CPU)")
+    same_state(f"uniform, after batch {N_CPU_CHECK - 1}, vs the CPU plain "
+               "path", gpu_state, interop.tiered_state_to_numpy(cpu.state))
+    log(f"  first {N_CPU_CHECK} batches identical to the CPU plain path, "
+        f"field by field, and both tiers identical row for row after them "
+        f"({cpu_s:.1f} s on the CPU)")
 
     steady = per_batch[n_cmp:]
     ms = statistics.median(steady) * 1e3
@@ -1064,17 +1293,15 @@ def phase_stream(device, batches) -> dict:
                 txn_per_s=B / ms * 1e3, selftest_ms=selftest_ms,
                 selftest_bound_ms=selftest_bound,
                 ctor_ms=ctor_ms, overflow_checks=checks, rebases=rebases,
-                outs=gpu_outs, **prof)
+                outs=gpu_outs, final=final, **prof)
 
 
 def profile_run(run, wall_ms: float, n_batches: int) -> dict:
     """Device time by kernel over run() (torch.profiler): the device's
     busy and idle share against the unprofiled wall time per batch, and
     the share of the library sorts and scans."""
-    by_name = device_time_by_name(run)
+    by_name = profiled(run)
     total = sum(by_name.values()) / 1e3 / n_batches   # ms per batch
-    if total <= 0:
-        fail("the profiler recorded no device time for the stream")
     lib = sum(t for k, t in by_name.items()
               if any(s in k.lower() for s in ("sort", "radix", "scan")))
     lib_ms = lib / 1e3 / n_batches
@@ -1116,7 +1343,8 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     times, outs, first = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
     require_launched("hot-key", launches,
-                     ("sweep_ranks", *CLASSIC_ONLY, *SHARDED_ONLY))
+                     ("sweep_ranks", *CLASSIC_ONLY, *SHARDED_ONLY,
+                      *SHORT_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
@@ -1211,7 +1439,8 @@ def phase_range_scan(device, batches) -> dict:
     times, outs, first = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
     require_launched("range-scan", launches,
-                     ("read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY))
+                     ("read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
+                      *SHORT_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"launches: {launches}")
@@ -1288,7 +1517,8 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
     require_launched("classic uniform", launches,
-                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY))
+                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
+                      *SHORT_SPAN_ONLY, *OFF_PATH))
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} "
         f"(history {cfg.history_capacity}, no delta tier); launches: "
         f"{launches}")
@@ -1344,7 +1574,7 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     log("  G=1 (resolve_batch), one more batch:")
     prof1 = profile_run(lambda: one.resolve_packed(extra[GROUP]), ms1, 1)
     return dict(launches=launches, launch_bytes=launch_bytes,
-                batches=len(batches), ms_per_batch=ms,
+                batches=len(batches), ms_per_batch=ms, outs=outs, maps=maps,
                 txn_per_s=B / ms * 1e3, g1_ms_per_batch=ms1,
                 g1_txn_per_s=B / ms1 * 1e3, peak_rows=max(occupancy),
                 peak_device_mib=peak / 2**20,
@@ -1373,7 +1603,8 @@ def phase_classic_hot(device, batches) -> dict:
     times, outs, _ = run_groups(cs, groups)
     launches, launch_bytes = launch_totals()
     require_launched("classic hot-key", launches,
-                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY))
+                     ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
+                      *SHORT_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"counters {counters}; launches: {launches}")
@@ -1501,6 +1732,251 @@ def phase_resolver_role(device) -> dict:
                 **prof)
 
 
+def survey_spans(device, uni) -> tuple:
+    """The widest spans of the uniform stream: tiered (each batch against
+    the delta tier an exact set holds just before it) and classic
+    (groups of 8 against the single tier): (S, the widest spans). S is
+    the smallest power of two >= 4 at or above the widest span."""
+    from foundationdb_tpu_torch import interop, make_conflict_set
+    from foundationdb_tpu_torch.ops.group import span_widths
+
+    widest = {}
+
+    def note(spans):
+        for k, v in spans.items():
+            widest[k] = max(widest.get(k, 0), v)
+
+    tiered = make_conflict_set(bench_config(B), "cuda")
+    for b in uni:
+        g = interop.device_args_to_torch(
+            groups_of([b])[0], device)
+        note(span_widths(tiered.state.delta, g))
+        tiered.resolve_packed(b)
+    classic = make_conflict_set(bench_config(B, delta_capacity=0), "cuda")
+    for stacked in groups_of(uni):
+        note(span_widths(classic.state,
+                         interop.device_args_to_torch(stacked, device)))
+        classic.resolve_group_args(stacked)
+    top = max(widest.values())
+    return max(4, 1 << max(0, (top - 1).bit_length())), widest
+
+
+def phase_short_span(device, uni, ycsb, tiered_ref: dict,
+                     classic_ref: dict, sharded_ref: dict) -> dict:
+    """short_span_limit = S on the uniform stream: tiered (24 batches),
+    classic (3 groups of 8) and 4 shards (1 group), every field and tier
+    identical to the same batches at S = 0 on the card, batch or group 0
+    to the CPU plain path; kernel K held to its plain version at the
+    uniform batch's shapes; a YCSB-E group at S must raise."""
+    import torch
+
+    from foundationdb_tpu_torch import (
+        HistoryOverflowError,
+        interop,
+        kernels,
+        make_conflict_set,
+    )
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import keys as K
+
+    t0 = time.perf_counter()
+    ss, widest = survey_spans(device, uni)
+    log(f"  widest live spans of the uniform stream {widest} (tiered "
+        f"against the delta tier, classic groups of {GROUP} against the "
+        f"tier; survey {time.perf_counter() - t0:.1f} s): S = {ss}")
+
+    # kernel K at the uniform batch's shapes: phase (b) over a main tier
+    # of the stream's keys, phase (e)'s cover and query in local ranks
+    ledger = {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(55)
+    a = interop.device_args_to_torch(uni[0].device_args(), device)
+    sk = torch.unique(torch.randint(0, KEYSPACE, (M,), generator=gen,
+                                    device=device))[: 3 * M // 4]
+    mkeys = K.sentinel_like(M, W, device)
+    mkeys[: sk.shape[0]] = int_keys(sk)
+    mver = torch.randint(0, 5_000_000, (M,), generator=gen, device=device,
+                         dtype=torch.int32)
+    il = K.searchsorted(mkeys, a["read_begin"], side="right") - 1
+    ir = K.searchsorted(mkeys, a["read_end"], side="left") - 1
+    blo, bhi = il.clamp(min=0), ir + 1
+    covered = int((bhi - blo).clamp(0, ss).sum())
+    measure(ledger, "short_span.range",
+            lambda: G.ss_range(mver, blo, bhi, ss, op="max"),
+            lambda: G.ss_range_plain(mver, blo, bhi, ss, op="max"),
+            n_bytes=12 * B + 4 * covered, n_ops=covered)
+    live = torch.cat([a["read_valid"], a["read_valid"], a["write_valid"],
+                      a["write_valid"]])
+    pts = torch.where(live[:, None], torch.cat([
+        a["read_begin"], a["read_end"], a["write_begin"], a["write_end"]]),
+        K.SENTINEL_WORD).contiguous()
+    rank = K.dense_ranks(pts)
+    lq_lo, lq_hi = rank[:B], rank[B:2 * B]
+    wv = a["write_valid"]
+    wlo = torch.where(wv, rank[2 * B:3 * B], 0)
+    whi = torch.where(wv, rank[3 * B:], 0)
+    leaves = 4 * B
+    wval = torch.randint(0, B, (B,), generator=gen, device=device,
+                         dtype=torch.int32)
+    wval[torch.rand((B,), generator=gen, device=device) < 0.05] = \
+        G.INT32_POS
+    written = int(torch.where(wval < G.INT32_POS,
+                              (whi - wlo).clamp(0, ss), 0).sum())
+    measure(ledger, "short_span.cover",
+            lambda: G.ss_cover(leaves, wlo, whi, wval, ss),
+            lambda: G.ss_cover_plain(leaves, wlo, whi, wval, ss),
+            n_bytes=12 * B + 4 * leaves, n_ops=written)
+    mw = G.ss_cover_plain(leaves, wlo, whi, wval, ss)
+    exact("short_span.range min (the fixpoint's query)",
+          G.ss_range(mw, lq_lo, lq_hi, ss, op="min"),
+          G.ss_range_plain(mw, lq_lo, lq_hi, ss, op="min"))
+    log(f"  kernel K input: {B} reads over a {sk.shape[0]}-row tier "
+        f"({covered} segment reads), {B} writes over {leaves} local "
+        f"leaves ({written} cover writes), S = {ss}")
+
+    # -- the tiered stream at S
+    cfg = bench_config(B, short_span_limit=ss)
+    cs = make_conflict_set(cfg, "cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    per_batch, outs = [], []
+    for i, b in enumerate(uni):
+        t1 = time.perf_counter()
+        out = cs.resolve_packed(b)
+        torch.cuda.synchronize()
+        per_batch.append(time.perf_counter() - t1)
+        outs.append(verdict_fields(out))
+    launches, launch_bytes = launch_totals()
+    try:
+        cs.check_overflow()
+    except HistoryOverflowError:
+        fail(f"the uniform stream tripped the span latch at S = {ss}")
+    require_launched("short-span uniform", launches,
+                     ("keysearch.query", "min_cover", "sweep_ranks",
+                      "read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
+                      *OFF_PATH))
+    for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
+        if launches[name]:
+            fail(f"{name}: launched on the short-span uniform path")
+    for i, (got, want) in enumerate(zip(outs, tiered_ref["outs"])):
+        same_fields(f"short-span batch {i} vs S = 0 on the card", got, want)
+    same_state("short-span uniform stream vs S = 0 on the card",
+               state_of(cs), tiered_ref["final"])
+    cpu = make_conflict_set(cfg, "cuda", device="cpu")
+    t1 = time.perf_counter()
+    same_fields("short-span batch 0 vs the CPU plain path", outs[0],
+                verdict_fields(cpu.resolve_packed(uni[0])))
+    log(f"  {len(uni)} batches at S = {ss}: every field and both tiers "
+        f"identical to S = 0 on the card, batch 0 to the CPU plain path "
+        f"({time.perf_counter() - t1:.1f} s on the CPU); launches "
+        f"{launches}")
+    n_cmp = COMPACT_INTERVAL + 1
+    ms = statistics.median(per_batch[n_cmp:]) * 1e3
+    log(f"  steady state: {ms:.3f} ms/batch median over batches "
+        f"{n_cmp}..{len(uni) - 1} (S = 0: {tiered_ref['ms']:.3f}), "
+        f"{B / (ms / 1e3):,.0f} txn/s")
+    extra = uniform_stream(cfg, 2, seed=1, start=len(uni))
+
+    def run():
+        for b in extra:
+            cs.resolve_packed(b)
+
+    prof = profile_run(run, ms, len(extra))
+
+    # -- classic groups of 8 at S
+    ccfg = bench_config(B, delta_capacity=0, short_span_limit=ss)
+    groups = groups_of(uni)
+    cl = make_conflict_set(ccfg, "cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    c_times, c_outs = [], []
+    for gi, g in enumerate(groups):
+        t1 = time.perf_counter()
+        out = cl.resolve_group_args(g)
+        torch.cuda.synchronize()
+        c_times.append(time.perf_counter() - t1)
+        c_outs.append(verdict_fields(out))
+        same_fields(f"short-span classic group {gi} vs S = 0 on the card",
+                    c_outs[-1], classic_ref["outs"][gi])
+        same_state(f"short-span classic group {gi} vs S = 0 on the card",
+                   state_of(cl), classic_ref["maps"][gi])
+        if gi == 0:
+            first = state_of(cl)
+    c_launches, c_bytes = launch_totals()
+    require_launched("short-span classic", c_launches,
+                     ("keysearch.query", "keysearch.probe", "rangemax_build",
+                      "min_cover", "sweep_ranks", "read_dedup",
+                      "rangemax2.build", "rangemax2.query", *SHARDED_ONLY,
+                      *OFF_PATH))
+    for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
+        if c_launches[name]:
+            fail(f"{name}: launched on the short-span classic path")
+    cpu = make_conflict_set(ccfg, "cuda", device="cpu")
+    t1 = time.perf_counter()
+    same_fields("short-span classic group 0 vs the CPU plain path",
+                c_outs[0], verdict_fields(cpu.resolve_group_args(groups[0])))
+    same_state("short-span classic group 0 vs the CPU plain path", first,
+               state_of(cpu))
+    c_ms = group_timing(f"classic G={GROUP} at S = {ss}", c_times)
+    log(f"  {len(groups)} classic groups at S = {ss}: every field and the "
+        f"tier identical to S = 0 on the card after every group, group 0 "
+        f"to the CPU plain path ({time.perf_counter() - t1:.1f} s on the "
+        f"CPU); launches {c_launches}")
+    c_extra = groups_of(uniform_stream(ccfg, GROUP, seed=1,
+                                       start=len(uni)))[0]
+    c_prof = profile_run(lambda: cl.resolve_group_args(c_extra), c_ms,
+                         GROUP)
+
+    # -- one group on 4 shards at S
+    scfg = bench_config(B, n_shards=SHARDS, short_span_limit=ss)
+    sh = make_conflict_set(scfg, "cuda", shard_boundaries=quartiles())
+    reset_launches()
+    t1 = time.perf_counter()
+    s_out = verdict_fields(sh.resolve_group_args(groups[0]))
+    torch.cuda.synchronize()
+    s_ms = (time.perf_counter() - t1) / GROUP * 1e3
+    s_launches, _ = launch_totals()
+    for name in ("short_span.range", "short_span.cover", "shard_clip",
+                 "shard_combine"):
+        if s_launches[name] <= 0:
+            fail(f"{name}: not launched on the short-span sharded path")
+    same_fields(f"short-span group 0 on {SHARDS} shards vs S = 0",
+                s_out, sharded_ref["outs0"])
+    same_state(f"short-span group 0 on {SHARDS} shards vs S = 0",
+               state_of(sh), sharded_ref["state0"])
+    log(f"  group 0 on {SHARDS} shards at S = {ss}: every field and every "
+        f"shard's tiers identical to S = 0 on the card ({s_ms:.3f} "
+        "ms/batch, first group, unwarmed)")
+
+    # -- a forced trip: YCSB-E scans span far more than S (a group of 2,
+    #    which fits the delta tier: at S = 0 it does not overflow)
+    trip_group = groups_of(ycsb[:2])[0]
+    for limit in (0, ss):
+        tr = make_conflict_set(bench_config(B, short_span_limit=limit),
+                               "cuda")
+        tr.resolve_group_args(trip_group)
+        try:
+            tr.check_overflow()
+        except HistoryOverflowError as e:
+            if not limit:
+                fail("the YCSB-E trip group overflows at S = 0")
+            log(f"  forced trip: a YCSB-E group of 2 at S = {ss} raised "
+                f"HistoryOverflowError ({str(e)[:48]}...); at S = 0 it "
+                "did not")
+        else:
+            if limit:
+                fail(f"a YCSB-E group at S = {ss} did not trip the span "
+                     "latch")
+    return dict(ledger=ledger, short_span_limit=ss, widest_spans=widest,
+                uniform=dict(launches=launches, launch_bytes=launch_bytes,
+                             batches=len(uni), ms_per_batch=ms,
+                             txn_per_s=B / ms * 1e3, **prof),
+                classic=dict(launches=c_launches, launch_bytes=c_bytes,
+                             batches=len(uni), ms_per_batch=c_ms,
+                             txn_per_s=B / c_ms * 1e3, **c_prof),
+                sharded_group0_ms_per_batch=s_ms)
+
+
 def np_lex_less(a, b):
     """a < b for packed uint32 key rows [..., W] (numpy, broadcast): the
     first differing word decides."""
@@ -1611,7 +2087,8 @@ def phase_sharded(device, uni, ycsb) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     cs.check_overflow()
     require_launched("sharded uniform", launches,
-                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY))
+                     ("sweep_ranks", "read_dedup", *CLASSIC_ONLY,
+                      *SHORT_SPAN_ONLY, *OFF_PATH))
     splits = [int.from_bytes(k, "big") for k in bounds]
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} on "
         f"{SHARDS} shards split at {splits} (tiers of "
@@ -1706,6 +2183,7 @@ def phase_sharded(device, uni, ycsb) -> dict:
         f"{col.count} samples")
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=len(batches), shards=SHARDS, ms_per_batch=ms,
+                outs0=outs[0], state0=states[0],
                 txn_per_s=B / ms * 1e3, peak_device_mib=peak / 2**20,
                 phantom_commits=phantoms,
                 range_scan={"batches": len(ybatches), "ms_per_batch": y_ms,
@@ -1858,10 +2336,8 @@ def main() -> int:
     from foundationdb_tpu_torch import device as devmod
     from foundationdb_tpu_torch import kernels
 
-    t_start = time.perf_counter()
-
     def heading(title: str) -> None:
-        log(f"== {title} ({time.perf_counter() - t_start:.1f} s in)")
+        log(f"== {title} ({time.perf_counter() - T_START:.1f} s in)")
 
     device = devmod.resolve_device()
     heading("1. environment")
@@ -1880,7 +2356,7 @@ def main() -> int:
     dedup_u, max_uniq = dedup_size(zipf)
     heading("2. kernels vs plain versions (bench shapes)")
     ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u,
-                           uni[:GROUP])
+                                     uni[:GROUP])
     torch_ops = phase_torch_ops(device)
     heading("3. uniform stream (bench default, exact)")
     uniform = phase_stream(device, uni)
@@ -1889,38 +2365,56 @@ def main() -> int:
     heading("5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
     scan = phase_range_scan(device, ycsb)
     heading("6. classic uniform stream (bench BENCH_KERNEL=classic)")
-    classic = phase_classic(device, uni, uniform.pop("outs"))
+    classic = phase_classic(device, uni, uniform["outs"])
     heading("7. classic hot-key stream (bench classic zipf: latch)")
     classic_hot = phase_classic_hot(device, zipf)
     heading("8. the wire Resolver role's shape vs ConflictOracle")
     role = phase_resolver_role(device)
     heading(f"9. sharded uniform stream ({SHARDS} resolvers on the card)")
     sharded = phase_sharded(device, uni, ycsb)
-    heading("10. reduced-shape stream vs ConflictOracle")
+    heading("10. short-span streams (short_span_limit = S)")
+    short = phase_short_span(
+        device, uni, ycsb,
+        {"outs": uniform.pop("outs"), "final": uniform.pop("final"),
+         "ms": uniform["ms_per_batch"]},
+        {"outs": classic.pop("outs"), "maps": classic.pop("maps")},
+        {"outs0": sharded.pop("outs0"), "state0": sharded.pop("state0")})
+    ledger.update(short.pop("ledger"))
+    heading("11. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
-    log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
+        f"sessions taken again {len(RETAKES)}, sessions that lost opening "
+        f"spin kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)}"
+        f" of {WARM_KERNELS})")
 
+    # each kernel's launches on the path that runs it, counted from 0
     path_of = {"read_dedup": hot, "sweep_ranks": scan,
                **{name: classic for name in CLASSIC_ONLY},
-               **{name: sharded for name in SHARDED_ONLY}}
+               **{name: sharded for name in SHARDED_ONLY},
+               **{name: short["uniform"] for name in SHORT_SPAN_ONLY}}
     rows = []
     for name, info in kernels.KERNELS.items():
-        path = path_of.get(name, uniform)
+        launches = (0 if name in OFF_PATH
+                    else path_of.get(name, uniform)["launches"][name])
         rows.append(dict(name=name, route="cuda", source=info.source,
-                         replaces=info.replaces,
-                         launches=path["launches"][name], **ledger[name]))
+                         replaces=info.replaces, launches=launches,
+                         **ledger[name]))
     streams = {}
     for tag, st in (("uniform", uniform), ("hot_key", hot),
                     ("range_scan", scan), ("classic_uniform", classic),
                     ("classic_hot_key", classic_hot),
-                    ("resolver_role", role), ("sharded_uniform", sharded)):
+                    ("resolver_role", role), ("sharded_uniform", sharded),
+                    ("short_span_uniform", short.pop("uniform")),
+                    ("short_span_classic", short.pop("classic"))):
         streams[tag] = {k: v for k, v in st.items() if k != "launches"}
         streams[tag]["launches_per_batch"] = {
             k: n / st["batches"] for k, n in st["launches"].items()}
         streams[tag]["kernel_bound_ms_per_batch"] = device_bound_per_batch(
             st)
-    print(json.dumps({"streams": streams, "torch_ops": torch_ops}),
-          flush=True)
+    streams["short_span"] = short
+    print(json.dumps({"streams": streams, "torch_ops": torch_ops,
+                      "profiler_retakes": RETAKES,
+                      "profiler_spin_kernels_lost": WARM_LOST}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(devmod.nvidia_smi_name_power(device.index or 0), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,10 @@ host packer pads variable-size batches up to these caps. Mirrors the role
 the reference's knobs play for the resolver
 (fdbclient/ServerKnobs.cpp:36-44 — MVCC window knobs). The field set and
 the validation are identical to the JAX package's KernelConfig, so one
-set of arguments configures both; the port serves the classic
-single-tier path (delta_capacity 0, the default) and the tiered path
-with the latch, dedup, sweep and spill knobs, and refuses short-span
-ops and sharding where it is constructed
-(models/conflict_set.TorchConflictSet).
+set of arguments configures both, and the port serves every knob: the
+classic single-tier path (delta_capacity 0, the default), the tiered
+path with the latch, dedup, sweep and spill knobs, the sharded path
+(n_shards > 1) and the short-span ops (short_span_limit > 0).
 """
 
 from __future__ import annotations
@@ -50,8 +49,10 @@ class KernelConfig:
     max_writes: int = 4096
     history_capacity: int = 1 << 15
     window_versions: int = 5_000_000
-    #: Variant of the JAX package: direct S-wide range ops with a span
-    #: latch. Not ported: the port refuses a non-zero value.
+    #: 0 = the general range structures. A positive S runs the group
+    #: kernel's range ops as direct S-wide reads and writes (kernel K),
+    #: exact under a loud latch: a live range spanning more than S tier
+    #: segments, ranks or blocks sets overflow (ops/group.resolve_group).
     short_span_limit: int = 0
     #: Fixpoint applications run before the port's host loop starts
     #: checking convergence (ops/group.resolve_group). Exactness never

@@ -10,8 +10,10 @@ CPU paths never touch it.
 
 Every C entry point takes device pointers and the CUDA stream as
 `void*`, launches on that stream (PyTorch's current stream), does not
-synchronise, allocates nothing, and returns `cudaGetLastError()`; the
-wrapper raises on any non-zero code.
+synchronise, allocates nothing, and returns `cudaGetLastError()`, or
+`NO_LAUNCH` (-1, `kNoLaunch` in `common.cuh`) when its sizes leave it
+nothing to do and it launched nothing; the wrapper raises on any other
+non-zero code.
 
 `COUNTS` holds one plain integer per kernel entry. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
@@ -35,7 +37,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps",
            "sweep_ranks", "read_dedup", "rangemax2", "seg_fold",
-           "shard_clip", "shard_combine")
+           "shard_clip", "shard_combine", "short_span", "sort_ranks",
+           "rangemax4")
 #: widest packed key (uint32 words) the CUDA kernels are instantiated for
 #: (max_key_bytes <= 28); the plain versions take any width
 MAX_WORDS = 8
@@ -44,6 +47,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: a C entry's return when it launched nothing (empty sizes)
+NO_LAUNCH = -1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -104,6 +110,30 @@ _SIGNATURES = {
     "sc_combine": ("shard_combine",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),
+    # a_keys, a_val, na, b_keys, nb, w, version, floor, keep_at, row_pos,
+    # row_val, stream
+    "mm_mark_runs": ("merge_maps",
+                     [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    # values, n, lo, hi, q, span, op_min, out, stream
+    "ss_range": ("short_span", [_P, _I, _P, _P, _I, _I, _I, _P, _P]),
+    # lo, hi, val, nw, span, flat, n_flat, stream
+    "ss_cover": ("short_span", [_P, _P, _P, _I, _I, _P, _I, _P]),
+    # n -> tile sums (no stream: a host query, see size())
+    "sr_tiles": ("sort_ranks", [_I]),
+    # pts, perm, n, w, head, sums, stream
+    "sr_heads": ("sort_ranks", [_P, _P, _I, _I, _P, _P, _P]),
+    # sums, pts, perm, n, w, count, stream
+    "sr_offsets": ("sort_ranks", [_P, _P, _P, _I, _I, _P, _P]),
+    # pts, perm, n, w, head, offsets, ranks, ukeys, stream
+    "sr_write": ("sort_ranks", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
+    # values, table, m, level, s, op_min, stream
+    "rm4_build_level": ("rangemax4", [_P, _P, _I, _I, _I, _I, _P]),
+    # table, levels, m, lo, hi, q, op_min, out, stream
+    "rm4_query": ("rangemax4", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    # lo, hi, val, n, leaves, nlev, table, stream
+    "rm4_cover_scatter": ("rangemax4", [_P, _P, _P, _I, _I, _I, _P, _P]),
+    # table, leaves, level, stream
+    "rm4_cover_sweep_level": ("rangemax4", [_P, _I, _I, _P]),
 }
 
 
@@ -158,6 +188,27 @@ KERNELS = {
         KernelInfo("shard_combine",
                    "foundationdb_tpu_torch/kernels/csrc/shard_combine.cu",
                    "foundationdb_tpu/parallel/sharding.py:276"),
+        KernelInfo("short_span.range",
+                   "foundationdb_tpu_torch/kernels/csrc/short_span.cu",
+                   "foundationdb_tpu/ops/group.py:353"),
+        KernelInfo("short_span.cover",
+                   "foundationdb_tpu_torch/kernels/csrc/short_span.cu",
+                   "foundationdb_tpu/ops/group.py:511"),
+        KernelInfo("sort_ranks",
+                   "foundationdb_tpu_torch/kernels/csrc/sort_ranks.cu",
+                   "foundationdb_tpu/ops/keys.py:84"),
+        KernelInfo("merge_writes",
+                   "foundationdb_tpu_torch/kernels/csrc/merge_maps.cu",
+                   "foundationdb_tpu/ops/history.py:114"),
+        KernelInfo("rangemax4.build",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
+                   "foundationdb_tpu/ops/rangemax.py:190"),
+        KernelInfo("rangemax4.query",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
+                   "foundationdb_tpu/ops/rangemax.py:210"),
+        KernelInfo("rangemax4.cover",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
+                   "foundationdb_tpu/ops/segtree.py:79"),
     )
 }
 
@@ -265,7 +316,8 @@ def launch(entry: str, count: str, *args) -> None:
     """Call a C entry point with tensors/ints on the current stream.
 
     Tensors pass as their data pointer; the stream is appended. `count`
-    names the COUNTS slot this launch adds one to.
+    names the COUNTS slot this launch adds one to (none when the entry
+    had nothing to launch).
     """
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -273,6 +325,8 @@ def launch(entry: str, count: str, *args) -> None:
               for a in args]
     with torch.cuda.device(dev):
         err = _fn(entry)(*c_args, stream)
+    if err == NO_LAUNCH:
+        return
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     COUNTS[count] += 1

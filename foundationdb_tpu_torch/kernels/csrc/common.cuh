@@ -18,6 +18,10 @@ constexpr int32_t VERSION_NEG = -2147483647;  // -(2**31) + 1
 constexpr int32_t INT32_POS = 2147483647;
 constexpr int32_t INT32_NEG = -2147483647;
 constexpr int kThreads = 256;
+// What a C entry returns when its sizes leave it nothing to do and it
+// launched nothing; the wrapper then counts no launch. Any other return
+// is cudaGetLastError()'s code.
+constexpr int kNoLaunch = -1;
 
 __host__ __device__ inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);

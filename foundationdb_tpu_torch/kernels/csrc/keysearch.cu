@@ -82,7 +82,7 @@ extern "C" {
 
 int ks_search(const void* keys, int m, int w, const void* queries, int q,
               int right, void* out, void* stream) {
-  if (q <= 0) return 0;
+  if (q <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const uint32_t*>(keys);
   auto qs = static_cast<const uint32_t*>(queries);
@@ -98,7 +98,7 @@ int ks_search(const void* keys, int m, int w, const void* queries, int q,
 
 int ks_query(const void* table, int levels, int m, const void* lo,
              const void* hi, int q, int op_min, void* out, void* stream) {
-  if (q <= 0) return 0;
+  if (q <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(table);
   auto l = static_cast<const int32_t*>(lo);
@@ -113,7 +113,7 @@ int ks_query(const void* table, int levels, int m, const void* lo,
 
 int ks_probe(const void* keys, int m, int w, const void* table, int levels,
              const void* rb, const void* re, int q, void* out, void* stream) {
-  if (q <= 0) return 0;
+  if (q <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const uint32_t*>(keys);
   auto t = static_cast<const int32_t*>(table);

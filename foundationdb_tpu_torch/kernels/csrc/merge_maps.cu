@@ -28,6 +28,26 @@
 //               dropped and the caller latches overflow (count > cap),
 //               never a silent truncation.
 //
+// A third entry serves K16, foundationdb_tpu/ops/history.py:114
+// merge_writes, which overwrites the union of sorted disjoint run
+// intervals (b0, e0, b1, e1, ...) with the batch version. Its JAX program
+// keeps rows, not keys: it sorts the tier's rows and the run bounds
+// together (a tier row before a run bound at equal keys, each list in its
+// own order), gives each row the tier value in force there (the last tier
+// row at or before it), raised to max(value, version) where the row lies
+// inside a run (a run bound of even ordinal, or a tier row after an odd
+// number of bounds), NEG under the floor, and keeps a real row whose value
+// differs from the row just before it in that order. A run begin equal to
+// a tier key so keeps two rows of one key, which the canonical merge above
+// would fold into one; so the rows are marked by these rules:
+//   mm_mark_runs  one thread per row: its position (own index + a search
+//               into the other list), its value, and the value of the row
+//               just before it, found with one more search (the previous
+//               row is the other list's last row before this one when a row
+//               of that list lies between this row and its own list's
+//               predecessor); keep_at[position] = keep;
+// then the same scan and mm_scatter compact the kept rows.
+//
 // Bound on this card: four binary searches per row into two sorted lists
 // that fit L2 (main + delta keys = 19 MB at bench shape), i.e. dependent
 // load latency; the streams themselves are ~(na + nb) x (W + 4) x 4 B.
@@ -98,6 +118,69 @@ __global__ void scatter_kernel(const uint32_t* __restrict__ a_keys,
   out_val[d] = row_val[r];
 }
 
+// K16's row marks (see the header). a = the tier (na rows), b = the run
+// bounds (nb rows, sorted, begin/end alternating, sentinel tail).
+template <int W>
+__global__ void mark_runs_kernel(const uint32_t* __restrict__ a_keys,
+                                 const int32_t* __restrict__ a_val, int na,
+                                 const uint32_t* __restrict__ b_keys, int nb,
+                                 int32_t version, int32_t floor,
+                                 int32_t* __restrict__ keep_at,
+                                 int32_t* __restrict__ row_pos,
+                                 int32_t* __restrict__ row_val) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= na + nb) return;
+  bool own_a = r < na;
+  int i = own_a ? r : r - na;
+  uint32_t k[W];
+  load_key<W>(k, (own_a ? a_keys : b_keys) + static_cast<size_t>(i) * W);
+  // the value a tier row takes (inside a run: raised to the version)
+  auto tier_val = [&](int row, bool covered) {
+    int32_t v = __ldg(a_val + row);
+    return gc(covered ? max(v, version) : v, floor);
+  };
+  // the value a run bound of ordinal j takes over the tier value `carry`
+  auto run_val = [&](int j, int32_t carry) {
+    return gc((j & 1) == 0 ? max(carry, version) : carry, floor);
+  };
+  int pos;
+  int32_t val;
+  int32_t prev = VERSION_NEG;
+  uint32_t kp[W];
+  if (own_a) {
+    int bl = search<W, false>(b_keys, nb, k);  // bounds before this row
+    pos = i + bl;
+    val = tier_val(i, bl & 1);
+    int bl_prev = 0;
+    if (i > 0) {
+      load_key<W>(kp, a_keys + static_cast<size_t>(i - 1) * W);
+      bl_prev = search<W, false>(b_keys, nb, kp);
+    }
+    if (bl > bl_prev)  // bound bl - 1 lies between tier rows i-1 and i
+      prev = run_val(bl - 1, i > 0 ? __ldg(a_val + i - 1) : VERSION_NEG);
+    else if (i > 0)
+      prev = tier_val(i - 1, bl & 1);
+  } else {
+    int ar = search<W, true>(a_keys, na, k);  // tier rows before this row
+    pos = i + ar;
+    int32_t carry = ar > 0 ? __ldg(a_val + ar - 1) : VERSION_NEG;
+    val = run_val(i, carry);
+    int ar_prev = 0;
+    if (i > 0) {
+      load_key<W>(kp, b_keys + static_cast<size_t>(i - 1) * W);
+      ar_prev = search<W, true>(a_keys, na, kp);
+    }
+    if (ar > ar_prev)  // tier row ar - 1 lies between bounds i-1 and i,
+      prev = tier_val(ar - 1, i & 1);  // after exactly i bounds
+    else if (i > 0)
+      prev = run_val(i - 1, carry);
+  }
+  bool real = k[W - 1] != 0xFFFFFFFFu;
+  keep_at[pos] = (real && val != prev) ? 1 : 0;
+  row_pos[r] = pos;
+  row_val[r] = val;
+}
+
 }  // namespace
 
 extern "C" {
@@ -105,7 +188,7 @@ extern "C" {
 int mm_mark(const void* a_keys, const void* a_val, int na, const void* b_keys,
             const void* b_val, int nb, int w, int floor, void* keep_at,
             void* row_pos, void* row_val, void* stream) {
-  if (na + nb <= 0) return 0;
+  if (na + nb <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FDB_DISPATCH_W(w, mark_kernel<W><<<blocks_for(na + nb), kThreads, 0, s>>>(
       static_cast<const uint32_t*>(a_keys), static_cast<const int32_t*>(a_val),
@@ -120,7 +203,7 @@ int mm_scatter(const void* a_keys, const void* b_keys, int na, int nb, int w,
                const void* row_pos, const void* row_val, const void* keep_at,
                const void* dest, int cap, void* out_keys, void* out_val,
                void* stream) {
-  if (na + nb <= 0) return 0;
+  if (na + nb <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FDB_DISPATCH_W(w, scatter_kernel<W><<<blocks_for(na + nb), kThreads, 0, s>>>(
       static_cast<const uint32_t*>(a_keys),
@@ -129,6 +212,20 @@ int mm_scatter(const void* a_keys, const void* b_keys, int na, int nb, int w,
       static_cast<const int32_t*>(row_val),
       static_cast<const int32_t*>(keep_at), static_cast<const int32_t*>(dest),
       cap, static_cast<uint32_t*>(out_keys), static_cast<int32_t*>(out_val)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mm_mark_runs(const void* a_keys, const void* a_val, int na,
+                 const void* b_keys, int nb, int w, int version, int floor,
+                 void* keep_at, void* row_pos, void* row_val, void* stream) {
+  if (na + nb <= 0) return kNoLaunch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FDB_DISPATCH_W(w, mark_runs_kernel<W><<<blocks_for(na + nb), kThreads, 0,
+                                          s>>>(
+      static_cast<const uint32_t*>(a_keys), static_cast<const int32_t*>(a_val),
+      na, static_cast<const uint32_t*>(b_keys), nb, version, floor,
+      static_cast<int32_t*>(keep_at), static_cast<int32_t*>(row_pos),
+      static_cast<int32_t*>(row_val)));
   return static_cast<int>(cudaGetLastError());
 }
 

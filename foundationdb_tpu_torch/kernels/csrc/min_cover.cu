@@ -60,7 +60,7 @@ extern "C" {
 
 int mc_scatter(const void* lo, const void* hi, const void* val, int n,
                int leaves, void* table, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   scatter_kernel<<<blocks_for(n), kThreads, 0, s>>>(
       static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
@@ -70,7 +70,7 @@ int mc_scatter(const void* lo, const void* hi, const void* val, int n,
 }
 
 int mc_sweep_level(void* table, int leaves, int level, void* stream) {
-  if (leaves <= 0 || level < 1) return 0;
+  if (leaves <= 0 || level < 1) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   sweep_kernel<<<blocks_for(leaves), kThreads, 0, s>>>(
       static_cast<int32_t*>(table), leaves, level);

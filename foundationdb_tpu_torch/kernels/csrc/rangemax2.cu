@@ -217,7 +217,7 @@ extern "C" {
 
 int rm2_chunks(const void* values, int m, void* chunk, int nc, void* table,
                int ns, int op_min, void* stream) {
-  if (m <= 0) return 0;
+  if (m <= 0) return kNoLaunch;
   // the caller sizes the outputs: ops/rangemax.build2 (CHUNK, SUPER)
   if (nc != (m + 31LL) / 32 || ns != (m + kSuper - 1LL) / kSuper)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -235,7 +235,7 @@ int rm2_chunks(const void* values, int m, void* chunk, int nc, void* table,
 }
 
 int rm2_levels(void* table, int ns, int levels, int op_min, void* stream) {
-  if (ns <= 0 || levels <= 1) return 0;
+  if (ns <= 0 || levels <= 1) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<int32_t*>(table);
   if (op_min)
@@ -248,7 +248,7 @@ int rm2_levels(void* table, int ns, int levels, int op_min, void* stream) {
 int rm2_query(const void* values, int m, const void* chunk, int nc,
               const void* table, int ns, const void* lo, const void* hi,
               int q, int op_min, void* out, void* stream) {
-  if (q <= 0) return 0;
+  if (q <= 0) return kNoLaunch;
   if (m <= 0 || nc != (m + 31LL) / 32 || ns != (m + kSuper - 1LL) / kSuper)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(values) || !aligned16(chunk))

@@ -43,7 +43,7 @@ extern "C" {
 
 int rm_build_level(const void* values, void* table, int m, int level,
                    int half, int op_min, void* stream) {
-  if (m <= 0) return 0;
+  if (m <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto v = static_cast<const int32_t*>(values);
   auto t = static_cast<int32_t*>(table);

@@ -101,7 +101,7 @@ extern "C" {
 
 int dd_heads(const void* rows, const void* perm, int n, int w, void* head,
              void* n_uniq, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<const uint32_t*>(rows);
   auto p = static_cast<const long long*>(perm);
@@ -115,7 +115,7 @@ int dd_heads(const void* rows, const void* perm, int n, int w, void* head,
 int dd_compact(const void* rows, const void* perm, const void* head,
                const void* rank_incl, int n, int w, int u, void* urb,
                void* ure, void* uh_in, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<const uint32_t*>(rows);
   auto p = static_cast<const long long*>(perm);
@@ -131,7 +131,7 @@ int dd_compact(const void* rows, const void* perm, const void* head,
 
 int dd_gather(const void* vmax_u, const void* uh_in, int n, int u, void* vmax,
               void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   gather_kernel<<<blocks_for(n), kThreads, 0, s>>>(
       static_cast<const int32_t*>(vmax_u), static_cast<const int32_t*>(uh_in),

@@ -202,7 +202,7 @@ int sf_scratch_words(int n) {
 
 int sf_scatter(const void* wb, const void* we, const void* cw, int nw, int n,
                void* scratch, void* stream) {
-  if (nw <= 0 || n <= 0) return 0;
+  if (nw <= 0 || n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto diff = static_cast<int32_t*>(scratch);
   scatter_kernel<<<blocks_for(nw), kThreads, 0, s>>>(
@@ -212,7 +212,7 @@ int sf_scatter(const void* wb, const void* we, const void* cw, int nw, int n,
 }
 
 int sf_scan_sums(void* scratch, int n, void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   scan_sums_kernel<<<1, kScanThreads, 0, s>>>(
       static_cast<int32_t*>(scratch) + n, tiles(n));
@@ -221,7 +221,7 @@ int sf_scan_sums(void* scratch, int n, void* stream) {
 
 int sf_paint(void* scratch, int n, int version, void* seg_ver,
              void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto diff = static_cast<int32_t*>(scratch);
   paint_kernel<<<tiles(n), kThreads, 0, s>>>(

@@ -55,7 +55,7 @@ extern "C" {
 
 int sw_ranks(const void* keys, int m, int w, const void* rb, const void* re,
              const void* rvalid, int r, void* il, void* ir, void* stream) {
-  if (r <= 0) return 0;
+  if (r <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const uint32_t*>(keys);
   auto b = static_cast<const uint32_t*>(rb);

@@ -43,7 +43,14 @@ The profile router (`profile_batch`, `profile_transactions`,
 `backend_for_profile`, `fallback_free`) is the JAX package's host-side
 classifier, copied: it answers "cuda" where the JAX one answers "tpu".
 
-Refused, not ported yet: short-span ops.
+`short_span_limit` S > 0 runs the group kernel's range ops as kernel K's
+direct S-wide reads and writes (ops/group.py, K13) where the JAX
+TpuConflictSet passes the knob: the tiered and sharded dispatch and
+classic `resolve_group_args`; classic `resolve()` / `resolve_packed` go
+through resolve_batch, which takes no span limit in either package. A
+range wider than S trips the span latch, which is overflow: it raises
+HistoryOverflowError at the same check as in JAX, never truncates and
+never falls back to the general path.
 """
 
 from __future__ import annotations
@@ -75,9 +82,6 @@ REBASE_THRESHOLD = 1 << 30
 #: Overflow is checked host-side every this many batches on the
 #: kernel-only paths (each check is a device sync).
 OVERFLOW_CHECK_INTERVAL = 32
-
-#: config knobs selecting kernel variants the port does not serve yet
-_VARIANT_KNOBS = ("short_span_limit",)
 
 
 class Stage:
@@ -191,21 +195,11 @@ def _rebase_tiered(state: D.TieredState, delta: int) -> D.TieredState:
                          delta=_rebase(state.delta, delta))
 
 
-def _check_config(config: KernelConfig) -> None:
-    for knob in _VARIANT_KNOBS:
-        if getattr(config, knob):
-            raise ValueError(
-                f"{knob} selects a kernel variant the port does not serve "
-                "yet; the port runs the exact tiered kernel"
-            )
-
-
 class TorchConflictSet:
     """Batch MVCC conflict detection with device-resident history."""
 
     def __init__(self, config: KernelConfig, base_version: int = 0, *,
                  device=None, shard_boundaries=None):
-        _check_config(config)
         self.config = config
         self.base_version = base_version
         self.device = resolve_device(device)
@@ -408,7 +402,8 @@ class TorchConflictSet:
 
     def _run_classic(self, g: dict, latch: bool):
         return G.resolve_group(
-            self.state, g, fixpoint_unroll=self.config.fixpoint_unroll,
+            self.state, g, short_span_limit=self.config.short_span_limit,
+            fixpoint_unroll=self.config.fixpoint_unroll,
             fixpoint_latch=latch, stats=self.metrics.fixpoint,
         )
 
@@ -440,7 +435,8 @@ class TorchConflictSet:
         return outs
 
     def _run_tiered(self, g: dict, latch: bool, dedup: int):
-        kw = dict(fixpoint_unroll=self.config.fixpoint_unroll,
+        kw = dict(short_span_limit=self.config.short_span_limit,
+                  fixpoint_unroll=self.config.fixpoint_unroll,
                   fixpoint_latch=latch, dedup_reads=dedup,
                   range_sweep=self.config.range_sweep,
                   stats=self.metrics.fixpoint)
@@ -502,8 +498,10 @@ class TorchConflictSet:
         The JAX package compiles its exact program here by running it
         once and discarding the result. The port has nothing to compile:
         on the card this builds (where missing) and loads every kernel
-        library (the sharded path's kernels I and J among them), so a
-        fallback costs no nvcc and no dlopen. It runs no resolve and
+        library (the sharded path's kernels I and J and the short-span
+        kernel K among them: the exact fallback keeps the config's
+        short_span_limit, as JAX's does), so a fallback costs no nvcc and
+        no dlopen. It runs no resolve and
         leaves the state untouched; on the CPU it does nothing.
         `stacked_args` is accepted for the JAX signature. The classic
         path's fallback is served the same way."""

@@ -213,7 +213,7 @@ def sweep_rows_per_group(m: int, gn: int, nr: int) -> int:
 
 
 def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
-               carry, xs: dict, b: int, *,
+               carry, xs: dict, b: int, *, short_span_limit: int = 0,
                fixpoint_unroll: int = 3, fixpoint_latch: bool = False,
                dedup_reads: int = 0, range_sweep: bool = False,
                stats: G.FixpointStats = None):
@@ -222,7 +222,10 @@ def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
 
     carry = (delta, trip [] bool); xs = one batch's arguments (no
     leading axis; with `range_sweep` also its "sweep_il"/"sweep_ir");
-    b = the txn capacity. An unconverged batch keeps its own delta
+    b = the txn capacity. `short_span_limit` S > 0 runs the delta tier's
+    group kernel on kernel K's direct ops with the span latch (a trip is
+    overflow, not a refusal); the main-tier probe is unchanged. An
+    unconverged batch keeps its own delta
     unchanged (on the device) and sets the trip; later batches of the
     group still run against that delta, as in the JAX scan.
     Returns ((delta', trip'), GroupVerdict with [1]-leading leaves).
@@ -251,7 +254,8 @@ def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
     g1 = {k: (v[None] if isinstance(v, torch.Tensor) else [v])
           for k, v in xs.items()}
     delta2, out = G.resolve_group(
-        delta, g1, fixpoint_unroll=fixpoint_unroll,
+        delta, g1, short_span_limit=short_span_limit,
+        fixpoint_unroll=fixpoint_unroll,
         fixpoint_latch=fixpoint_latch, extra_stale=stale_main[None],
         stats=stats, defer_trip=True,
     )
@@ -262,6 +266,7 @@ def batch_body(main: H.VersionHistory, main_tab: torch.Tensor,
 
 
 def resolve_group_tiered(state: TieredState, g: dict, *,
+                         short_span_limit: int = 0,
                          fixpoint_unroll: int = 3,
                          fixpoint_latch: bool = False,
                          dedup_reads: int = 0, range_sweep: bool = False,
@@ -299,6 +304,7 @@ def resolve_group_tiered(state: TieredState, g: dict, *,
         xs = {k: v[i] for k, v in g.items()}
         carry, out = batch_body(
             state.main, main_tab, carry, xs, b,
+            short_span_limit=short_span_limit,
             fixpoint_unroll=fixpoint_unroll, fixpoint_latch=fixpoint_latch,
             dedup_reads=dedup_reads, range_sweep=range_sweep, stats=stats,
         )

@@ -1,7 +1,7 @@
 """Batch resolution against one history tier: the group kernel.
 
-Port of foundationdb_tpu/ops/group.py `resolve_group`, exact or with the
-fixpoint latch (short-span ops wait in ROADMAP queue 1). The JAX program
+Port of foundationdb_tpu/ops/group.py `resolve_group`, exact, with the
+fixpoint latch, or with the short-span ops (K13). The JAX program
 co-sorts the tier with every endpoint of the group because binary search
 and scatter were dear on its platform; here the positions come from
 kernel A's searches instead. Per batch:
@@ -45,6 +45,18 @@ into the tier once: the sorted endpoint keys with `seg_ver` as their
 values are the group's committed map, folded in by kernel D with GC at
 the largest floor. With the latch, the trip is group-wide and the input
 tier comes back unchanged (one sync per group).
+
+With `short_span_limit` = S > 0 (K13) every range op of the call is a
+direct S-wide read or write, kernel K (kernels/csrc/short_span.cu):
+phase (b) takes the max of the tier's versions over [max(il, 0), ir + 1)
+by `ss_range`, il/ir from kernel A's searches; each fixpoint
+application is one `ss_cover` (the writers' scatter-min over the batch's
+local ranks) and one `ss_range` min query instead of kernels C, B and A;
+and the cross query at G > 1 is an `ss_range` max over `seg_ver` instead
+of kernel G. A loud latch makes it exact, as in JAX: a live range that
+spans more than S positions sets `overflow` (the phase-(b) span in tier
+segments, the write and read spans in local ranks, and at G > 1 the
+cross span counted in the JAX co-sort's blocks, see `_block_spans`).
 
 Decisions are bit-identical to the JAX kernel (tests/test_torch_ops.py,
 tests/test_torch_tiered.py, tests/test_torch_group.py).
@@ -130,27 +142,40 @@ def _window_any(win_lo: torch.Tensor, win_hi: torch.Tensor):
     return per_txn
 
 
+def _spans_within(span: torch.Tensor, live: torch.Tensor, limit: int):
+    """[] bool: no live row's span exceeds `limit` (the JAX latch's
+    max(where(live, span, 0)) <= limit)."""
+    return ~torch.any(torch.where(live, span, 0) > limit)
+
+
 def _fixpoint(ok, per_txn, *, r_txn, w_txn, rt, wt, read_live, write_live,
               lq_lo, lq_hi, lw_lo, lw_hi, unroll: int, latch: bool,
-              stats: FixpointStats = None):
+              short_span_limit: int = 0, stats: FixpointStats = None):
     """One batch's intra-batch fixpoint, phase (e).
 
     Returns (committed [B] bool, final same-batch hits [NR] bool masked
     by ok, unconverged [] bool). Without the latch, `unconverged` is
-    False and the host loop runs to the fixpoint.
+    False and the host loop runs to the fixpoint. With
+    `short_span_limit` S > 0 an application is kernel K's cover and
+    range query (the caller latches the spans).
     """
     nr, nw = lq_lo.shape[0], lw_lo.shape[0]
     leaves = _next_pow2(2 * nr + 2 * nw)
     wlo = torch.where(write_live, lw_lo, 0)
     whi = torch.where(write_live, lw_hi, 0)
     ok_r = _pad(ok, False)[rt]
+    ss = short_span_limit
 
     def same_hits(committed):
         val = torch.where(_pad(committed, False)[wt] & write_live, w_txn,
                           INT32_POS)
-        mw = segtree.min_cover(leaves, wlo, whi, val)
-        mtab = rangemax.build(mw, op="min")
-        minw = rangemax.query(mtab, lq_lo, lq_hi, op="min")
+        if ss:
+            mw = ss_cover(leaves, wlo, whi, val, ss)
+            minw = ss_range(mw, lq_lo, lq_hi, ss, op="min")
+        else:
+            mw = segtree.min_cover(leaves, wlo, whi, val)
+            mtab = rangemax.build(mw, op="min")
+            minw = rangemax.query(mtab, lq_lo, lq_hi, op="min")
         return (minw < r_txn) & read_live
 
     def apply(committed):
@@ -224,6 +249,7 @@ def _verdicts(committed, txn_valid, too_old, hist_conflict_txn, first,
 
 
 def resolve_group(state: H.VersionHistory, g: dict, *,
+                  short_span_limit: int = 0,
                   fixpoint_unroll: int = 3, fixpoint_latch: bool = False,
                   extra_stale=None, stats: FixpointStats = None,
                   defer_trip: bool = False):
@@ -236,6 +262,11 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     tiered loop probed against history this call's `state` does not hold
     (the main tier); they are masked by read liveness and count like
     hits on `state`.
+
+    `short_span_limit` S > 0 serves every range op by kernel K's direct
+    S-wide reads and writes, exact under the span latch: a live range
+    wider than S sets `overflow` (the caller refuses the results, as for
+    capacity overflow).
 
     With `fixpoint_latch`, an unconverged batch sets `unconverged` (for
     G > 1 group-wide) and returns the input tier unchanged: this call
@@ -255,7 +286,8 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
         if defer_trip or extra_stale is not None:
             raise ValueError("defer_trip and extra_stale are for the tiered "
                              "loop, at G=1")
-        return _resolve_many(state, g, fixpoint_unroll=fixpoint_unroll,
+        return _resolve_many(state, g, short_span_limit=short_span_limit,
+                             fixpoint_unroll=fixpoint_unroll,
                              fixpoint_latch=fixpoint_latch, stats=stats)
     x = {k: v[0] for k, v in g.items()}
     b = x["txn_valid"].shape[0]
@@ -280,7 +312,12 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     read_snap = _pad(snapshot, VERSION_NEG)[rt]
 
     # ---- (b) reads vs. this tier ----------------------------------------
-    vmax = H.query_reads_vmax(state, rb, re)
+    ss = short_span_limit
+    if ss:
+        vmax, span_ok = _tier_vmax_short(state, rb, re, read_live, ss)
+    else:
+        vmax = H.query_reads_vmax(state, rb, re)
+        span_ok = torch.ones((), dtype=torch.bool, device=rb.device)
     stale_hit = (vmax > read_snap) & read_live
     if extra_stale is not None:
         stale_hit = stale_hit | (extra_stale[0] & read_live)
@@ -302,11 +339,14 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     ok = txn_valid & ~too_old & ~hist_conflict_txn
 
     # ---- (e) the intra-batch fixpoint ------------------------------------
+    if ss:
+        span_ok = span_ok & _local_spans_ok(read_live, write_live, lq_lo,
+                                            lq_hi, lw_lo, lw_hi, ss)
     committed, final_same, unconverged = _fixpoint(
         ok, per_txn, r_txn=r_txn, w_txn=w_txn, rt=rt, wt=wt,
         read_live=read_live, write_live=write_live, lq_lo=lq_lo,
         lq_hi=lq_hi, lw_lo=lw_lo, lw_hi=lw_hi, unroll=fixpoint_unroll,
-        latch=fixpoint_latch, stats=stats)
+        latch=fixpoint_latch, short_span_limit=ss, stats=stats)
 
     # ---- (f) first conflicting read, verdicts, counts --------------------
     first = _first_conflict(final_same, win_lo, win_hi, x["read_index"])
@@ -322,7 +362,8 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
         state.main_keys, state.main_ver, cov_keys, cov_val,
         floor=floor, capacity=cap,
     )
-    overflow = state.overflow | (count > cap)
+    # a span wider than S is refused as loudly as a capacity overflow
+    overflow = state.overflow | (count > cap) | ~span_ok
     new_state = H.VersionHistory(
         main_keys=new_keys,
         main_ver=new_ver,
@@ -350,43 +391,140 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     return new_state, out
 
 
+def _tier_vmax_short(state: H.VersionHistory, rb, re, read_live, ss: int):
+    """Phase (b) under short_span_limit S: (vmax [NR], span_ok []) —
+    each read's max tier version over [max(il, 0), ir + 1) by kernel K's
+    direct reads, il = search_right(rb) - 1 and ir = search_left(re) - 1
+    from kernel A, and the latch on those spans in tier segments (the
+    JAX co-sort's il/ir; a read before the first boundary has il = -1,
+    so its span starts at 0)."""
+    lo, hi = _tier_segments(state.main_keys, rb, re)
+    return (ss_range(state.main_ver, lo, hi, ss, op="max"),
+            _spans_within(hi - lo, read_live, ss))
+
+
+def _tier_segments(main_keys, rb, re):
+    """Each read's tier segments [lo, hi) = [max(il, 0), ir + 1)."""
+    il = K.searchsorted(main_keys, rb, side="right") - 1
+    ir = K.searchsorted(main_keys, re, side="left") - 1
+    return il.clamp(min=0), ir + 1
+
+
+def _local_spans_ok(read_live, write_live, lq_lo, lq_hi, lw_lo, lw_hi,
+                    ss: int):
+    """Phase (e)'s latch under S: the live writes' and live reads' spans
+    in the batch's local ranks (the same in both packages)."""
+    return (_spans_within(lw_hi - lw_lo, write_live, ss)
+            & _spans_within(lq_hi - lq_lo, read_live, ss))
+
+
+def _block_spans(main_keys, ukeys, rank_rb, rank_re, rb, re):
+    """Each read's span in the JAX co-sort's block index: the distinct
+    keys among the tier's live rows and the group's live points in
+    [rb, re).
+
+    The block index of a live point key k is (distinct point keys < k) +
+    (tier rows < k) - (distinct point keys < k that are tier keys too):
+    its dense rank among the points (sort_ranks, `rank_*`), a left
+    search of k in the tier, and the running count of the sorted
+    distinct point keys `ukeys` that sit in the tier (a left and a right
+    search of each, then one cumsum). Point ranks never exceed block
+    ranks, so a group the JAX latch passes is exact under the port's
+    point-rank ops, and this count refuses exactly the groups JAX
+    refuses.
+    """
+    in_tier = (K.searchsorted(main_keys, ukeys, side="right")
+               > K.searchsorted(main_keys, ukeys, side="left"))
+    shared = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                    device=ukeys.device),
+                        torch.cumsum(in_tier.to(torch.int32), 0,
+                                     dtype=torch.int32)])
+
+    def block(rank, k):
+        return (rank + K.searchsorted(main_keys, k, side="left")
+                - shared[rank.to(torch.int64)])
+
+    return block(rank_re, re) - block(rank_rb, rb)
+
+
+def _point_ranks(g: dict, rl2, wl2):
+    """_group_ranks of a group's point rows (read begins, read ends, write
+    begins, write ends of each batch; rows dead under the liveness rl2
+    [G, NR] / wl2 [G, NW] become the sentinel): (group-wide rank [G, P],
+    rank within the batch [G, P], the distinct keys)."""
+    gn = rl2.shape[0]
+    live_p = torch.cat([rl2, rl2, wl2, wl2], dim=1).reshape(-1)
+    pts = torch.cat([g["read_begin"], g["read_end"], g["write_begin"],
+                     g["write_end"]], dim=1).reshape(live_p.shape[0], -1)
+    pts = torch.where(live_p[:, None], pts, K.SENTINEL_WORD).contiguous()
+    grank, lrank, ukeys = _group_ranks(pts, gn)
+    return grank.reshape(gn, -1), lrank.reshape(gn, -1), ukeys
+
+
+def _cols(r, nr: int, nw: int):
+    """[G, P] point-row ranks -> (read begins, read ends, write begins,
+    write ends), each [G, NR] or [G, NW]."""
+    return (r[:, :nr], r[:, nr:2 * nr], r[:, 2 * nr:2 * nr + nw],
+            r[:, 2 * nr + nw:])
+
+
+def span_widths(state: H.VersionHistory, g: dict) -> dict:
+    """The widest live span of each kind the short-span latch holds to S,
+    on a group of packed batches (torch leaves with a leading [G] axis)
+    against one tier: `tier` (phase b, in tier segments), `read` and
+    `write` (in each batch's local ranks) and, at G > 1, `blocks` (the
+    cross query, in the JAX co-sort's blocks). Computed by the latch's
+    own helpers; liveness is the packed validity, a superset of the
+    latch's (too-old txns are masked there), so each is an upper bound
+    and the smallest S at or above them all passes the latch."""
+    gn, nr, w = g["read_begin"].shape
+    nw = g["write_begin"].shape[1]
+    rl2, wl2 = g["read_valid"], g["write_valid"]
+    rb = g["read_begin"].reshape(-1, w).contiguous()
+    re = g["read_end"].reshape(-1, w).contiguous()
+    lo, hi = _tier_segments(state.main_keys, rb, re)
+    grank, lrank, ukeys = _point_ranks(g, rl2, wl2)
+    lq_lo, lq_hi, lw_lo, lw_hi = _cols(lrank, nr, nw)
+    spans = {"tier": (hi - lo, rl2.reshape(-1)),
+             "read": (lq_hi - lq_lo, rl2), "write": (lw_hi - lw_lo, wl2)}
+    if gn > 1:
+        rank_rb, rank_re, _, _ = _cols(grank, nr, nw)
+        spans["blocks"] = (_block_spans(
+            state.main_keys, ukeys, rank_rb.reshape(-1),
+            rank_re.reshape(-1), rb, re), rl2.reshape(-1))
+    return {k: int(torch.where(live, span, 0).max())
+            for k, (span, live) in spans.items()}
+
+
 def _group_ranks(pts: torch.Tensor, gn: int):
     """Ranks of the group's point rows ([gn * P, W], batch after batch,
     dead rows already sentinel): (group-wide dense rank [gn * P], dense
-    rank within its own batch [gn * P], the stable key-order permutation,
-    the group-wide rank in that order).
+    rank within its own batch [gn * P], the distinct keys in key order
+    [gn * P, W] with a sentinel tail).
 
-    One lexicographic stable sort gives the key order and the group-wide
-    ranks; one more stable pass by batch id turns it into (batch, key)
-    order, where the within-batch ranks restart at each batch.
+    sort_ranks (K17) gives the group-wide ranks and the distinct keys;
+    one stable sort by (batch, group-wide rank) puts each batch's rows in
+    key order, where the within-batch ranks restart at each batch.
     """
     n = pts.shape[0]
     p = n // gn
     dev = pts.device
-    perm = K.lex_sort_perm(pts)
-    s = pts[perm]
+    grank, ukeys, _ = K.sort_ranks(pts)
+    bid = torch.arange(gn, device=dev).repeat_interleave(p)
+    order = torch.sort(bid * n + grank, stable=True).indices
+    sk = grank[order]
     new = torch.ones((n,), dtype=torch.int32, device=dev)
-    new[1:] = torch.any(s[1:] != s[:-1], dim=-1).to(torch.int32)
-    grank_sorted = torch.cumsum(new, 0, dtype=torch.int32) - 1
-    grank = torch.empty((n,), dtype=torch.int32, device=dev)
-    grank[perm] = grank_sorted
-
-    bid = torch.div(perm, p, rounding_mode="floor")
-    _, idx = torch.sort(bid, stable=True)
-    perm2 = perm[idx]
-    s2 = pts[perm2]
-    new2 = torch.ones((n,), dtype=torch.int32, device=dev)
-    new2[1:] = torch.any(s2[1:] != s2[:-1], dim=-1).to(torch.int32)
-    new2 = new2.reshape(gn, p)
-    new2[:, 0] = 1
-    lrank_sorted = torch.cumsum(new2, 1, dtype=torch.int32) - 1
+    new[1:] = (sk[1:] != sk[:-1]).to(torch.int32)
+    new = new.reshape(gn, p)
+    new[:, 0] = 1
+    lrank_sorted = torch.cumsum(new, 1, dtype=torch.int32) - 1
     lrank = torch.empty((n,), dtype=torch.int32, device=dev)
-    lrank[perm2] = lrank_sorted.reshape(-1)
-    return grank, lrank, perm, grank_sorted
+    lrank[order] = lrank_sorted.reshape(-1)
+    return grank, lrank, ukeys
 
 
-def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
-                  fixpoint_latch: bool, stats):
+def _resolve_many(state: H.VersionHistory, g: dict, *, short_span_limit: int,
+                  fixpoint_unroll: int, fixpoint_latch: bool, stats):
     """resolve_group at 1 < G <= MAX_GROUP (see the module docstring)."""
     gn, b = g["txn_valid"].shape
     nr = g["read_valid"].shape[1]
@@ -422,26 +560,33 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
     rb, re = fl("read_begin"), fl("read_end")
 
     # ---- (b) every read of the group vs. the pre-group tier: one table
-    # build (kernel B), one probe launch (kernel A) ------------------------
-    vmax = H.query_reads_vmax(state, rb.contiguous(), re.contiguous())
+    # build (kernel B), one probe launch (kernel A); under S, kernel A's
+    # searches and one kernel K read --------------------------------------
+    ss = short_span_limit
+    rb, re = rb.contiguous(), re.contiguous()
+    if ss:
+        vmax, span_ok = _tier_vmax_short(state, rb, re, read_live, ss)
+    else:
+        vmax = H.query_reads_vmax(state, rb, re)
+        span_ok = torch.ones((), dtype=torch.bool, device=dev)
     stale_hit = (vmax > read_snap) & read_live
 
     # ---- (c) + (d) local and group-wide ranks of the point rows ----------
     p_per = 2 * nr + 2 * nw
     rl2, wl2 = read_live.reshape(gn, nr), write_live.reshape(gn, nw)
-    live_p = torch.cat([rl2, rl2, wl2, wl2], dim=1).reshape(-1)
-    pts = torch.cat([g["read_begin"], g["read_end"], g["write_begin"],
-                     g["write_end"]], dim=1).reshape(gn * p_per, -1)
-    pts = torch.where(live_p[:, None], pts, K.SENTINEL_WORD).contiguous()
-    grank, lrank, perm, grank_sorted = _group_ranks(pts, gn)
-    grank, lrank = grank.reshape(gn, p_per), lrank.reshape(gn, p_per)
-
-    def cols(r):
-        return (r[:, :nr], r[:, nr:2 * nr], r[:, 2 * nr:2 * nr + nw],
-                r[:, 2 * nr + nw:])
-
-    lq_lo, lq_hi, lw_lo, lw_hi = cols(lrank)
-    rank_rb, rank_re, rank_wb, rank_we = (c.contiguous() for c in cols(grank))
+    grank, lrank, ukeys = _point_ranks(g, rl2, wl2)
+    lq_lo, lq_hi, lw_lo, lw_hi = _cols(lrank, nr, nw)
+    rank_rb, rank_re, rank_wb, rank_we = (
+        c.contiguous() for c in _cols(grank, nr, nw))
+    if ss:
+        # the latch of every batch: local write and read spans, and the
+        # cross query's span in JAX blocks (its query walks group ranks)
+        span_ok = span_ok & _local_spans_ok(rl2, wl2, lq_lo, lq_hi, lw_lo,
+                                            lw_hi, ss)
+        cross_span = _block_spans(state.main_keys, ukeys,
+                                  rank_rb.reshape(-1), rank_re.reshape(-1),
+                                  rb, re)
+        span_ok = span_ok & _spans_within(cross_span, read_live, ss)
 
     # ---- (e) per-txn read windows over the flat segment ids --------------
     r_batch = torch.arange(gn, dtype=torch.int32,
@@ -469,10 +614,13 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
         lwin_lo, lwin_hi = win_lo[i] - base, win_hi[i] - base
         per_txn = _window_any(lwin_lo, lwin_hi)
         # the cross query: earlier batches' committed writes newer than
-        # the read's snapshot (K14, kernel G); batch 0 has no earlier
-        # batch, its seg_ver is all VERSION_NEG
+        # the read's snapshot (K14, kernel G; under S kernel K); batch 0
+        # has no earlier batch, its seg_ver is all VERSION_NEG
         if i == 0:
             cross = no_cross
+        elif ss:
+            gmax = ss_range(seg_ver, rank_rb[i], rank_re[i], ss, op="max")
+            cross = (gmax > snap2[i]) & rlive
         else:
             gtab = rangemax.build2(seg_ver, op="max")
             gmax = rangemax.query2(gtab, rank_rb[i], rank_re[i], op="max")
@@ -482,7 +630,8 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
             ok, per_txn, r_txn=g["read_txn"][i], w_txn=g["write_txn"][i],
             rt=rt2[i], wt=wt2[i], read_live=rlive, write_live=wlive,
             lq_lo=lq_lo[i], lq_hi=lq_hi[i], lw_lo=lw_lo[i], lw_hi=lw_hi[i],
-            unroll=fixpoint_unroll, latch=fixpoint_latch, stats=stats)
+            unroll=fixpoint_unroll, latch=fixpoint_latch,
+            short_span_limit=ss, stats=stats)
         unconverged = unconverged | unconv
         # the fold: this batch's committed live writes paint their rank
         # ranges with its version (K14, kernel H)
@@ -504,17 +653,16 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
      too_old_count) = _verdicts(committed, txn_valid, too_old,
                                 hist_conflict_txn, torch.cat(first_l), gn)
 
-    # ---- (h) one merge per group: the sorted endpoint keys carry the
-    # group's committed map (duplicate keys carry one value), folded into
-    # the tier by kernel D with GC at the largest floor --------------------
+    # ---- (h) one merge per group: the distinct endpoint keys with
+    # `seg_ver` are the group's committed map, folded into the tier by
+    # kernel D with GC at the largest floor --------------------------------
     floor = max(floors)
     cap = state.main_keys.shape[0]
     new_keys, new_ver, count = H.merge_maps(
-        state.main_keys, state.main_ver, pts[perm].contiguous(),
-        seg_ver[grank_sorted.to(torch.int64)].contiguous(), floor=floor,
+        state.main_keys, state.main_ver, ukeys, seg_ver, floor=floor,
         capacity=cap,
     )
-    overflow = state.overflow | (count > cap)
+    overflow = state.overflow | (count > cap) | ~span_ok
     new_state = H.VersionHistory(main_keys=new_keys, main_ver=new_ver,
                                  oldest=max(state.oldest, floor),
                                  overflow=overflow)
@@ -532,6 +680,78 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, fixpoint_unroll: int,
     if fixpoint_latch and bool(unconverged):
         return state, out
     return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# K13's direct ops (kernel K)
+
+def ss_range_plain(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   span: int, *, op: str) -> torch.Tensor:
+    """Plain version of kernel K's range entry, as JAX's direct_range_op
+    writes it: `span` clamped gathers, each masked by pos < hi."""
+    fn = rangemax._op(op)
+    ident = rangemax._IDENT[op]
+    n = values.shape[0]
+    acc = torch.full(lo.shape, ident, dtype=torch.int32, device=lo.device)
+    for d in range(span):
+        pos = lo.to(torch.int64) + d
+        v = values[pos.clamp(0, n - 1)]
+        acc = fn(acc, torch.where(pos < hi, v, ident))
+    return acc
+
+
+def ss_range(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+             span: int, *, op: str) -> torch.Tensor:
+    """op ("max" or "min") over values[lo:hi] per query by at most `span`
+    direct reads ([Q] int32; the op identity where hi <= lo): exact for
+    the queries with hi - lo <= span, which the caller latches. CUDA
+    tensors launch kernel K's ss_range entry."""
+    rangemax._op(op)
+    if values.ndim != 1 or values.shape[0] < 1 or lo.shape != hi.shape \
+            or lo.ndim != 1:
+        raise ValueError("ss_range: values [N] and lo, hi [Q] expected")
+    if values.device.type == "cpu":
+        return ss_range_plain(values, lo, hi, span, op=op)
+    kernels.check_cuda("ss_range", values, lo, hi)
+    out = torch.empty(lo.shape, dtype=torch.int32, device=values.device)
+    kernels.launch("ss_range", "short_span.range", values, values.shape[0],
+                   lo, hi, lo.shape[0], span, int(op == "min"), out)
+    return out
+
+
+def ss_cover_plain(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
+                   val: torch.Tensor, span: int) -> torch.Tensor:
+    """Plain version of kernel K's cover entry, as the JAX program's
+    scatter-min: `span` scatters into a [leaves + 1] buffer of INT32_POS,
+    the positions past each write's end sent to the trash slot."""
+    flat = torch.full((leaves + 1,), INT32_POS, dtype=torch.int32,
+                      device=val.device)
+    for d in range(span):
+        pos = lo.to(torch.int64) + d
+        idx = torch.where((pos < hi) & (pos >= 0) & (pos < leaves), pos,
+                          leaves)
+        flat.scatter_reduce_(0, idx, val, reduce="amin")
+    return flat[:leaves]
+
+
+def ss_cover(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
+             val: torch.Tensor, span: int) -> torch.Tensor:
+    """For each leaf v in [0, leaves): min val[j] over the writes with
+    lo[j] <= v < min(hi[j], lo[j] + span) ([leaves] int32, INT32_POS
+    where none): exact for the writes with hi - lo <= span, which the
+    caller latches. The buffer is new on every call (each fixpoint
+    application starts from INT32_POS). CUDA tensors launch kernel K's
+    ss_cover entry."""
+    if not (lo.shape == hi.shape == val.shape) or lo.ndim != 1:
+        raise ValueError("ss_cover: lo, hi, val must be [N]")
+    if val.device.type == "cpu":
+        return ss_cover_plain(leaves, lo, hi, val, span)
+    kernels.check_cuda("ss_cover", lo, hi, val)
+    flat = torch.full((leaves,), INT32_POS, dtype=torch.int32,
+                      device=val.device)
+    kernels.launch("ss_cover", "short_span.cover", lo, hi, val, lo.shape[0],
+                   span, flat, leaves)
+    return flat
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,10 @@ at the tail.
   compaction (mergeWriteConflictRanges + removeBefore, SkipList.cpp:
   430-441, 576-608, and the delta -> main fold): kernel D on CUDA
   tensors.
+* `merge_writes` — K16: overwrite the union of sorted run intervals
+  with a version, GC and compact, row for row as the JAX program keeps
+  its rows: kernel D's `mm_mark_runs` entry and its scatter on CUDA
+  tensors.
 
 The CPU tensors take the plain versions beside them. `oldest` is a host
 int (every floor comes from host-packed batch arguments); `overflow` is
@@ -190,3 +194,88 @@ def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
                    row_pos, row_val, keep_at, dest, capacity, out_keys,
                    out_val)
     return out_keys, out_val, keep_at.sum()
+
+
+# ---------------------------------------------------------------------------
+# K16: the run-interval merge
+
+def merge_writes_plain(state: VersionHistory, run_bounds: torch.Tensor,
+                       version: int, new_oldest: int) -> VersionHistory:
+    """Plain version of merge_writes, written as the JAX program: one
+    stable sort of the tier's rows and the run bounds (tier rows first at
+    equal keys), the tier value carried to every row, raised to the
+    version inside a run (the parity of the bounds so far), GC at the
+    floor, and a row kept where its value differs from the previous
+    row's."""
+    m, w = state.main_keys.shape
+    mf = run_bounds.shape[0]
+    dev = state.main_ver.device
+    rows = torch.cat([state.main_keys, run_bounds])
+    perm = K.lex_sort_perm(rows)       # stable: tier rows before bounds
+    skeys = rows[perm]
+    is_main = perm < m
+    s_val = torch.cat([state.main_ver, torch.full(
+        (mf,), VERSION_NEG, dtype=torch.int32, device=dev)])[perm]
+    iota = torch.arange(m + mf, device=dev)
+    last = torch.cummax(torch.where(is_main, iota, -1), 0).values
+    carry = torch.where(last >= 0, s_val[last.clamp(min=0)], VERSION_NEG)
+    run_ord = torch.cumsum((~is_main).to(torch.int32), 0)  # 1-based at runs
+    delta = torch.where(~is_main, 1 - 2 * ((run_ord - 1) & 1), 0)
+    covered = torch.cumsum(delta, 0) > 0
+    new_val = torch.where(covered, torch.clamp(carry, min=version), carry)
+    new_val = torch.where(new_val < new_oldest, VERSION_NEG,
+                          new_val).to(torch.int32)
+    prev = torch.cat([torch.full((1,), VERSION_NEG, dtype=torch.int32,
+                                 device=dev), new_val[:-1]])
+    keep = (skeys[:, -1] != K.SENTINEL_WORD) & (new_val != prev)
+    pos = torch.cumsum(keep.to(torch.int64), 0) - 1
+    count = keep.sum()
+    take = keep & (pos < m)
+    out_keys = K.sentinel_like(m, w, dev)
+    out_val = torch.full((m,), VERSION_NEG, dtype=torch.int32, device=dev)
+    out_keys[pos[take]] = skeys[take]
+    out_val[pos[take]] = new_val[take]
+    return VersionHistory(main_keys=out_keys, main_ver=out_val,
+                          oldest=max(state.oldest, int(new_oldest)),
+                          overflow=state.overflow | (count > m))
+
+
+def merge_writes(state: VersionHistory, run_bounds: torch.Tensor,
+                 version: int, new_oldest: int) -> VersionHistory:
+    """Overwrite the union of run intervals with `version`, raise the GC
+    floor, and compact (K16, foundationdb_tpu/ops/history.py:114).
+
+    run_bounds: [Mf, W] sorted disjoint interval bounds b0, e0, b1, e1,
+    ... with a sentinel tail; version, new_oldest: host ints. The new
+    value at k is max(old(k), version) inside a run and old(k) outside,
+    NEG under the floor; the rows kept are the JAX program's, row for
+    row (a run begin equal to a tier key keeps both rows, the later one
+    in force). Rows past the tier's capacity latch `overflow`. CUDA
+    tensors run kernel D's mm_mark_runs and mm_scatter entries.
+    """
+    m, w = state.main_keys.shape
+    if run_bounds.ndim != 2 or run_bounds.shape[1] != w:
+        raise ValueError("merge_writes: run_bounds must be [Mf, W]")
+    if state.main_keys.device.type == "cpu":
+        return merge_writes_plain(state, run_bounds, version, new_oldest)
+    kernels.check_cuda("merge_writes", state.main_keys, state.main_ver,
+                       run_bounds)
+    kernels.check_words("merge_writes", w)
+    dev = state.main_keys.device
+    na, nb = m, run_bounds.shape[0]
+    keep_at = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    row_pos = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    row_val = torch.empty((na + nb,), dtype=torch.int32, device=dev)
+    kernels.launch("mm_mark_runs", "merge_writes", state.main_keys,
+                   state.main_ver, na, run_bounds, nb, w, int(version),
+                   int(new_oldest), keep_at, row_pos, row_val)
+    dest = torch.cumsum(keep_at, 0, dtype=torch.int32) - keep_at
+    out_keys = K.sentinel_like(m, w, dev)
+    out_val = torch.full((m,), VERSION_NEG, dtype=torch.int32, device=dev)
+    kernels.launch("mm_scatter", "merge_writes", state.main_keys, run_bounds,
+                   na, nb, w, row_pos, row_val, keep_at, dest, m, out_keys,
+                   out_val)
+    count = keep_at.sum()
+    return VersionHistory(main_keys=out_keys, main_ver=out_val,
+                          oldest=max(state.oldest, int(new_oldest)),
+                          overflow=state.overflow | (count > m))

@@ -9,6 +9,9 @@ int64 before comparing, because torch on the CPU lacks uint32 shifts,
 
 `searchsorted` is kernel A's search entry on CUDA tensors
 (kernels/csrc/keysearch.cu) and `searchsorted_plain` on CPU tensors.
+`sort_ranks` (K17) is the library's stable sort passes for the order and
+kernel L (kernels/csrc/sort_ranks.cu) for the rest on CUDA tensors,
+`sort_ranks_plain` on CPU tensors; `dense_ranks` is its first output.
 """
 
 from __future__ import annotations
@@ -114,17 +117,69 @@ def lex_sort_perm(points: torch.Tensor) -> torch.Tensor:
     return perm
 
 
+def sort_ranks_plain(points: torch.Tensor, valid: torch.Tensor = None):
+    """Plain version of kernel L around the lexicographic sort: see
+    sort_ranks."""
+    p, w = points.shape
+    dev = points.device
+    pts = points if valid is None else torch.where(
+        valid[:, None], points, SENTINEL_WORD)
+    perm = lex_sort_perm(pts)
+    s = pts[perm]
+    new = torch.ones((p,), dtype=torch.bool, device=dev)
+    if p > 1:
+        new[1:] = torch.any(s[1:] != s[:-1], dim=-1)
+    rank_sorted = torch.cumsum(new.to(torch.int32), 0, dtype=torch.int32) - 1
+    sorted_valid = ~torch.all(s == SENTINEL_WORD, dim=-1)
+    count = (new & sorted_valid).sum(dtype=torch.int32)
+    ranks = torch.empty((p,), dtype=torch.int32, device=dev)
+    ranks[perm] = rank_sorted
+    unique_keys = sentinel_like(p, w, dev)
+    unique_keys[rank_sorted[new].to(torch.int64)] = s[new]
+    return ranks, unique_keys, count
+
+
+def sort_ranks(points: torch.Tensor, valid: torch.Tensor = None):
+    """Dense-rank all points in one lexicographic sort (K17).
+
+    points: [P, W] packed keys; valid: [P] bool or None (all valid).
+    Invalid points are replaced by the sentinel, so they sort last and
+    share one trailing rank. Returns (ranks [P] int32 — the dense rank of
+    each point among the distinct rows; unique_keys [P, W] — the distinct
+    rows in ascending order, sentinel tail; unique_count [] int32 — the
+    distinct rows that are not the sentinel), as the JAX sort_ranks.
+    CUDA tensors run kernel L's three entries after the sort.
+    """
+    if points.ndim != 2 or (valid is not None
+                            and valid.shape != points.shape[:1]):
+        raise ValueError("sort_ranks: points [P, W], valid [P] expected")
+    if points.device.type == "cpu":
+        return sort_ranks_plain(points, valid)
+    kernels.check_cuda("sort_ranks", points)
+    if valid is not None:
+        kernels.check_cuda("sort_ranks", valid, dtype=torch.bool)
+        points = torch.where(valid[:, None], points, SENTINEL_WORD)
+    p, w = points.shape
+    kernels.check_words("sort_ranks", w)
+    dev = points.device
+    ranks = torch.empty((p,), dtype=torch.int32, device=dev)
+    unique_keys = sentinel_like(p, w, dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    if p == 0:
+        return ranks, unique_keys, count
+    perm = lex_sort_perm(points).contiguous()
+    head = torch.empty((p,), dtype=torch.int32, device=dev)
+    sums = torch.empty((kernels.size("sr_tiles", p),), dtype=torch.int32,
+                       device=dev)
+    kernels.launch("sr_heads", "sort_ranks", points, perm, p, w, head, sums)
+    kernels.launch("sr_offsets", "sort_ranks", sums, points, perm, p, w,
+                   count)
+    kernels.launch("sr_write", "sort_ranks", points, perm, p, w, head, sums,
+                   ranks, unique_keys)
+    return ranks, unique_keys, count
+
+
 def dense_ranks(points: torch.Tensor) -> torch.Tensor:
     """[P] int32 dense rank of each row among the distinct rows of
-    `points` ([P, W]): a lexicographic stable sort, a new-key flag, a
-    cumsum, and the inverse permutation back to input order."""
-    p = points.shape[0]
-    perm = lex_sort_perm(points)
-    s = points[perm]
-    new = torch.ones((p,), dtype=torch.int32, device=points.device)
-    if p > 1:
-        new[1:] = torch.any(s[1:] != s[:-1], dim=-1).to(torch.int32)
-    rank_sorted = torch.cumsum(new, 0, dtype=torch.int32) - 1
-    ranks = torch.empty((p,), dtype=torch.int32, device=points.device)
-    ranks[perm] = rank_sorted
-    return ranks
+    `points` ([P, W]): sort_ranks' first output."""
+    return sort_ranks(points)[0]

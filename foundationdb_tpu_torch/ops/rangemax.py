@@ -21,6 +21,12 @@ and the chunk maxima. `build2_plain` / `query2_plain` keep the JAX
 layout (the fine levels and the coarse table over the chunk maxima), so
 the CPU tests hold them against the JAX functions directly; a structure
 is queried on the device that built it.
+
+`build4` / `query4` (K19, the JAX package's radix-4 table: half the
+levels, four overlapping spans per query) are kernel M's build and query
+entries (kernels/csrc/rangemax4.cu) on CUDA tensors and `build4_plain` /
+`query4_plain` on CPU tensors. Only the reference's experiment scripts
+reach them; no resolver path does.
 """
 
 from __future__ import annotations
@@ -233,6 +239,89 @@ def query2(tables, lo: torch.Tensor, hi: torch.Tensor, *,
     kernels.launch("rm2_query", "rangemax2.query", values, m, chunk,
                    chunk.shape[0], table, table.shape[1], lo, hi,
                    lo.shape[0], int(op == "min"), out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K19: the radix-4 table
+
+def _num_levels4(m: int) -> int:
+    """1 + #{k >= 1 : 4^(k-1) < m}: the levels build4 makes."""
+    levels = 1
+    while (1 << (2 * (levels - 1))) < m:
+        levels += 1
+    return levels
+
+
+def build4_plain(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
+    """Plain version of kernel M's build: values [M] -> table [L4, M],
+    table[k, i] = op(values[i : i + 4**k]) clamped at the array end."""
+    fn = _op(op)
+    m = values.shape[0]
+    levels = [values]
+    for k in range(1, _num_levels4(m)):
+        prev = levels[-1]
+        s = min(1 << (2 * (k - 1)), m - 1)
+        out = prev
+        for j in (1, 2, 3):
+            sh = min(j * s, m - 1)
+            out = fn(out, torch.cat([prev[sh:], prev[-1:].expand(sh)]))
+        levels.append(out)
+    return torch.stack(levels)
+
+
+def build4(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
+    """The radix-4 table of `values` ([M] int32, M >= 1) -> [L4, M]."""
+    _op(op)
+    if values.ndim != 1 or values.shape[0] < 1:
+        raise ValueError(f"build4: values shape {tuple(values.shape)}")
+    if values.device.type == "cpu":
+        return build4_plain(values, op=op)
+    kernels.check_cuda("rangemax.build4", values)
+    m = values.shape[0]
+    table = torch.empty((_num_levels4(m), m), dtype=torch.int32,
+                        device=values.device)
+    for k in range(table.shape[0]):
+        s = min(1 << (2 * (k - 1)), m - 1) if k else 0
+        kernels.launch("rm4_build_level", "rangemax4.build", values, table, m,
+                       k, s, int(op == "min"))
+    return table
+
+
+def query4_plain(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+                 op: str = "max") -> torch.Tensor:
+    """Plain version of kernel M's query: op over [lo, hi) per element by
+    four overlapping spans of 4**k, k = floor(log4(length)); the op
+    identity where the range is empty."""
+    fn = _op(op)
+    levels, m = table.shape
+    loc = lo.to(torch.int64).clamp(0, m)
+    hic = hi.to(torch.int64).clamp(0, m)
+    length = torch.clamp(hic - loc, min=1)
+    k = torch.clamp(_floor_log2(length, 2 * levels) >> 1, max=levels - 1)
+    s = torch.ones_like(k) << (2 * k)
+    flat = table.reshape(-1)
+    out = None
+    for j in range(4):
+        idx = torch.minimum(loc + j * s, hic - s).clamp(0, m - 1)
+        g = flat[k * m + idx]
+        out = g if out is None else fn(out, g)
+    ident = torch.full_like(out, _IDENT[op])
+    return torch.where(hic > loc, out, ident)
+
+
+def query4(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
+           op: str = "max") -> torch.Tensor:
+    """op over a build4 table's base values on [lo, hi) -> [Q] int32."""
+    _op(op)
+    if table.ndim != 2 or lo.shape != hi.shape or lo.ndim != 1:
+        raise ValueError("query4: table [L4, M] and lo, hi [Q] expected")
+    if table.device.type == "cpu":
+        return query4_plain(table, lo, hi, op=op)
+    kernels.check_cuda("rangemax.query4", table, lo, hi)
+    out = torch.empty(lo.shape, dtype=torch.int32, device=table.device)
+    kernels.launch("rm4_query", "rangemax4.query", table, table.shape[0],
+                   table.shape[1], lo, hi, lo.shape[0], int(op == "min"), out)
     return out
 
 

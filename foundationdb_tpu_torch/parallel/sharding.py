@@ -302,6 +302,7 @@ def init_sharded_tiered(config: KernelConfig, boundaries: Sequence[bytes],
 # resolving a group on every shard
 
 def resolve_group_sharded(states, g: dict, part_lo, part_hi, *,
+                          short_span_limit: int = 0,
                           fixpoint_unroll: int = 3,
                           fixpoint_latch: bool = False,
                           dedup_reads: int = 0, range_sweep: bool = False,
@@ -310,7 +311,8 @@ def resolve_group_sharded(states, g: dict, part_lo, part_hi, *,
 
     Kernel I clips the group once for every shard; each shard runs the
     tiered group loop on its copy against its own tiers (one main-tier
-    table, its own sweep ranks and dedup latch); kernel J combines. With
+    table, its own sweep ranks and dedup latch, its own span latch under
+    `short_span_limit`); kernel J combines. With
     the fixpoint latch or dedup armed, a trip on any shard is read once
     (one sync) and every shard keeps its input state; `unconverged` is
     that trip, broadcast over G, and the caller re-runs the group
@@ -321,6 +323,7 @@ def resolve_group_sharded(states, g: dict, part_lo, part_hi, *,
     for s, state in enumerate(states):
         new, out, trip = D.resolve_group_tiered(
             state, shard_args(g, clipped, s),
+            short_span_limit=short_span_limit,
             fixpoint_unroll=fixpoint_unroll, fixpoint_latch=fixpoint_latch,
             dedup_reads=dedup_reads, range_sweep=range_sweep, stats=stats,
             defer_trip=True)

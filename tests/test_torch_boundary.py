@@ -4,7 +4,7 @@
   jax or foundationdb_tpu (an AST scan, and an import in a subprocess
   where importing jax fails);
 * `make_conflict_set(cfg)` without a card and without device="cpu"
-  raises instead of running on the CPU;
+  raises instead of running on the CPU; every variant knob builds;
 * a kernel wrapper given CPU tensors takes its plain version and leaves
   every launch count at 0;
 * every kernel in the ledger has its CUDA source, and every source says
@@ -102,16 +102,17 @@ def test_missing_card_raises(monkeypatch):
 
 
 def test_variant_knobs_are_refused():
-    """The variant not ported yet (short-span ops) is refused on every
-    path, with shards too; the classic single-tier path (no delta tier),
-    the latch, dedup, sweep and spill knobs and the sharded path are
-    served (tests/test_torch_classic.py, tests/test_torch_variants.py,
-    tests/test_torch_sharding.py)."""
+    """No variant knob is refused any more: the short-span ops (once the
+    last refused variant) build on the tiered, classic and sharded
+    paths, and so do the classic single-tier path (no delta tier), the
+    latch, dedup, sweep and spill knobs and the sharded path
+    (tests/test_torch_short_span.py, tests/test_torch_classic.py,
+    tests/test_torch_variants.py, tests/test_torch_sharding.py)."""
     for kw in ({"short_span_limit": 4},
                {"short_span_limit": 4, "delta_capacity": 0},
                {"short_span_limit": 4, "n_shards": 2}):
-        with pytest.raises(ValueError):
-            make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
+        cs = make_conflict_set(CFG.scaled(**kw), "cuda", device="cpu")
+        assert cs.config.short_span_limit == 4
     for kw in ({"fixpoint_latch": True}, {"dedup_reads": 8},
                {"range_sweep": True}, {"delta_spill": True},
                {"delta_capacity": 0},
@@ -154,6 +155,12 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     v = torch.zeros((2, 1, 4), dtype=torch.int32)
     f = torch.zeros((2, 1), dtype=torch.bool)
     SH.combine(v, v, f[..., None], f, f[:, 0], g["txn_valid"])
+    G.ss_range(vals, lo, lo + 3, 4, op="max")
+    G.ss_cover(64, lo, lo + 2, lo, 4)
+    K.sort_ranks(keys, live.repeat(3)[:64])
+    H.merge_writes(hist, keys[:8], 50, 0)
+    R.query4(R.build4(vals, op="min"), lo, lo + 9, op="min")
+    S.min_cover4(64, lo, lo + 5, lo)
     assert kernels.counts() == {name: 0 for name in kernels.KERNELS}
 
 

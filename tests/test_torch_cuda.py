@@ -38,6 +38,12 @@ pytestmark = pytest.mark.cuda
 CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 #: the kernels only the sharded path launches
 SHARDED_ONLY = ("shard_clip", "shard_combine")
+#: the kernels only the short-span variant launches
+SHORT_SPAN_ONLY = ("short_span.range", "short_span.cover")
+#: the kernels no resolver path launches (the reference's scripts' K16
+#: and K19)
+OFF_PATH = ("merge_writes", "rangemax4.build", "rangemax4.query",
+            "rangemax4.cover")
 
 
 @pytest.fixture
@@ -151,11 +157,14 @@ def test_stream_matches_cpu_plain_path(cuda_device):
     # the exact uniform tiered path launches every kernel but the two
     # variant probes (sweep_ranks, read_dedup: test_variant_stream_...
     # below), the classic group kernel's cross phase (kernels G and H:
-    # test_classic_stream_matches_cpu_plain_path) and the sharded path's
-    # clip and combine (kernels I and J: test_sharded_stream_...)
+    # test_classic_stream_matches_cpu_plain_path), the sharded path's
+    # clip and combine (kernels I and J: test_sharded_stream_...), the
+    # short-span kernel K (test_short_span_streams_...) and the kernels
+    # of no resolver path
     for name, n in kernels.counts().items():
-        assert (n > 0) == (name not in ("sweep_ranks", "read_dedup",
-                                        *CLASSIC_ONLY, *SHARDED_ONLY)), name
+        assert (n > 0) == (name not in (
+            "sweep_ranks", "read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
+            *SHORT_SPAN_ONLY, *OFF_PATH)), name
 
 
 def test_sweep_ranks(cuda_device):
@@ -451,3 +460,151 @@ def test_sharded_stream_matches_cpu_plain_path(cuda_device, latched):
         assert gpu.metrics.counters["exactFallbacks"] > 0
     for name in SHARDED_ONLY:
         assert kernels.COUNTS[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# kernels K, L, M and merge_writes on kernel D
+
+def flat_state(cs) -> list:
+    """A conflict set's tiers as a flat list of numpy leaves."""
+    state = cs.store_state()[0]
+    tiers = state if isinstance(state[0], tuple) else (state,)
+    return [np.asarray(x) for tier in tiers for x in tier]
+
+
+@pytest.mark.parametrize("span", [1, 4, 8])
+def test_short_span_kernels(cuda_device, span):
+    gen = torch.Generator(device=cuda_device).manual_seed(span)
+    n, q = 4096, 20000
+    vals = torch.randint(-10**9, 10**9, (n,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    lo = torch.randint(-2, n, (q,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    hi = lo + torch.randint(-2, 12, (q,), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+    for op in ("max", "min"):
+        assert_launched_and_equal(
+            "short_span.range", G.ss_range(vals, lo, hi, span, op=op),
+            G.ss_range_plain(vals, lo, hi, span, op=op))
+    wlo = lo.clamp(0, n - 1)
+    whi = (wlo + torch.randint(-1, 10, (q,), generator=gen,
+                               device=cuda_device,
+                               dtype=torch.int32)).clamp(max=n)
+    val = torch.randint(0, q, (q,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    val[::3] = R.INT32_POS
+    assert_launched_and_equal(
+        "short_span.cover", G.ss_cover(n, wlo, whi, val, span),
+        G.ss_cover_plain(n, wlo, whi, val, span))
+
+
+@pytest.mark.parametrize("p", [1, 1000, 262_144])
+def test_sort_ranks(cuda_device, p):
+    rng = np.random.default_rng(p)
+    ks = int_keys_packed(rng.integers(0, max(2, p // 2), size=p), 8, 3)
+    ks[rng.random(p) < 0.05] = 0xFFFFFFFF          # valid all-ones rows
+    pts = torch.from_numpy(ks.view(np.int32)).to(cuda_device)
+    valid = torch.from_numpy(rng.random(p) < 0.9).to(cuda_device)
+    got = K.sort_ranks(pts, valid)
+    want = K.sort_ranks_plain(pts, valid)
+    for g, w in zip(got, want):
+        assert_launched_and_equal("sort_ranks", g, w)
+
+
+@pytest.mark.parametrize("floor", [0, 2500])
+def test_merge_writes(cuda_device, floor):
+    rng = np.random.default_rng(12 + floor)
+    keys, n = sorted_keys(rng, 3000, 4000, cuda_device)
+    ver = torch.randint(0, 5000, (4000,), device=cuda_device,
+                        dtype=torch.int32)
+    ver[n:] = H.VERSION_NEG
+    hist = H.VersionHistory(keys, ver, 0, torch.zeros(
+        (), dtype=torch.bool, device=cuda_device))
+    # run bounds: fresh keys and tier keys (a begin or an end equal to a
+    # tier key), sorted, distinct, an even count, sentinel tail
+    pool = np.unique(np.concatenate([
+        rng.integers(0, 1 << 20, size=600),
+        np.asarray(rng.choice(keys[:n].cpu().numpy()[:, 1].view(np.uint32),
+                              200, replace=False), np.int64)]))
+    pool = pool[: len(pool) // 2 * 2]
+    runs = np.full((len(pool) + 6, 3), 0xFFFFFFFF, np.uint32)
+    runs[: len(pool)] = int_keys_packed(pool, 8, 3)
+    runs = torch.from_numpy(runs.view(np.int32)).to(cuda_device)
+    for cap_hist in (hist, hist._replace(
+            main_keys=keys[:3100].contiguous(),
+            main_ver=ver[:3100].contiguous())):       # overflow
+        got = H.merge_writes(cap_hist, runs, 6000, floor)
+        want = H.merge_writes_plain(cap_hist, runs, 6000, floor)
+        for part in ("main_keys", "main_ver", "overflow"):
+            assert_launched_and_equal("merge_writes", getattr(got, part),
+                                      getattr(want, part))
+        assert got.oldest == want.oldest
+
+
+@pytest.mark.parametrize("m", [1, 5, 1000, 131_072, 262_144])
+def test_rangemax4(cuda_device, m):
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    lo = torch.randint(-3, m + 3, (65_536,), generator=gen,
+                       device=cuda_device, dtype=torch.int32)
+    hi = lo + torch.randint(-3, m + 5, (65_536,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+    for op in ("max", "min"):
+        tab = R.build4(vals, op=op)
+        assert_launched_and_equal("rangemax4.build", tab,
+                                  R.build4_plain(vals, op=op))
+        assert_launched_and_equal("rangemax4.query",
+                                  R.query4(tab, lo, hi, op=op),
+                                  R.query4_plain(tab, lo, hi, op=op))
+    leaves = 1 << max(0, (m - 1).bit_length())
+    wlo = lo.clamp(0, leaves)
+    whi = wlo + torch.randint(-1, max(leaves // 4, 2), (65_536,),
+                              generator=gen, device=cuda_device,
+                              dtype=torch.int32)
+    wval = torch.randint(0, 65_536, (65_536,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    assert_launched_and_equal("rangemax4.cover",
+                              S.min_cover4(leaves, wlo, whi, wval),
+                              S.min_cover4_plain(leaves, wlo, whi, wval))
+
+
+def test_short_span_streams_match_cpu_plain_path(cuda_device):
+    """short_span_limit on the tiered path (batch by batch) and the
+    classic path (groups of 4): the card equals the CPU plain path and
+    the same config at S = 0, field for field and tier for tier; kernels
+    K and L launch, kernel C (min_cover) and G (rangemax2) do not."""
+    n = 1024
+    for classic in (False, True):
+        cfg = KernelConfig(max_key_bytes=8, max_txns=n, max_reads=n,
+                           max_writes=n, history_capacity=24 * n,
+                           delta_capacity=0 if classic else 12 * n,
+                           window_versions=5000, compact_interval=3,
+                           short_span_limit=8)
+        rng = np.random.default_rng(13)
+        batches = [skiplist_style_batch(rng, cfg, n, version=1000 * (i + 1),
+                                        keyspace=4000, snapshot_lag=2000)
+                   for i in range(8)]
+        gpu = make_conflict_set(cfg, "cuda", device=cuda_device)
+        cpu = make_conflict_set(cfg, "cuda", device="cpu")
+        general = make_conflict_set(cfg.scaled(short_span_limit=0), "cuda",
+                                    device=cuda_device)
+        launched = dict.fromkeys(kernels.KERNELS, 0)
+        for lo in range(0, 8, 4):
+            stacked = stack_device_args(batches[lo:lo + 4])
+            kernels.reset_counts()
+            got = gpu.resolve_group_args(stacked)
+            for name, c in kernels.counts().items():
+                launched[name] += c
+            want = cpu.resolve_group_args(stacked)
+            ref = general.resolve_group_args(stacked)
+            for f in want._fields:
+                assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+                assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        for a, b in zip(flat_state(gpu), flat_state(cpu)):
+            assert np.array_equal(a, b)
+        assert not bool(got.overflow.any())
+        for name in ("short_span.range", "short_span.cover", "sort_ranks"):
+            assert launched[name] > 0, name
+        for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
+            assert launched[name] == 0, name

@@ -13,7 +13,9 @@ any fault:
    group of 8 YCSB-E batches, kernel F over a zipf batch, kernels G and
    H over the 2,097,152-rank endpoint space of a group of 8 uniform
    batches, kernels I and J at a group of 8 uniform batches on 4
-   shards, kernel L over a uniform batch's 262,144 endpoint rows, kernel
+   shards, kernels N (the radix sort) and L over a uniform batch's
+   262,144 endpoint rows, N also over a zipf batch's 65,536 x 6 dedup
+   rows, 131,072 coverage rows and a group of 8's 2,097,152 rows, kernel
    D's merge_writes entry at 655,360 + 131,072 rows and kernel M at
    262,144 leaves and 65,536 queries, the reference scripts' shapes),
    held exactly
@@ -711,15 +713,40 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           n_bytes=combine_bytes(SHARDS, GROUP, B, B),
           n_ops=SHARDS * GROUP * 3 * B, check=fields)
 
-    # -- L: sort_ranks over one uniform batch's 262,144 endpoint rows
-    #    (the reference's profile_serialized.py shape), dead rows masked
+    # -- N: the lexicographic sort of one uniform batch's 262,144 endpoint
+    #    rows, dead rows masked (what sort_ranks hands it on every path);
+    #    held exactly at the dedup rows' width, the coverage sort's rows and
+    #    a classic group of 8's 2,097,152 rows too
     a0 = interop.device_args_to_torch(uniform_group[0].device_args(), device)
     pts = torch.cat([a0["read_begin"], a0["read_end"], a0["write_begin"],
                      a0["write_end"]]).contiguous()
     pvalid = torch.cat([a0["read_valid"], a0["read_valid"],
                         a0["write_valid"], a0["write_valid"]])
     p = pts.shape[0]
-    masked = torch.where(pvalid[:, None], pts, K.SENTINEL_WORD)
+    masked = torch.where(pvalid[:, None], pts, K.SENTINEL_WORD).contiguous()
+    log(f"  lex_order input: {p} x {W}-word rows, {radix_passes(masked)} of "
+        f"{4 * W} digits not constant over the live rows")
+    entry("lex_order",
+          lambda: K.lex_sort_perm(masked),
+          lambda: K.lex_sort_perm_plain(masked),
+          n_bytes=p * (2 * W * 4 + 4), n_ops=p * 4 * W, check=both,
+          detail=True)
+    ends = torch.cat([torch.where(cw[:, None], rb, K.SENTINEL_WORD),
+                      torch.where(cw[:, None], re, K.SENTINEL_WORD)])
+    group_pts = group_points(uniform_group, device)
+    for tag, x in (("dedup rows", D.dedup_rows(zrb, zre, zrv)),
+                   ("coverage ends", ends), ("group of 8", group_pts)):
+        both(f"lex_order {tag} {tuple(x.shape)}", K.lex_sort_perm(x),
+             K.lex_sort_perm_plain(x))
+        log(f"  lex_order {tag} {tuple(x.shape)}: {radix_passes(x)} of "
+            f"{4 * x.shape[1]} digits not constant; device "
+            f"{device_ms(lambda: K.lex_sort_perm(x), sessions=3) * 1e3:.1f}"
+            f" us, the plain sort "
+            f"{device_ms(lambda: K.lex_sort_perm_plain(x), reps=3) * 1e3:.1f}"
+            " us")
+
+    # -- L: sort_ranks over the same rows (the reference's
+    #    profile_serialized.py shape)
     ucount = int(K.sort_ranks_plain(pts, pvalid)[2])
     log(f"  sort_ranks input: {p} x {W}-word endpoint rows of a uniform "
         f"batch, {int(pvalid.sum())} valid, {ucount} distinct")
@@ -839,10 +866,16 @@ def _launch_bytes(entry: str, a: list) -> int:
     if entry == "sw_ranks":              # keys, m, w, rb, re, rvalid, r
         m, w, r = a[1], a[2], a[6]
         return 4 * (2 * r * w + m * w + 2 * r) + r
-    if entry == "dd_heads":              # rows, perm, n, w, ...
-        return 4 * 2 * a[2] * a[3]
-    if entry == "dd_gather":             # vmax_u, uh_in, n, u, vmax
-        return 4 * a[2]
+    if entry == "lo_sort":               # rows, n, w, out_rows, out_perm
+        return a[1] * (2 * a[2] * 4 + 4)
+    if entry == "sr_heads":              # srt, n, w, sums
+        return 4 * a[1] * a[2]
+    if entry == "sr_write":              # srt, perm, n, w, sums, ranks,
+        return 4 * a[2] * (2 * a[3] + 2)  # ukeys, count
+    if entry == "dd_split":              # ukeys, nr, w, u, urb, ure
+        return 4 * 4 * a[3] * a[2]
+    if entry == "dd_gather":             # vmax_u, rank, n, u, vmax
+        return 4 * 2 * a[2]
     if entry == "rm2_chunks":            # values, m, chunk, nc, table, ns
         return 4 * (a[1] + a[3] + a[5])
     if entry == "rm2_levels":            # table, ns, levels, op_min
@@ -855,7 +888,7 @@ def _launch_bytes(entry: str, a: list) -> int:
         return clip_bytes(*(a[i] for i in (2, 3, 8, 9, 13, 14)))
     if entry == "sc_combine":            # ..., s (6), gn, b, nr
         return combine_bytes(*a[6:10])
-    return 0  # mc_sweep_level, dd_compact, sf_scan_sums, sf_paint
+    return 0  # mc_sweep_level, sf_scan_sums, sf_paint
 
 
 def clip_bytes(s: int, w: int, gn: int, nr: int, nw: int, b: int) -> int:
@@ -916,17 +949,15 @@ def device_bound_per_batch(stream: dict) -> float:
             / stream["batches"])
 
 
-def group_ranks(batches, device):
-    """The group-wide dense ranks of every live endpoint of a group of
-    batches, as the classic group kernel computes them: [batch][rb, re,
-    wb, we] rank tensors, and the map size 2G(NR+NW)."""
+def group_points(batches, device):
+    """Every endpoint row of a group of batches, batch after batch (rb, re,
+    wb, we of each), dead rows the sentinel: the rows the classic group
+    kernel ranks, [2G(NR+NW), W]."""
     import torch
 
     from foundationdb_tpu_torch import interop
-    from foundationdb_tpu_torch.ops import group as G
     from foundationdb_tpu_torch.ops import keys as K
 
-    gn = len(batches)
     rows, lives = [], []
     for pb in batches:
         a = interop.device_args_to_torch(pb.device_args(), device)
@@ -934,8 +965,28 @@ def group_ranks(batches, device):
                                a["write_begin"], a["write_end"]]))
         lives.append(torch.cat([a["read_valid"], a["read_valid"],
                                 a["write_valid"], a["write_valid"]]))
-    pts = torch.where(torch.cat(lives)[:, None], torch.cat(rows),
-                      K.SENTINEL_WORD).contiguous()
+    return torch.where(torch.cat(lives)[:, None], torch.cat(rows),
+                       K.SENTINEL_WORD).contiguous()
+
+
+def radix_passes(rows) -> int:
+    """The 8-bit digits of [P, Wr] rows that take more than one value
+    over the rows that are not all ones: kernel N's radix passes."""
+    import torch
+
+    live = rows[~torch.all(rows == -1, dim=1)].to(torch.int64) & 0xFFFFFFFF
+    return sum(int(torch.unique((live[:, j] >> (8 * b)) & 0xFF).numel() > 1)
+               for j in range(rows.shape[1]) for b in range(4))
+
+
+def group_ranks(batches, device):
+    """The group-wide dense ranks of every live endpoint of a group of
+    batches, as the classic group kernel computes them: [batch][rb, re,
+    wb, we] rank tensors, and the map size 2G(NR+NW)."""
+    from foundationdb_tpu_torch.ops import group as G
+
+    gn = len(batches)
+    pts = group_points(batches, device)
     grank = G._group_ranks(pts, gn)[0].reshape(gn, -1)
     nr, nw = batches[0].read_begin.shape[0], batches[0].write_begin.shape[0]
     cuts = (0, nr, 2 * nr, 2 * nr + nw, 2 * nr + 2 * nw)
@@ -1299,11 +1350,18 @@ def phase_stream(device, batches) -> dict:
 def profile_run(run, wall_ms: float, n_batches: int) -> dict:
     """Device time by kernel over run() (torch.profiler): the device's
     busy and idle share against the unprofiled wall time per batch, and
-    the share of the library sorts and scans."""
+    the share of the library sorts and scans (the port's own kernels, N's
+    radix sort among them, left out)."""
     by_name = profiled(run)
     total = sum(by_name.values()) / 1e3 / n_batches   # ms per batch
-    lib = sum(t for k, t in by_name.items()
-              if any(s in k.lower() for s in ("sort", "radix", "scan")))
+    ours = port_kernel_names()
+
+    def library(name: str) -> bool:
+        m = PORT_KERNEL.match(name)
+        return (not (m and m.group(1) in ours)
+                and any(s in name.lower() for s in ("sort", "radix", "scan")))
+
+    lib = sum(t for k, t in by_name.items() if library(k))
     lib_ms = lib / 1e3 / n_batches
     log(f"  profiler over {n_batches} more batches: device busy "
         f"{total:.3f} ms/batch of {wall_ms:.3f} ms wall (idle share "

@@ -38,10 +38,12 @@ BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = ("keysearch", "rangemax_build", "min_cover", "merge_maps",
            "sweep_ranks", "read_dedup", "rangemax2", "seg_fold",
            "shard_clip", "shard_combine", "short_span", "sort_ranks",
-           "rangemax4")
+           "rangemax4", "lex_order")
 #: widest packed key (uint32 words) the CUDA kernels are instantiated for
 #: (max_key_bytes <= 28); the plain versions take any width
 MAX_WORDS = 8
+#: widest row kernels N and L sort and rank: a begin key then an end key
+MAX_ROW_WORDS = 2 * MAX_WORDS
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,12 +79,9 @@ _SIGNATURES = {
                    [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
     # keys, m, w, rb, re, rvalid, r, il, ir, stream
     "sw_ranks": ("sweep_ranks", [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
-    # rows, perm, n, w, head, n_uniq, stream
-    "dd_heads": ("read_dedup", [_P, _P, _I, _I, _P, _P, _P]),
-    # rows, perm, head, rank_incl, n, w, u, urb, ure, uh_in, stream
-    "dd_compact": ("read_dedup",
-                   [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
-    # vmax_u, uh_in, n, u, vmax, stream
+    # ukeys, nr, w, u, urb, ure, stream
+    "dd_split": ("read_dedup", [_P, _I, _I, _I, _P, _P, _P]),
+    # vmax_u, rank, n, u, vmax, stream
     "dd_gather": ("read_dedup", [_P, _P, _I, _I, _P, _P]),
     # values, m, chunk, nc, table, ns, op_min, stream
     "rm2_chunks": ("rangemax2", [_P, _I, _P, _I, _P, _I, _I, _P]),
@@ -120,11 +119,9 @@ _SIGNATURES = {
     "ss_cover": ("short_span", [_P, _P, _P, _I, _I, _P, _I, _P]),
     # n -> tile sums (no stream: a host query, see size())
     "sr_tiles": ("sort_ranks", [_I]),
-    # pts, perm, n, w, head, sums, stream
-    "sr_heads": ("sort_ranks", [_P, _P, _I, _I, _P, _P, _P]),
-    # sums, pts, perm, n, w, count, stream
-    "sr_offsets": ("sort_ranks", [_P, _P, _P, _I, _I, _P, _P]),
-    # pts, perm, n, w, head, offsets, ranks, ukeys, stream
+    # srt, n, w, sums, stream
+    "sr_heads": ("sort_ranks", [_P, _I, _I, _P, _P]),
+    # srt, perm, n, w, sums, ranks, ukeys, count, stream
     "sr_write": ("sort_ranks", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
     # values, table, m, level, s, op_min, stream
     "rm4_build_level": ("rangemax4", [_P, _P, _I, _I, _I, _I, _P]),
@@ -134,6 +131,10 @@ _SIGNATURES = {
     "rm4_cover_scatter": ("rangemax4", [_P, _P, _P, _I, _I, _I, _P, _P]),
     # table, leaves, level, stream
     "rm4_cover_sweep_level": ("rangemax4", [_P, _I, _I, _P]),
+    # n, w -> scratch words (no stream: a host query, see size())
+    "lo_scratch_words": ("lex_order", [_I, _I]),
+    # rows, n, w, out_rows, out_perm, scratch, stream
+    "lo_sort": ("lex_order", [_P, _I, _I, _P, _P, _P, _P]),
 }
 
 
@@ -209,6 +210,9 @@ KERNELS = {
         KernelInfo("rangemax4.cover",
                    "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
                    "foundationdb_tpu/ops/segtree.py:79"),
+        KernelInfo("lex_order",
+                   "foundationdb_tpu_torch/kernels/csrc/lex_order.cu",
+                   "foundationdb_tpu/ops/keys.py:103"),
     )
 }
 
@@ -357,8 +361,8 @@ def check_cuda(name: str, *tensors, dtype=torch.int32) -> torch.device:
     return dev
 
 
-def check_words(name: str, w: int) -> None:
-    if not 1 <= w <= MAX_WORDS:
+def check_words(name: str, w: int, most: int = MAX_WORDS) -> None:
+    if not 1 <= w <= most:
         raise ValueError(
-            f"{name}: key width {w} words outside the kernel's 1..{MAX_WORDS}"
+            f"{name}: key width {w} words outside the kernel's 1..{most}"
         )

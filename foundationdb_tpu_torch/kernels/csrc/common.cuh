@@ -76,6 +76,36 @@ __device__ __forceinline__ int floor_log2(int n) {  // n >= 1
   return 31 - __clz(n);
 }
 
+// Inclusive scan of v over the block's threads; *total gets the block sum.
+// blockDim.x must be a multiple of 32 and at most 1024.
+__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
+                                                    int* total) {
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int up = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += up;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int up = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += up;
+    }
+    if (lane < n_warps) warp_sums[lane] = s;  // inclusive warp prefixes
+  }
+  __syncthreads();
+  if (warp > 0) v += warp_sums[warp - 1];
+  *total = warp_sums[n_warps - 1];
+  __syncthreads();  // warp_sums may be reused by the caller
+  return v;
+}
+
 }  // namespace fdb
 
 // Run the statement(s) for the runtime key width w (1..8, kernels.MAX_WORDS
@@ -91,4 +121,19 @@ __device__ __forceinline__ int floor_log2(int n) {  // n >= 1
     case 7: { constexpr int W = 7; __VA_ARGS__; } break;     \
     case 8: { constexpr int W = 8; __VA_ARGS__; } break;     \
     default: return cudaErrorInvalidValue;                   \
+  }
+
+// The same for a row width w of 1..16 words (kernels.MAX_ROW_WORDS: the
+// read-dedup rows are a begin key then an end key, 2 x MAX_WORDS).
+#define FDB_DISPATCH_ROW_W(w, ...)                           \
+  switch (w) {                                               \
+    case 9: { constexpr int W = 9; __VA_ARGS__; } break;     \
+    case 10: { constexpr int W = 10; __VA_ARGS__; } break;   \
+    case 11: { constexpr int W = 11; __VA_ARGS__; } break;   \
+    case 12: { constexpr int W = 12; __VA_ARGS__; } break;   \
+    case 13: { constexpr int W = 13; __VA_ARGS__; } break;   \
+    case 14: { constexpr int W = 14; __VA_ARGS__; } break;   \
+    case 15: { constexpr int W = 15; __VA_ARGS__; } break;   \
+    case 16: { constexpr int W = 16; __VA_ARGS__; } break;   \
+    default: FDB_DISPATCH_W(w, __VA_ARGS__);                 \
   }

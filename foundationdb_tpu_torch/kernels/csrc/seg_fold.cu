@@ -90,36 +90,6 @@ __global__ void scatter_kernel(const int32_t* __restrict__ wb,
   }
 }
 
-// Inclusive scan of v over the block's threads; *total gets the block sum.
-// blockDim.x must be a multiple of 32 and at most 1024.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int up = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += up;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int up = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += up;
-    }
-    if (lane < n_warps) warp_sums[lane] = s;  // inclusive warp prefixes
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[n_warps - 1];
-  __syncthreads();  // warp_sums may be reused by the caller
-  return v;
-}
-
 __global__ void __launch_bounds__(kScanThreads)
     scan_sums_kernel(int32_t* __restrict__ sums, int nb) {
   __shared__ int warp_sums[32];

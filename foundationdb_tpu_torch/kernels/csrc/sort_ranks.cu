@@ -7,31 +7,31 @@
 //   unique_count    the distinct rows that are not the all-ones sentinel
 //                   (invalid points were replaced by it, so they sort last
 //                   and share one block, which does not count).
-// The lexicographic order stays the library's stable sort passes (ops/keys.
-// lex_sort_perm, one stable radix sort per word, as K12 and dense_ranks use
-// it); the three entries below do the rest, over the sorted order i with
-// row perm[i]:
-//   sr_heads    one block per tile of kThreads sorted rows: head[i] = row
-//               perm[i] differs from row perm[i-1] in any of the W words
-//               (compared as uint32), head[0] = 1; the tile's head count
-//               into sums[tile] (__syncthreads_count, no atomics);
-//   sr_offsets  one block: the tile sums turned into exclusive prefixes in
-//               place, a chunk of blockDim tiles at a time with a carry;
-//               unique_count = all heads, less one when the last sorted row
-//               is the all-ones sentinel;
-//   sr_write    one block per tile: a block scan of the head flags plus the
-//               tile's prefix is each row's rank; ranks[perm[i]] = rank
-//               (written back through the permutation), and a head copies
-//               its row to unique_keys[rank] (the caller filled it with the
-//               sentinel, which is the tail JAX leaves).
+// Kernel N (lex_order.cu) sorts the rows first and hands over the sorted
+// rows and the int32 permutation; the two entries below read the sorted
+// rows contiguously (row i and row i - 1) and go through the permutation
+// only to write each rank back:
+//   sr_heads  one block per tile of kTile sorted rows: the tile's count of
+//             heads (a row that differs from the row before it in any of
+//             the W words, compared as uint32; row 0 is a head) into
+//             sums[tile] (__syncthreads_count, no atomics);
+//   sr_write  one block per tile: the heads before the tile and in all
+//             (a block reduction over the tile sums, which sit in L2), then
+//             a block scan of the tile's heads, recomputed from the rows:
+//             rank = heads up to row i, less one; ranks[perm[i]] = rank, a
+//             head copies its row to unique_keys[rank], and row i past the
+//             last rank writes the sentinel to unique_keys[i] (so the
+//             caller fills nothing); block 0 writes unique_count = all
+//             heads, less one when the last sorted row is all ones.
+// W runs to 16 words: the read-dedup rows of K12 (a begin key then an end
+// key) go through the same two entries.
 //
 // Bound on this card: bytes. The function reads the [P, W] rows and the
 // permutation once and writes the ranks and the [P, W] unique rows once;
-// at 262,144 x 3 words that is ~9.4 MB, a few microseconds at 3.35 TB/s.
-// The design reads each row twice (as itself and as its successor's
-// predecessor, through the permutation, so gathers) and the head flags
-// once more; the three launches cost more than those extra bytes at this
-// size.
+// at 262,144 x 3 words that is ~7.3 MB with N's share counted in N, a few
+// microseconds at 3.35 TB/s. The design reads each sorted row twice per
+// entry (as itself and as its successor's predecessor, both contiguous, the
+// second from L1) and the tile sums once per block.
 
 #include "common.cuh"
 
@@ -39,114 +39,79 @@ namespace {
 
 using namespace fdb;
 
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;  // 1024 sorted rows per block
+
+int tiles(int n) { return static_cast<int>((n + (kTile - 1LL)) / kTile); }
+
 template <int W>
-__device__ __forceinline__ bool rows_differ(const uint32_t* a,
-                                            const uint32_t* b) {
+__device__ __forceinline__ bool is_head(const uint32_t* srt, int i) {
+  if (i == 0) return true;
+  const uint32_t* a = srt + static_cast<size_t>(i) * W;
   bool d = false;
 #pragma unroll
-  for (int j = 0; j < W; ++j) d |= __ldg(a + j) != __ldg(b + j);
+  for (int j = 0; j < W; ++j) d |= __ldg(a + j) != __ldg(a + j - W);
   return d;
 }
 
 template <int W>
-__device__ __forceinline__ bool all_ones(const uint32_t* a) {
-  bool s = true;
-#pragma unroll
-  for (int j = 0; j < W; ++j) s &= __ldg(a + j) == 0xFFFFFFFFu;
-  return s;
-}
-
-template <int W>
 __global__ void __launch_bounds__(kThreads)
-    heads_kernel(const uint32_t* __restrict__ pts,
-                 const long long* __restrict__ perm, int n,
-                 int32_t* __restrict__ head, int32_t* __restrict__ sums) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool h = false;
-  if (i < n) {
-    h = true;
-    if (i > 0)
-      h = rows_differ<W>(pts + static_cast<size_t>(perm[i]) * W,
-                         pts + static_cast<size_t>(perm[i - 1]) * W);
-    head[i] = h ? 1 : 0;
+    heads_kernel(const uint32_t* __restrict__ srt, int n,
+                 int32_t* __restrict__ sums) {
+  int count = 0;
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    int i = blockIdx.x * kTile + it * kThreads + threadIdx.x;
+    count += __syncthreads_count(i < n && is_head<W>(srt, i));
   }
-  int count = __syncthreads_count(h);
   if (threadIdx.x == 0) sums[blockIdx.x] = count;
 }
 
-// Inclusive scan of v over the block's threads; *total gets the block sum.
-// blockDim.x must be a multiple of 32 and at most 1024.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int up = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += up;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int up = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += up;
-    }
-    if (lane < n_warps) warp_sums[lane] = s;  // inclusive warp prefixes
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[n_warps - 1];
-  __syncthreads();  // warp_sums may be reused by the caller
-  return v;
-}
-
-template <int W>
-__global__ void __launch_bounds__(1024)
-    offsets_kernel(int32_t* __restrict__ sums, int nb,
-                   const uint32_t* __restrict__ pts,
-                   const long long* __restrict__ perm, int n,
-                   int32_t* __restrict__ count) {
-  __shared__ int warp_sums[32];
-  int carry = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int v = i < nb ? sums[i] : 0;
-    int total;
-    int incl = block_inclusive_scan(v, warp_sums, &total);
-    if (i < nb) sums[i] = carry + incl - v;  // exclusive prefix
-    carry += total;
-  }
-  if (threadIdx.x == 0) {
-    bool sentinel = all_ones<W>(pts + static_cast<size_t>(perm[n - 1]) * W);
-    *count = carry - (sentinel ? 1 : 0);
-  }
-}
-
 template <int W>
 __global__ void __launch_bounds__(kThreads)
-    write_kernel(const uint32_t* __restrict__ pts,
-                 const long long* __restrict__ perm, int n,
-                 const int32_t* __restrict__ head,
-                 const int32_t* __restrict__ offsets,
-                 int32_t* __restrict__ ranks, uint32_t* __restrict__ ukeys) {
+    write_kernel(const uint32_t* __restrict__ srt,
+                 const int32_t* __restrict__ perm, int n,
+                 const int32_t* __restrict__ sums, int nb,
+                 int32_t* __restrict__ ranks, uint32_t* __restrict__ ukeys,
+                 int32_t* __restrict__ count) {
   __shared__ int warp_sums[32];
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int h = i < n ? head[i] : 0;
-  int total;
-  int incl = block_inclusive_scan(h, warp_sums, &total);
-  if (i >= n) return;
-  int rank = offsets[blockIdx.x] + incl - 1;
-  long long p = perm[i];
-  ranks[p] = rank;
-  if (h) {
-    const uint32_t* src = pts + static_cast<size_t>(p) * W;
-    uint32_t* dst = ukeys + static_cast<size_t>(rank) * W;
+  int pre = 0, all = 0;
+  for (int t = threadIdx.x; t < nb; t += kThreads) {
+    int v = __ldg(sums + t);
+    all += v;
+    if (t < static_cast<int>(blockIdx.x)) pre += v;
+  }
+  int carry, heads;
+  block_inclusive_scan(pre, warp_sums, &carry);  // heads before the tile
+  block_inclusive_scan(all, warp_sums, &heads);  // heads in all
+  for (int it = 0; it < kItems; ++it) {
+    int i = blockIdx.x * kTile + it * kThreads + threadIdx.x;
+    bool h = i < n && is_head<W>(srt, i);
+    int total;
+    int incl = block_inclusive_scan(h ? 1 : 0, warp_sums, &total);
+    if (i < n) {
+      int rank = carry + incl - 1;
+      ranks[perm[i]] = rank;
+      const uint32_t* src = srt + static_cast<size_t>(i) * W;
+      if (h) {
+        uint32_t* dst = ukeys + static_cast<size_t>(rank) * W;
 #pragma unroll
-    for (int j = 0; j < W; ++j) dst[j] = __ldg(src + j);
+        for (int j = 0; j < W; ++j) dst[j] = __ldg(src + j);
+      }
+      if (i >= heads) {
+        uint32_t* dst = ukeys + static_cast<size_t>(i) * W;
+#pragma unroll
+        for (int j = 0; j < W; ++j) dst[j] = 0xFFFFFFFFu;
+      }
+    }
+    carry += total;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const uint32_t* last = srt + static_cast<size_t>(n - 1) * W;
+    bool sentinel = true;
+#pragma unroll
+    for (int j = 0; j < W; ++j) sentinel &= __ldg(last + j) == 0xFFFFFFFFu;
+    *count = heads - (sentinel ? 1 : 0);
   }
 }
 
@@ -155,47 +120,31 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Words of scratch the tile sums need for n rows (one per tile).
-int sr_tiles(int n) { return n <= 0 ? 0 : blocks_for(n); }
+int sr_tiles(int n) { return n <= 0 ? 0 : tiles(n); }
 
-int sr_heads(const void* pts, const void* perm, int n, int w, void* head,
-             void* sums, void* stream) {
+int sr_heads(const void* srt, int n, int w, void* sums, void* stream) {
   if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<const uint32_t*>(pts);
-  auto o = static_cast<const long long*>(perm);
-  auto h = static_cast<int32_t*>(head);
+  auto r = static_cast<const uint32_t*>(srt);
   auto t = static_cast<int32_t*>(sums);
-  FDB_DISPATCH_W(w, heads_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-      p, o, n, h, t));
+  FDB_DISPATCH_ROW_W(w, heads_kernel<W><<<tiles(n), kThreads, 0, s>>>(
+      r, n, t));
   return static_cast<int>(cudaGetLastError());
 }
 
-int sr_offsets(void* sums, const void* pts, const void* perm, int n, int w,
-               void* count, void* stream) {
-  if (n <= 0) return kNoLaunch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto t = static_cast<int32_t*>(sums);
-  auto p = static_cast<const uint32_t*>(pts);
-  auto o = static_cast<const long long*>(perm);
-  auto c = static_cast<int32_t*>(count);
-  FDB_DISPATCH_W(w, offsets_kernel<W><<<1, 1024, 0, s>>>(
-      t, blocks_for(n), p, o, n, c));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int sr_write(const void* pts, const void* perm, int n, int w,
-             const void* head, const void* offsets, void* ranks, void* ukeys,
+int sr_write(const void* srt, const void* perm, int n, int w,
+             const void* sums, void* ranks, void* ukeys, void* count,
              void* stream) {
   if (n <= 0) return kNoLaunch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto p = static_cast<const uint32_t*>(pts);
-  auto o = static_cast<const long long*>(perm);
-  auto h = static_cast<const int32_t*>(head);
-  auto f = static_cast<const int32_t*>(offsets);
-  auto r = static_cast<int32_t*>(ranks);
+  auto r = static_cast<const uint32_t*>(srt);
+  auto p = static_cast<const int32_t*>(perm);
+  auto t = static_cast<const int32_t*>(sums);
+  auto k = static_cast<int32_t*>(ranks);
   auto u = static_cast<uint32_t*>(ukeys);
-  FDB_DISPATCH_W(w, write_kernel<W><<<blocks_for(n), kThreads, 0, s>>>(
-      p, o, n, h, f, r, u));
+  auto c = static_cast<int32_t*>(count);
+  FDB_DISPATCH_ROW_W(w, write_kernel<W><<<tiles(n), kThreads, 0, s>>>(
+      r, p, n, t, tiles(n), k, u, c));
   return static_cast<int>(cudaGetLastError());
 }
 

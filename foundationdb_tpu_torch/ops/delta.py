@@ -13,9 +13,10 @@ The main-tier probe has three forms, one per contention profile:
 
 * exact (`dedup_reads=0`, no sweep): kernel A's fused probe per read;
 * read dedup (`dedup_reads=U`, the hot-key profile): the batch's
-  distinct (begin, end) ranges found by kernel F (`read_dedup`), only
-  those probed, each read's max version gathered back; more than U
-  distinct live ranges trips the latch (K12);
+  distinct (begin, end) ranges found by kernels N and L (the sort and
+  ranks of the [NR, 2W] rows), the first U split out and probed by
+  kernel F (`read_dedup`) and A, each read's max version gathered back;
+  more than U distinct live ranges trips the latch (K12);
 * endpoint sweep (`range_sweep`, the range-scan profile): kernel E
   (`sweep_ranks`) gives every read of the group its main-tier ranks in
   one launch before the loop, and each batch's probe is one table query
@@ -78,8 +79,7 @@ def dedup_vmax_plain(main_keys, main_tab, rows, dedup: int):
     nr, w2 = rows.shape
     w = w2 // 2
     dev = rows.device
-    perm = K.lex_sort_perm(rows)
-    s = rows[perm]
+    perm, s = K.lex_sort_perm_plain(rows)
     head = torch.ones((nr,), dtype=torch.bool, device=dev)
     if nr > 1:
         head[1:] = torch.any(s[1:] != s[:-1], dim=-1)
@@ -107,7 +107,11 @@ def dedup_vmax(main: H.VersionHistory, main_tab, rb, re, rvalid,
     Past it the ranks >= dedup share the last buffer row (the latch
     discards that batch). Liveness is `rvalid`, the reads as packed,
     not the too-old-masked reads: a too-old txn's reads count.
-    CUDA tensors run kernel F's three entries around kernel A's probe.
+    CUDA tensors run sort_ranks over the rows (kernels N and L at width
+    2W: each read's unique rank, the distinct rows in order, and their
+    count, which is n_uniq because a dead row is all ones and a live
+    row's begin length word never is), kernel F's split of the first
+    `dedup` distinct rows, kernel A's probe of them and F's gather.
     """
     if dedup <= 0:
         raise ValueError("dedup_vmax needs dedup >= 1")
@@ -118,19 +122,13 @@ def dedup_vmax(main: H.VersionHistory, main_tab, rb, re, rvalid,
     kernels.check_cuda("dedup_vmax", main.main_keys, main_tab, rows)
     kernels.check_words("dedup_vmax", w)
     dev = rows.device
-    perm = K.lex_sort_perm(rows)
-    head = torch.empty((nr,), dtype=torch.int32, device=dev)
-    n_uniq = torch.zeros((), dtype=torch.int32, device=dev)
-    kernels.launch("dd_heads", "read_dedup", rows, perm, nr, w, head, n_uniq)
-    rank_incl = torch.cumsum(head, 0, dtype=torch.int32)
-    urb = K.sentinel_like(dedup, w, dev)
-    ure = K.sentinel_like(dedup, w, dev)
-    uh_in = torch.empty((nr,), dtype=torch.int32, device=dev)
-    kernels.launch("dd_compact", "read_dedup", rows, perm, head, rank_incl,
-                   nr, w, dedup, urb, ure, uh_in)
+    rank, ukeys, n_uniq = K.sort_ranks(rows)
+    urb = torch.empty((dedup, w), dtype=torch.int32, device=dev)
+    ure = torch.empty((dedup, w), dtype=torch.int32, device=dev)
+    kernels.launch("dd_split", "read_dedup", ukeys, nr, w, dedup, urb, ure)
     vmax_u = H.query_reads_vmax(main, urb, ure, main_tab)
     vmax = torch.empty((nr,), dtype=torch.int32, device=dev)
-    kernels.launch("dd_gather", "read_dedup", vmax_u, uh_in, nr, dedup, vmax)
+    kernels.launch("dd_gather", "read_dedup", vmax_u, rank, nr, dedup, vmax)
     return vmax, n_uniq
 
 

@@ -815,17 +815,18 @@ def _coverage(wb: torch.Tensor, we: torch.Tensor, cw: torch.Tensor,
               version: int):
     """The union of the committed [wb, we) rows as a map at `version`.
 
-    Endpoints sort lexicographically (non-committed rows key to the
-    sentinel tail); the running begin-minus-end count after the last row
-    of a key says whether the key is covered. Rows of one key may repeat:
-    merge_maps reads the last row of a key, which carries the full count.
+    Endpoints sort lexicographically (kernel N on the card; non-committed
+    rows key to the sentinel tail); the running begin-minus-end count
+    after the last row of a key says whether the key is covered. Rows of
+    one key may repeat: merge_maps reads the last row of a key, which
+    carries the full count.
     """
     sent = torch.full_like(wb, K.SENTINEL_WORD)
     ends = torch.cat([torch.where(cw[:, None], wb, sent),
                       torch.where(cw[:, None], we, sent)])
     one = cw.to(torch.int32)
     step = torch.cat([one, -one])
-    perm = K.lex_sort_perm(ends)
+    perm, sorted_ends = K.lex_sort_perm(ends)
     depth = torch.cumsum(step[perm], 0, dtype=torch.int32)
     val = torch.full_like(depth, VERSION_NEG).masked_fill_(depth > 0, version)
-    return ends[perm].contiguous(), val
+    return sorted_ends, val

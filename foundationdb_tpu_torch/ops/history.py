@@ -211,8 +211,8 @@ def merge_writes_plain(state: VersionHistory, run_bounds: torch.Tensor,
     mf = run_bounds.shape[0]
     dev = state.main_ver.device
     rows = torch.cat([state.main_keys, run_bounds])
-    perm = K.lex_sort_perm(rows)       # stable: tier rows before bounds
-    skeys = rows[perm]
+    # stable: tier rows before bounds
+    perm, skeys = K.lex_sort_perm_plain(rows)
     is_main = perm < m
     s_val = torch.cat([state.main_ver, torch.full(
         (mf,), VERSION_NEG, dtype=torch.int32, device=dev)])[perm]

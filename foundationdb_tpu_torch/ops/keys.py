@@ -9,9 +9,12 @@ int64 before comparing, because torch on the CPU lacks uint32 shifts,
 
 `searchsorted` is kernel A's search entry on CUDA tensors
 (kernels/csrc/keysearch.cu) and `searchsorted_plain` on CPU tensors.
-`sort_ranks` (K17) is the library's stable sort passes for the order and
-kernel L (kernels/csrc/sort_ranks.cu) for the rest on CUDA tensors,
-`sort_ranks_plain` on CPU tensors; `dense_ranks` is its first output.
+`lex_sort_perm` is kernel N (kernels/csrc/lex_order.cu, a radix sort of
+the rows) on CUDA tensors and `lex_sort_perm_plain` (the library's stable
+sort, one pass per word) on CPU tensors. `sort_ranks` (K17) is kernel N
+for the order and kernel L (kernels/csrc/sort_ranks.cu) for the rest on
+CUDA tensors, `sort_ranks_plain` on CPU tensors; `dense_ranks` is its
+first output.
 """
 
 from __future__ import annotations
@@ -106,26 +109,49 @@ def searchsorted(keys: torch.Tensor, queries: torch.Tensor, *,
     return out
 
 
-def lex_sort_perm(points: torch.Tensor) -> torch.Tensor:
-    """Stable permutation sorting [P, W] packed keys lexicographically:
-    one stable sort per word, least-significant word first."""
+def lex_sort_perm_plain(points: torch.Tensor):
+    """Plain version of kernel N: one stable sort per word, least
+    significant word first. Returns (perm [P] int32, points[perm])."""
     wide = widen(points)
     perm = torch.arange(points.shape[0], device=points.device)
     for i in range(points.shape[1] - 1, -1, -1):
         _, idx = torch.sort(wide[perm, i], stable=True)
         perm = perm[idx]
-    return perm
+    return perm.to(torch.int32), points[perm]
+
+
+def lex_sort_perm(points: torch.Tensor):
+    """Stable lexicographic sort of [P, W] packed keys (W <= 16 on the
+    card): (perm [P] int32, the sorted rows [P, W]); sorted row i is input
+    row perm[i], equal rows in input order.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel N, one
+    cooperative launch that allocates nothing (its scratch is allocated
+    here) and raises if the card refuses it.
+    """
+    if points.ndim != 2:
+        raise ValueError(f"lex_sort_perm: points [P, W], got "
+                         f"{tuple(points.shape)}")
+    if points.device.type == "cpu":
+        return lex_sort_perm_plain(points)
+    dev = kernels.check_cuda("lex_sort_perm", points)
+    p, w = points.shape
+    kernels.check_words("lex_sort_perm", w, kernels.MAX_ROW_WORDS)
+    perm = torch.empty((p,), dtype=torch.int32, device=dev)
+    srt = torch.empty_like(points)
+    scratch = torch.empty((kernels.size("lo_scratch_words", p, w),),
+                          dtype=torch.int32, device=dev)
+    kernels.launch("lo_sort", "lex_order", points, p, w, srt, perm, scratch)
+    return perm, srt
 
 
 def sort_ranks_plain(points: torch.Tensor, valid: torch.Tensor = None):
-    """Plain version of kernel L around the lexicographic sort: see
-    sort_ranks."""
+    """Plain version of kernels N and L: see sort_ranks."""
     p, w = points.shape
     dev = points.device
     pts = points if valid is None else torch.where(
         valid[:, None], points, SENTINEL_WORD)
-    perm = lex_sort_perm(pts)
-    s = pts[perm]
+    perm, s = lex_sort_perm_plain(pts)
     new = torch.ones((p,), dtype=torch.bool, device=dev)
     if p > 1:
         new[1:] = torch.any(s[1:] != s[:-1], dim=-1)
@@ -148,7 +174,8 @@ def sort_ranks(points: torch.Tensor, valid: torch.Tensor = None):
     each point among the distinct rows; unique_keys [P, W] — the distinct
     rows in ascending order, sentinel tail; unique_count [] int32 — the
     distinct rows that are not the sentinel), as the JAX sort_ranks.
-    CUDA tensors run kernel L's three entries after the sort.
+    CUDA tensors run kernel N (the sort) and kernel L's two entries over
+    its sorted rows; W runs to 16 there.
     """
     if points.ndim != 2 or (valid is not None
                             and valid.shape != points.shape[:1]):
@@ -160,22 +187,21 @@ def sort_ranks(points: torch.Tensor, valid: torch.Tensor = None):
         kernels.check_cuda("sort_ranks", valid, dtype=torch.bool)
         points = torch.where(valid[:, None], points, SENTINEL_WORD)
     p, w = points.shape
-    kernels.check_words("sort_ranks", w)
+    kernels.check_words("sort_ranks", w, kernels.MAX_ROW_WORDS)
     dev = points.device
-    ranks = torch.empty((p,), dtype=torch.int32, device=dev)
-    unique_keys = sentinel_like(p, w, dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
     if p == 0:
-        return ranks, unique_keys, count
-    perm = lex_sort_perm(points).contiguous()
-    head = torch.empty((p,), dtype=torch.int32, device=dev)
+        return (torch.empty((0,), dtype=torch.int32, device=dev),
+                sentinel_like(0, w, dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    perm, srt = lex_sort_perm(points)
+    ranks = torch.empty((p,), dtype=torch.int32, device=dev)
+    unique_keys = torch.empty_like(points)
+    count = torch.empty((), dtype=torch.int32, device=dev)
     sums = torch.empty((kernels.size("sr_tiles", p),), dtype=torch.int32,
                        device=dev)
-    kernels.launch("sr_heads", "sort_ranks", points, perm, p, w, head, sums)
-    kernels.launch("sr_offsets", "sort_ranks", sums, points, perm, p, w,
-                   count)
-    kernels.launch("sr_write", "sort_ranks", points, perm, p, w, head, sums,
-                   ranks, unique_keys)
+    kernels.launch("sr_heads", "sort_ranks", srt, p, w, sums)
+    kernels.launch("sr_write", "sort_ranks", srt, perm, p, w, sums, ranks,
+                   unique_keys, count)
     return ranks, unique_keys, count
 
 

@@ -498,6 +498,63 @@ def test_short_span_kernels(cuda_device, span):
         G.ss_cover_plain(n, wlo, whi, val, span))
 
 
+def wide_rows(rng, p, w):
+    """[P, w] rows of packed keys over the bytes {0x00, 0x01, 0x7F, 0x80,
+    0xFF} at every length up to 4 (w - 1) bytes (the last word the
+    length), as int32 bit patterns; a third of them repeated."""
+    alphabet = np.array([0x00, 0x01, 0x7F, 0x80, 0xFF], np.uint8)
+    nb = 4 * (w - 1)
+    raw = alphabet[rng.integers(0, 5, (p, nb))]
+    lens = rng.integers(0, nb + 1, p)
+    raw[np.arange(nb)[None, :] >= lens[:, None]] = 0
+    rows = np.empty((p, w), np.uint32)
+    rows[:, :w - 1] = raw.view(">u4").astype(np.uint32)
+    rows[:, w - 1] = lens
+    dup = rng.integers(0, p, p // 3)
+    rows[dup] = rows[rng.integers(0, p, dup.shape[0])]
+    return rows
+
+
+@pytest.mark.parametrize("p,w,case", [
+    (1, 3, "keys"), (1, 1, "keys"), (1000, 1, "keys"), (5_003, 3, "keys"),
+    (70_001, 6, "keys"), (3_001, 16, "keys"), (4_097, 3, "sentinel"),
+    (2_000, 3, "all sentinel"), (9_999, 6, "ones but the length"),
+    (20_000, 2, "random words"), (2_097_152, 3, "sentinel")])
+def test_lex_order(cuda_device, p, w, case):
+    """Kernel N against the plain sort: the permutation and the sorted
+    rows exactly, from one launch."""
+    rng = np.random.default_rng(p + w)
+    if case == "random words":
+        rows = rng.integers(0, 2**32, (p, w), dtype=np.uint64).astype(
+            np.uint32)
+    elif w == 1:   # one byte word, no length word
+        rows = np.ascontiguousarray(wide_rows(rng, p, 2)[:, :1])
+    else:
+        rows = wide_rows(rng, p, w)
+    if case in ("sentinel", "ones but the length"):
+        rows[rng.random(p) < 0.25] = 0xFFFFFFFF
+    if case == "ones but the length":
+        m = rng.random(p) < 0.25
+        rows[m, :w - 1] = 0xFFFFFFFF
+        rows[m, w - 1] = rng.integers(0, 4 * w, int(m.sum()))
+    if case == "all sentinel":
+        rows[:] = 0xFFFFFFFF
+    x = torch.from_numpy(rows.view(np.int32)).to(cuda_device)
+    got = K.lex_sort_perm(x)
+    assert kernels.COUNTS["lex_order"] == 1
+    want = K.lex_sort_perm_plain(x)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and torch.equal(g, w_)
+
+
+def test_lex_order_refuses_wide_rows(cuda_device):
+    x = torch.zeros((4, kernels.MAX_ROW_WORDS + 1), dtype=torch.int32,
+                    device=cuda_device)
+    with pytest.raises(ValueError):
+        K.lex_sort_perm(x)
+    assert kernels.COUNTS["lex_order"] == 0
+
+
 @pytest.mark.parametrize("p", [1, 1000, 262_144])
 def test_sort_ranks(cuda_device, p):
     rng = np.random.default_rng(p)
@@ -509,6 +566,18 @@ def test_sort_ranks(cuda_device, p):
     want = K.sort_ranks_plain(pts, valid)
     for g, w in zip(got, want):
         assert_launched_and_equal("sort_ranks", g, w)
+    assert kernels.COUNTS["lex_order"] == 1
+
+
+@pytest.mark.parametrize("p,w", [(1, 6), (3_000, 6), (65_536, 16)])
+def test_sort_ranks_wide_rows(cuda_device, p, w):
+    """Kernel L at the read-dedup rows' widths (2W words)."""
+    rng = np.random.default_rng(p + w)
+    rows = wide_rows(rng, p, w)
+    rows[rng.random(p) < 0.2] = 0xFFFFFFFF
+    pts = torch.from_numpy(rows.view(np.int32)).to(cuda_device)
+    for g, w_ in zip(K.sort_ranks(pts), K.sort_ranks_plain(pts)):
+        assert_launched_and_equal("sort_ranks", g, w_)
 
 
 @pytest.mark.parametrize("floor", [0, 2500])

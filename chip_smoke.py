@@ -2,6 +2,7 @@
 """Smoke run of foundationdb_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --build-cover   # kernels B and C alone, timed
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -21,7 +22,10 @@ any fault:
    held exactly
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
-   single PyTorch call computing the same function;
+   single PyTorch call computing the same function; kernel B also timed
+   at the fixpoint's 2^18 leaves (min), and B and C held exactly, one
+   launch a call, at the sizes about their tiles (1 .. 786,432 rows,
+   1 .. 2^20 leaves with intervals of every level);
 3. the uniform stream at full width: 65,536-txn skiplist-style batches
    through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
    rangemax self-check, timed), launch counts reset just before and
@@ -80,6 +84,10 @@ any fault:
 The last lines are the streams' numbers (JSON), the kernel ledger
 (JSON), the card's name and power limit, and `{"ok": true, "device":
 {...}}`. Exits non-zero without a result when no CUDA device is present.
+
+With `--build-cover` it builds the kernels and times only kernels B and
+C at the resolver path's shapes (`time_build_cover`), printing their
+JSON and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -340,11 +348,12 @@ def int_keys(v):
 
 def measure(ledger: dict, name: str, kern, plain, *,
             n_bytes: float, n_ops: float, library=None, check=None,
-            detail: bool = False) -> None:
-    """One kernel entry's ledger row: kern() against plain() (exact unless
-    `check` says otherwise), the launches of one call, the device time,
-    the per-call time with launch gaps, the plain version's and the
-    library call's time, and the bound from n_bytes and n_ops."""
+            detail: bool = False, key: str = None) -> None:
+    """One kernel entry's ledger row (under `key`, else its name):
+    kern() against plain() (exact unless `check` says otherwise), the
+    launches of one call, the device time, the per-call time with launch
+    gaps, the plain version's and the library call's time, and the bound
+    from n_bytes and n_ops."""
     from foundationdb_tpu_torch import kernels
 
     before = kernels.COUNTS[name]
@@ -359,10 +368,10 @@ def measure(ledger: dict, name: str, kern, plain, *,
     t_p = device_ms(plain, reps=3)
     t_l = device_ms(library, sessions=3) if library is not None else None
     b, by = bound_ms(n_bytes, n_ops)
-    ledger[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                        bound_ms=b, bound_by=by, library_ms=t_l,
-                        launches_per_call=per_call)
-    log(f"  {name:18s} device {t_k * 1e3:9.1f} us (per call with launch "
+    ledger[key or name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                               bound_ms=b, bound_by=by, library_ms=t_l,
+                               launches_per_call=per_call)
+    log(f"  {key or name:18s} device {t_k * 1e3:9.1f} us (per call with launch "
         f"gaps {t_call * 1e3:9.1f} us)  bound {b * 1e3:7.1f} us ({by})  "
         f"plain {t_p * 1e3:10.1f} us  library "
         + (f"{t_l * 1e3:.1f} us" if t_l is not None else "none"))
@@ -422,7 +431,8 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
               K.searchsorted(main_keys, q, side=side),
               K.searchsorted_plain(main_keys, q, side=side))
 
-    # -- B: the main tier's max table, and the fixpoint's min table
+    # -- B: the main tier's max table, and the fixpoint's min table (its
+    #    row carries the second shape), one launch a call at each
     ver = torch.randint(-5_000_000, 5_000_000, (M,), generator=gen,
                         device=device, dtype=torch.int32)
     levels = rangemax._num_levels(M)
@@ -433,8 +443,15 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     leaves = 4 * B
     mw = torch.randint(0, B, (leaves,), generator=gen, device=device,
                        dtype=torch.int32)
-    exact("rangemax_build min", rangemax.build(mw, op="min"),
-          rangemax.build_plain(mw, op="min"))
+    levels_f = rangemax._num_levels(leaves)
+    entry("rangemax_build",
+          lambda: rangemax.build(mw, op="min"),
+          lambda: rangemax.build_plain(mw, op="min"),
+          n_bytes=(1 + levels_f) * leaves * 4, n_ops=(levels_f - 1) * leaves,
+          key="rangemax_build min 2^18")
+    ledger["rangemax_build"]["fixpoint_min_2p18"] = ledger.pop(
+        "rangemax_build min 2^18")
+    tile_edge_checks(gen, device)
 
     # -- A.query: the fixpoint's min query over the 2^18-leaf table
     mtab = rangemax.build_plain(mw, op="min")
@@ -487,6 +504,10 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           lambda: segtree.min_cover_plain(leaves, wlo, whi, wval),
           n_bytes=3 * B * 4 + leaves * 4,
           n_ops=2 * B + 2 * log_l * leaves)
+    for name in ("rangemax_build", "min_cover"):
+        if ledger[name]["launches_per_call"] != 1:
+            fail(f"{name}: {ledger[name]['launches_per_call']} launches a "
+                 "call, not one")
 
     # -- D: the compaction fold (main (+) delta at M + M rows) ...
     main_val = torch.randint(0, 3_000_000, (M,), generator=gen, device=device,
@@ -840,6 +861,74 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     return ledger
 
 
+#: kernel B's and C's sizes about their 4,096-row tiles: one row, a tile
+#: less one, one, one more, past 16 tiles, the fixpoint's leaves, a tier
+TILE_EDGE_ROWS = (1, 3, 4095, 4096, 4097, 65_537, 262_144, M)
+TILE_EDGE_LEAVES = (1, 64, 4096, 8192, 1 << 18, 1 << 20)
+
+
+def cover_intervals(gen, leaves: int, n: int, device):
+    """[n] lo, hi, val for kernel C: intervals of every level at random
+    starts, ones that straddle every 4,096-leaf boundary, full-width ones
+    (one from lo < 0 to hi > leaves), the rest short or as wide as the
+    leaves, lo from -4; a fifth of the values INT32_POS."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import rangemax
+
+    def rand(lo, hi, k):
+        return torch.randint(lo, hi, (k,), generator=gen, device=device)
+
+    log = leaves.bit_length() - 1
+    lo = rand(-4, leaves + 4, n)
+    length = torch.cat([rand(-2, 300, n // 2), rand(-2, leaves + 8,
+                                                    n - n // 2)])
+    span = 1 << torch.arange(log + 1, device=device)
+    lo[:log + 1] = (torch.rand(log + 1, generator=gen, device=device)
+                    * (leaves - span + 1)).long()
+    length[:log + 1] = span
+    edges = torch.arange(4096, max(leaves, 4096), 4096, device=device)
+    lo[log + 1:log + 1 + edges.numel()] = edges - 3
+    length[log + 1:log + 1 + edges.numel()] = 7
+    lo[-3:] = torch.tensor([0, -5, -3], device=device)
+    length[-3:] = torch.tensor([leaves, leaves + 10, 4], device=device)
+    val = rand(0, n, n)
+    val[::5] = rangemax.INT32_POS
+    return (lo.to(torch.int32), (lo + length).to(torch.int32),
+            val.to(torch.int32))
+
+
+def tile_edge_checks(gen, device) -> None:
+    """Kernels B (both ops) and C at the sizes about their tiles, exact
+    against their plain versions, one launch a call."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import rangemax, segtree
+
+    def once(name, kern, plain, tag):
+        before = kernels.COUNTS[name]
+        got = kern()
+        if kernels.COUNTS[name] - before != 1:
+            fail(f"{tag}: {kernels.COUNTS[name] - before} launches, not one")
+        exact(tag, got, plain())
+
+    for m in TILE_EDGE_ROWS:
+        vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                             device=device, dtype=torch.int32)
+        for op in ("max", "min"):
+            once("rangemax_build", lambda: rangemax.build(vals, op=op),
+                 lambda: rangemax.build_plain(vals, op=op),
+                 f"rangemax_build {op} m={m}")
+    for leaves in TILE_EDGE_LEAVES:
+        lo, hi, val = cover_intervals(gen, leaves, 5000, device)
+        once("min_cover", lambda: segtree.min_cover(leaves, lo, hi, val),
+             lambda: segtree.min_cover_plain(leaves, lo, hi, val),
+             f"min_cover leaves={leaves}")
+    log(f"  rangemax_build at m in {TILE_EDGE_ROWS} (max, min) and "
+        f"min_cover at leaves in {TILE_EDGE_LEAVES}: exact, one launch each")
+
+
 def _launch_bytes(entry: str, a: list) -> int:
     """The bytes one launch of a C entry point must move, from its
     arguments as kernels.launch gets them: its inputs read once and its
@@ -855,9 +944,9 @@ def _launch_bytes(entry: str, a: list) -> int:
         m, w, q = a[1], a[2], a[7]       # re, q, out
         touched = min(m * w, 2 * q * (m.bit_length() + 1) * w)
         return 4 * (touched + 2 * q * w + 3 * q)
-    if entry == "rm_build_level":        # values, table, m, level, ...
-        return 4 * a[2] * (2 if a[3] == 0 else 1)
-    if entry == "mc_scatter":            # lo, hi, val, n, leaves, table
+    if entry == "rm_build":              # values, table, m, levels, ...
+        return 4 * a[2] * (1 + a[3])
+    if entry == "mc_cover":              # lo, hi, val, n, leaves, table
         return 4 * (3 * a[3] + a[4])
     if entry == "mm_mark":               # a_keys, a_val, na, b_keys,
         return 4 * (a[2] + a[5]) * (a[6] + 1)   # b_val, nb, w, ...
@@ -888,7 +977,7 @@ def _launch_bytes(entry: str, a: list) -> int:
         return clip_bytes(*(a[i] for i in (2, 3, 8, 9, 13, 14)))
     if entry == "sc_combine":            # ..., s (6), gn, b, nr
         return combine_bytes(*a[6:10])
-    return 0  # mc_sweep_level, sf_scan_sums, sf_paint
+    return 0  # sf_scan_sums, sf_paint
 
 
 def clip_bytes(s: int, w: int, gn: int, nr: int, nw: int, b: int) -> int:
@@ -2385,9 +2474,44 @@ def build_summary(built: dict) -> None:
             log(f"  [{name}] {line}")
 
 
-def main() -> int:
+def time_build_cover(device) -> dict:
+    """Kernels B and C alone, at the shapes the resolver path gives them
+    (B over a 786,432-row tier, max, and over the fixpoint's 2^18 leaves,
+    min; C over 2^18 leaves and 65,536 write intervals as in phase 2),
+    each held to its plain version and timed as phase 2 times it. Run
+    from another checkout's root (a copy of this script there) it times
+    that tree's kernels: the way two trees are compared in one call."""
     import torch
 
+    from foundationdb_tpu_torch.ops import rangemax, segtree
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261018)
+    leaves = 4 * B
+    ledger = {}
+    for m, op in ((M, "max"), (leaves, "min")):
+        vals = torch.randint(-5_000_000, 5_000_000, (m,), generator=gen,
+                             device=device, dtype=torch.int32)
+        levels = rangemax._num_levels(m)
+        measure(ledger, "rangemax_build",
+                lambda: rangemax.build(vals, op=op),
+                lambda: rangemax.build_plain(vals, op=op),
+                n_bytes=(1 + levels) * m * 4, n_ops=(levels - 1) * m,
+                key=f"B {op} {m}")
+    lo, hi, val = cover_intervals(gen, leaves, B, device)
+    measure(ledger, "min_cover",
+            lambda: segtree.min_cover(leaves, lo, hi, val),
+            lambda: segtree.min_cover_plain(leaves, lo, hi, val),
+            n_bytes=3 * B * 4 + leaves * 4,
+            n_ops=2 * B + 2 * (leaves.bit_length() - 1) * leaves,
+            key=f"C {leaves}")
+    return ledger
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2407,6 +2531,13 @@ def main() -> int:
     built = kernels.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     build_summary(built)
+    if argv == ["--build-cover"]:
+        heading("kernels B and C alone")
+        print(json.dumps({"build_cover": time_build_cover(device)}))
+        print(devmod.nvidia_smi_name_power(device.index or 0), flush=True)
+        return 0
+    if argv:
+        fail(f"unknown arguments {argv}; the one option is --build-cover")
     cfg = bench_config(B)
     zipf = zipf_stream(cfg, ZIPF_BATCHES)
     ycsb = ycsb_stream(cfg, YCSB_GROUPS * GROUP)

@@ -63,12 +63,10 @@ _SIGNATURES = {
     "ks_query": ("keysearch", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     # keys, m, w, table, levels, rb, re, q, out, stream
     "ks_probe": ("keysearch", [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P]),
-    # values, table, m, level, half, op_min, stream
-    "rm_build_level": ("rangemax_build", [_P, _P, _I, _I, _I, _I, _P]),
+    # values, table, m, levels, op_min, stream
+    "rm_build": ("rangemax_build", [_P, _P, _I, _I, _I, _P]),
     # lo, hi, val, n, leaves, table, stream
-    "mc_scatter": ("min_cover", [_P, _P, _P, _I, _I, _P, _P]),
-    # table, leaves, level, stream
-    "mc_sweep_level": ("min_cover", [_P, _I, _I, _P]),
+    "mc_cover": ("min_cover", [_P, _P, _P, _I, _I, _P, _P]),
     # a_keys, a_val, na, b_keys, b_val, nb, w, floor, keep_at, row_pos,
     # row_val, stream
     "mm_mark": ("merge_maps",

@@ -30,11 +30,11 @@
 // streams of the same row, three of them L2 hits) and writes the next,
 // 8 B a row; at 262,144 leaves and 10 levels ~21 MB. A query is 12 B plus
 // four 4-byte gathers; the cover's scatter is 12 B an interval plus four
-// atomics, its sweep 8 B a leaf per level. Design: the same shapes as
-// kernels B (one coalesced launch per level), A's query entry (one thread
-// per query) and C (one thread per interval, native atomicMin, then one
-// launch per level reading level j and writing level j-1 in place), with
-// half their levels.
+// atomics, its sweep 8 B a leaf per level. Design: the shapes of kernel
+// B's and C's first designs (one coalesced launch per level; one thread
+// per interval with native atomicMin, then one launch per level reading
+// level j and writing level j-1 in place) and of A's query entry (one
+// thread per query), with half their levels.
 
 #include "common.cuh"
 

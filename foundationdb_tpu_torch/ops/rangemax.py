@@ -5,9 +5,9 @@ table `t[k, i] = op(values[i : i + 2**k])`, clamped at the array end,
 answers "op over [lo, hi)" with two lookups. The history probe uses the
 max form, the intra-batch fixpoint the min form.
 
-`build` is kernel B (kernels/csrc/rangemax_build.cu, one launch per
-level) and `query` is kernel A's query entry (kernels/csrc/keysearch.cu)
-on CUDA tensors; `build_plain` / `query_plain` serve CPU tensors.
+`build` is kernel B (kernels/csrc/rangemax_build.cu, the whole table in
+one launch) and `query` is kernel A's query entry (kernels/csrc/
+keysearch.cu) on CUDA tensors; `build_plain` / `query_plain` serve CPU tensors.
 `flat_gather_selftest` checks both against numpy brute force before a
 conflict set serves its first decision.
 
@@ -77,12 +77,10 @@ def build(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
         return build_plain(values, op=op)
     kernels.check_cuda("rangemax.build", values)
     m = values.shape[0]
-    table = torch.empty((_num_levels(m), m), dtype=torch.int32,
-                        device=values.device)
-    for k in range(table.shape[0]):
-        half = min(1 << (k - 1), m - 1) if k else 0
-        kernels.launch("rm_build_level", "rangemax_build", values, table, m,
-                       k, half, int(op == "min"))
+    levels = _num_levels(m)
+    table = torch.empty((levels, m), dtype=torch.int32, device=values.device)
+    kernels.launch("rm_build", "rangemax_build", values, table, m, levels,
+                   int(op == "min"))
     return table
 
 

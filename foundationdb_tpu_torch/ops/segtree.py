@@ -8,8 +8,8 @@ fixpoint's "smallest committed writer covering this elementary segment"
 Same two-step doubling cover as the JAX program: each interval lands at
 one level k = floor(log2(len)) at two positions, then a downward sweep
 pushes every level into the one below. `min_cover` is kernel C
-(kernels/csrc/min_cover.cu: atomicMin scatter + one launch per sweep
-level) on CUDA tensors and `min_cover_plain` on CPU tensors.
+(kernels/csrc/min_cover.cu: the fill, the atomicMin scatter and the sweep
+in one launch) on CUDA tensors and `min_cover_plain` on CPU tensors.
 
 `min_cover4` (K19) is the radix-4 form: each interval lands at level
 k = floor(log4(len)) at up to four positions, and the sweep has half the
@@ -77,12 +77,11 @@ def min_cover(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
     if val.device.type == "cpu":
         return min_cover_plain(leaves, lo, hi, val)
     kernels.check_cuda("min_cover", lo, hi, val)
-    table = torch.full((log + 1, leaves), INT32_POS, dtype=torch.int32,
-                       device=val.device)
-    kernels.launch("mc_scatter", "min_cover", lo, hi, val, lo.shape[0],
-                   leaves, table)
-    for j in range(log, 0, -1):
-        kernels.launch("mc_sweep_level", "min_cover", table, leaves, j)
+    # the kernel's scratch levels, filled by the kernel itself
+    table = torch.empty((log + 1, leaves), dtype=torch.int32,
+                        device=val.device)
+    kernels.launch("mc_cover", "min_cover", lo, hi, val, lo.shape[0], leaves,
+                   table)
     return table[0]
 
 

@@ -78,12 +78,16 @@ def test_search(cuda_device, side):
 
 
 @pytest.mark.parametrize("op", ["max", "min"])
-@pytest.mark.parametrize("m", [1, 3, 1000, 4096])
+@pytest.mark.parametrize("m", [1, 3, 1000, 4095, 4096, 4097, 65_537,
+                               262_144, 786_432])
 def test_build_and_query(cuda_device, op, m):
+    """Kernel B at sizes inside, at and past its 4,096-row tile, up to the
+    fixpoint's 2^18 leaves and the tiers' 786,432 rows: one launch."""
     gen = torch.Generator(device=cuda_device).manual_seed(m)
     vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
                          device=cuda_device, dtype=torch.int32)
     tab = R.build(vals, op=op)
+    assert kernels.COUNTS["rangemax_build"] == 1
     assert_launched_and_equal("rangemax_build", tab,
                               R.build_plain(vals, op=op))
     lo = torch.randint(-2, m + 2, (3000,), generator=gen, device=cuda_device,
@@ -112,16 +116,31 @@ def test_probe(cuda_device):
                               H.query_reads_vmax_plain(keys, tab, rb, re))
 
 
-def test_min_cover(cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    lo = torch.randint(-4, 4100, (5000,), generator=gen, device=cuda_device,
-                       dtype=torch.int32)
-    hi = lo + torch.randint(-2, 300, (5000,), generator=gen,
-                            device=cuda_device, dtype=torch.int32)
-    val = torch.randint(0, 5000, (5000,), generator=gen, device=cuda_device,
-                        dtype=torch.int32)
-    assert_launched_and_equal("min_cover", S.min_cover(4096, lo, hi, val),
-                              S.min_cover_plain(4096, lo, hi, val))
+@pytest.mark.parametrize("leaves", [1, 64, 4096, 8192, 1 << 18, 1 << 20])
+def test_min_cover(cuda_device, leaves):
+    """Kernel C with intervals of every level (full-width ones, ones that
+    straddle its 4,096-leaf tiles, lo < 0 and hi > leaves): one launch."""
+    rng = np.random.default_rng(leaves)
+    n = 5000
+    lo = rng.integers(-4, leaves + 4, n)
+    length = np.concatenate([rng.integers(-2, 300, n // 2),
+                             rng.integers(-2, leaves + 8, n - n // 2)])
+    log = leaves.bit_length() - 1
+    k = np.arange(log + 1)  # one interval at each level, at a random start
+    lo[:log + 1] = rng.integers(0, leaves - (1 << k) + 1)
+    length[:log + 1] = 1 << k
+    lo[-3:], length[-3:] = (0, -5, -3), (leaves, leaves + 10, 4)  # full width
+    tiles = np.arange(4096, leaves, 4096)  # straddle every tile boundary
+    lo[log + 1:log + 1 + len(tiles)] = tiles - 3
+    length[log + 1:log + 1 + len(tiles)] = 7
+    val = rng.integers(0, n, n)
+    val[::5] = R.INT32_POS
+    lo, hi, val = (torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+                   for x in (lo, lo + length, val))
+    got = S.min_cover(leaves, lo, hi, val)
+    assert kernels.COUNTS["min_cover"] == 1
+    assert_launched_and_equal("min_cover", got,
+                              S.min_cover_plain(leaves, lo, hi, val))
 
 
 def test_merge_maps(cuda_device):

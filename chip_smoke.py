@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --build-cover   # kernels B and C alone, timed
+    python3 chip_smoke.py --merge         # kernel D alone, timed
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -23,9 +24,14 @@ any fault:
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
    single PyTorch call computing the same function; kernel B also timed
-   at the fixpoint's 2^18 leaves (min), and B and C held exactly, one
-   launch a call, at the sizes about their tiles (1 .. 786,432 rows,
-   1 .. 2^20 leaves with intervals of every level);
+   at the fixpoint's 2^18 leaves (min), kernel D at the compaction's
+   786,432 + 786,432 rows and the batch merge's 786,432 + 131,072; B, C
+   and D one launch a call, B and C held exactly at the sizes about
+   their tiles (1 .. 786,432 rows, 1 .. 2^20 leaves with intervals of
+   every level), D on every case of testing/merge_cases at W = 3 and 5
+   (live rows about its tiles, a 5,000-row run across two tile edges,
+   all-sentinel maps, a capacity under the count, each hard part again
+   past 600,000 real rows, where it takes its 2,048-position tiles);
 3. the uniform stream at full width: 65,536-txn skiplist-style batches
    through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
    rangemax self-check, timed), launch counts reset just before and
@@ -86,8 +92,9 @@ The last lines are the streams' numbers (JSON), the kernel ledger
 {...}}`. Exits non-zero without a result when no CUDA device is present.
 
 With `--build-cover` it builds the kernels and times only kernels B and
-C at the resolver path's shapes (`time_build_cover`), printing their
-JSON and the card's name and power limit.
+C at the resolver path's shapes (`time_build_cover`), with `--merge`
+only kernel D at its two (`time_merge`), printing their JSON and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -504,12 +511,10 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           lambda: segtree.min_cover_plain(leaves, wlo, whi, wval),
           n_bytes=3 * B * 4 + leaves * 4,
           n_ops=2 * B + 2 * log_l * leaves)
-    for name in ("rangemax_build", "min_cover"):
-        if ledger[name]["launches_per_call"] != 1:
-            fail(f"{name}: {ledger[name]['launches_per_call']} launches a "
-                 "call, not one")
 
-    # -- D: the compaction fold (main (+) delta at M + M rows) ...
+    # -- D: the compaction fold (main (+) delta at M + M rows) and the
+    #    batch merge (delta (+) the committed-write coverage), one launch
+    #    a call, and exact at the shapes about its tiles
     main_val = torch.randint(0, 3_000_000, (M,), generator=gen, device=device,
                              dtype=torch.int32)
     main_val[n_main:] = H.VERSION_NEG
@@ -517,27 +522,15 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     d_val = torch.randint(2_000_000, 4_000_000, (M,), generator=gen,
                           device=device, dtype=torch.int32)
     d_val[n_d:] = H.VERSION_NEG
-    floor = 2_500_000
-    entry("merge_maps",
-          lambda: H.merge_maps(main_keys, main_val, d_keys, d_val,
-                               floor=floor, capacity=M),
-          lambda: H.merge_maps_plain(main_keys, main_val, d_keys, d_val,
-                                     floor=floor, capacity=M),
-          n_bytes=3 * M * (W + 1) * 4,
-          n_ops=2 * M * 4 * (M.bit_length() + 1) * W,
-          check=lambda name, got, want: max(
-              exact(name + " keys", got[0], want[0]),
-              exact(name + " ver", got[1], want[1]),
-              exact(name + " count", got[2], want[2])))
-    # ... and the batch merge (delta (+) the committed-write coverage)
     cw = torch.rand((B,), generator=gen, device=device) < 0.97
     cov_keys, cov_val = G._coverage(rb, re, cw, 4_000_000)
-    got = H.merge_maps(d_keys, d_val, cov_keys, cov_val, floor=floor,
-                       capacity=M)
-    want = H.merge_maps_plain(d_keys, d_val, cov_keys, cov_val, floor=floor,
-                              capacity=M)
-    for part, g, w in zip(("keys", "ver", "count"), got, want):
-        exact(f"merge_maps delta+coverage {part}", g, w)
+    merge_rows(ledger, (main_keys, main_val), (d_keys, d_val),
+               (cov_keys, cov_val))
+    for name in ("rangemax_build", "min_cover", "merge_maps"):
+        if ledger[name]["launches_per_call"] != 1:
+            fail(f"{name}: {ledger[name]['launches_per_call']} launches a "
+                 "call, not one")
+    merge_edge_checks(device)
 
     def both(name, got, want):
         return max(exact(f"{name} [{i}]", g, w)
@@ -929,12 +922,88 @@ def tile_edge_checks(gen, device) -> None:
         f"min_cover at leaves in {TILE_EDGE_LEAVES}: exact, one launch each")
 
 
+def merge_bound(ra: int, rb: int, cap: int, w: int = W) -> dict:
+    """Kernel D's bound inputs: the ra + rb real rows of the two maps
+    read once (a sentinel tail is found by one search and never read)
+    and every output row written once, 4 (ra + rb + cap) (w + 1) bytes;
+    about four w-word compares a real row's merged position (the merge
+    step, the run-end check, the run's ends)."""
+    return dict(n_bytes=4 * (ra + rb + cap) * (w + 1),
+                n_ops=4 * (ra + rb) * w)
+
+
+def real_rows(keys) -> int:
+    """The rows of a sorted map before its sentinel tail (last word not
+    all ones), counted on the host."""
+    return int((keys[:, -1] != -1).sum())
+
+
+def merge_rows(ledger: dict, main, delta, cov, floor: int = 2_500_000,
+               ) -> None:
+    """Kernel D timed at its two shapes on the path: the compaction fold
+    (main (+) delta, M + M rows, the `merge_maps` row) and the batch merge
+    (delta (+) a batch's coverage, M + 2B rows, its `batch_merge`
+    entry), each exact against its plain version (keys, values, count),
+    each bound at its inputs' real rows."""
+    from foundationdb_tpu_torch.ops import history as H
+
+    def parts(name, got, want):
+        return max(exact(name + " keys", got[0], want[0]),
+                   exact(name + " ver", got[1], want[1]),
+                   exact(name + " count", got[2], want[2]))
+
+    for key, (a, b) in (("merge_maps", (main, delta)),
+                        ("merge_maps batch merge", (delta, cov))):
+        ra, rb = real_rows(a[0]), real_rows(b[0])
+        log(f"  {key}: {ra:,} + {rb:,} real rows of "
+            f"{a[0].shape[0]:,} + {b[0].shape[0]:,}")
+        measure(ledger, "merge_maps",
+                lambda: H.merge_maps(*a, *b, floor=floor, capacity=M),
+                lambda: H.merge_maps_plain(*a, *b, floor=floor, capacity=M),
+                **merge_bound(ra, rb, M), check=parts, key=key)
+        ledger[key]["real_rows"] = [ra, rb]
+    ledger["merge_maps"]["batch_merge"] = ledger.pop("merge_maps batch merge")
+
+
+def merge_edge_checks(device) -> None:
+    """Kernel D exact against its plain version on every case of
+    testing/merge_cases (live rows about its tiles up to a 786,432-row
+    tier, a 5,000-row run across two tile edges, keys shared at every
+    edge, the coverage's runs, every value under the floor, a capacity
+    under the count; the run, the shared keys and the capacity again past
+    600,000 real rows, where it takes its 2,048-position tiles) at W = 3
+    and 5, one launch a call."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.testing import merge_cases as MC
+
+    for name in MC.NAMES:
+        for w in (3, 5):
+            c = MC.case(name, w)
+            args = [torch.from_numpy(x).to(device) for x in c[:4]]
+            before = kernels.COUNTS["merge_maps"]
+            got = H.merge_maps(*args, floor=c.floor, capacity=c.capacity)
+            if kernels.COUNTS["merge_maps"] - before != 1:
+                fail(f"merge_maps {name} W={w}: "
+                     f"{kernels.COUNTS['merge_maps'] - before} launches")
+            want = H.merge_maps_plain(*args, floor=c.floor,
+                                      capacity=c.capacity)
+            for part, g, x in zip(("keys", "ver", "count"), got, want):
+                exact(f"merge_maps {name} W={w} {part}", g, x)
+    log(f"  merge_maps on {len(MC.NAMES)} edge cases at W = 3 and 5: "
+        "exact, one launch each")
+
+
 def _launch_bytes(entry: str, a: list) -> int:
     """The bytes one launch of a C entry point must move, from its
     arguments as kernels.launch gets them: its inputs read once and its
     outputs written once, as the phase-2 bounds count them, leaving out
     what depends on the data (a query's partial chunks, the ranks a fold
-    paints, the distinct rows of a dedup), so it is a floor."""
+    paints, the distinct rows of a dedup), so it is a floor, except for
+    mm_merge: its rows are known on the card only, so both maps count
+    whole, sentinel tails too, an upper figure for that entry."""
     if entry == "ks_search":             # keys, m, w, queries, q, ...
         m, w, q = a[1], a[2], a[4]
         return 4 * (m * w + q * w + q)
@@ -948,8 +1017,8 @@ def _launch_bytes(entry: str, a: list) -> int:
         return 4 * a[2] * (1 + a[3])
     if entry == "mc_cover":              # lo, hi, val, n, leaves, table
         return 4 * (3 * a[3] + a[4])
-    if entry == "mm_mark":               # a_keys, a_val, na, b_keys,
-        return 4 * (a[2] + a[5]) * (a[6] + 1)   # b_val, nb, w, ...
+    if entry == "mm_merge":              # a_keys, a_val, na, b_keys,
+        return merge_bound(a[2], a[5], a[8], a[6])["n_bytes"]  # nb, w, cap
     if entry == "mm_scatter":            # ..., w (4), ..., cap (9), ...
         return 4 * a[9] * (a[4] + 1)
     if entry == "sw_ranks":              # keys, m, w, rb, re, rvalid, r
@@ -2508,6 +2577,37 @@ def time_build_cover(device) -> dict:
     return ledger
 
 
+def time_merge(device) -> dict:
+    """Kernel D alone at the resolver path's two shapes, as phase 2 times
+    it (`merge_rows`: the compaction's M + M rows, the batch merge's M +
+    2B), on inputs made as phase 2 makes them from a seed of its own. Run
+    from another checkout's root (a copy of this script there) it times
+    that tree's kernel D."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import history as H
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261019)
+    tiers = []
+    for n_live, lo, hi in ((3 * M // 4, 0, 3_000_000),
+                           (M // 3, 2_000_000, 4_000_000)):
+        keys, n = random_sorted_keys(gen, n_live, M, device)
+        val = torch.randint(lo, hi, (M,), generator=gen, device=device,
+                            dtype=torch.int32)
+        val[n:] = H.VERSION_NEG
+        tiers.append((keys, val))
+    begin = torch.randint(0, 1 << 40, (B,), generator=gen, device=device)
+    rb = int_keys(begin)
+    re = int_keys(begin + torch.randint(1, 1 << 30, (B,), generator=gen,
+                                        device=device))
+    cw = torch.rand((B,), generator=gen, device=device) < 0.97
+    ledger = {}
+    merge_rows(ledger, *tiers, G._coverage(rb, re, cw, 4_000_000))
+    return ledger
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2531,13 +2631,18 @@ def main(argv=None) -> int:
     built = kernels.build_all()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     build_summary(built)
-    if argv == ["--build-cover"]:
-        heading("kernels B and C alone")
-        print(json.dumps({"build_cover": time_build_cover(device)}))
+    alone = {"--build-cover": ("kernels B and C alone", "build_cover",
+                               time_build_cover),
+             "--merge": ("kernel D alone", "merge", time_merge)}
+    if len(argv) == 1 and argv[0] in alone:
+        title, key, timed = alone[argv[0]]
+        heading(title)
+        print(json.dumps({key: timed(device)}))
         print(devmod.nvidia_smi_name_power(device.index or 0), flush=True)
         return 0
     if argv:
-        fail(f"unknown arguments {argv}; the one option is --build-cover")
+        fail(f"unknown arguments {argv}; the options are "
+             + " or ".join(alone))
     cfg = bench_config(B)
     zipf = zipf_stream(cfg, ZIPF_BATCHES)
     ycsb = ycsb_stream(cfg, YCSB_GROUPS * GROUP)

@@ -67,10 +67,13 @@ _SIGNATURES = {
     "rm_build": ("rangemax_build", [_P, _P, _I, _I, _I, _P]),
     # lo, hi, val, n, leaves, table, stream
     "mc_cover": ("min_cover", [_P, _P, _P, _I, _I, _P, _P]),
-    # a_keys, a_val, na, b_keys, b_val, nb, w, floor, keep_at, row_pos,
-    # row_val, stream
-    "mm_mark": ("merge_maps",
-                [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    # na, nb -> scratch int64 words (no stream: a host query, see size())
+    "mm_scratch_words": ("merge_maps", [_I, _I]),
+    # a_keys, a_val, na, b_keys, b_val, nb, w, floor, cap, out_keys,
+    # out_val, count, scratch, epoch, stream
+    "mm_merge": ("merge_maps",
+                 [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                  _P]),
     # a_keys, b_keys, na, nb, w, row_pos, row_val, keep_at, dest, cap,
     # out_keys, out_val, stream
     "mm_scatter": ("merge_maps",

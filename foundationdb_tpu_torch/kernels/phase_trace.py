@@ -1,7 +1,8 @@
 """Per-phase times of the port's cooperative kernels on the card.
 
     python -m foundationdb_tpu_torch.kernels.phase_trace \
-        [--kernel lex_order|rangemax_build|min_cover] [--direct-scatter]
+        [--kernel lex_order|rangemax_build|min_cover|merge_maps]
+        [--direct-scatter] [--items N] [--threads N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
 grid sync (each block's arrival, the latest kept; block 0's departure),
@@ -21,6 +22,16 @@ less the latest arrival), in microseconds.
 - min_cover (kernel C): 65,536 intervals over 2^18 leaves, mostly short
   as a uniform batch's writes, and the same with intervals of every
   level.
+- merge_maps (kernel D, no grid sync: its tiles go by ticket): a
+  `%globaltimer` mark at each phase of every tile and at every block's
+  end, printed as each phase's mean and largest time over the tiles
+  (split, stage, merge, scan, look-back wait, write, tail share), the
+  last ticket's and the last tile's time from the first ticket, and the
+  kernel's end; at the compaction's 786,432 + 786,432 rows and the batch
+  merge's 786,432 + 131,072. `--items` and `--threads` rebuild it with
+  another tile shape (merged positions a thread, threads a block; the
+  small tile is half the large one): the sweep that chose the shipped
+  8 x 256, which PERF.md's kernel D findings cite.
 
 A measuring tool: nothing on the resolver path imports it.
 """
@@ -35,6 +46,8 @@ import sys
 import torch
 
 from foundationdb_tpu_torch import kernels
+from foundationdb_tpu_torch.ops import group as G
+from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
@@ -57,6 +70,35 @@ __device__ __forceinline__ void depart(int s) {
   if (blockIdx.x == 0 && threadIdx.x == 0) g_depart[s] = now_ns();
 }
 '''
+
+_TILE_MARKS = r'''
+constexpr int kMarkTiles = 4096;
+constexpr int kMarkBlocks = 4096;
+__device__ unsigned long long g_tile[kMarkTiles][8];
+__device__ unsigned long long g_blk[kMarkBlocks][1];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define TILE_MARK(k) if (threadIdx.x == 0 && t < kMarkTiles) g_tile[t][k] = now_ns();
+#define BLOCK_MARK(k) if (threadIdx.x == 0 && blockIdx.x < kMarkBlocks) g_blk[blockIdx.x][k] = now_ns();
+extern "C" int pt_reset() {
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, g_tile);
+  cudaMemset(p, 0, sizeof(g_tile));
+  cudaGetSymbolAddress(&p, g_blk);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(g_blk)));
+}
+extern "C" int pt_read(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, g_tile, sizeof(g_tile));
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out + kMarkTiles * 8, g_blk, sizeof(g_blk)));
+}
+'''
+#: (stamps a tile, stamps a block) of the merge_maps marks
+_TILE_SHAPE = (4096, 8)
+_BLOCK_SHAPE = (4096, 1)
 
 _READ = r'''
 extern "C" int pt_reset() {
@@ -109,7 +151,40 @@ def _edit(src: str, old: str, new: str, name: str) -> str:
     return src.replace(old, new)
 
 
-def traced_source(name: str, direct_scatter: bool = False) -> str:
+def traced_merge_source(items: int = 0, threads: int = 0) -> str:
+    """merge_maps.cu with a mark at each phase of every tile (thread 0,
+    after the block's threads meet there) and at every block's end; with
+    `items` / `threads` the tile's positions a thread and threads a
+    block in place of the source's."""
+    name = "merge_maps"
+    src = (kernels.CSRC / f"{name}.cu").read_text()
+    if items:
+        src = _edit(src, "constexpr int kItems = 8;",
+                    f"constexpr int kItems = {items};", name)
+    if threads:
+        src = _edit(src, "constexpr int kMergeThreads = 256;",
+                    f"constexpr int kMergeThreads = {threads};", name)
+    src = _edit(src, '#include "common.cuh"\n',
+                '#include "common.cuh"\n' + _TILE_MARKS, name)
+    for k, line in enumerate((
+            "    // -- 1. partition", "    // -- 2. stage",
+            "    // -- 3. merge this", "    // -- 4. offsets",
+            "    if (warp == 0) {\n      const int prefix = look_back(",
+            "    // -- 5. the kept rows")):
+        sync = "    __syncthreads();\n" if k == 3 else ""
+        src = _edit(src, line, f"{sync}    TILE_MARK({k})\n{line}", name)
+    for k, line in ((6, "    // -- 6. the tile's share of the tail"),
+                    (7, "    __syncthreads();  // shared memory is the next tile's\n")):
+        src = _edit(src, line, f"    TILE_MARK({k})\n{line}", name)
+    return _edit(src, "\n}\n\nstruct Plan {",
+                 "\n  __syncthreads();\n  BLOCK_MARK(0)\n}\n\nstruct Plan {",
+                 name)
+
+
+def traced_source(name: str, direct_scatter: bool = False,
+                  items: int = 0, threads: int = 0) -> str:
+    if name == "merge_maps":
+        return traced_merge_source(items, threads)
     src = (kernels.CSRC / f"{name}.cu").read_text()
     src = _edit(src, '#include "common.cuh"\n',
                 '#include "common.cuh"\n' + _MARKS, name)
@@ -135,15 +210,19 @@ _ARGTYPES = {
     "lo_sort": kernels._SIGNATURES["lo_sort"][1],
     "rm_build": kernels._SIGNATURES["rm_build"][1],
     "mc_cover": kernels._SIGNATURES["mc_cover"][1],
+    "mm_scratch_words": kernels._SIGNATURES["mm_scratch_words"][1],
+    "mm_merge": kernels._SIGNATURES["mm_merge"][1],
 }
 
 
-def build(name: str, direct_scatter: bool = False):
+def build(name: str, direct_scatter: bool = False, items: int = 0,
+          threads: int = 0):
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
-    tag = name + ("_direct" if direct_scatter else "")
+    tag = name + ("_direct" if direct_scatter else "") + (
+        f"_{items}x{threads}" if items or threads else "")
     cu = kernels.BUILD / f"phase_trace_{tag}.cu"
     so = kernels.BUILD / f"libphase_trace_{tag}.so"
-    cu.write_text(traced_source(name, direct_scatter))
+    cu.write_text(traced_source(name, direct_scatter, items, threads))
     done = subprocess.run(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
          "-o", str(so), str(cu)], capture_output=True, text=True)
@@ -216,6 +295,60 @@ def run_min_cover(lib, args):
     return r
 
 
+def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
+    """mm_merge's per-tile phases (microseconds) in the last of `reps`
+    launches, and its output held to merge_maps_plain."""
+    a_keys, a_val, b_keys, b_val, floor, cap = args
+    dev = a_keys.device
+    na, nb, w = a_keys.shape[0], b_keys.shape[0], a_keys.shape[1]
+    # the kernel takes tiles of `tile` or `tile // 2` positions
+    n_tiles = (na + nb + tile // 2 - 1) // (tile // 2)
+    if n_tiles > _TILE_SHAPE[0]:
+        raise ValueError("phase_trace: more tiles than marks")
+    out_keys = torch.empty((cap, w), dtype=torch.int32, device=dev)
+    out_val = torch.empty((cap,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.zeros((lib.mm_scratch_words(na, nb),), dtype=torch.int64,
+                          device=dev)
+    n_tile = _TILE_SHAPE[0] * _TILE_SHAPE[1]
+    marks = torch.zeros((n_tile + _BLOCK_SHAPE[0] * _BLOCK_SHAPE[1],),
+                        dtype=torch.int64)
+    stream = torch.cuda.current_stream().cuda_stream
+    for epoch in range(1, reps + 1):
+        torch.cuda.synchronize()
+        lib.pt_reset()
+        err = lib.mm_merge(
+            a_keys.data_ptr(), a_val.data_ptr(), na, b_keys.data_ptr(),
+            b_val.data_ptr(), nb, w, floor, cap, out_keys.data_ptr(),
+            out_val.data_ptr(), count.data_ptr(), scratch.data_ptr(), epoch,
+            stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err} at launch")
+        torch.cuda.synchronize()
+        lib.pt_read(ctypes.c_void_p(marks.data_ptr()))
+    tile = marks[:n_tile].view(*_TILE_SHAPE)[:n_tiles]
+    tile = tile[tile[:, 7] > 0]   # the tiles of the real rows
+    blk = marks[n_tile:].view(*_BLOCK_SHAPE)
+    blk = blk[blk[:, 0] > 0]
+    begin = int(tile[:, 0].min())
+    steps = (tile[:, 1:] - tile[:, :-1]).double() / 1e3
+    names = ("split", "stage", "merge", "scan", "look-back", "write",
+             "tail share")
+    want = H.merge_maps_plain(a_keys, a_val, b_keys, b_val, floor=floor,
+                              capacity=cap)
+    return dict(
+        total_us=(int(blk[:, 0].max()) - begin) / 1e3,
+        tiles=int(tile.shape[0]), blocks=int(blk.shape[0]),
+        tiles_end_us=(int(tile[:, 7].max()) - begin) / 1e3,
+        last_ticket_us=(int(tile[:, 0].max()) - begin) / 1e3,
+        mean_us={k: round(float(steps[:, i].mean()), 2)
+                 for i, k in enumerate(names)},
+        max_us={k: round(float(steps[:, i].max()), 2)
+                for i, k in enumerate(names)},
+        exact=all(torch.equal(g, x) for g, x in
+                  zip((out_keys, out_val, count), want)))
+
+
 def shapes(name: str, device) -> dict:
     """Seeded inputs for one kernel. Rows for N: 8-byte keys below 1M or
     10M (word 0 zero, the length word 8), a tenth of the rows the
@@ -230,6 +363,30 @@ def shapes(name: str, device) -> dict:
         return {"786432 rows, max": (ints(-5_000_000, 5_000_000, 786_432),
                                      "max"),
                 "262144 leaves, min": (ints(0, 65_536, 262_144), "min")}
+    if name == "merge_maps":
+        m, b = 786_432, 65_536
+
+        def tier(n_live, lo, hi):
+            v = torch.unique(torch.randint(0, 1 << 40, (n_live * 11 // 10,),
+                                           generator=gen, device=device))
+            v = v[:n_live]
+            keys = K.sentinel_like(m, 3, device)
+            keys[: v.shape[0]] = _int_keys(v)
+            val = ints(lo, hi, m)
+            val[v.shape[0]:] = H.VERSION_NEG
+            return keys, val
+
+        main = tier(3 * m // 4, 0, 3_000_000)
+        delta = tier(m // 3, 2_000_000, 4_000_000)
+        begin = torch.randint(0, 1 << 40, (b,), generator=gen, device=device)
+        end = begin + torch.randint(1, 1 << 30, (b,), generator=gen,
+                                    device=device)
+        cw = torch.rand((b,), generator=gen, device=device) < 0.97
+        cov = G._coverage(_int_keys(begin), _int_keys(end), cw, 4_000_000)
+        return {"786432 + 786432 (compaction)": (*main, *delta, 2_500_000,
+                                                 m),
+                "786432 + 131072 (batch merge)": (*delta, *cov, 2_500_000,
+                                                  m)}
     if name == "min_cover":
         leaves, n = 262_144, 65_536
         lo = ints(0, leaves, n)
@@ -257,8 +414,16 @@ def shapes(name: str, device) -> dict:
     }
 
 
+def _int_keys(v):
+    """int64 [N] (0 <= v < 2^63) -> [N, 3] packed 8-byte keys."""
+    words = torch.stack([(v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF,
+                         torch.full_like(v, 8)], dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(
+        torch.int32).contiguous()
+
+
 RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
-        "min_cover": run_min_cover}
+        "min_cover": run_min_cover, "merge_maps": run_merge_maps}
 
 
 def main(argv=None) -> int:
@@ -266,16 +431,29 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", choices=sorted(RUNS), default="lex_order")
     ap.add_argument("--direct-scatter", action="store_true",
                     help="lex_order only: the unstaged scatter")
+    ap.add_argument("--items", type=int, default=0,
+                    help="merge_maps only: merged positions a thread")
+    ap.add_argument("--threads", type=int, default=0,
+                    help="merge_maps only: threads a block")
     args = ap.parse_args(argv)
+    if (args.items or args.threads) and args.kernel != "merge_maps":
+        ap.error("--items and --threads are merge_maps's")
     if args.direct_scatter and args.kernel != "lex_order":
         ap.error("--direct-scatter is lex_order's")
     if not torch.cuda.is_available():
         print("phase_trace: no CUDA device available", file=sys.stderr)
         return 2
-    lib = build(args.kernel, args.direct_scatter)
+    lib = build(args.kernel, args.direct_scatter, args.items, args.threads)
     print(f"{torch.cuda.get_device_name(0)}; {args.kernel}"
           + ("; direct scatter" if args.direct_scatter else ""))
     for name, inputs in shapes(args.kernel, torch.device("cuda")).items():
+        if args.kernel == "merge_maps":
+            r = run_merge_maps(lib, inputs, tile=(args.items or 8)
+                               * (args.threads or 256))
+            print(f"{name}: {r}")
+            if not r["exact"]:
+                return 1
+            continue
         r = RUNS[args.kernel](lib, inputs)
         print(f"{name}: total {r['total_us']:.2f} us, exact {r['exact']}\n"
               f"  work {[round(x, 2) for x in r['work_us']]}\n"

@@ -12,8 +12,8 @@ at the tail.
   fused probe entry on CUDA tensors.
 * `merge_maps` — the pointwise max of two maps with GC and canonical
   compaction (mergeWriteConflictRanges + removeBefore, SkipList.cpp:
-  430-441, 576-608, and the delta -> main fold): kernel D on CUDA
-  tensors.
+  430-441, 576-608, and the delta -> main fold): kernel D's one-launch
+  `mm_merge` entry on CUDA tensors.
 * `merge_writes` — K16: overwrite the union of sorted run intervals
   with a version, GC and compact, row for row as the JAX program keeps
   its rows: kernel D's `mm_mark_runs` entry and its scatter on CUDA
@@ -169,6 +169,8 @@ def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
     Returns (keys [capacity, W], ver [capacity], count [] int) where
     count is the number of rows the canonical map needs: count >
     capacity means rows were dropped and the caller must latch overflow.
+    CUDA tensors take one launch of kernel D (`mm_merge`), which writes
+    all three outputs; nothing else runs on the card.
     """
     w = a_keys.shape[1]
     if b_keys.shape[1] != w or a_val.shape[0] != a_keys.shape[0] \
@@ -180,20 +182,53 @@ def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
     kernels.check_cuda("merge_maps", a_keys, a_val, b_keys, b_val)
     kernels.check_words("merge_maps", w)
     dev = a_keys.device
+    if torch.cuda.is_current_stream_capturing():
+        # a graph would replay the epoch it was captured with, and take the
+        # status words of its last replay for this one's
+        raise RuntimeError("merge_maps: kernel D takes its scratch's epoch "
+                           "from the host and cannot be captured in a "
+                           "CUDA graph")
     na, nb = a_keys.shape[0], b_keys.shape[0]
-    keep_at = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    row_pos = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    row_val = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    kernels.launch("mm_mark", "merge_maps", a_keys, a_val, na, b_keys, b_val,
-                   nb, w, floor, keep_at, row_pos, row_val)
-    dest = torch.cumsum(keep_at, 0, dtype=torch.int32) - keep_at
-    out_keys = K.sentinel_like(capacity, w, dev)
-    out_val = torch.full((capacity,), VERSION_NEG, dtype=torch.int32,
-                         device=dev)
-    kernels.launch("mm_scatter", "merge_maps", a_keys, b_keys, na, nb, w,
-                   row_pos, row_val, keep_at, dest, capacity, out_keys,
-                   out_val)
-    return out_keys, out_val, keep_at.sum()
+    out_keys = torch.empty((capacity, w), dtype=torch.int32, device=dev)
+    out_val = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    scratch, epoch = _merge_scratch(
+        dev, kernels.size("mm_scratch_words", na, nb))
+    kernels.launch("mm_merge", "merge_maps", a_keys, a_val, na, b_keys, b_val,
+                   nb, w, floor, capacity, out_keys, out_val, count, scratch,
+                   epoch)
+    return out_keys, out_val, count
+
+
+#: the largest epoch kernel D takes (a C int); past it the scratch is
+#: zeroed and the epochs start again at 1
+_EPOCH_MAX = 2**31 - 1
+#: kernel D's scratch per (CUDA device, stream): [int64 words, the last
+#: epoch]. Its status words count only in their own call's epoch, so one
+#: zeroed array serves every call on its stream without a clear between
+#: them; calls on two streams at once would share the ticket and the
+#: status words, so each stream has its own
+_MERGE_SCRATCH: dict = {}
+
+
+def _scratch_key(dev: torch.device) -> tuple:
+    """The key of the scratch a call on `dev`'s current stream uses."""
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _merge_scratch(dev: torch.device, words: int):
+    """(kernel D's scratch of at least `words` int64 words, the epoch of
+    this call) for `dev`'s current stream."""
+    key = _scratch_key(dev)
+    held = _MERGE_SCRATCH.get(key)
+    if held is None or held[0].shape[0] < words:
+        held = _MERGE_SCRATCH[key] = [
+            torch.zeros((words,), dtype=torch.int64, device=dev), 0]
+    held[1] += 1
+    if held[1] > _EPOCH_MAX:
+        held[0].zero_()
+        held[1] = 1
+    return held[0], held[1]
 
 
 # ---------------------------------------------------------------------------

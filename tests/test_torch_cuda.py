@@ -25,6 +25,7 @@ from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.parallel import sharding as SH
+from foundationdb_tpu_torch.testing import merge_cases as MC
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
@@ -143,7 +144,30 @@ def test_min_cover(cuda_device, leaves):
                               S.min_cover_plain(leaves, lo, hi, val))
 
 
-def test_merge_maps(cuda_device):
+@pytest.mark.parametrize("w", [3, 5])
+@pytest.mark.parametrize("name", MC.NAMES)
+def test_merge_maps(cuda_device, name, w):
+    """Kernel D against its plain version on the cases about its tiles
+    (testing/merge_cases: live rows at 0, 1, T - 1, T, T + 1 and 786,432,
+    a 5,000-row run across two tile edges, keys shared at every edge, the
+    coverage's runs, every value under the floor, a capacity under the
+    count; the run, the shared keys and the capacity again past 600,000
+    real rows, where the kernel takes its 2,048-position tiles): keys,
+    values and count exactly, from one launch."""
+    c = MC.case(name, w)
+    args = [torch.from_numpy(x).to(cuda_device) for x in c[:4]]
+    got = H.merge_maps(*args, floor=c.floor, capacity=c.capacity)
+    assert kernels.COUNTS["merge_maps"] == 1
+    want = H.merge_maps_plain(*args, floor=c.floor, capacity=c.capacity)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert torch.equal(g, x)
+
+
+def test_merge_maps_calls_in_a_row(cuda_device):
+    """Calls of kernel D one after another on one scratch (growing it,
+    and across an epoch wrap), on the card's own coverage: each exact,
+    one launch each."""
     rng = np.random.default_rng(4)
     a, na = sorted_keys(rng, 3000, 4000, cuda_device)
     b, nb = sorted_keys(rng, 800, 1000, cuda_device)
@@ -151,12 +175,53 @@ def test_merge_maps(cuda_device):
     bv = torch.randint(0, 5000, (1000,), device=cuda_device, dtype=torch.int32)
     cw = torch.rand((1000,), device=cuda_device) < 0.9
     cov = G._coverage(b, b.roll(-1, 0).contiguous(), cw, 6000)
-    for bk, bval, cap in ((b, bv, 4000), (cov[0], cov[1], 4000),
-                          (b, bv, 1000)):
-        got = H.merge_maps(a, av, bk, bval, floor=2500, capacity=cap)
-        want = H.merge_maps_plain(a, av, bk, bval, floor=2500, capacity=cap)
-        for g, w in zip(got, want):
-            assert_launched_and_equal("merge_maps", g, w)
+    big = MC.case("run 5000")
+    big = [torch.from_numpy(x).to(cuda_device) for x in big[:4]]
+    calls = ((a[:5], av[:5], b[:3], bv[:3], 7), (a, av, b, bv, 4000),
+             (a, av, *cov, 4000), (*big, 20_000), (a, av, b, bv, 1000))
+    kernels.reset_counts()
+    for i, (ak, aval, bk, bval, cap) in enumerate(calls * 2):
+        if i == len(calls):   # the next call wraps the epoch
+            H._MERGE_SCRATCH[H._scratch_key(a.device)][1] = H._EPOCH_MAX
+        got = H.merge_maps(ak, aval, bk, bval, floor=2500, capacity=cap)
+        want = H.merge_maps_plain(ak, aval, bk, bval, floor=2500,
+                                  capacity=cap)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), i
+    assert kernels.COUNTS["merge_maps"] == 2 * len(calls)
+    assert H._MERGE_SCRATCH[H._scratch_key(a.device)][1] == len(calls)
+
+
+def test_merge_maps_streams_and_graph_capture(cuda_device):
+    """Kernel D on two streams at once, each with a scratch of its own,
+    every call exact; and refused inside a CUDA graph's capture, since
+    the epoch it is launched with comes from the host."""
+    c = MC.case("run 5000")
+    args = [torch.from_numpy(x).to(cuda_device) for x in c[:4]]
+    want = H.merge_maps_plain(*args, floor=c.floor, capacity=c.capacity)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize(cuda_device)
+    kernels.reset_counts()
+    got, scratch = [], []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append(H.merge_maps(*args, floor=c.floor,
+                                        capacity=c.capacity))
+    for s in streams:
+        with torch.cuda.stream(s):
+            scratch.append(H._MERGE_SCRATCH[H._scratch_key(args[0].device)])
+    torch.cuda.synchronize(cuda_device)
+    assert kernels.COUNTS["merge_maps"] == 6
+    assert scratch[0][0].data_ptr() != scratch[1][0].data_ptr()
+    for one in got:
+        for g, x in zip(one, want):
+            assert torch.equal(g, x)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            H.merge_maps(*args, floor=c.floor, capacity=c.capacity)
+    assert kernels.COUNTS["merge_maps"] == 6
 
 
 def test_stream_matches_cpu_plain_path(cuda_device):

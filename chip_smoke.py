@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --build-cover   # kernels B and C alone, timed
     python3 chip_smoke.py --merge         # kernel D alone, timed
+    python3 chip_smoke.py --probe-fold    # kernels A's probe and H alone
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -32,6 +33,12 @@ any fault:
    (live rows about its tiles, a 5,000-row run across two tile edges,
    all-sentinel maps, a capacity under the count, each hard part again
    past 600,000 real rows, where it takes its 2,048-position tiles);
+   kernel A's probe also timed at the uniform stream's point reads
+   against a main tier 3/4 live (its `uniform_point_reads` entry), the
+   probe and H one launch a call and exact on every case of
+   testing/probe_cases (the probe at W = 3 and 5: the fence's rows, the
+   window, inverted, empty and dead reads, the tier's ends; H's inverted
+   committed writes, a write over the whole space, rank n);
 3. the uniform stream at full width: 65,536-txn skiplist-style batches
    through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
    rangemax self-check, timed), launch counts reset just before and
@@ -93,8 +100,9 @@ The last lines are the streams' numbers (JSON), the kernel ledger
 
 With `--build-cover` it builds the kernels and times only kernels B and
 C at the resolver path's shapes (`time_build_cover`), with `--merge`
-only kernel D at its two (`time_merge`), printing their JSON and the
-card's name and power limit.
+only kernel D at its two (`time_merge`), with `--probe-fold` only kernel
+A's probe at its two and kernel H (`time_probe_fold`), printing their
+JSON and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -200,14 +208,18 @@ def port_kernel_names() -> frozenset:
 
 
 #: Each profiler session opens with a host op and WARM_KERNELS short
-#: spin kernels (left out of its results) and idles SESSION_PAD_S before
-#: and after fn(). On the card's machine a session can lose its first
+#: spin kernels, idles SESSION_PAD_S, runs LATE_KERNELS more spin kernels
+#: and fn(), and idles SESSION_PAD_S again (the spin kernels are left out
+#: of its results). On the card's machine a session can lose its first
 #: device records: Kineto counts them "Out-of-range" of the session's
-#: window (shown with KINETO_LOG_LEVEL=0), up to all ten of a short
-#: session late in a run, whatever the idle pad before them. The spin
-#: kernels take that loss; one of them on record shows that fn()'s
-#: records are whole
+#: window (shown with KINETO_LOG_LEVEL=0). What is lost is a prefix in
+#: time that grows through a run (1 .. 9 of the opening spin kernels over
+#: one run; all 64, four sessions in a row, 80 s into another), so one
+#: spin kernel on record, of either set, shows that fn()'s records are
+#: whole; the late ones, after the idle pad, stay on record while the
+#: lost prefix is shorter than the pad
 WARM_KERNELS = 64
+LATE_KERNELS = 8
 SESSION_PAD_S = 0.02
 
 
@@ -215,7 +227,7 @@ def device_time_by_name(fn) -> tuple:
     """({kernel name: device microseconds} of what fn() launches, from
     torch.profiler (kernels, memsets and copies on the card); {kernel
     function: records} of the session's launches of the port's kernels;
-    the opening spin kernels on record)."""
+    the spin kernels on record, opening and late)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -228,6 +240,8 @@ def device_time_by_name(fn) -> tuple:
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(SESSION_PAD_S)
+        for _ in range(LATE_KERNELS):
+            torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
         time.sleep(SESSION_PAD_S)
@@ -252,15 +266,15 @@ def device_time_by_name(fn) -> tuple:
 #: the profiler sessions taken again: what each recorded against the
 #: launches counted over it
 RETAKES = []
-#: the opening spin kernels lost, one entry per session that lost any
+#: the spin kernels lost, one entry per session that lost any
 WARM_LOST = []
 
 
 def profiled(fn) -> dict:
     """device_time_by_name(fn), held to what kernels.COUNTS counted over
     the same session: the profiler's records of the port's kernels must
-    number exactly the launches counted, one of the opening spin kernels
-    at least must be on record, and the session must record some device
+    number exactly the launches counted, one of the spin kernels at least
+    must be on record, and the session must record some device
     work. A session that fails is taken again (logged, and
     kept in RETAKES), up to four sessions in all; then the script
     fails."""
@@ -273,8 +287,8 @@ def profiled(fn) -> dict:
                      if n != before[k]}
         recorded, launched = sum(records.values()), sum(per_entry.values())
         busy = sum(by_name.values())
-        if n_spin < WARM_KERNELS:
-            WARM_LOST.append(WARM_KERNELS - n_spin)
+        if n_spin < WARM_KERNELS + LATE_KERNELS:
+            WARM_LOST.append(WARM_KERNELS + LATE_KERNELS - n_spin)
         if recorded == launched and n_spin > 0 and busy > 0:
             return by_name
         RETAKES.append(dict(recorded=recorded, launched=launched,
@@ -283,7 +297,8 @@ def profiled(fn) -> dict:
         log(f"    (profiler session {attempt + 1}, "
             f"{RETAKES[-1]['at_s']:.1f} s in: {recorded} records of the "
             f"port's kernels for {launched} launches, {n_spin} of "
-            f"{WARM_KERNELS} spin kernels, {busy:.1f} us of device time; "
+            f"{WARM_KERNELS + LATE_KERNELS} spin kernels, {busy:.1f} us of "
+            "device time; "
             f"launched by entry {per_entry}, recorded by kernel "
             f"{records})")
     fail("four profiler sessions in a row disagree with the launch "
@@ -475,7 +490,8 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           rangemax.query_plain(mtab, lo, hi, op="max"))
 
     # -- A.probe: the main-tier probe of one batch's reads (most span
-    #    many segments, far past the JAX 4-boundary window)
+    #    many segments, far past the JAX 4-boundary window), and the
+    #    uniform stream's point reads against a main-sized tier
     tab = rangemax.build_plain(ver, op="max")
     rb = q
     step = torch.randint(1, 1 << 30, (B,), generator=gen, device=device)
@@ -487,12 +503,8 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     rb, re = lo_k.contiguous(), hi_k.contiguous()
     hist = H.VersionHistory(main_keys, ver, H.VERSION_NEG,
                             torch.zeros((), dtype=torch.bool, device=device))
-    touched = min(M * W, 2 * B * steps * W)
-    entry("keysearch.probe",
-          lambda: H.query_reads_vmax(hist, rb, re, tab),
-          lambda: H.query_reads_vmax_plain(main_keys, tab, rb, re),
-          n_bytes=touched * 4 + B * W * 4 * 2 + B * 4 + 2 * B * 4,
-          n_ops=2 * B * steps * W)
+    probe_rows(ledger, (hist, tab, rb, re),
+               uniform_point_reads(gen, uniform_group[0], device))
 
     # -- C: the fixpoint's writer cover at 2^18 leaves
     wlo = torch.randint(0, leaves, (B,), generator=gen, device=device,
@@ -526,7 +538,8 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     cov_keys, cov_val = G._coverage(rb, re, cw, 4_000_000)
     merge_rows(ledger, (main_keys, main_val), (d_keys, d_val),
                (cov_keys, cov_val))
-    for name in ("rangemax_build", "min_cover", "merge_maps"):
+    for name in ("rangemax_build", "min_cover", "merge_maps",
+                 "keysearch.probe"):
         if ledger[name]["launches_per_call"] != 1:
             fail(f"{name}: {ledger[name]['launches_per_call']} launches a "
                  "call, not one")
@@ -653,37 +666,11 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           rangemax.query2(rangemax.build2(seg, op="min"), qlo, qhi, op="min"),
           rangemax.query2_plain(rangemax.build2_plain(seg, op="min"), qlo,
                                 qhi, op="min"))
-    # H: the last batch's committed writes over the map batches 0 .. 6
-    # left (folded at ascending versions, as the group loop does), then
-    # the same with one write over the whole space
-    hmap = torch.full((n_map,), H.VERSION_NEG, dtype=torch.int32,
-                      device=device)
-    for i in range(GROUP - 1):
-        cwi = torch.rand((B,), generator=gen, device=device) < 0.97
-        G.seg_fold_plain(hmap, ranks[i][2], ranks[i][3], cwi, 3_000_000 + i)
-    wb1, we1 = ranks[GROUP - 1][2], ranks[GROUP - 1][3]
-    cw1 = torch.rand((B,), generator=gen, device=device) < 0.97
-    covered = int(G.seg_fold_plain(torch.zeros_like(hmap), wb1, we1, cw1,
-                                   1).sum())
-    log(f"  seg_fold input: {B} writes ({int(cw1.sum())} committed) "
-        f"covering {covered} of {n_map} ranks, over a map of "
-        f"{int(hmap.unique().numel())} distinct versions")
-    scratch = G.seg_fold_scratch(n_map, device)
-    painted, painted_p = hmap.clone(), hmap.clone()   # the same each call
-    entry("seg_fold",
-          lambda: G.seg_fold(painted, wb1, we1, cw1, 3_200_000, scratch),
-          lambda: G.seg_fold_plain(painted_p, wb1, we1, cw1, 3_200_000),
-          n_bytes=9 * B + 4 * covered, n_ops=2 * int(cw1.sum()) + covered,
-          detail=True)
-    wb_all, we_all, cw_all = wb1.clone(), we1.clone(), cw1.clone()
-    wb_all[0], we_all[0], cw_all[0] = 0, n_map - 1, True
-    exact("seg_fold whole-space write",
-          G.seg_fold(hmap.clone(), wb_all, we_all, cw_all, 3_200_000,
-                     scratch),
-          G.seg_fold_plain(hmap.clone(), wb_all, we_all, cw_all, 3_200_000))
-    if scratch is not None:   # the card's kernel; None on the CPU
-        exact("seg_fold scratch left zero", scratch,
-              torch.zeros_like(scratch))
+    fold_row(ledger, gen, ranks, n_map)
+    if ledger["seg_fold"]["launches_per_call"] != 1:
+        fail(f"seg_fold: {ledger['seg_fold']['launches_per_call']} launches "
+             "a call, not one")
+    probe_fold_edge_checks(device)
 
     # -- I and J: the sharded path's clip and combine at a group of 8
     #    uniform batches on 4 shards split at the keyspace quartiles
@@ -996,23 +983,201 @@ def merge_edge_checks(device) -> None:
         "exact, one launch each")
 
 
+def uniform_point_reads(gen, batch, device) -> tuple:
+    """Kernel A's probe at the uniform stream's reads: one uniform batch's
+    65,536 reads ([k, k + 2) over the 1M keyspace: point reads, one or two
+    tier keys apart) against a main tier 3/4 live (589,824 distinct keys
+    of the same keyspace), with random versions: (hist, table, rb, re)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+    from foundationdb_tpu_torch.ops import rangemax
+
+    args = batch.device_args()
+    rb, re = (interop.to_torch(args[k], device).contiguous()
+              for k in ("read_begin", "read_end"))
+    live = torch.sort(torch.randperm(KEYSPACE + 1, generator=gen,
+                                     device=device)[: 3 * M // 4]).values
+    keys = K.sentinel_like(M, W, device)
+    keys[: live.shape[0]] = int_keys(live)
+    ver = torch.randint(0, 3_000_000, (M,), generator=gen, device=device,
+                        dtype=torch.int32)
+    ver[live.shape[0]:] = H.VERSION_NEG
+    hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                            torch.zeros((), dtype=torch.bool, device=device))
+    return hist, rangemax.build_plain(ver, op="max"), rb, re
+
+
+def deciding_rows(keys, rb, re) -> int:
+    """The distinct key rows that decide a probe's answers: for each read
+    the rows on both sides of its begin's right search and of its end's
+    left search ({il, il + 1, ir, ir + 1} within the map), which any
+    search must read to know where its key falls; counted on the host."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import keys as K
+
+    il = K.searchsorted_plain(keys, rb, side="right") - 1
+    ir = K.searchsorted_plain(keys, re, side="left") - 1
+    rows = torch.cat([il, il + 1, ir, ir + 1])
+    rows = rows[(rows >= 0) & (rows < keys.shape[0])]
+    return int(torch.unique(rows).numel())
+
+
+def probe_rows(ledger: dict, long_reads: tuple, point_reads: tuple) -> None:
+    """Kernel A's probe timed at its two shapes, each exact against its
+    plain version: long reads (the `keysearch.probe` row) and the
+    uniform stream's point reads (its `uniform_point_reads` entry); each
+    a (hist, table, rb, re). The bound reads the key rows that decide the
+    reads' ends (`deciding_rows`, fewer than the tier's real rows at both
+    shapes), the reads and the table's two rows a read once, and writes
+    the output once."""
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+
+    for key, (hist, tab, rb, re) in (
+            ("keysearch.probe", long_reads),
+            ("keysearch.probe point", point_reads)):
+        m, w = hist.main_keys.shape
+        q, steps = rb.shape[0], m.bit_length()
+        il = K.searchsorted_plain(hist.main_keys, rb, side="right") - 1
+        ir = K.searchsorted_plain(hist.main_keys, re, side="left") - 1
+        span = (ir - il).clamp(min=0)
+        live = real_rows(hist.main_keys)
+        rows = deciding_rows(hist.main_keys, rb, re)
+        log(f"  {key} input: {q} reads over {m} tier rows ({live:,} real, "
+            f"{rows:,} deciding the reads' ends); ir - il: "
+            f"{int((span == 0).sum())} at 0, "
+            f"{int(((span > 0) & (span < 4)).sum())} in 1..3, "
+            f"{int((span >= 4).sum())} at 4 or more (max {int(span.max())})")
+        measure(ledger, "keysearch.probe",
+                functools.partial(H.query_reads_vmax, hist, rb, re, tab),
+                functools.partial(H.query_reads_vmax_plain, hist.main_keys,
+                                  tab, rb, re),
+                n_bytes=4 * (rows * w + 2 * q * w + 3 * q),
+                n_ops=2 * q * steps * w, key=key)
+        ledger[key]["real_rows"] = live
+        ledger[key]["deciding_rows"] = rows
+    ledger["keysearch.probe"]["uniform_point_reads"] = ledger.pop(
+        "keysearch.probe point")
+
+
+def fold_row(ledger: dict, gen, ranks: list, n_map: int) -> None:
+    """Kernel H timed at a classic group of 8's shape: the last batch's
+    committed writes painted over the map batches 0 .. 6 left (folded at
+    ascending versions, as the group loop does), exact against its plain
+    version in place; then the same with one write over the whole space,
+    and the scratch left zero."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import history as H
+
+    device = ranks[0][0].device
+    hmap = torch.full((n_map,), H.VERSION_NEG, dtype=torch.int32,
+                      device=device)
+    for i in range(GROUP - 1):
+        cwi = torch.rand((B,), generator=gen, device=device) < 0.97
+        G.seg_fold_plain(hmap, ranks[i][2], ranks[i][3], cwi, 3_000_000 + i)
+    wb1, we1 = ranks[GROUP - 1][2], ranks[GROUP - 1][3]
+    cw1 = torch.rand((B,), generator=gen, device=device) < 0.97
+    covered = int(G.seg_fold_plain(torch.zeros_like(hmap), wb1, we1, cw1,
+                                   1).sum())
+    log(f"  seg_fold input: {B} writes ({int(cw1.sum())} committed) "
+        f"covering {covered} of {n_map} ranks, over a map of "
+        f"{int(hmap.unique().numel())} distinct versions")
+    scratch = G.seg_fold_scratch(n_map, device)
+    painted, painted_p = hmap.clone(), hmap.clone()   # the same each call
+    measure(ledger, "seg_fold",
+            lambda: G.seg_fold(painted, wb1, we1, cw1, 3_200_000, scratch),
+            lambda: G.seg_fold_plain(painted_p, wb1, we1, cw1, 3_200_000),
+            n_bytes=9 * B + 4 * covered, n_ops=2 * int(cw1.sum()) + covered,
+            detail=True)
+    wb_all, we_all, cw_all = wb1.clone(), we1.clone(), cw1.clone()
+    wb_all[0], we_all[0], cw_all[0] = 0, n_map - 1, True
+    exact("seg_fold whole-space write",
+          G.seg_fold(hmap.clone(), wb_all, we_all, cw_all, 3_200_000,
+                     scratch),
+          G.seg_fold_plain(hmap.clone(), wb_all, we_all, cw_all, 3_200_000))
+    if scratch is not None:   # the card's kernel; None on the CPU
+        exact("seg_fold scratch left zero", scratch,
+              torch.zeros_like(scratch))
+
+
+def probe_fold_edge_checks(device) -> None:
+    """Kernels A's probe and H exact against their plain versions on
+    every case of testing/probe_cases (the probe at W = 3 and 5: reads at
+    and across the fence rows, point reads, reads past the window,
+    inverted reads inside and across segments, the tier's ends and
+    sentinels, dead rows, empty reads, a full tier, duplicate keys, a
+    tier wholly in the fence; the fold: inverted committed writes over
+    normal ones, a write over the whole space, rank n, empty and
+    uncommitted rows, every width class, the wide list full and at its
+    most, the paint budget passed, negative ranks, the bench shape), one
+    launch a call, the fold in place with its scratch left zero."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import rangemax
+    from foundationdb_tpu_torch.testing import probe_cases as PC
+
+    def one_launch(name, tag, before):
+        if kernels.COUNTS[name] - before != 1:
+            fail(f"{tag}: {kernels.COUNTS[name] - before} launches, not one")
+
+    for name in PC.PROBE_NAMES:
+        for w in (3, 5):
+            c = PC.probe_case(name, w)
+            keys, ver, rb, re = (torch.from_numpy(x).to(device) for x in c)
+            tab = rangemax.build_plain(ver, op="max")
+            hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                                    torch.zeros((), dtype=torch.bool,
+                                                device=device))
+            before = kernels.COUNTS["keysearch.probe"]
+            got = H.query_reads_vmax(hist, rb, re, tab)
+            one_launch("keysearch.probe", f"probe {name} W={w}", before)
+            exact(f"keysearch.probe {name} W={w}", got,
+                  H.query_reads_vmax_plain(keys, tab, rb, re))
+    for name in PC.FOLD_NAMES:
+        c = PC.fold_case(name)
+        seg, wb, we, cw = (torch.from_numpy(x).to(device) for x in c[:4])
+        scratch = G.seg_fold_scratch(seg.shape[0], device)
+        got = seg.clone()
+        before = kernels.COUNTS["seg_fold"]
+        if G.seg_fold(got, wb, we, cw, c.version, scratch) is not got:
+            fail(f"seg_fold {name}: not in place")
+        one_launch("seg_fold", f"seg_fold {name}", before)
+        exact(f"seg_fold {name} ({PC.FOLD_PATH[name]})", got,
+              G.seg_fold_plain(seg.clone(), wb, we, cw, c.version))
+        exact(f"seg_fold {name} scratch left zero", scratch,
+              torch.zeros_like(scratch))
+    log(f"  keysearch.probe on {len(PC.PROBE_NAMES)} edge cases at W = 3 and "
+        f"5, seg_fold on {len(PC.FOLD_NAMES)}: exact, one launch each")
+
+
 def _launch_bytes(entry: str, a: list) -> int:
     """The bytes one launch of a C entry point must move, from its
     arguments as kernels.launch gets them: its inputs read once and its
     outputs written once, as the phase-2 bounds count them, leaving out
-    what depends on the data (a query's partial chunks, the ranks a fold
-    paints, the distinct rows of a dedup), so it is a floor, except for
-    mm_merge: its rows are known on the card only, so both maps count
-    whole, sentinel tails too, an upper figure for that entry."""
+    what depends on the data (a query's partial chunks, the distinct rows
+    of a dedup, the key rows that decide a probe's reads), so it is a
+    floor, except for mm_merge: its rows are
+    known on the card only, so both maps count whole, sentinel tails too,
+    an upper figure for that entry. sf_fold counts 9 B a write here and 4
+    B a rank it covers when launch_totals() is read (its writes are kept
+    until then, so the count syncs no run)."""
     if entry == "ks_search":             # keys, m, w, queries, q, ...
         m, w, q = a[1], a[2], a[4]
         return 4 * (m * w + q * w + q)
     if entry == "ks_query":              # table, levels, m, lo, hi, q, ...
         return 4 * 5 * a[5]
     if entry == "ks_probe":              # keys, m, w, table, levels, rb,
-        m, w, q = a[1], a[2], a[7]       # re, q, out
-        touched = min(m * w, 2 * q * (m.bit_length() + 1) * w)
-        return 4 * (touched + 2 * q * w + 3 * q)
+        w, q = a[2], a[7]                # re, q, out
+        return 4 * (2 * q * w + 3 * q)
     if entry == "rm_build":              # values, table, m, levels, ...
         return 4 * a[2] * (1 + a[3])
     if entry == "mc_cover":              # lo, hi, val, n, leaves, table
@@ -1040,13 +1205,14 @@ def _launch_bytes(entry: str, a: list) -> int:
         return 4 * a[1] * (a[2] - 1)
     if entry == "rm2_query":             # ..., lo, hi, q (8), ...
         return 12 * a[8]
-    if entry == "sf_scatter":            # wb, we, cw, nw, ...
+    if entry == "sf_fold":               # wb, we, cw, nw, n, ...
+        LAUNCH_BYTES["covered"].append((a[0], a[1], a[2], a[4]))
         return 9 * a[3]
     if entry == "sc_clip":
         return clip_bytes(*(a[i] for i in (2, 3, 8, 9, 13, 14)))
     if entry == "sc_combine":            # ..., s (6), gn, b, nr
         return combine_bytes(*a[6:10])
-    return 0  # sf_scan_sums, sf_paint
+    return 0
 
 
 def clip_bytes(s: int, w: int, gn: int, nr: int, nw: int, b: int) -> int:
@@ -1063,8 +1229,10 @@ def combine_bytes(s: int, gn: int, b: int, nr: int) -> int:
     return (s + 1) * gn * (8 * b + nr + 1) + s + gn * b + 1 + 12 * gn
 
 
-#: the byte floor of every launch since reset_launches()
-LAUNCH_BYTES = {"total": 0}
+#: the byte floor of every launch since reset_launches(), and the
+#: (wb, we, cw, n) of every sf_fold launch, whose covered ranks
+#: launch_totals() adds
+LAUNCH_BYTES = {"total": 0, "covered": []}
 
 
 def count_launch_bytes() -> None:
@@ -1089,12 +1257,21 @@ def reset_launches() -> None:
 
     kernels.reset_counts()
     LAUNCH_BYTES["total"] = 0
+    LAUNCH_BYTES["covered"].clear()
 
 
 def launch_totals() -> tuple:
     """(launches per kernel, the byte floor of those launches)."""
-    from foundationdb_tpu_torch import kernels
+    import torch
 
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import group as G
+
+    for wb, we, cw, n in LAUNCH_BYTES["covered"]:
+        flags = torch.zeros((n,), dtype=torch.int32, device=wb.device)
+        LAUNCH_BYTES["total"] += 4 * int(
+            G.seg_fold_plain(flags, wb, we, cw, 1).sum())
+    LAUNCH_BYTES["covered"].clear()
     return kernels.counts(), LAUNCH_BYTES["total"]
 
 
@@ -1348,6 +1525,14 @@ SHORT_SPAN_ONLY = ("short_span.range", "short_span.cover")
 #: each is in launches_per_call)
 OFF_PATH = ("merge_writes", "rangemax4.build", "rangemax4.query",
             "rangemax4.cover")
+
+
+def one_fold_a_batch(tag: str, launches: dict, n_batches: int) -> None:
+    """Kernel H is one launch a call, and the group kernel folds each
+    batch once: its launches must equal the batches."""
+    if launches["seg_fold"] != n_batches:
+        fail(f"seg_fold: {launches['seg_fold']} launches over the {tag} "
+             f"path's {n_batches} batches, not one a batch")
 
 
 def require_launched(tag: str, launches: dict, unused=()) -> None:
@@ -1735,6 +1920,7 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     require_launched("classic uniform", launches,
                      ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
                       *SHORT_SPAN_ONLY, *OFF_PATH))
+    one_fold_a_batch("classic uniform", launches, len(batches))
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} "
         f"(history {cfg.history_capacity}, no delta tier); launches: "
         f"{launches}")
@@ -2127,6 +2313,7 @@ def phase_short_span(device, uni, ycsb, tiered_ref: dict,
     for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
         if c_launches[name]:
             fail(f"{name}: launched on the short-span classic path")
+    one_fold_a_batch("short-span classic", c_launches, len(uni))
     cpu = make_conflict_set(ccfg, "cuda", device="cpu")
     t1 = time.perf_counter()
     same_fields("short-span classic group 0 vs the CPU plain path",
@@ -2608,6 +2795,46 @@ def time_merge(device) -> dict:
     return ledger
 
 
+def time_probe_fold(device) -> dict:
+    """Kernels A's probe and H alone at the resolver path's shapes, as
+    phase 2 times them (`probe_rows`: long reads and the uniform stream's
+    point reads against a 786,432-row tier; `fold_row`: a classic group
+    of 8's 2,097,152 ranks), on inputs made as phase 2 makes them from a
+    seed of its own. Run from another checkout's root (a copy of this
+    script there) it times that tree's kernels."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+    from foundationdb_tpu_torch.ops import rangemax
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261020)
+    main_keys, n_main = random_sorted_keys(gen, 3 * M // 4, M, device)
+    ver = torch.randint(-5_000_000, 5_000_000, (M,), generator=gen,
+                        device=device, dtype=torch.int32)
+    begin = torch.randint(0, 1 << 40, (B,), generator=gen, device=device)
+    rb = int_keys(begin)
+    rb[: B // 4] = main_keys[torch.randint(0, n_main, (B // 4,),
+                                           generator=gen, device=device)]
+    re = int_keys(begin + torch.randint(1, 1 << 30, (B,), generator=gen,
+                                        device=device))
+    re[: B // 4] = main_keys[torch.randint(0, n_main, (B // 4,),
+                                           generator=gen, device=device)]
+    inv = K.lex_less(re, rb)[:, None]
+    rb, re = (torch.where(inv, re, rb).contiguous(),
+              torch.where(inv, rb, re).contiguous())
+    hist = H.VersionHistory(main_keys, ver, H.VERSION_NEG,
+                            torch.zeros((), dtype=torch.bool, device=device))
+    uni = uniform_stream(bench_config(B), GROUP)
+    ledger = {}
+    probe_rows(ledger, (hist, rangemax.build_plain(ver, op="max"), rb, re),
+               uniform_point_reads(gen, uni[0], device))
+    ranks, n_map = group_ranks(uni, device)
+    fold_row(ledger, gen, ranks, n_map)
+    return ledger
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2633,7 +2860,9 @@ def main(argv=None) -> int:
     build_summary(built)
     alone = {"--build-cover": ("kernels B and C alone", "build_cover",
                                time_build_cover),
-             "--merge": ("kernel D alone", "merge", time_merge)}
+             "--merge": ("kernel D alone", "merge", time_merge),
+             "--probe-fold": ("kernels A's probe and H alone", "probe_fold",
+                              time_probe_fold)}
     if len(argv) == 1 and argv[0] in alone:
         title, key, timed = alone[argv[0]]
         heading(title)
@@ -2677,9 +2906,9 @@ def main(argv=None) -> int:
     heading("11. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
-        f"sessions taken again {len(RETAKES)}, sessions that lost opening "
-        f"spin kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)}"
-        f" of {WARM_KERNELS})")
+        f"sessions taken again {len(RETAKES)}, sessions that lost spin "
+        f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
+        f"{WARM_KERNELS + LATE_KERNELS})")
 
     # each kernel's launches on the path that runs it, counted from 0
     path_of = {"read_dedup": hot, "sweep_ranks": scan,

@@ -93,12 +93,8 @@ _SIGNATURES = {
                   [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P]),
     # n -> scratch words (no stream: a host query, see size())
     "sf_scratch_words": ("seg_fold", [_I]),
-    # wb, we, cw, nw, n, scratch, stream
-    "sf_scatter": ("seg_fold", [_P, _P, _P, _I, _I, _P, _P]),
-    # scratch, n, stream
-    "sf_scan_sums": ("seg_fold", [_P, _I, _P]),
-    # scratch, n, version, seg_ver, stream
-    "sf_paint": ("seg_fold", [_P, _I, _I, _P, _P]),
+    # wb, we, cw, nw, n, version, seg_ver, scratch, stream
+    "sf_fold": ("seg_fold", [_P, _P, _P, _I, _I, _I, _P, _P, _P]),
     # lo, hi, n_shards, w, rb, re, rv, rtxn, gn, nr, wb, we, wv, nw, b,
     # orb, ore, orv, owb, owe, owv, has_reads, stream
     "sc_clip": ("shard_clip",

@@ -8,15 +8,49 @@
 //   query   K3 ops/rangemax.py:71 query;
 //   probe   K4 ops/history.py:77 query_reads_vmax: il = search_right(rb)-1,
 //           ir = search_left(re)-1, then a max query over [max(il,0), ir+1).
-//           A full search for `re` gives the same ir as the JAX 4-boundary
-//           window with its fallback on every live read.
 //
-// Bound on this card: a search reads ~log2(M) rows per query from a key
-// array that fits the 50 MB L2 (786,432 x 3 words = 9.4 MB at bench
-// shape), so the cost is dependent-load latency, not bandwidth. Design:
-// one thread per query, the query key held in registers, compare as
-// uint32 word by word; many queries in flight hide the latency. The
-// table query is two gathers per query.
+// Bound on this card, search and query: a search reads ~log2(M) rows per
+// query from a key array that fits the 50 MB L2 (786,432 x 3 words =
+// 9.4 MB at bench shape), so the cost is dependent-load latency, not
+// bandwidth. Design: one thread per query, the query key held in
+// registers, compare as uint32 word by word; many queries in flight hide
+// the latency. The table query is two gathers per query.
+//
+// The probe's byte floor is the key rows that decide its reads' ends (the
+// rows on both sides of each end, chip_smoke.py's deciding_rows), the
+// reads and the output, each read or written once. The first design ran
+// two full searches a read, ~20 steps each, each step's row compare
+// issuing its W word loads one after another (less_rm's early exit): 17.7
+// us at long reads, 19.2 at the uniform stream's point reads (an H100,
+// chip_smoke.py --probe-fold). Every warp of a batch is resident at once,
+// and a step's uncoalesced loads cost the L1 one pass per distinct line
+// each (kernels/phase_trace.py --kernel keysearch_probe: a step in global
+// memory ~0.35 us with every warp of the SM issuing); so this design cuts
+// the passes a read makes:
+//   fence   each block stages every 2^s-th row of the tier (the fence, at
+//           most kFenceBytes: s = 10 at 786,432 x 3 words, 768 rows, 9
+//           KB) in shared memory by 4-byte cp.async, once, and strides
+//           over its reads; the top levels of a search run there, then at
+//           most s steps in global memory, each loading its row as the
+//           16-byte chunks that hold it (1.5 loads a row at W = 3, in
+//           place of 3). A sentinel tail costs nothing: its rows are
+//           fence rows like any other. A larger fence stages longer than
+//           it saves (24 and 48 KB measured slower at both shapes);
+//   window  the end from the begin: for rb < re every row up to il is
+//           <= rb < re, so search_left(re) >= il + 1, and re's fence
+//           count comes by a gallop from rb's. Where no fence row lies
+//           between (a point read: always), the kWindow rows after il
+//           (the JAX program's 4-boundary window) are loaded in one go
+//           and one of them >= re is the answer; past them, the rest of
+//           that bucket. Otherwise re's own bucket, from il + 1 on. Reads
+//           with re <= rb (inverted or empty, and the all-ones dead rows)
+//           take the full search for re, which keeps the plain formula's
+//           answer for them exactly (an inverted read strictly inside one
+//           segment returns that segment's version; elsewhere the window
+//           is empty);
+//   gather  the table's two loads, issued together.
+// The passes, not the latency, bound it: a read's two bucket searches run
+// in one loop, their loads in flight together, measured no faster.
 
 #include "common.cuh"
 
@@ -60,20 +94,218 @@ __global__ void query_kernel(const int32_t* __restrict__ table, int levels,
   out[i] = table_query<MIN>(table, levels, m, lo[i], hi[i]);
 }
 
+// ---------------------------------------------------------------------------
+// the probe
+
+#ifndef FDB_MARK
+#define FDB_MARK(k)  // phase_trace.py's %globaltimer marks; none here
+#endif
+
+constexpr int kProbeThreads = 512;
+constexpr int kFenceBytes = 12 * 1024;    // the fence's most bytes
+constexpr int kWindow = 4;                // rows after il loaded at once
+
+// a < b for W-word keys in registers, every word compared (no branch)
 template <int W>
-__global__ void probe_kernel(const uint32_t* __restrict__ keys, int m,
-                             const int32_t* __restrict__ table, int levels,
-                             const uint32_t* __restrict__ rb,
-                             const uint32_t* __restrict__ re, int q,
-                             int32_t* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  uint32_t k[W];
-  load_key<W>(k, rb + static_cast<size_t>(i) * W);
-  int il = search<W, true>(keys, m, k) - 1;
-  load_key<W>(k, re + static_cast<size_t>(i) * W);
-  int ir = search<W, false>(keys, m, k) - 1;
-  out[i] = table_query<false>(table, levels, m, max(il, 0), ir + 1);
+__device__ __forceinline__ bool lt_rr(const uint32_t (&a)[W],
+                                      const uint32_t (&b)[W]) {
+  bool lt = false;
+#pragma unroll
+  for (int i = W - 1; i >= 0; --i)
+    lt = a[i] < b[i] ? true : (a[i] > b[i] ? false : lt);
+  return lt;
+}
+
+// The search's predicate on a row: true while the answer lies past it.
+template <int W, bool RIGHT>
+__device__ __forceinline__ bool past(const uint32_t (&row)[W],
+                                     const uint32_t (&q)[W]) {
+  return RIGHT ? !lt_rr<W>(q, row) : lt_rr<W>(row, q);
+}
+
+template <int W>
+__device__ __forceinline__ void fence_row(uint32_t (&r)[W],
+                                          const uint32_t* fence, int j) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) r[i] = fence[j * W + i];
+}
+
+// Words [p, p + n) (n <= N) from the aligned 16-byte chunks that hold
+// them: ceil((p % 16 + 4n) / 16) vector loads in place of n word loads
+// (an uncoalesced load costs the L1 a pass per distinct line whatever its
+// width, so wide ones cost fewer passes). A chunk holding a word of the
+// tensor lies within its allocation.
+template <int N>
+__device__ __forceinline__ void ld_words(uint32_t (&out)[N],
+                                         const uint32_t* p, int n) {
+  constexpr int kChunks = (N + 6) / 4;  // the most N words can touch
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* c = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
+  const int off = static_cast<int>((a >> 2) & 3);
+  const int need = n > 0 ? (off + n + 3) >> 2 : 0;
+  uint32_t buf[4 * kChunks];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (i < need) v = __ldg(c + i);
+    buf[4 * i] = v.x;
+    buf[4 * i + 1] = v.y;
+    buf[4 * i + 2] = v.z;
+    buf[4 * i + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    out[i] = off == 0 ? buf[i]
+                      : off == 1 ? buf[i + 1]
+                                 : off == 2 ? buf[i + 2] : buf[i + 3];
+}
+
+template <int W>
+__device__ __forceinline__ void ld_row(uint32_t (&r)[W], const uint32_t* p) {
+  ld_words<W>(r, p, W);
+}
+
+// 4 bytes from device memory (L2) to shared memory, asynchronously
+__device__ __forceinline__ void copy4(uint32_t* dst, const uint32_t* src) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The first fence row in [lo, hi) the predicate fails on, or hi.
+template <int W, bool RIGHT>
+__device__ __forceinline__ int fence_search(const uint32_t* fence, int lo,
+                                            int hi, const uint32_t (&q)[W]) {
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    uint32_t row[W];
+    fence_row<W>(row, fence, mid);
+    if (past<W, RIGHT>(row, q)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The rows' bucket after c passed fence rows: ((c-1) << s, min(c << s,
+// m)] holds the search's answer, or it is 0 when c = 0; as [lo, hi].
+__device__ __forceinline__ void bucket_of(int c, int shift, int m, int& lo,
+                                          int& hi) {
+  lo = c == 0 ? 0 : ((c - 1) << shift) + 1;
+  hi = c == 0 ? 0 : min(c << shift, m);
+}
+
+// The first row of [lo, hi) the predicate fails on, or hi (which the
+// caller knows to be the answer when every row before it passes).
+template <int W, bool RIGHT>
+__device__ __forceinline__ int bucket_search(const uint32_t* __restrict__ keys,
+                                             int lo, int hi,
+                                             const uint32_t (&q)[W]) {
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    uint32_t row[W];
+    ld_row<W>(row, keys + static_cast<size_t>(mid) * W);
+    if (past<W, RIGHT>(row, q)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kProbeThreads)
+    probe_kernel(const uint32_t* __restrict__ keys, int m,
+                 const int32_t* __restrict__ table, int levels,
+                 const uint32_t* __restrict__ rb,
+                 const uint32_t* __restrict__ re, int q,
+                 int32_t* __restrict__ out, int shift, int nf) {
+  extern __shared__ uint32_t fence[];
+  FDB_MARK(0)
+  for (int i = threadIdx.x; i < nf * W; i += blockDim.x) {
+    int j = i / W;
+    copy4(fence + i, keys + (static_cast<size_t>(j) << shift) * W + (i - j * W));
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  FDB_MARK(1)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < q;
+       i += gridDim.x * blockDim.x) {
+    uint32_t kb[W], ke[W];
+    ld_row<W>(kb, rb + static_cast<size_t>(i) * W);
+    ld_row<W>(ke, re + static_cast<size_t>(i) * W);
+    // il: the begin's right search, the fence then its bucket
+    const int c = fence_search<W, true>(fence, 0, nf, kb);
+    int lo, hi;
+    bucket_of(c, shift, m, lo, hi);
+    FDB_MARK(2)
+    const int first = bucket_search<W, true>(keys, lo, hi, kb);  // il + 1
+    FDB_MARK(3)
+    // ir + 1 = search_left(re). For rb < re every row before `first` is
+    // <= rb < re, so it is >= first, and the fence rows before c are
+    // passed: re's fence count fc comes by a gallop from c (a read's end
+    // lies few fence rows past its begin). fc == c: no fence row between,
+    // so the answer is in [first, min(c << s, m)]: the window, then the
+    // rest of that bucket. Otherwise re's own bucket, from `first` on.
+    // For re <= rb the full search from the fence. Each search has one
+    // call site, so the warp's lanes step through it together whichever
+    // case each is in.
+    const bool fwd = lt_rr<W>(kb, ke);
+    int from = 0, to = nf;  // for rb < re, fence rows [c, from) are < re
+    if (fwd) {
+      from = c;
+      for (int step = 1;; step <<= 1) {
+        int j = c + step - 1;
+        if (j >= nf) break;
+        uint32_t row[W];
+        fence_row<W>(row, fence, j);
+        if (!lt_rr<W>(row, ke)) { to = j; break; }
+        from = j + 1;
+      }
+    }
+    const int fc = fence_search<W, false>(fence, from, to, ke);
+    if (fwd && fc == c) {
+      const int rows = min(kWindow, m - first);
+      uint32_t win[kWindow * W];
+      ld_words<kWindow * W>(win, keys + static_cast<size_t>(first) * W,
+                            max(rows, 0) * W);
+      int cnt = 0;
+#pragma unroll
+      for (int k = 0; k < kWindow; ++k) {
+        uint32_t row[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) row[w] = win[k * W + w];
+        cnt += (k < rows && lt_rr<W>(row, ke)) ? 1 : 0;
+      }
+      lo = first + cnt;  // the answer, unless past the window
+      hi = cnt < kWindow ? lo : c == nf ? m : min(c << shift, m);
+    } else {
+      bucket_of(fc, shift, m, lo, hi);
+      if (fwd) lo = max(lo, first);
+    }
+    const int p = bucket_search<W, false>(keys, lo, hi, ke);
+    FDB_MARK(4)
+    out[i] = table_query<false>(table, levels, m, max(first - 1, 0), p);
+    FDB_MARK(5)
+  }
+}
+
+// The fence's shift s: the least with ceil(m / 2^s) rows of W words
+// within kFenceBytes.
+int fence_shift(int m, int w) {
+  int s = 0;
+  while (((static_cast<long long>(m) + (1LL << s) - 1) >> s) * w * 4 >
+         kFenceBytes)
+    ++s;
+  return s;
+}
+
+int probe_blocks(int q) {
+  static const int most = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+    return 2 * sms;
+  }();
+  long long want = (q + kProbeThreads - 1LL) / kProbeThreads;
+  return static_cast<int>(most > 0 && want > most ? most : want);
 }
 
 }  // namespace
@@ -120,8 +352,13 @@ int ks_probe(const void* keys, int m, int w, const void* table, int levels,
   auto b = static_cast<const uint32_t*>(rb);
   auto e = static_cast<const uint32_t*>(re);
   auto o = static_cast<int32_t*>(out);
-  FDB_DISPATCH_W(w, probe_kernel<W><<<blocks_for(q), kThreads, 0, s>>>(
-      k, m, t, levels, b, e, q, o));
+  const int shift = fence_shift(m, w);
+  const int nf = static_cast<int>((m + (1LL << shift) - 1) >> shift);
+  const size_t smem = static_cast<size_t>(nf) * w * 4;
+  FDB_DISPATCH_W(w, {
+    probe_kernel<W><<<probe_blocks(q), kProbeThreads, smem, s>>>(
+        k, m, t, levels, b, e, q, o, shift, nf);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,201 +1,300 @@
 // Kernel H: seg_fold — paint one batch's committed writes into the group's
-// running map of committed-write versions.
+// running map of committed-write versions, in one launch.
 //
 // Replaces K14's fold, foundationdb_tpu/ops/group.py:588-597:
 //   dd      = zeros(n + 1).at[where(cw, rank_wb, n)].add(1)
 //                         .at[where(cw, rank_we, n)].add(-1)[:n]
 //   covered = cumsum(dd) > 0
 //   seg_ver = where(covered, version, seg_ver)
-// over the group-wide ranks of the batch's write ends. It is a `where`,
-// not a max: the two agree only because versions ascend through a group,
-// and the JAX program writes `where`. Three launches around one int32
-// scratch buffer of sf_scratch_words(n) words (the difference array, n,
-// then COPIES rows of one partial block sum per tile of TILE ranks). The
-// buffer is zero on entry and each launch zeroes what it consumed, so it
-// is zero again on exit: the caller zeroes it once and reuses it for every
-// fold of a group.
-//
-//   sf_scatter   one thread per write: for a committed live write,
-//                atomicAdd +1 at rank_wb and -1 at rank_we into the
-//                difference array, and the same into the block sums of
-//                the tiles that hold those ranks (rank n, past the map, is
-//                the dropped slot of the JAX scatter, and is skipped). Each
-//                tile keeps COPIES partial sums and lane j of a warp adds
-//                into copy j: a batch's 131,072 block-sum atomics land on
-//                512 tiles at bench shape, and on one counter per tile they
-//                queued 256 deep (39.5 us of the first version's 49.9 us on
-//                an H100, chip_smoke.py phase 2); over 32 copies, 8 deep;
-//   sf_scan_sums one block: each tile's copies summed (row by row, so the
-//                block's loads are coalesced; rows 1.. zeroed where they
-//                were not) and the tile sums turned into exclusive prefixes
-//                (written over row 0), a chunk of 1024 tiles at a time with
-//                a carry (the second pass over the block sums);
-//   sf_paint     one block per tile: the tile's difference entries loaded
-//                coalesced into shared memory (and zeroed where they were
-//                not), a block scan written out by hand (16 consecutive
-//                items per thread, then warp shuffles, then the eight warp
-//                totals), offset by the tile's prefix (then zeroed); where
-//                the running count is > 0 the kernel writes `version` into
-//                seg_ver IN PLACE (coalesced, from the shared flags):
-//                seg_ver is the caller's per-group running map, so no copy
-//                of it is made.
-//
-// The counts are exact int32 sums for any write width, including one write
-// covering the whole group space (a count is at most the batch's write
-// count, 65,536 at bench shape, far inside int32).
+// over the group-wide ranks of the batch's write ends (clamped to [0, n];
+// rank n is the dropped slot). It is a `where`, not a max: the two agree
+// only because versions ascend through a group, and the JAX program
+// writes `where`. seg_ver is painted IN PLACE: it is the caller's
+// per-group running map, so no copy of it is made.
 //
 // Bound on this card: bytes. What the function needs is the writes' two
 // ranks and flag (9 B per write) and a write of every rank they cover
-// (4 B per covered rank). The design moves more: it reads the whole
-// difference array (4 B per rank of the map) and writes back the entries
-// it found non-zero, so at bench shape, where most writes cover one rank,
-// it is far from that bound. Design: atomics instead of the sorted
-// scatter XLA needed on its platform; one pass of the difference array
-// for the scan (the block sums come from the scatter's atomics, not from
-// a reduction pass), shared memory padded one word in 32 so the per-thread
-// runs read it without bank conflicts; no zeroing pass of its own.
+// (4 B per covered rank): 0.31 us at bench shape (65,536 writes, most of
+// them one rank, over a group of 8's 2,097,152 ranks). The first design
+// (three launches: atomics into a difference array, a scan of its block
+// sums, a pass over all n ranks) read the whole 8 MB difference array
+// whatever the writes covered.
+//
+// Design: ONE cooperative launch whose work follows the covered ranks.
+// Every committed row of one fold paints the same version, so writes that
+// overlap store the same word and need no order; each write can paint its
+// own [wb, we) directly. That equals the JAX count exactly unless some
+// committed row is inverted (clamp(wb) > clamp(we): it adds -1 over
+// [we, wb) and cancels the other writes' coverage there). So:
+//   survey  a thread per write: any committed inverted row sets a flag;
+//           the painted ranks are summed; a write wider than kGridSpan
+//           goes on a short list in the scratch; then one grid sync;
+//   paint   no inverted row, at most kMaxWide wide writes and at most
+//           2n painted ranks: each write of up to kThreadSpan ranks is
+//           painted by its thread, a longer one by its warp (the lanes
+//           take its ranks in turn, coalesced), and each wide one by
+//           the whole grid (a write over the whole space is 2,097,152
+//           ranks: no one warp serialises the launch);
+//   count   otherwise, the JAX semantics over every rank, in the same
+//           launch: atomics into the difference array and its tiles'
+//           sums, a grid sync, each tile's offset summed from the tile
+//           sums before it, a block scan of the tile, and seg_ver
+//           painted where the running count is > 0.
+// The scratch (sf_scratch_words(n) int32 words: a header, the wide list,
+// the tile sums, the difference array) is zero on entry and zero again on
+// exit: the count zeroes each difference entry it reads, and the last
+// block out (a counter in the header) zeroes the header, the wide list and
+// the tile sums, after every block has read them. The caller zeroes it once and reuses it
+// for every fold of a group; the paint never touches its tail.
+// On an H100 at bench shape (kernels/phase_trace.py --kernel seg_fold) the
+// survey takes ~0.9 us, the grid sync ~1.0, the paint ~1.1 and the last
+// block's reset ~0.8: 6.1 us of device time against the three launches'
+// 13.4. The count, which no resolver path's ranks reach (they are never
+// inverted), takes ~37 us there.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+#ifndef FDB_MARK
+#define FDB_MARK(k)  // phase_trace.py's %globaltimer marks; none here
+#endif
 
 namespace {
 
 using namespace fdb;
+namespace cg = cooperative_groups;
 
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;  // 4096 ranks per block
-constexpr int kScanThreads = 512;  // 128 registers a thread: 32 copies held
-constexpr int kCopies = 32;  // partial block sums per tile
+constexpr int kFoldThreads = 512;
+constexpr int kItems = 8;
+constexpr int kTile = kFoldThreads * kItems;  // ranks a block counts at once
+constexpr int kThreadSpan = 16;   // a thread paints a write up to this wide
+constexpr int kGridSpan = 1 << 15;  // wider: the whole grid paints it
+constexpr int kMaxWide = 128;     // wide writes the paint takes
+// header words: painted ranks (uint64, words 0-1), inverted flag, wide
+// count, blocks done
+constexpr int kPainted = 0, kInverted = 2, kWide = 3, kDone = 4;
+constexpr int kHeader = 8;
 
-int tiles(int n) { return static_cast<int>((n + (kTile - 1LL)) / kTile); }
-
-__host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
-
-__global__ void scatter_kernel(const int32_t* __restrict__ wb,
-                               const int32_t* __restrict__ we,
-                               const uint8_t* __restrict__ cw, int nw, int n,
-                               int nb, int32_t* __restrict__ diff,
-                               int32_t* __restrict__ block_sums) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nw || !cw[j]) return;
-  int b = min(max(wb[j], 0), n);
-  int e = min(max(we[j], 0), n);
-  int32_t* row = block_sums + static_cast<size_t>(j & (kCopies - 1)) * nb;
-  if (b < n) {
-    atomicAdd(diff + b, 1);
-    atomicAdd(row + b / kTile, 1);
-  }
-  if (e < n) {
-    atomicAdd(diff + e, -1);
-    atomicAdd(row + e / kTile, -1);
-  }
+__host__ __device__ inline long long tiles(int n) {
+  return (n + (kTile - 1LL)) / kTile;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-    scan_sums_kernel(int32_t* __restrict__ sums, int nb) {
+__device__ __forceinline__ int clamp_rank(int r, int n) {
+  return min(max(r, 0), n);
+}
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+    fold_kernel(const int32_t* __restrict__ wb, const int32_t* __restrict__ we,
+                const uint8_t* __restrict__ cw, int nw, int n,
+                int32_t version, int32_t* __restrict__ seg_ver,
+                int32_t* __restrict__ scratch) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ long long warp_part[kFoldThreads / 32];
   __shared__ int warp_sums[32];
-  int carry = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int v = 0;
-    if (i < nb) {
-      // every load issued before any store, so the 32 are in flight at once
-      int x[kCopies];
-#pragma unroll
-      for (int c = 0; c < kCopies; ++c)
-        x[c] = sums[static_cast<size_t>(c) * nb + i];
-#pragma unroll
-      for (int c = 0; c < kCopies; ++c) v += x[c];
-#pragma unroll
-      for (int c = 1; c < kCopies; ++c)  // leave the scratch zero
-        if (x[c]) sums[static_cast<size_t>(c) * nb + i] = 0;
+  __shared__ int flag;
+  auto* painted = reinterpret_cast<unsigned long long*>(scratch + kPainted);
+  int* wide = scratch + kHeader;
+  int* tile_sum = wide + kMaxWide;
+  int* diff = tile_sum + tiles(n);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long gtid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+  const long long gthreads = static_cast<long long>(gridDim.x) * blockDim.x;
+
+  // -- 1. survey --------------------------------------------------------
+  FDB_MARK(0)
+  long long span = 0;
+  int inverted = 0;
+  int b0 = 0, e0 = 0;  // this thread's first write (empty: none, or not
+                       // committed), kept for the paint
+  for (long long j = gtid; j < nw; j += gthreads) {
+    if (!cw[j]) continue;
+    int b = clamp_rank(wb[j], n), e = clamp_rank(we[j], n);
+    if (j == gtid) b0 = b, e0 = e;
+    if (b > e) inverted = 1;
+    if (e > b) {
+      span += e - b;
+      if (e - b > kGridSpan) {
+        int k = atomicAdd(scratch + kWide, 1);
+        if (k < kMaxWide) wide[k] = static_cast<int>(j);
+      }
     }
-    int total;
-    int incl = block_inclusive_scan(v, warp_sums, &total);
-    if (i < nb) sums[i] = carry + incl - v;  // exclusive prefix, row 0
-    carry += total;
   }
+  span = warp_sum(span);
+  if (lane == 0) warp_part[warp] = span;
+  inverted = __syncthreads_or(inverted);
+  if (threadIdx.x == 0) {
+    long long s = 0;
+    for (int i = 0; i < kFoldThreads / 32; ++i) s += warp_part[i];
+    if (s) atomicAdd(painted, static_cast<unsigned long long>(s));
+    if (inverted) atomicExch(scratch + kInverted, 1);
+  }
+  FDB_MARK(1)
+  grid.sync();
+  FDB_MARK(2)
+  const int n_wide = __ldcg(scratch + kWide);
+  const bool direct = __ldcg(scratch + kInverted) == 0 &&
+                      n_wide <= kMaxWide &&
+                      __ldcg(painted) <= 2ull * static_cast<unsigned>(n);
+
+  if (direct) {
+    // -- 2. paint: a thread, a warp or the grid per write ---------------
+    const long long step = gthreads;
+    for (long long j0 = gtid - lane; j0 < nw; j0 += step) {
+      long long j = j0 + lane;
+      int b = b0, e = e0;  // the survey's, on the first pass
+      if (j != gtid) {
+        b = e = 0;
+        if (j < nw && cw[j]) {
+          b = clamp_rank(wb[j], n);
+          e = clamp_rank(we[j], n);
+        }
+      }
+      int len = e - b;
+      if (len > 0 && len <= kThreadSpan)
+        for (int r = b; r < e; ++r) seg_ver[r] = version;
+      unsigned mid = __ballot_sync(0xffffffffu,
+                                   len > kThreadSpan && len <= kGridSpan);
+      while (mid) {
+        int src = __ffs(mid) - 1;
+        int bb = __shfl_sync(0xffffffffu, b, src);
+        int ee = __shfl_sync(0xffffffffu, e, src);
+        for (int r = bb + lane; r < ee; r += 32) seg_ver[r] = version;
+        mid &= mid - 1;
+      }
+    }
+    FDB_MARK(3)
+    for (int k = 0; k < n_wide; ++k) {
+      int j = __ldcg(wide + k);
+      int b = clamp_rank(wb[j], n), e = clamp_rank(we[j], n);
+      for (long long r = b + gtid; r < e; r += gthreads)
+        seg_ver[r] = version;
+    }
+    FDB_MARK(4)
+  } else {
+    // -- 3. count: the difference array, exactly as the JAX fold --------
+    for (long long j = gtid; j < nw; j += gthreads) {
+      if (!cw[j]) continue;
+      int b = clamp_rank(wb[j], n), e = clamp_rank(we[j], n);
+      if (b == e) continue;
+      if (b < n) {
+        atomicAdd(diff + b, 1);
+        atomicAdd(tile_sum + b / kTile, 1);
+      }
+      if (e < n) {
+        atomicAdd(diff + e, -1);
+        atomicAdd(tile_sum + e / kTile, -1);
+      }
+    }
+    grid.sync();
+    const long long nt = tiles(n);
+    for (long long t = blockIdx.x; t < nt; t += gridDim.x) {
+      int before = 0;  // the tile's offset: the sums of the tiles before
+      for (long long u = threadIdx.x; u < t; u += blockDim.x)
+        before += __ldcg(tile_sum + u);
+      int offset;
+      block_inclusive_scan(before, warp_sums, &offset);
+      const long long base = t * kTile + static_cast<long long>(threadIdx.x) *
+                                             kItems;
+      int d[kItems], sum = 0;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        long long g = base + k;
+        d[k] = g < n ? __ldcg(diff + g) : 0;
+        sum += d[k];
+      }
+      int total;
+      int running = offset + block_inclusive_scan(sum, warp_sums, &total) -
+                    sum;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        long long g = base + k;
+        running += d[k];
+        if (g < n) {
+          if (running > 0) seg_ver[g] = version;
+          if (d[k]) diff[g] = 0;  // leave the scratch zero
+        }
+      }
+    }
+    FDB_MARK(4)
+  }
+
+  // -- 4. the last block out zeroes the header, wide list and tile sums --
+  // (every read of the scratch a block makes has returned before its
+  // count goes up: the block used what it read)
+  __syncthreads();
+  if (threadIdx.x == 0)
+    flag = atomicAdd(scratch + kDone, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (flag) {
+    if (!direct)
+      for (long long u = threadIdx.x; u < tiles(n); u += blockDim.x)
+        tile_sum[u] = 0;
+    if (threadIdx.x < min(n_wide, kMaxWide)) wide[threadIdx.x] = 0;
+    if (threadIdx.x < kHeader) scratch[threadIdx.x] = 0;
+  }
+  FDB_MARK(5)
 }
 
-__global__ void __launch_bounds__(kThreads)
-    paint_kernel(int32_t* __restrict__ diff, int32_t* __restrict__ prefix,
-                 int n, int32_t version, int32_t* __restrict__ seg_ver) {
-  __shared__ int tile[padded(kTile)];
-  __shared__ int warp_sums[32];
-  long long base = static_cast<long long>(blockIdx.x) * kTile;
-  int t = threadIdx.x;
-  int d[kItems];  // every load issued before any store
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    long long g = base + k * kThreads + t;
-    d[k] = g < n ? diff[g] : 0;
-  }
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    tile[padded(k * kThreads + t)] = d[k];
-    if (d[k]) diff[base + k * kThreads + t] = 0;  // leave the scratch zero
-  }
-  __syncthreads();
-  int local[kItems];
-  int sum = 0;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    local[j] = tile[padded(t * kItems + j)];
-    sum += local[j];
-  }
-  int total;
-  int incl = block_inclusive_scan(sum, warp_sums, &total);
-  int running = prefix[blockIdx.x] + incl - sum;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    running += local[j];
-    tile[padded(t * kItems + j)] = running > 0;
-  }
-  __syncthreads();  // every thread has read prefix[blockIdx.x]
-  if (t == 0) prefix[blockIdx.x] = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    int i = k * kThreads + t;
-    long long g = base + i;
-    if (g < n && tile[padded(i)]) seg_ver[g] = version;
-  }
+struct Plan {
+  int blocks;  // at most one block per SM
+  int err;     // a CUDA error from asking, 0 if none
+};
+
+// The grid's ceiling, asked once (a C++ static): one block per SM, the
+// co-resident grid a cooperative launch needs, and as few blocks as the
+// grid sync waits on.
+const Plan& plan() {
+  static const Plan p = [] {
+    Plan r{0, 0};
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fold_kernel, kFoldThreads, 0);
+    r.err = static_cast<int>(e);
+    r.blocks = per_sm > 0 ? sms : 0;
+    if (r.err == 0 && r.blocks <= 0)
+      r.err = static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    return r;
+  }();
+  return p;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Words of scratch a fold over n ranks needs: the difference array and
-// kCopies rows of one block sum per tile.
+// Words of scratch a fold over n ranks needs: the header, the wide list,
+// one sum per tile of kTile ranks, the difference array.
 int sf_scratch_words(int n) {
-  return n <= 0 ? 0 : n + kCopies * tiles(n);
+  if (n <= 0) return 0;
+  long long words = kHeader + kMaxWide + tiles(n) + n;
+  return words > 2147483647LL ? -1 : static_cast<int>(words);
 }
 
-int sf_scatter(const void* wb, const void* we, const void* cw, int nw, int n,
-               void* scratch, void* stream) {
+int sf_fold(const void* wb, const void* we, const void* cw, int nw, int n,
+            int version, void* seg_ver, void* scratch, void* stream) {
   if (nw <= 0 || n <= 0) return kNoLaunch;
+  if (plan().err) return plan().err;
+  long long want = (nw + kFoldThreads - 1LL) / kFoldThreads;
+  if (tiles(n) > want) want = tiles(n);
+  int g = static_cast<int>(want < plan().blocks ? want : plan().blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto diff = static_cast<int32_t*>(scratch);
-  scatter_kernel<<<blocks_for(nw), kThreads, 0, s>>>(
-      static_cast<const int32_t*>(wb), static_cast<const int32_t*>(we),
-      static_cast<const uint8_t*>(cw), nw, n, tiles(n), diff, diff + n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int sf_scan_sums(void* scratch, int n, void* stream) {
-  if (n <= 0) return kNoLaunch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  scan_sums_kernel<<<1, kScanThreads, 0, s>>>(
-      static_cast<int32_t*>(scratch) + n, tiles(n));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int sf_paint(void* scratch, int n, int version, void* seg_ver,
-             void* stream) {
-  if (n <= 0) return kNoLaunch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto diff = static_cast<int32_t*>(scratch);
-  paint_kernel<<<tiles(n), kThreads, 0, s>>>(
-      diff, diff + n, n, version, static_cast<int32_t*>(seg_ver));
+  void* args[] = {&wb, &we, &cw, &nw, &n, &version, &seg_ver, &scratch};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fold_kernel), dim3(g), dim3(kFoldThreads),
+      args, 0, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 """Per-phase times of the port's cooperative kernels on the card.
 
     python -m foundationdb_tpu_torch.kernels.phase_trace \
-        [--kernel lex_order|rangemax_build|min_cover|merge_maps]
-        [--direct-scatter] [--items N] [--threads N]
+        [--kernel lex_order|rangemax_build|min_cover|merge_maps|
+                  keysearch_probe|seg_fold]
+        [--direct-scatter] [--items N] [--threads N] [--fence-kb N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
 grid sync (each block's arrival, the latest kept; block 0's departure),
@@ -32,6 +33,20 @@ less the latest arrival), in microseconds.
   another tile shape (merged positions a thread, threads a block; the
   small tile is half the large one): the sweep that chose the shipped
   8 x 256, which PERF.md's kernel D findings cite.
+- keysearch_probe (kernel A's probe, no grid sync): a `%globaltimer` mark
+  by every warp's lane 0 at each phase of its reads (the `FDB_MARK`
+  hooks of keysearch.cu), printed as each phase's mean and largest time
+  over the warps (fence stage, shared-memory levels, global levels,
+  window and fall-back, table gather) and the kernel's span; at a
+  786,432-row tier with 65,536 long reads (phase 2's) and 65,536 of the
+  uniform stream's point reads. `--fence-kb` rebuilds it with another
+  kFenceBytes fence (the fence sweep PERF.md cites).
+- seg_fold (kernel H, one grid sync): a mark by every block at each phase
+  (after the block's threads meet there), printed the same way (survey,
+  grid sync, paint, wide writes' share, the count where it runs, the
+  last block's reset); over a classic group of 8's 2,097,152 ranks with
+  65,536 point writes, the same with one write over the whole space,
+  and the same with one inverted committed write (the count).
 
 A measuring tool: nothing on the resolver path imports it.
 """
@@ -99,6 +114,35 @@ extern "C" int pt_read(unsigned long long* out) {
 #: (stamps a tile, stamps a block) of the merge_maps marks
 _TILE_SHAPE = (4096, 8)
 _BLOCK_SHAPE = (4096, 1)
+
+_ROW_MARKS = r'''
+constexpr int kMarkRows = 8192;
+__device__ unsigned long long g_mark[kMarkRows][8];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define FDB_MARK(k) { SYNC long long r_ = ROW; \
+  if (LEAD && r_ < kMarkRows) g_mark[r_][k] = now_ns(); }
+extern "C" int pt_reset() {
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, g_mark);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(g_mark)));
+}
+extern "C" int pt_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_mark, sizeof(g_mark)));
+}
+'''
+#: (rows, stamps a row) of the FDB_MARK marks
+_ROW_SHAPE = (8192, 8)
+#: each kernel's mark rows: a warp's lane 0 (the probe) or a block's
+#: thread 0 after the block's threads meet (the fold)
+_ROW_OF = {
+    "keysearch_probe": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                        "(threadIdx.x & 31) == 0"),
+    "seg_fold": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
+}
 
 _READ = r'''
 extern "C" int pt_reset() {
@@ -181,8 +225,38 @@ def traced_merge_source(items: int = 0, threads: int = 0) -> str:
                  name)
 
 
+_FENCE_OPT_IN = """    {
+      cudaError_t a = cudaFuncSetAttribute(
+          probe_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (a != cudaSuccess) return static_cast<int>(a);
+    }
+    probe_kernel<W><<<"""
+
+
+def traced_row_source(name: str, fence_kb: int = 0) -> str:
+    """keysearch.cu or seg_fold.cu with its FDB_MARK hooks stamping a row
+    of g_mark; for the probe, with `fence_kb` in place of its
+    kFenceBytes."""
+    src_name = "keysearch" if name == "keysearch_probe" else name
+    src = (kernels.CSRC / f"{src_name}.cu").read_text()
+    if fence_kb:
+        src = _edit(src, "constexpr int kFenceBytes = 12 * 1024;",
+                    f"constexpr int kFenceBytes = {fence_kb} * 1024;",
+                    src_name)
+    if fence_kb > 48:  # a fence past the default needs the opt-in
+        src = _edit(src, "    probe_kernel<W><<<", _FENCE_OPT_IN, src_name)
+    sync, row, lead = _ROW_OF[name]
+    marks = (_ROW_MARKS.replace("SYNC", sync).replace("ROW", row)
+             .replace("LEAD", lead))
+    return _edit(src, '#include "common.cuh"\n',
+                 '#include "common.cuh"\n' + marks, src_name)
+
+
 def traced_source(name: str, direct_scatter: bool = False,
-                  items: int = 0, threads: int = 0) -> str:
+                  items: int = 0, threads: int = 0, fence_kb: int = 0) -> str:
+    if name in _ROW_OF:
+        return traced_row_source(name, fence_kb)
     if name == "merge_maps":
         return traced_merge_source(items, threads)
     src = (kernels.CSRC / f"{name}.cu").read_text()
@@ -212,17 +286,22 @@ _ARGTYPES = {
     "mc_cover": kernels._SIGNATURES["mc_cover"][1],
     "mm_scratch_words": kernels._SIGNATURES["mm_scratch_words"][1],
     "mm_merge": kernels._SIGNATURES["mm_merge"][1],
+    "ks_probe": kernels._SIGNATURES["ks_probe"][1],
+    "sf_scratch_words": kernels._SIGNATURES["sf_scratch_words"][1],
+    "sf_fold": kernels._SIGNATURES["sf_fold"][1],
 }
 
 
 def build(name: str, direct_scatter: bool = False, items: int = 0,
-          threads: int = 0):
+          threads: int = 0, fence_kb: int = 0):
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
     tag = name + ("_direct" if direct_scatter else "") + (
-        f"_{items}x{threads}" if items or threads else "")
+        f"_{items}x{threads}" if items or threads else "") + (
+        f"_f{fence_kb}" if fence_kb else "")
     cu = kernels.BUILD / f"phase_trace_{tag}.cu"
     so = kernels.BUILD / f"libphase_trace_{tag}.so"
-    cu.write_text(traced_source(name, direct_scatter, items, threads))
+    cu.write_text(traced_source(name, direct_scatter, items, threads,
+                                fence_kb))
     done = subprocess.run(
         [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
          "-o", str(so), str(cu)], capture_output=True, text=True)
@@ -349,6 +428,75 @@ def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
                   zip((out_keys, out_val, count), want)))
 
 
+def row_phases(marks: torch.Tensor, phases: tuple) -> dict:
+    """Each phase's mean and largest microseconds over the rows that ran
+    it (a phase (name, k, j) from a row's stamp k to its stamp j, both
+    set), and the span from the first stamp to the last."""
+    rows = marks.view(*_ROW_SHAPE)
+    rows = rows[rows[:, 0] > 0]
+    mean, most = {}, {}
+    for name, k, j in phases:
+        both = (rows[:, k] > 0) & (rows[:, j] > 0)
+        if both.any():
+            d = (rows[both, j] - rows[both, k]).double() / 1e3
+            mean[name], most[name] = round(float(d.mean()), 2), round(
+                float(d.max()), 2)
+    return dict(rows=int(rows.shape[0]),
+                span_us=(int(rows.max()) - int(rows[:, 0].min())) / 1e3,
+                mean_us=mean, max_us=most)
+
+
+def row_trace(lib, call, phases: tuple, reps: int = 4) -> dict:
+    """The last of `reps` launches by call(stream): row_phases."""
+    marks = torch.zeros((_ROW_SHAPE[0] * _ROW_SHAPE[1],), dtype=torch.int64)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        lib.pt_reset()
+        err = call(stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err} at launch")
+        torch.cuda.synchronize()
+        lib.pt_read(ctypes.c_void_p(marks.data_ptr()))
+    return row_phases(marks, phases)
+
+
+def run_keysearch_probe(lib, args) -> dict:
+    keys, ver, rb, re = args
+    table = R.build_plain(ver, op="max")
+    q = rb.shape[0]
+    out = torch.empty((q,), dtype=torch.int32, device=rb.device)
+    r = row_trace(lib, lambda st: lib.ks_probe(
+        keys.data_ptr(), keys.shape[0], keys.shape[1], table.data_ptr(),
+        table.shape[0], rb.data_ptr(), re.data_ptr(), q, out.data_ptr(), st),
+        (("fence stage", 0, 1), ("shared levels", 1, 2),
+         ("global levels", 2, 3), ("window and fall-back", 3, 4),
+         ("table gather", 4, 5)))
+    r["exact"] = torch.equal(out, H.query_reads_vmax_plain(keys, table, rb,
+                                                           re))
+    return r
+
+
+def run_seg_fold(lib, args) -> dict:
+    seg, wb, we, cw = args
+    n = seg.shape[0]
+    scratch = torch.zeros((lib.sf_scratch_words(n),), dtype=torch.int32,
+                          device=seg.device)
+    got = seg.clone()
+    r = row_trace(lib, lambda st: lib.sf_fold(
+        wb.data_ptr(), we.data_ptr(), cw.data_ptr(), wb.shape[0], n, 77,
+        got.data_ptr(), scratch.data_ptr(), st),
+        (("survey", 0, 1), ("grid sync", 1, 2), ("paint", 2, 3),
+         ("wide writes", 3, 4), ("count", 2, 4), ("reset", 4, 5)))
+    if "paint" in r["mean_us"]:   # the count's span is the paint's there
+        del r["mean_us"]["count"], r["max_us"]["count"]
+    r["path"] = "paint" if "paint" in r["mean_us"] else "count"
+    r["exact"] = (torch.equal(got, G.seg_fold_plain(seg.clone(), wb, we, cw,
+                                                    77))
+                  and not bool(scratch.any()))
+    return r
+
+
 def shapes(name: str, device) -> dict:
     """Seeded inputs for one kernel. Rows for N: 8-byte keys below 1M or
     10M (word 0 zero, the length word 8), a tenth of the rows the
@@ -359,6 +507,48 @@ def shapes(name: str, device) -> dict:
         return torch.randint(lo, hi, (n,), generator=gen, device=device,
                              dtype=torch.int32)
 
+    if name == "keysearch_probe":
+        m, q = 786_432, 65_536
+
+        def tier(keyspace):
+            v = torch.unique(torch.randint(0, keyspace, (m,), generator=gen,
+                                           device=device))[: 3 * m // 4]
+            keys = K.sentinel_like(m, 3, device)
+            keys[: v.shape[0]] = _int_keys(v)
+            ver = ints(0, 3_000_000, m)
+            ver[v.shape[0]:] = H.VERSION_NEG
+            return keys, ver, v
+
+        keys, ver, v = tier(1 << 40)
+        begin = torch.randint(0, 1 << 40, (q,), generator=gen, device=device)
+        end = begin + torch.randint(1, 1 << 30, (q,), generator=gen,
+                                    device=device)
+        pick = torch.randint(0, v.shape[0], (q // 4,), generator=gen,
+                             device=device)
+        begin[: q // 4] = v[pick]
+        ukeys, uver, _ = tier(1_000_001)
+        point = torch.randint(0, 1_000_000, (q,), generator=gen,
+                              device=device)
+        return {"786432 rows, 65536 long reads": (
+                    keys, ver, _int_keys(begin), _int_keys(end)),
+                "786432 rows of 1M keys, 65536 uniform point reads": (
+                    ukeys, uver, _int_keys(point), _int_keys(point + 2))}
+    if name == "seg_fold":
+        n, nw = 8 * 262_144, 65_536
+        seg = ints(-5, 50, n)
+        wb = ints(0, n - 1, nw)
+        we = wb + 1
+        cw = torch.rand((nw,), generator=gen, device=device) < 0.97
+        wide, inv = (wb.clone(), we.clone()), (wb.clone(), we.clone())
+        wide[0][0], wide[1][0] = 0, n
+        inv[0][0], inv[1][0] = 1_000, 10
+        cw_one = cw.clone()
+        cw_one[0] = True
+        return {"2097152 ranks, 65536 point writes": (seg, wb, we, cw),
+                "the same and one write over the whole space": (
+                    seg, *wide, cw_one),
+                "the same and one inverted committed write": (
+                    seg, *inv, cw_one)}
     if name == "rangemax_build":
         return {"786432 rows, max": (ints(-5_000_000, 5_000_000, 786_432),
                                      "max"),
@@ -423,7 +613,8 @@ def _int_keys(v):
 
 
 RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
-        "min_cover": run_min_cover, "merge_maps": run_merge_maps}
+        "min_cover": run_min_cover, "merge_maps": run_merge_maps,
+        "keysearch_probe": run_keysearch_probe, "seg_fold": run_seg_fold}
 
 
 def main(argv=None) -> int:
@@ -435,18 +626,30 @@ def main(argv=None) -> int:
                     help="merge_maps only: merged positions a thread")
     ap.add_argument("--threads", type=int, default=0,
                     help="merge_maps only: threads a block")
+    ap.add_argument("--fence-kb", type=int, default=0,
+                    help="keysearch_probe only: the fence's most KB")
     args = ap.parse_args(argv)
     if (args.items or args.threads) and args.kernel != "merge_maps":
         ap.error("--items and --threads are merge_maps's")
+    if args.fence_kb and args.kernel != "keysearch_probe":
+        ap.error("--fence-kb is keysearch_probe's")
     if args.direct_scatter and args.kernel != "lex_order":
         ap.error("--direct-scatter is lex_order's")
     if not torch.cuda.is_available():
         print("phase_trace: no CUDA device available", file=sys.stderr)
         return 2
-    lib = build(args.kernel, args.direct_scatter, args.items, args.threads)
+    lib = build(args.kernel, args.direct_scatter, args.items, args.threads,
+                args.fence_kb)
     print(f"{torch.cuda.get_device_name(0)}; {args.kernel}"
-          + ("; direct scatter" if args.direct_scatter else ""))
+          + ("; direct scatter" if args.direct_scatter else "")
+          + (f"; fence KB {args.fence_kb}" if args.fence_kb else ""))
     for name, inputs in shapes(args.kernel, torch.device("cuda")).items():
+        if args.kernel in _ROW_OF:
+            r = RUNS[args.kernel](lib, inputs)
+            print(f"{name}: {r}")
+            if not r["exact"]:
+                return 1
+            continue
         if args.kernel == "merge_maps":
             r = run_merge_maps(lib, inputs, tile=(args.items or 8)
                                * (args.threads or 256))

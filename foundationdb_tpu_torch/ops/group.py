@@ -773,9 +773,10 @@ def seg_fold_plain(seg_ver: torch.Tensor, wb: torch.Tensor, we: torch.Tensor,
 
 
 def seg_fold_scratch(n: int, device) -> torch.Tensor:
-    """Kernel H's zeroed scratch for a map of n ranks on the card (each
-    fold leaves it zero again, so one serves a whole group); None on the
-    CPU, where the plain version needs none."""
+    """Kernel H's zeroed scratch for a map of n ranks on the card (its
+    header, its wide-write list and the difference array its count
+    uses; each fold leaves it zero again, so one serves a whole group);
+    None on the CPU, where the plain version needs none."""
     device = torch.device(device)
     if device.type == "cpu":
         return None
@@ -787,8 +788,8 @@ def seg_fold(seg_ver: torch.Tensor, wb: torch.Tensor, we: torch.Tensor,
              cw: torch.Tensor, version: int, scratch=None) -> torch.Tensor:
     """Paint `version` over every rank covered by a `cw` row's [wb, we)
     (ranks in [0, len(seg_ver)], int32; cw bool), in place in `seg_ver`
-    on either device; returns it. On the card kernel H runs in
-    `scratch` (seg_fold_scratch(len(seg_ver)), allocated here when
+    on either device; returns it. On the card kernel H's one launch runs
+    in `scratch` (seg_fold_scratch(len(seg_ver)), allocated here when
     None); on the CPU the plain version."""
     if not (wb.shape == we.shape == cw.shape and wb.ndim == 1
             and seg_ver.ndim == 1):
@@ -804,10 +805,8 @@ def seg_fold(seg_ver: torch.Tensor, wb: torch.Tensor, we: torch.Tensor,
     if (kernels.check_cuda("seg_fold", scratch) != dev
             or scratch.shape != (kernels.size("sf_scratch_words", n),)):
         raise ValueError("seg_fold: scratch is not seg_fold_scratch(n)")
-    kernels.launch("sf_scatter", "seg_fold", wb, we, cw, wb.shape[0], n,
-                   scratch)
-    kernels.launch("sf_scan_sums", "seg_fold", scratch, n)
-    kernels.launch("sf_paint", "seg_fold", scratch, n, int(version), seg_ver)
+    kernels.launch("sf_fold", "seg_fold", wb, we, cw, wb.shape[0], n,
+                   int(version), seg_ver, scratch)
     return seg_ver
 
 

@@ -26,6 +26,7 @@ from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.testing import merge_cases as MC
+from foundationdb_tpu_torch.testing import probe_cases as PC
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
@@ -99,21 +100,34 @@ def test_build_and_query(cuda_device, op, m):
                               R.query_plain(tab, lo, hi, op=op))
 
 
-def test_probe(cuda_device):
-    rng = np.random.default_rng(2)
-    keys, n = sorted_keys(rng, 5000, 6000, cuda_device)
-    ver = torch.randint(0, 10**6, (6000,), device=cuda_device,
-                        dtype=torch.int32)
+@pytest.mark.parametrize("w", [3, 5])
+@pytest.mark.parametrize("case", ["random", *PC.PROBE_NAMES])
+def test_probe(cuda_device, case, w):
+    """Kernel A's probe against its plain version, one launch a call:
+    random reads over a 6,000-row tier, and every case of
+    testing/probe_cases (the fence's rows, the window, inverted, empty
+    and dead reads, the tier's ends, duplicate keys) at W = 3 and 5."""
+    if case == "random":
+        if w != 3:
+            pytest.skip("the random reads are 8-byte keys, W = 3")
+        rng = np.random.default_rng(2)
+        keys, n = sorted_keys(rng, 5000, 6000, cuda_device)
+        ver = torch.randint(0, 10**6, (6000,), device=cuda_device,
+                            dtype=torch.int32)
+        b = rng.integers(0, 1 << 20, 2000)
+        rb = torch.from_numpy(int_keys_packed(b, 8, 3).view(np.int32))
+        re = torch.from_numpy(int_keys_packed(
+            b + rng.integers(1, 5000, 2000), 8, 3).view(np.int32))
+        rb, re = rb.to(cuda_device), re.to(cuda_device)
+    else:
+        keys, ver, rb, re = (torch.from_numpy(a).to(cuda_device)
+                             for a in PC.probe_case(case, w))
     tab = R.build_plain(ver, op="max")
-    b = rng.integers(0, 1 << 20, 2000)
-    rb = torch.from_numpy(int_keys_packed(b, 8, 3).view(np.int32))
-    re = torch.from_numpy(int_keys_packed(b + rng.integers(1, 5000, 2000), 8,
-                                          3).view(np.int32))
-    rb, re = rb.to(cuda_device), re.to(cuda_device)
     hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
                             torch.tensor(False, device=cuda_device))
-    assert_launched_and_equal("keysearch.probe",
-                              H.query_reads_vmax(hist, rb, re, tab),
+    got = H.query_reads_vmax(hist, rb, re, tab)
+    assert kernels.COUNTS["keysearch.probe"] == 1
+    assert_launched_and_equal("keysearch.probe", got,
                               H.query_reads_vmax_plain(keys, tab, rb, re))
 
 
@@ -397,28 +411,42 @@ def test_rangemax2(cuda_device, op, m):
                               R.query2_plain(plain, lo, hi, op=op))
 
 
-@pytest.mark.parametrize("n", [1, 4096, 20_000])
-def test_seg_fold(cuda_device, n):
-    """Kernel H against its plain version: random writes, inverted and
-    empty ones, and one write over the whole space, both painting in
-    place; one scratch serves every fold (each leaves it zero)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(n)
-    nw = 3000
-    seg = torch.randint(-5, 50, (n,), generator=gen, device=cuda_device,
-                        dtype=torch.int32)
-    wb = torch.randint(0, n, (nw,), generator=gen, device=cuda_device,
-                       dtype=torch.int32)
-    we = (wb + torch.randint(-3, 300, (nw,), generator=gen,
-                             device=cuda_device, dtype=torch.int32)
-          ).clamp(0, n - 1)
-    cw = torch.rand((nw,), generator=gen, device=cuda_device) < 0.7
+@pytest.mark.parametrize(
+    "case", ["random n=1", "random n=4096", "random n=20000",
+             *PC.FOLD_NAMES])
+def test_seg_fold(cuda_device, case):
+    """Kernel H against its plain version, one launch a call, painting in
+    place: random writes with inverted and empty ones, then one write over
+    the whole space (one scratch serves both folds, each leaving it zero);
+    and every case of testing/probe_cases, on the paint and the count."""
+    if case.startswith("random"):
+        n = int(case.split("=")[1])
+        gen = torch.Generator(device=cuda_device).manual_seed(n)
+        nw = 3000
+        seg = torch.randint(-5, 50, (n,), generator=gen, device=cuda_device,
+                            dtype=torch.int32)
+        wb = torch.randint(0, n, (nw,), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+        we = (wb + torch.randint(-3, 300, (nw,), generator=gen,
+                                 device=cuda_device, dtype=torch.int32)
+              ).clamp(0, n - 1)
+        cw = torch.rand((nw,), generator=gen, device=cuda_device) < 0.7
+        folds = [(False, 77), (True, 77)]
+    else:
+        c = PC.fold_case(case)
+        seg, wb, we, cw = (torch.from_numpy(a).to(cuda_device)
+                           for a in c[:4])
+        n = seg.shape[0]
+        folds = [(False, c.version)]
     scratch = G.seg_fold_scratch(n, cuda_device)
-    for whole in (False, True):
+    for whole, version in folds:
         if whole:
             wb[0], we[0], cw[0] = 0, n - 1, True
-        want = G.seg_fold_plain(seg.clone(), wb, we, cw, 77)
+        want = G.seg_fold_plain(seg.clone(), wb, we, cw, version)
         got = seg.clone()
-        assert G.seg_fold(got, wb, we, cw, 77, scratch) is got
+        before = kernels.COUNTS["seg_fold"]
+        assert G.seg_fold(got, wb, we, cw, version, scratch) is got
+        assert kernels.COUNTS["seg_fold"] - before == 1
         assert_launched_and_equal("seg_fold", got, want)
         assert not scratch.any()
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --build-cover   # kernels B and C alone, timed
     python3 chip_smoke.py --merge         # kernel D alone, timed
     python3 chip_smoke.py --probe-fold    # kernels A's probe and H alone
+    python3 chip_smoke.py --short-span    # kernel K's application alone
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -82,7 +83,10 @@ any fault:
 10. the short-span streams: the widest live span of the uniform stream
    (tiered and classic groups of 8) sets S, the smallest power of two
    >= 4 at or above it; kernel K held to its plain version at the
-   uniform batch's shapes; the uniform stream at S tiered (24 batches),
+   uniform batch's shapes (the range op over the tier; one fixpoint
+   application, `ss_apply`, one launch, exact again three applications
+   in a row after its timing's hundreds of launches on the same cover);
+   the uniform stream at S tiered (24 batches),
    classic (3 groups of 8) and on 4 shards (1 group), every field and
    tier identical to the same batches at S = 0 on the card (phases 3, 6
    and 9), batch or group 0 to the CPU plain path, kernels K and L
@@ -101,8 +105,10 @@ The last lines are the streams' numbers (JSON), the kernel ledger
 With `--build-cover` it builds the kernels and times only kernels B and
 C at the resolver path's shapes (`time_build_cover`), with `--merge`
 only kernel D at its two (`time_merge`), with `--probe-fold` only kernel
-A's probe at its two and kernel H (`time_probe_fold`), printing their
-JSON and the card's name and power limit.
+A's probe at its two and kernel H (`time_probe_fold`), with
+`--short-span` only one short-span fixpoint application
+(`time_short_span`), printing their JSON and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -1167,9 +1173,13 @@ def _launch_bytes(entry: str, a: list) -> int:
     of a dedup, the key rows that decide a probe's reads), so it is a
     floor, except for mm_merge: its rows are
     known on the card only, so both maps count whole, sentinel tails too,
-    an upper figure for that entry. sf_fold counts 9 B a write here and 4
-    B a rank it covers when launch_totals() is read (its writes are kept
-    until then, so the count syncs no run)."""
+    an upper figure for that entry. What depends on the data and is
+    counted when launch_totals() is read (the launch's tensors are kept
+    until then, so the count syncs no run): sf_fold's 4 B a rank its
+    writes cover (beside 9 B a write), ss_range's 4 B a value its queries
+    read (beside 12 B a query) and ss_apply's 4 B a covered leaf, written
+    and read back, the int32 min the function needs (beside 12 B a write
+    and 12 B a read; its design moves 8 B a leaf, stamp and min)."""
     if entry == "ks_search":             # keys, m, w, queries, q, ...
         m, w, q = a[1], a[2], a[4]
         return 4 * (m * w + q * w + q)
@@ -1206,8 +1216,17 @@ def _launch_bytes(entry: str, a: list) -> int:
     if entry == "rm2_query":             # ..., lo, hi, q (8), ...
         return 12 * a[8]
     if entry == "sf_fold":               # wb, we, cw, nw, n, ...
-        LAUNCH_BYTES["covered"].append((a[0], a[1], a[2], a[4]))
+        LAUNCH_BYTES["later"].append(
+            lambda: 4 * covered_ranks(a[0], a[1], a[2], a[4]))
         return 9 * a[3]
+    if entry == "ss_range":              # values, n, lo, hi, q, span, ...
+        LAUNCH_BYTES["later"].append(
+            lambda: 4 * int((a[3] - a[2]).clamp(0, a[5]).sum()))
+        return 12 * a[4]
+    if entry == "ss_apply":              # wlo, whi, val, nw, qlo, qhi, nr,
+        LAUNCH_BYTES["later"].append(    # span, leaves, ...
+            lambda: 2 * 4 * covered_leaves(a[8], *a[:3], a[7]))
+        return 12 * (a[3] + a[6])
     if entry == "sc_clip":
         return clip_bytes(*(a[i] for i in (2, 3, 8, 9, 13, 14)))
     if entry == "sc_combine":            # ..., s (6), gn, b, nr
@@ -1229,10 +1248,28 @@ def combine_bytes(s: int, gn: int, b: int, nr: int) -> int:
     return (s + 1) * gn * (8 * b + nr + 1) + s + gn * b + 1 + 12 * gn
 
 
-#: the byte floor of every launch since reset_launches(), and the
-#: (wb, we, cw, n) of every sf_fold launch, whose covered ranks
-#: launch_totals() adds
-LAUNCH_BYTES = {"total": 0, "covered": []}
+def covered_ranks(wb, we, cw, n: int) -> int:
+    """The ranks of [0, n) a fold's committed writes cover."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import group as G
+
+    flags = torch.zeros((n,), dtype=torch.int32, device=wb.device)
+    return int(G.seg_fold_plain(flags, wb, we, cw, 1).sum())
+
+
+def covered_leaves(leaves: int, wlo, whi, val, span: int) -> int:
+    """The leaves of [0, leaves) a short-span application's committed
+    writes cover (kernel K's cover, plain)."""
+    from foundationdb_tpu_torch.ops import group as G
+
+    return int((G.ss_cover_plain(leaves, wlo, whi, val, span)
+                < G.INT32_POS).sum())
+
+
+#: the byte floor of every launch since reset_launches(), and a function
+#: for each launch whose data-dependent bytes launch_totals() adds
+LAUNCH_BYTES = {"total": 0, "later": []}
 
 
 def count_launch_bytes() -> None:
@@ -1257,21 +1294,16 @@ def reset_launches() -> None:
 
     kernels.reset_counts()
     LAUNCH_BYTES["total"] = 0
-    LAUNCH_BYTES["covered"].clear()
+    LAUNCH_BYTES["later"].clear()
 
 
 def launch_totals() -> tuple:
     """(launches per kernel, the byte floor of those launches)."""
-    import torch
-
     from foundationdb_tpu_torch import kernels
-    from foundationdb_tpu_torch.ops import group as G
 
-    for wb, we, cw, n in LAUNCH_BYTES["covered"]:
-        flags = torch.zeros((n,), dtype=torch.int32, device=wb.device)
-        LAUNCH_BYTES["total"] += 4 * int(
-            G.seg_fold_plain(flags, wb, we, cw, 1).sum())
-    LAUNCH_BYTES["covered"].clear()
+    for later in LAUNCH_BYTES["later"]:
+        LAUNCH_BYTES["total"] += later()
+    LAUNCH_BYTES["later"].clear()
     return kernels.counts(), LAUNCH_BYTES["total"]
 
 
@@ -1519,7 +1551,7 @@ CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 #: the kernels only the sharded path launches
 SHARDED_ONLY = ("shard_clip", "shard_combine")
 #: the kernels only the short-span variant launches
-SHORT_SPAN_ONLY = ("short_span.range", "short_span.cover")
+SHORT_SPAN_ONLY = ("short_span.range", "short_span.apply")
 #: the kernels no resolver path launches: the reference's scripts alone
 #: reach K16 and K19, so their path launches are 0 (phase 2's one call
 #: each is in launches_per_call)
@@ -2163,6 +2195,48 @@ def survey_spans(device, uni) -> tuple:
     return max(4, 1 << max(0, (top - 1).bit_length())), widest
 
 
+def fixpoint_inputs(gen, batch, device) -> tuple:
+    """One uniform batch's short-span fixpoint as the group kernel gives
+    kernel K: (leaves, wlo, whi, val, lq_lo, lq_hi), the local ranks of
+    the batch's live endpoints (dead writes at [0, 0)) over 2^18 leaves,
+    val random txn ids, 5% INT32_POS (uncommitted)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import keys as K
+
+    a = interop.device_args_to_torch(batch.device_args(), device)
+    live = torch.cat([a["read_valid"], a["read_valid"], a["write_valid"],
+                      a["write_valid"]])
+    pts = torch.where(live[:, None], torch.cat([
+        a["read_begin"], a["read_end"], a["write_begin"], a["write_end"]]),
+        K.SENTINEL_WORD).contiguous()
+    rank = K.dense_ranks(pts)
+    wv = a["write_valid"]
+    val = torch.randint(0, B, (B,), generator=gen, device=device,
+                        dtype=torch.int32)
+    val[torch.rand((B,), generator=gen, device=device) < 0.05] = \
+        G.INT32_POS
+    return (4 * B, torch.where(wv, rank[2 * B:3 * B], 0),
+            torch.where(wv, rank[3 * B:], 0), val, rank[:B],
+            rank[B:2 * B])
+
+
+def apply_bound(leaves: int, wlo, whi, val, lq_lo, lq_hi, ss: int):
+    """(bytes, operations, covered leaves) of one fixpoint application:
+    each write's and read's two ranks and the val or the min (12 B each),
+    each covered leaf's int32 min written and read back (4 B, twice: what
+    the function needs, not the 8 B stamped leaf the kernel moves); a min
+    for each leaf a committed write covers and each leaf a read reads."""
+    committed = val < 2**31 - 1
+    ops = int(((whi - wlo).clamp(0, ss) * committed).sum()
+              + (lq_hi - lq_lo).clamp(0, ss).sum())
+    n_leaves = covered_leaves(leaves, wlo, whi, val, ss)
+    return (12 * (wlo.shape[0] + lq_lo.shape[0]) + 2 * 4 * n_leaves, ops,
+            n_leaves)
+
+
 def phase_short_span(device, uni, ycsb, tiered_ref: dict,
                      classic_ref: dict, sharded_ref: dict) -> dict:
     """short_span_limit = S on the uniform stream: tiered (24 batches),
@@ -2207,34 +2281,24 @@ def phase_short_span(device, uni, ycsb, tiered_ref: dict,
             lambda: G.ss_range(mver, blo, bhi, ss, op="max"),
             lambda: G.ss_range_plain(mver, blo, bhi, ss, op="max"),
             n_bytes=12 * B + 4 * covered, n_ops=covered)
-    live = torch.cat([a["read_valid"], a["read_valid"], a["write_valid"],
-                      a["write_valid"]])
-    pts = torch.where(live[:, None], torch.cat([
-        a["read_begin"], a["read_end"], a["write_begin"], a["write_end"]]),
-        K.SENTINEL_WORD).contiguous()
-    rank = K.dense_ranks(pts)
-    lq_lo, lq_hi = rank[:B], rank[B:2 * B]
-    wv = a["write_valid"]
-    wlo = torch.where(wv, rank[2 * B:3 * B], 0)
-    whi = torch.where(wv, rank[3 * B:], 0)
-    leaves = 4 * B
-    wval = torch.randint(0, B, (B,), generator=gen, device=device,
-                         dtype=torch.int32)
-    wval[torch.rand((B,), generator=gen, device=device) < 0.05] = \
-        G.INT32_POS
-    written = int(torch.where(wval < G.INT32_POS,
-                              (whi - wlo).clamp(0, ss), 0).sum())
-    measure(ledger, "short_span.cover",
-            lambda: G.ss_cover(leaves, wlo, whi, wval, ss),
-            lambda: G.ss_cover_plain(leaves, wlo, whi, wval, ss),
-            n_bytes=12 * B + 4 * leaves, n_ops=written)
-    mw = G.ss_cover_plain(leaves, wlo, whi, wval, ss)
-    exact("short_span.range min (the fixpoint's query)",
-          G.ss_range(mw, lq_lo, lq_hi, ss, op="min"),
-          G.ss_range_plain(mw, lq_lo, lq_hi, ss, op="min"))
+    fix = fixpoint_inputs(gen, uni[0], device)
+    n_bytes, n_ops, n_leaves = apply_bound(*fix, ss)
+    measure(ledger, "short_span.apply", lambda: G.ss_apply(*fix, ss),
+            lambda: G.ss_apply_plain(*fix, ss), n_bytes=n_bytes,
+            n_ops=n_ops)
+    # applications in a row over the same ranges, fewer writers committed
+    # each time, as the fixpoint runs them: each exact after the timing's
+    # hundreds of launches on the same cover
+    leaves, wlo, whi, val, lq_lo, lq_hi = fix
+    for k in range(3):
+        exact(f"short_span.apply, application {k} in a row",
+              G.ss_apply(leaves, wlo, whi, val, lq_lo, lq_hi, ss),
+              G.ss_apply_plain(leaves, wlo, whi, val, lq_lo, lq_hi, ss))
+        val = torch.where(torch.rand((B,), generator=gen, device=device)
+                          < 0.3, G.INT32_POS, val)
     log(f"  kernel K input: {B} reads over a {sk.shape[0]}-row tier "
-        f"({covered} segment reads), {B} writes over {leaves} local "
-        f"leaves ({written} cover writes), S = {ss}")
+        f"({covered} segment reads); {B} writes and reads over {leaves} "
+        f"local leaves ({n_leaves} leaves covered), S = {ss}")
 
     # -- the tiered stream at S
     cfg = bench_config(B, short_span_limit=ss)
@@ -2339,7 +2403,7 @@ def phase_short_span(device, uni, ycsb, tiered_ref: dict,
     torch.cuda.synchronize()
     s_ms = (time.perf_counter() - t1) / GROUP * 1e3
     s_launches, _ = launch_totals()
-    for name in ("short_span.range", "short_span.cover", "shard_clip",
+    for name in ("short_span.range", "short_span.apply", "shard_clip",
                  "shard_combine"):
         if s_launches[name] <= 0:
             fail(f"{name}: not launched on the short-span sharded path")
@@ -2835,6 +2899,64 @@ def time_probe_fold(device) -> dict:
     return ledger
 
 
+def time_short_span(device) -> dict:
+    """One short-span fixpoint application alone at the uniform batch's
+    shapes (S = 4: 65,536 writes and reads in local ranks over 2^18
+    leaves, `fixpoint_inputs` from a seed of its own), as this tree runs
+    it: kernel K's `ss_apply`, one launch, where the tree has it; in a
+    tree before it, the fill of a new cover, `ss_cover` and the
+    `ss_range` min, in that order. Held to the plain version; the device
+    time (checked profiler sessions, median of three), the time a call
+    with its launch gaps (CUDA events), the plain version's, the bound,
+    the launches of one call and its device µs by kernel. Run from
+    another checkout's root (a copy of this script there) it times that
+    tree's: parent, change, change, parent in one call."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import group as G
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261021)
+    ss = 4
+    fix = fixpoint_inputs(gen, uniform_stream(bench_config(B), 1)[0],
+                          device)
+    leaves, wlo, whi, val, lq_lo, lq_hi = fix
+    if hasattr(G, "ss_apply"):
+        name = "ss_apply"
+
+        def app():
+            return G.ss_apply(*fix, ss)
+    else:
+        name = "fill + ss_cover + ss_range"
+
+        def app():
+            return G.ss_range(G.ss_cover(leaves, wlo, whi, val, ss), lq_lo,
+                              lq_hi, ss, op="min")
+
+    def plain():
+        return G.ss_range_plain(G.ss_cover_plain(leaves, wlo, whi, val, ss),
+                                lq_lo, lq_hi, ss, op="min")
+
+    before = kernels.counts()
+    got = app()
+    launched = {k: n - before[k] for k, n in kernels.counts().items()
+                if n != before[k]}
+    err = exact(name, got, plain())
+    n_bytes, n_ops, n_leaves = apply_bound(*fix, ss)
+    b, by = bound_ms(n_bytes, n_ops)
+    by_kernel = {k[:70]: round(t, 2) for k, t in profiled(app).items()}
+    row = dict(max_abs_err=err, ms=device_ms(app, sessions=3),
+               call_ms=event_ms(app), plain_ms=device_ms(plain, reps=3),
+               bound_ms=b, bound_by=by, covered_leaves=n_leaves,
+               launches_per_call=launched, device_us_by_kernel=by_kernel)
+    log(f"  {name}: device {row['ms'] * 1e3:.2f} us, a call with its "
+        f"launch gaps {row['call_ms'] * 1e3:.2f} us, bound "
+        f"{b * 1e3:.2f} us ({by}), plain {row['plain_ms'] * 1e3:.1f} us, "
+        f"launches {launched}, by kernel {by_kernel}")
+    return {name: row}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2862,7 +2984,9 @@ def main(argv=None) -> int:
                                time_build_cover),
              "--merge": ("kernel D alone", "merge", time_merge),
              "--probe-fold": ("kernels A's probe and H alone", "probe_fold",
-                              time_probe_fold)}
+                              time_probe_fold),
+             "--short-span": ("kernel K's fixpoint application alone",
+                              "short_span", time_short_span)}
     if len(argv) == 1 and argv[0] in alone:
         title, key, timed = alone[argv[0]]
         heading(title)

@@ -112,8 +112,9 @@ _SIGNATURES = {
                      [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     # values, n, lo, hi, q, span, op_min, out, stream
     "ss_range": ("short_span", [_P, _I, _P, _P, _I, _I, _I, _P, _P]),
-    # lo, hi, val, nw, span, flat, n_flat, stream
-    "ss_cover": ("short_span", [_P, _P, _P, _I, _I, _P, _I, _P]),
+    # wlo, whi, val, nw, qlo, qhi, nr, span, leaves, flat, cap, out, stream
+    "ss_apply": ("short_span",
+                 [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
     # n -> tile sums (no stream: a host query, see size())
     "sr_tiles": ("sort_ranks", [_I]),
     # srt, n, w, sums, stream
@@ -189,7 +190,7 @@ KERNELS = {
         KernelInfo("short_span.range",
                    "foundationdb_tpu_torch/kernels/csrc/short_span.cu",
                    "foundationdb_tpu/ops/group.py:353"),
-        KernelInfo("short_span.cover",
+        KernelInfo("short_span.apply",
                    "foundationdb_tpu_torch/kernels/csrc/short_span.cu",
                    "foundationdb_tpu/ops/group.py:511"),
         KernelInfo("sort_ranks",

@@ -2,7 +2,7 @@
 
     python -m foundationdb_tpu_torch.kernels.phase_trace \
         [--kernel lex_order|rangemax_build|min_cover|merge_maps|
-                  keysearch_probe|seg_fold]
+                  keysearch_probe|seg_fold|short_span]
         [--direct-scatter] [--items N] [--threads N] [--fence-kb N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
@@ -47,6 +47,12 @@ less the latest arrival), in microseconds.
   last block's reset); over a classic group of 8's 2,097,152 ranks with
   65,536 point writes, the same with one write over the whole space,
   and the same with one inverted committed write (the count).
+- short_span (kernel K's ss_apply, one grid sync): a mark by every block
+  at each phase, printed the same way (cover, grid sync, query, and at
+  the last stamp the second grid sync and the reset of every leaf), for
+  a launch at an ordinary stamp and one at the last stamp, on a uniform
+  batch's fixpoint (65,536 writes and reads in local ranks over 2^18
+  leaves, S = 4); `--threads` rebuilds it with another block size.
 
 A measuring tool: nothing on the resolver path imports it.
 """
@@ -142,6 +148,7 @@ _ROW_OF = {
     "keysearch_probe": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
                         "(threadIdx.x & 31) == 0"),
     "seg_fold": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
+    "short_span": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
 }
 
 _READ = r'''
@@ -234,10 +241,11 @@ _FENCE_OPT_IN = """    {
     probe_kernel<W><<<"""
 
 
-def traced_row_source(name: str, fence_kb: int = 0) -> str:
-    """keysearch.cu or seg_fold.cu with its FDB_MARK hooks stamping a row
-    of g_mark; for the probe, with `fence_kb` in place of its
-    kFenceBytes."""
+def traced_row_source(name: str, fence_kb: int = 0, threads: int = 0) -> str:
+    """keysearch.cu, seg_fold.cu or short_span.cu with its FDB_MARK hooks
+    stamping a row of g_mark; for the probe, with `fence_kb` in place of
+    its kFenceBytes; short_span.cu with `threads` a block in place of its
+    kApplyThreads."""
     src_name = "keysearch" if name == "keysearch_probe" else name
     src = (kernels.CSRC / f"{src_name}.cu").read_text()
     if fence_kb:
@@ -249,6 +257,8 @@ def traced_row_source(name: str, fence_kb: int = 0) -> str:
     sync, row, lead = _ROW_OF[name]
     marks = (_ROW_MARKS.replace("SYNC", sync).replace("ROW", row)
              .replace("LEAD", lead))
+    if name == "short_span":
+        src = _span_threads(src, threads)
     return _edit(src, '#include "common.cuh"\n',
                  '#include "common.cuh"\n' + marks, src_name)
 
@@ -256,7 +266,7 @@ def traced_row_source(name: str, fence_kb: int = 0) -> str:
 def traced_source(name: str, direct_scatter: bool = False,
                   items: int = 0, threads: int = 0, fence_kb: int = 0) -> str:
     if name in _ROW_OF:
-        return traced_row_source(name, fence_kb)
+        return traced_row_source(name, fence_kb, threads)
     if name == "merge_maps":
         return traced_merge_source(items, threads)
     src = (kernels.CSRC / f"{name}.cu").read_text()
@@ -289,6 +299,7 @@ _ARGTYPES = {
     "ks_probe": kernels._SIGNATURES["ks_probe"][1],
     "sf_scratch_words": kernels._SIGNATURES["sf_scratch_words"][1],
     "sf_fold": kernels._SIGNATURES["sf_fold"][1],
+    "ss_apply": kernels._SIGNATURES["ss_apply"][1],
 }
 
 
@@ -497,6 +508,46 @@ def run_seg_fold(lib, args) -> dict:
     return r
 
 
+_SPAN_PHASES = (("cover", 0, 1), ("grid sync", 1, 2), ("query", 2, 3),
+                ("second grid sync", 3, 4), ("reset", 4, 5))
+
+
+def run_short_span(lib, args) -> dict:
+    """The per-block phases of the last of 4 launches, exact and its cover
+    as the launch leaves it, at an ordinary stamp and at the last stamp;
+    args: (leaves, wlo, whi, val, qlo, qhi, S)."""
+    leaves, wlo, whi, val, qlo, qhi, ss = args
+    want = G.ss_apply_plain(leaves, wlo, whi, val, qlo, qhi, ss)
+    out = torch.empty_like(qlo)
+    res = {}
+    for last in (False, True):
+        flat = torch.full((leaves + 1,), -1, dtype=torch.int64,
+                          device=val.device)
+
+        def one(st):
+            if last:
+                flat[-1] = 0
+            return lib.ss_apply(
+                wlo.data_ptr(), whi.data_ptr(), val.data_ptr(), wlo.shape[0],
+                qlo.data_ptr(), qhi.data_ptr(), qlo.shape[0], ss, leaves,
+                flat.data_ptr(), leaves, out.data_ptr(), st)
+
+        r = row_trace(lib, one, _SPAN_PHASES)
+        r["exact"] = (torch.equal(out, want)
+                      and (not last or bool((flat == -1).all())))
+        res["at the last stamp" if last else "stamp"] = r
+    return res
+
+
+def _span_threads(src: str, threads: int) -> str:
+    """short_span.cu with `threads` a block in place of its
+    kApplyThreads (0: unchanged)."""
+    if not threads:
+        return src
+    return _edit(src, "constexpr int kApplyThreads = 512;",
+                 f"constexpr int kApplyThreads = {threads};", "short_span")
+
+
 def shapes(name: str, device) -> dict:
     """Seeded inputs for one kernel. Rows for N: 8-byte keys below 1M or
     10M (word 0 zero, the length word 8), a tenth of the rows the
@@ -549,6 +600,22 @@ def shapes(name: str, device) -> dict:
                     seg, *wide, cw_one),
                 "the same and one inverted committed write": (
                     seg, *inv, cw_one)}
+    if name == "short_span":
+        # a uniform batch's fixpoint: point reads and writes of 1M keys,
+        # their dense ranks (dead rows, a tenth, at the sentinel's)
+        nr = nw = 65_536
+        v = torch.randint(0, 1_000_000, (2 * nr,), generator=gen,
+                          device=device)
+        pts = _int_keys(torch.cat([v[:nr], v[:nr] + 1, v[nr:], v[nr:] + 1]))
+        pts[torch.rand((pts.shape[0],), generator=gen, device=device)
+            < 0.1] = -1
+        rank = K.dense_ranks(pts.contiguous())
+        val = ints(0, nw, nw)
+        val[torch.rand((nw,), generator=gen, device=device) < 0.05] = \
+            R.INT32_POS
+        return {"2^18 leaves, 65536 writes and reads, S = 4": (
+            262_144, rank[2 * nr:3 * nr], rank[3 * nr:], val, rank[:nr],
+            rank[nr:2 * nr], 4)}
     if name == "rangemax_build":
         return {"786432 rows, max": (ints(-5_000_000, 5_000_000, 786_432),
                                      "max"),
@@ -614,7 +681,8 @@ def _int_keys(v):
 
 RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
         "min_cover": run_min_cover, "merge_maps": run_merge_maps,
-        "keysearch_probe": run_keysearch_probe, "seg_fold": run_seg_fold}
+        "keysearch_probe": run_keysearch_probe, "seg_fold": run_seg_fold,
+        "short_span": run_short_span}
 
 
 def main(argv=None) -> int:
@@ -625,12 +693,14 @@ def main(argv=None) -> int:
     ap.add_argument("--items", type=int, default=0,
                     help="merge_maps only: merged positions a thread")
     ap.add_argument("--threads", type=int, default=0,
-                    help="merge_maps only: threads a block")
+                    help="merge_maps and short_span: threads a block")
     ap.add_argument("--fence-kb", type=int, default=0,
                     help="keysearch_probe only: the fence's most KB")
     args = ap.parse_args(argv)
-    if (args.items or args.threads) and args.kernel != "merge_maps":
-        ap.error("--items and --threads are merge_maps's")
+    if args.items and args.kernel != "merge_maps":
+        ap.error("--items is merge_maps's")
+    if args.threads and args.kernel not in ("merge_maps", "short_span"):
+        ap.error("--threads is merge_maps's and short_span's")
     if args.fence_kb and args.kernel != "keysearch_probe":
         ap.error("--fence-kb is keysearch_probe's")
     if args.direct_scatter and args.kernel != "lex_order":
@@ -644,6 +714,13 @@ def main(argv=None) -> int:
           + ("; direct scatter" if args.direct_scatter else "")
           + (f"; fence KB {args.fence_kb}" if args.fence_kb else ""))
     for name, inputs in shapes(args.kernel, torch.device("cuda")).items():
+        if args.kernel == "short_span":
+            r = run_short_span(lib, inputs)
+            for when, d in r.items():
+                print(f"{name}, {when}: {d}")
+            if not all(d["exact"] for d in r.values()):
+                return 1
+            continue
         if args.kernel in _ROW_OF:
             r = RUNS[args.kernel](lib, inputs)
             print(f"{name}: {r}")

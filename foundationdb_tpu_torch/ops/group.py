@@ -50,13 +50,14 @@ With `short_span_limit` = S > 0 (K13) every range op of the call is a
 direct S-wide read or write, kernel K (kernels/csrc/short_span.cu):
 phase (b) takes the max of the tier's versions over [max(il, 0), ir + 1)
 by `ss_range`, il/ir from kernel A's searches; each fixpoint
-application is one `ss_cover` (the writers' scatter-min over the batch's
-local ranks) and one `ss_range` min query instead of kernels C, B and A;
-and the cross query at G > 1 is an `ss_range` max over `seg_ver` instead
-of kernel G. A loud latch makes it exact, as in JAX: a live range that
-spans more than S positions sets `overflow` (the phase-(b) span in tier
-segments, the write and read spans in local ranks, and at G > 1 the
-cross span counted in the JAX co-sort's blocks, see `_block_spans`).
+application is one `ss_apply` (the writers' scatter-min over the batch's
+local ranks and the reads' min over it, one launch, no fill) instead of
+kernels C, B and A; and the cross query at G > 1 is an `ss_range` max
+over `seg_ver` instead of kernel G. A loud latch makes it exact, as in
+JAX: a live range that spans more than S positions sets `overflow` (the
+phase-(b) span in tier segments, the write and read spans in local
+ranks, and at G > 1 the cross span counted in the JAX co-sort's blocks,
+see `_block_spans`).
 
 Decisions are bit-identical to the JAX kernel (tests/test_torch_ops.py,
 tests/test_torch_tiered.py, tests/test_torch_group.py).
@@ -156,8 +157,8 @@ def _fixpoint(ok, per_txn, *, r_txn, w_txn, rt, wt, read_live, write_live,
     Returns (committed [B] bool, final same-batch hits [NR] bool masked
     by ok, unconverged [] bool). Without the latch, `unconverged` is
     False and the host loop runs to the fixpoint. With
-    `short_span_limit` S > 0 an application is kernel K's cover and
-    range query (the caller latches the spans).
+    `short_span_limit` S > 0 an application is one launch of kernel K's
+    `ss_apply` (the caller latches the spans).
     """
     nr, nw = lq_lo.shape[0], lw_lo.shape[0]
     leaves = _next_pow2(2 * nr + 2 * nw)
@@ -170,8 +171,7 @@ def _fixpoint(ok, per_txn, *, r_txn, w_txn, rt, wt, read_live, write_live,
         val = torch.where(_pad(committed, False)[wt] & write_live, w_txn,
                           INT32_POS)
         if ss:
-            mw = ss_cover(leaves, wlo, whi, val, ss)
-            minw = ss_range(mw, lq_lo, lq_hi, ss, op="min")
+            minw = ss_apply(leaves, wlo, whi, val, lq_lo, lq_hi, ss)
         else:
             mw = segtree.min_cover(leaves, wlo, whi, val)
             mtab = rangemax.build(mw, op="min")
@@ -721,9 +721,10 @@ def ss_range(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 def ss_cover_plain(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
                    val: torch.Tensor, span: int) -> torch.Tensor:
-    """Plain version of kernel K's cover entry, as the JAX program's
+    """The cover of kernel K's apply entry, plain, as the JAX program's
     scatter-min: `span` scatters into a [leaves + 1] buffer of INT32_POS,
-    the positions past each write's end sent to the trash slot."""
+    the positions past each write's end or outside [0, leaves) sent to
+    the trash slot."""
     flat = torch.full((leaves + 1,), INT32_POS, dtype=torch.int32,
                       device=val.device)
     for d in range(span):
@@ -734,24 +735,67 @@ def ss_cover_plain(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
     return flat[:leaves]
 
 
-def ss_cover(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
-             val: torch.Tensor, span: int) -> torch.Tensor:
-    """For each leaf v in [0, leaves): min val[j] over the writes with
-    lo[j] <= v < min(hi[j], lo[j] + span) ([leaves] int32, INT32_POS
-    where none): exact for the writes with hi - lo <= span, which the
-    caller latches. The buffer is new on every call (each fixpoint
-    application starts from INT32_POS). CUDA tensors launch kernel K's
-    ss_cover entry."""
-    if not (lo.shape == hi.shape == val.shape) or lo.ndim != 1:
-        raise ValueError("ss_cover: lo, hi, val must be [N]")
+def ss_apply_plain(leaves: int, wlo: torch.Tensor, whi: torch.Tensor,
+                   val: torch.Tensor, lq_lo: torch.Tensor, lq_hi: torch.Tensor,
+                   span: int) -> torch.Tensor:
+    """Plain version of kernel K's apply entry: the cover, then the min
+    query over it, as the JAX program writes them."""
+    return ss_range_plain(ss_cover_plain(leaves, wlo, whi, val, span),
+                          lq_lo, lq_hi, span, op="min")
+
+
+#: kernel K's cover per (CUDA device, stream): leaves of 64 bits stamped
+#: with their launch, then the current stamp (short_span.cu). A new one is
+#: all ones and reads as INT32_POS; each launch leaves the older leaves
+#: stale, so one serves every application on its stream without a fill.
+#: Calls on two streams at once would share the stamp, so each stream has
+#: its own
+_SPAN_COVER: dict = {}
+
+
+def _span_cover(dev: torch.device, leaves: int) -> torch.Tensor:
+    """Kernel K's cover of at least `leaves` leaves for `dev`'s current
+    stream. Inside a CUDA graph's capture a new one is made every call and
+    never kept: it lives in the graph's memory pool as long as the graph,
+    and its fill is captured with the launch, so each replay starts from
+    a new cover and shares no stamp with the stream's held one."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.full((leaves + 1,), -1, dtype=torch.int64, device=dev)
+    key = H._scratch_key(dev)
+    held = _SPAN_COVER.get(key)
+    if held is None or held.shape[0] <= leaves:
+        held = torch.full((leaves + 1,), -1, dtype=torch.int64, device=dev)
+        _SPAN_COVER[key] = held
+    return held
+
+
+def ss_apply(leaves: int, wlo: torch.Tensor, whi: torch.Tensor,
+             val: torch.Tensor, lq_lo: torch.Tensor, lq_hi: torch.Tensor,
+             span: int) -> torch.Tensor:
+    """One fixpoint application under short_span_limit = `span`: each
+    read's min over leaves [lq_lo, lq_hi) (at most `span` of them, a
+    position below 0 reading leaf 0) of the writes' cover — at each leaf
+    in [0, leaves) the min val[j] over the writes with wlo[j] <= leaf <
+    min(whi[j], wlo[j] + span), INT32_POS where none (an INT32_POS val
+    writes nothing). [NR] int32, INT32_POS where lq_hi <= lq_lo: exact
+    for the spans <= `span`, which the caller latches. CUDA tensors take
+    one launch of kernel K's ss_apply entry, on a cover kept per stream
+    (no fill); CPU tensors the plain version."""
+    if not (wlo.shape == whi.shape == val.shape and wlo.ndim == 1
+            and lq_lo.shape == lq_hi.shape and lq_lo.ndim == 1):
+        raise ValueError("ss_apply: wlo, whi, val [NW] and lq_lo, lq_hi "
+                         "[NR] expected")
+    if leaves < 1:
+        raise ValueError("ss_apply: leaves must be >= 1")
     if val.device.type == "cpu":
-        return ss_cover_plain(leaves, lo, hi, val, span)
-    kernels.check_cuda("ss_cover", lo, hi, val)
-    flat = torch.full((leaves,), INT32_POS, dtype=torch.int32,
-                      device=val.device)
-    kernels.launch("ss_cover", "short_span.cover", lo, hi, val, lo.shape[0],
-                   span, flat, leaves)
-    return flat
+        return ss_apply_plain(leaves, wlo, whi, val, lq_lo, lq_hi, span)
+    dev = kernels.check_cuda("ss_apply", wlo, whi, val, lq_lo, lq_hi)
+    cover = _span_cover(dev, leaves)
+    out = torch.empty(lq_lo.shape, dtype=torch.int32, device=dev)
+    kernels.launch("ss_apply", "short_span.apply", wlo, whi, val,
+                   wlo.shape[0], lq_lo, lq_hi, lq_lo.shape[0], span, leaves,
+                   cover, cover.shape[0] - 1, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

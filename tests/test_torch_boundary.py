@@ -156,7 +156,7 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     f = torch.zeros((2, 1), dtype=torch.bool)
     SH.combine(v, v, f[..., None], f, f[:, 0], g["txn_valid"])
     G.ss_range(vals, lo, lo + 3, 4, op="max")
-    G.ss_cover(64, lo, lo + 2, lo, 4)
+    G.ss_apply(64, lo, lo + 2, lo, lo, lo + 3, 4)
     K.sort_ranks(keys, live.repeat(3)[:64])
     H.merge_writes(hist, keys[:8], 50, 0)
     R.query4(R.build4(vals, op="min"), lo, lo + 9, op="min")

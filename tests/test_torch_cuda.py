@@ -27,6 +27,7 @@ from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.testing import merge_cases as MC
 from foundationdb_tpu_torch.testing import probe_cases as PC
+from foundationdb_tpu_torch.testing import span_cases as SC
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
@@ -41,7 +42,7 @@ CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 #: the kernels only the sharded path launches
 SHARDED_ONLY = ("shard_clip", "shard_combine")
 #: the kernels only the short-span variant launches
-SHORT_SPAN_ONLY = ("short_span.range", "short_span.cover")
+SHORT_SPAN_ONLY = ("short_span.range", "short_span.apply")
 #: the kernels no resolver path launches (the reference's scripts' K16
 #: and K19)
 OFF_PATH = ("merge_writes", "rangemax4.build", "rangemax4.query",
@@ -606,8 +607,188 @@ def test_short_span_kernels(cuda_device, span):
                         dtype=torch.int32)
     val[::3] = R.INT32_POS
     assert_launched_and_equal(
-        "short_span.cover", G.ss_cover(n, wlo, whi, val, span),
-        G.ss_cover_plain(n, wlo, whi, val, span))
+        "short_span.apply", G.ss_apply(n, wlo, whi, val, lo, hi, span),
+        G.ss_apply_plain(n, wlo, whi, val, lo, hi, span))
+    assert_cover_reads_clear(lo.device)
+
+
+def assert_cover_reads_clear(dev):
+    """Every leaf of kernel K's cover for the current stream of `dev` (a
+    tensor's device, with its index) reads as INT32_POS at its current
+    stamp: what the next launch starts from."""
+    cover = G._SPAN_COVER[H._scratch_key(dev)]
+    stamp = int(cover[-1]) & 0xFFFFFFFF
+    high = (cover[:-1] >> 32) & 0xFFFFFFFF
+    low = cover[:-1] & 0xFFFFFFFF
+    assert not bool(((high == stamp) & (low != 0xFFFFFFFF)).any())
+
+
+def span_inputs(case, dev):
+    """A span case's (wlo, whi, [vals], qlo, qhi) on the card."""
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+    return (on(case.wlo), on(case.whi), [on(v) for v in case.vals],
+            on(case.qlo), on(case.qhi))
+
+
+@pytest.mark.parametrize("w", [3, 5])
+@pytest.mark.parametrize("name", SC.NAMES)
+def test_span_apply(cuda_device, name, w):
+    """Kernel K's apply entry against its plain version on every span
+    case, each application in a row at S in {1, 2, 4, 8}, one launch a
+    call, the cover reading clear after each."""
+    c = SC.span_case(name, w)
+    wlo, whi, vals, qlo, qhi = span_inputs(c, cuda_device)
+    for span in (1, 2, 4, 8):
+        for val in vals:
+            before = kernels.COUNTS["short_span.apply"]
+            got = G.ss_apply(c.leaves, wlo, whi, val, qlo, qhi, span)
+            assert kernels.COUNTS["short_span.apply"] == before + 1
+            assert torch.equal(got, G.ss_apply_plain(c.leaves, wlo, whi,
+                                                     val, qlo, qhi, span))
+            assert_cover_reads_clear(wlo.device)
+
+
+def test_span_apply_in_a_row_and_the_last_stamp(cuda_device):
+    """200 applications in a row over every case and span stay exact;
+    then the launches across the last stamp (0): the one that holds it
+    sets every leaf and the stamp back to all ones, and the next are
+    exact."""
+    cases = [span_inputs(SC.span_case(n, w), cuda_device) + (
+        SC.span_case(n, w).leaves,) for n in SC.NAMES for w in (3, 5)]
+    wants = {}
+
+    def check(k):
+        wlo, whi, vals, qlo, qhi, leaves = cases[k % len(cases)]
+        span = (1, 2, 4, 8)[k % 4]
+        j = k % len(vals)
+        got = G.ss_apply(leaves, wlo, whi, vals[j], qlo, qhi, span)
+        key = (k % len(cases), span, j)
+        if key not in wants:
+            wants[key] = G.ss_apply_plain(leaves, wlo, whi, vals[j], qlo,
+                                          qhi, span)
+        assert torch.equal(got, wants[key]), k
+
+    for k in range(200):
+        check(k)
+    assert kernels.COUNTS["short_span.apply"] == 200
+    dev = cases[0][0].device
+    cover = G._SPAN_COVER[H._scratch_key(dev)]
+    cover[-1] = 1
+    check(0)
+    check(1)                       # stamp 0: resets the cover
+    assert bool((cover == -1).all())
+    for k in range(2, 6):
+        check(k)
+    assert_cover_reads_clear(dev)
+
+
+def test_span_apply_on_two_streams(cuda_device):
+    """Calls on two streams at once, each on its own cover, all exact."""
+    cases = [SC.span_case("two in a row", 3), SC.span_case("one hot leaf",
+                                                            5)]
+    ins = [span_inputs(c, cuda_device) for c in cases]
+    wants = [[G.ss_apply_plain(c.leaves, i[0], i[1], v, i[3], i[4], 4)
+              for v in i[2]] for c, i in zip(cases, ins)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for k, (c, i, st) in enumerate(zip(cases, ins, streams)):
+            with torch.cuda.stream(st):
+                for v in i[2]:
+                    outs[k].append(G.ss_apply(c.leaves, i[0], i[1], v, i[3],
+                                              i[4], 4))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for n, got in enumerate(outs[k]):
+            assert torch.equal(got, wants[k][n % len(wants[k])]), (k, n)
+    for st in streams:
+        assert (ins[0][0].device, st.cuda_stream) in G._SPAN_COVER
+
+
+def capture_span_apply(c, ins, st, warm: bool):
+    """(graph, out): two applications of span case `c` in a row (vals 0
+    then 1) captured on stream `st`, after an eager call there when
+    `warm` (the stream then holds a cover)."""
+    wlo, whi, vals, qlo, qhi = ins
+    torch.cuda.synchronize()
+    if warm:
+        with torch.cuda.stream(st):
+            G.ss_apply(c.leaves, wlo, whi, vals[1], qlo, qhi, 4)
+        st.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        G.ss_apply(c.leaves, wlo, whi, vals[0], qlo, qhi, 4)
+        out = G.ss_apply(c.leaves, wlo, whi, vals[1], qlo, qhi, 4)
+    return graph, out
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_span_apply_in_a_cuda_graph(cuda_device, warm):
+    """Kernel K's stamp lives on the card, so a captured application
+    replays exact: the capture makes its own cover inside the graph
+    (its fill captured too), whether or not its stream holds one
+    (`warm`); a replay leaves the stream's held cover as it was, and
+    eager calls on the stream between the replays stay exact."""
+    c = SC.span_case("two in a row", 3)
+    ins = span_inputs(c, cuda_device)
+    wlo, whi, vals, qlo, qhi = ins
+    want = [G.ss_apply_plain(c.leaves, wlo, whi, v, qlo, qhi, 4)
+            for v in vals]
+    st = torch.cuda.Stream()
+    graph, out = capture_span_apply(c, ins, st, warm)
+    key = (wlo.device, st.cuda_stream)
+    for _ in range(3):
+        held = G._SPAN_COVER.get(key)
+        before = None if held is None else held.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[1])
+        if held is not None:
+            assert torch.equal(held, before)
+        with torch.cuda.stream(st):
+            eager = G.ss_apply(c.leaves, wlo, whi, vals[2], qlo, qhi, 4)
+        st.synchronize()
+        assert torch.equal(eager, want[2])
+
+
+def test_span_apply_graph_replays_after_the_cover_grows(cuda_device):
+    """After a warm capture, an eager call with more leaves replaces the
+    stream's cover and frees the old one; new tensors may take its
+    memory. The graph's replays use the cover made inside the capture,
+    so they stay exact and leave the new tensors and cover untouched."""
+    c = SC.span_case("two in a row", 5)
+    ins = span_inputs(c, cuda_device)
+    wlo, whi, vals, qlo, qhi = ins
+    want = G.ss_apply_plain(c.leaves, wlo, whi, vals[1], qlo, qhi, 4)
+    st = torch.cuda.Stream()
+    key = (wlo.device, st.cuda_stream)
+    G._SPAN_COVER.pop(key, None)   # a pooled stream may hold a larger one
+    graph, out = capture_span_apply(c, ins, st, warm=True)
+    small = G._SPAN_COVER[key]
+    big = 4 * c.leaves
+    want_big = G.ss_apply_plain(big, wlo, whi, vals[2], qlo, qhi, 4)
+    with torch.cuda.stream(st):
+        got_big = G.ss_apply(big, wlo, whi, vals[2], qlo, qhi, 4)
+    st.synchronize()
+    assert G._SPAN_COVER[key].shape[0] > small.shape[0]
+    del small
+    fill = [torch.full((c.leaves + 1,), 7, dtype=torch.int64,
+                       device=cuda_device) for _ in range(4)]
+    torch.cuda.synchronize()
+    grown = G._SPAN_COVER[key].clone()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(G._SPAN_COVER[key], grown)
+        assert all(bool((f == 7).all()) for f in fill)
+    assert torch.equal(got_big, want_big)
+    with torch.cuda.stream(st):
+        again = G.ss_apply(big, wlo, whi, vals[2], qlo, qhi, 4)
+    st.synchronize()
+    assert torch.equal(again, want_big)
 
 
 def wide_rows(rng, p, w):
@@ -785,7 +966,7 @@ def test_short_span_streams_match_cpu_plain_path(cuda_device):
         for a, b in zip(flat_state(gpu), flat_state(cpu)):
             assert np.array_equal(a, b)
         assert not bool(got.overflow.any())
-        for name in ("short_span.range", "short_span.cover", "sort_ranks"):
+        for name in ("short_span.range", "short_span.apply", "sort_ranks"):
             assert launched[name] > 0, name
         for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
             assert launched[name] == 0, name

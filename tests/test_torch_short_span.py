@@ -11,7 +11,8 @@ is an integer or a bool, so the tolerance is equality throughout:
   equal to tier keys, GC below the floor, capacity overflow);
 * `build4` / `query4` / `min_cover4` against the JAX functions at widths
   1024, 4096 and 131072 (an odd log2 width) and at odd lengths;
-* kernel K's plain versions against a jnp transcription of the JAX
+* kernel K's plain versions (the range op, the cover and one fixpoint
+  application, `ss_apply`) against a jnp transcription of the JAX
   direct ops;
 * `resolve_group(short_span_limit=S)` at G = 1, 2 and 8 with S in
   {2, 4, 8} against JAX `resolve_group(short_span_limit=S)` on the point
@@ -261,7 +262,12 @@ def test_direct_ops_match_jax(span):
     val[::3] = JR.INT32_POS                             # uncommitted
     want = jax_cover(n, jnp.asarray(wlo), jnp.asarray(whi),
                      jnp.asarray(val), span)
-    got = G.ss_cover(n, t(wlo), t(whi), t(val), span)
+    got = G.ss_cover_plain(n, t(wlo), t(whi), t(val), span)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    # one fixpoint application: the cover, then the reads' min over it
+    want = jax_direct_range_op(want, jnp.asarray(lo), jnp.asarray(hi),
+                               op="min", span=span)
+    got = G.ss_apply(n, t(wlo), t(whi), t(val), t(lo), t(hi), span)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --merge         # kernel D alone, timed
     python3 chip_smoke.py --probe-fold    # kernels A's probe and H alone
     python3 chip_smoke.py --short-span    # kernel K's application alone
+    python3 chip_smoke.py --queries       # kernels A's query and G alone
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -34,6 +35,16 @@ any fault:
    (live rows about its tiles, a 5,000-row run across two tile edges,
    all-sentinel maps, a capacity under the count, each hard part again
    past 600,000 real rows, where it takes its 2,048-position tiles);
+   first the fixpoint's read spans of every batch of the uniform,
+   hot-key and range-scan streams are surveyed (`read_spans` in the
+   streams' JSON: what FIXPOINT_LEVELS is chosen from); kernel B also
+   timed at the fixpoint's depth (`fixpoint_min_2p18_L7`) and kernel A's
+   query on that table at a uniform batch's own ranks, and exact, one
+   launch a call, over tables of every depth the fixpoint may take and
+   the full one, min and max, on short reads and on reads up to the
+   whole leaf range (its long path); kernel G's build one launch a call,
+   its query at a classic group's own ranks (the `rangemax2.query` row)
+   and at a synthetic mix of wide and empty ones (`synthetic_mix`);
    kernel A's probe also timed at the uniform stream's point reads
    against a main tier 3/4 live (its `uniform_point_reads` entry), the
    probe and H one launch a call and exact on every case of
@@ -107,7 +118,10 @@ C at the resolver path's shapes (`time_build_cover`), with `--merge`
 only kernel D at its two (`time_merge`), with `--probe-fold` only kernel
 A's probe at its two and kernel H (`time_probe_fold`), with
 `--short-span` only one short-span fixpoint application
-(`time_short_span`), printing their JSON and the card's name and power
+(`time_short_span`), with `--queries` only the exact fixpoint's min
+table and query (kernels B and A's query) at every level and at each
+depth the fixpoint may take, and kernel G's build and query
+(`time_queries`), printing their JSON and the card's name and power
 limit.
 """
 
@@ -481,19 +495,26 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
         "rangemax_build min 2^18")
     tile_edge_checks(gen, device)
 
-    # -- A.query: the fixpoint's min query over the 2^18-leaf table
-    mtab = rangemax.build_plain(mw, op="min")
-    lo = torch.randint(0, leaves, (B,), generator=gen, device=device,
-                       dtype=torch.int32)
-    span = torch.randint(-2, 64, (B,), generator=gen, device=device,
-                         dtype=torch.int32)
-    hi = (lo + span).clamp(0, leaves)
+    # -- B at the fixpoint's depth, and A.query: the fixpoint's min
+    #    table and query at a uniform batch's own ranks and writes, then
+    #    exact over a full table (min and max) and on reads up to the
+    #    whole leaf range (the long path)
+    fix = fixpoint_inputs(gen, uniform_group[0], device)
+    fmw, flo, fhi = fixpoint_cover(fix), fix[4], fix[5]
+    depth = G.FIXPOINT_LEVELS
+    entry("rangemax_build",
+          lambda: rangemax.build(fmw, op="min", levels=depth),
+          lambda: rangemax.build_plain(fmw, op="min", levels=depth),
+          n_bytes=(1 + depth) * leaves * 4, n_ops=(depth - 1) * leaves,
+          key="rangemax_build min fixpoint")
+    ledger["rangemax_build"][f"fixpoint_min_2p18_L{depth}"] = ledger.pop(
+        "rangemax_build min fixpoint")
+    ftab = rangemax.build(fmw, op="min", levels=depth)
     entry("keysearch.query",
-          lambda: rangemax.query(mtab, lo, hi, op="min"),
-          lambda: rangemax.query_plain(mtab, lo, hi, op="min"),
-          n_bytes=B * 4 * 5, n_ops=B * 8)
-    exact("keysearch.query max", rangemax.query(mtab, lo, hi, op="max"),
-          rangemax.query_plain(mtab, lo, hi, op="max"))
+          lambda: rangemax.query(ftab, flo, fhi, op="min"),
+          lambda: rangemax.query_plain(ftab, flo, fhi, op="min"),
+          n_bytes=query_bytes(depth, leaves, flo, fhi), n_ops=B * 8)
+    query_checks(gen, mw, device)
 
     # -- A.probe: the main-tier probe of one batch's reads (most span
     #    many segments, far past the JAX 4-boundary window), and the
@@ -618,60 +639,17 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     # -- G and H: the cross-batch phase of a classic group of 8 uniform
     #    batches, over its group-wide endpoint ranks (2G(NR+NW) rows)
     ranks, n_map = group_ranks(uniform_group, device)
-    nr = B
-    rrb, rre = ranks[1][0], ranks[1][1]        # batch 1's reads
-    # G's values: random int32 versions, all but surely distinct per
-    # chunk, so a wrong chunk, superchunk or table level shows (a map of
-    # a few versions could answer right from the wrong entry)
-    seg = torch.randint(H.VERSION_NEG, rangemax.INT32_POS, (n_map,),
-                        generator=gen, device=device, dtype=torch.int32)
-    # spans within a chunk (the point reads), past it, and empty ones
-    qlo, qhi = rrb.clone(), rre.clone()
-    wide = torch.arange(0, nr, 4, device=device)
-    qhi[wide] = (qlo[wide] + torch.randint(
-        33, 200_000, (wide.shape[0],), generator=gen, device=device,
-        dtype=torch.int32)).clamp(max=n_map)
-    empty = torch.arange(1, nr, 16, device=device)
-    qhi[empty] = qlo[empty] - torch.randint(0, 3, (empty.shape[0],),
-                                            generator=gen, device=device,
-                                            dtype=torch.int32)
-    span = (qhi - qlo).clamp(min=0)
-    log(f"  rangemax2 input: {n_map} ranks (a group of {GROUP}) of random "
-        f"int32 versions, {nr} queries: {int((span == 0).sum())} empty, "
-        f"{int(((span > 0) & (span <= 32)).sum())} within a chunk, "
-        f"{int((span > 32).sum())} wider (max {int(span.max())})")
-    nc = -(-n_map // rangemax.CHUNK)
-    ns = -(-n_map // rangemax.SUPER)
-    ls = rangemax._num_levels(ns)
-
-    def rm2_check(op):
-        def check(name, got, want):
-            if len(got) == 2:   # a CPU tensor: build2 is the plain version
-                return max(exact(name + " fine", got[0], want[0]),
-                           exact(name + " coarse", got[1], want[1]))
-            chunk, table = rm2_expected(want, op)
-            return max(exact(name + " chunk maxima", got[1], chunk),
-                       exact(name + " table", got[2], table))
-        return check
-
-    entry("rangemax2.build",
-          lambda: rangemax.build2(seg, op="max"),
-          lambda: rangemax.build2_plain(seg, op="max"),
-          n_bytes=4 * (n_map + nc + ls * ns), n_ops=n_map + nc + ls * ns,
-          check=rm2_check("max"), detail=True)
-    rm2_check("min")("rangemax2.build min", rangemax.build2(seg, op="min"),
-                     rangemax.build2_plain(seg, op="min"))
-    tabs, plain_tabs = rangemax.build2(seg, op="max"), rangemax.build2_plain(
-        seg, op="max")
-    rows = rangemax2_rows(qlo, qhi, n_map)
-    entry("rangemax2.query",
-          lambda: rangemax.query2(tabs, qlo, qhi, op="max"),
-          lambda: rangemax.query2_plain(plain_tabs, qlo, qhi, op="max"),
-          n_bytes=nr * 12 + rows * 4, n_ops=rows)
-    exact("rangemax2.query min",
-          rangemax.query2(rangemax.build2(seg, op="min"), qlo, qhi, op="min"),
-          rangemax.query2_plain(rangemax.build2_plain(seg, op="min"), qlo,
-                                qhi, op="min"))
+    g_rows(ledger, gen, ranks, n_map, device)
+    if ledger["rangemax2.build"]["launches_per_call"] != 1:
+        fail(f"rangemax2.build: "
+             f"{ledger['rangemax2.build']['launches_per_call']} launches a "
+             "call, not one")
+    # every build's last block set its stream's arrival counter back to 0,
+    # so the next build on that stream starts from 0
+    held = [int(a.item()) for a in rangemax._BUILD2_ARRIVE.values()]
+    if not held or any(held):
+        fail(f"rangemax2.build: arrival counters {held} after its calls, "
+             "not 0")
     fold_row(ledger, gen, ranks, n_map)
     if ledger["seg_fold"]["launches_per_call"] != 1:
         fail(f"seg_fold: {ledger['seg_fold']['launches_per_call']} launches "
@@ -849,6 +827,11 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
 
 #: kernel B's and C's sizes about their 4,096-row tiles: one row, a tile
 #: less one, one, one more, past 16 tiles, the fixpoint's leaves, a tier
+#: the depths the fixpoint's min table was chosen from (FIXPOINT_LEVELS)
+LEVEL_CHOICES = (6, 7, 8, 10, 13)
+#: reads of up to the whole leaf range in kernel A's query checks (the
+#: plain version gathers each one's 2^18 / 2^(L-1) entries)
+LONG_READS = 4096
 TILE_EDGE_ROWS = (1, 3, 4095, 4096, 4097, 65_537, 262_144, M)
 TILE_EDGE_LEAVES = (1, 64, 4096, 8192, 1 << 18, 1 << 20)
 
@@ -882,6 +865,67 @@ def cover_intervals(gen, leaves: int, n: int, device):
     val[::5] = rangemax.INT32_POS
     return (lo.to(torch.int32), (lo + length).to(torch.int32),
             val.to(torch.int32))
+
+
+def query_bytes(levels: int, m: int, lo, hi) -> int:
+    """Kernel A's query's byte floor: each query's ends and answer (12 B)
+    and 4 B a distinct table entry it reads: none where its range is
+    empty, one where its span is a power of two up to 2^levels (both
+    lookups read t[k][lo]), two at other spans up to 2^levels, and
+    ceil(span / 2^(levels - 1)) level-(levels - 1) entries past that
+    (the long path)."""
+    import torch
+
+    span = (hi.to(torch.int64).clamp(0, m)
+            - lo.to(torch.int64).clamp(0, m)).clamp(min=0)
+    half = 1 << (levels - 1)
+    pow2 = (span & (span - 1)) == 0
+    entries = torch.where(span > 2 * half, (span - 1) // half + 1,
+                          torch.where(pow2, 1, 2))
+    return 12 * lo.shape[0] + 4 * int(torch.where(span > 0, entries,
+                                                  0).sum())
+
+
+def query_checks(gen, values, device) -> None:
+    """Kernel A's query exact against its plain version over tables of
+    values ([2^18] int32) at every depth the fixpoint may take and the
+    full one, min and max: reads of -2 .. 64 leaves (empty, inverted,
+    clipped) and reads up to the whole leaf range (the long path, past
+    2^L), one launch a call."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import rangemax
+
+    m = values.shape[0]
+
+    def ints(lo, hi, n=B):
+        return torch.randint(lo, hi, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    lo, lo_w = ints(-3, m + 3), ints(-3, m // 2, LONG_READS)
+    short, wide = lo + ints(-2, 64), lo_w + ints(0, m + 4, LONG_READS)
+    # the whole range, past both ends, empty and inverted at the ends
+    ends = torch.tensor([[0, m], [-5, m + 3], [0, 0], [m, m - 1], [1, m]],
+                        dtype=torch.int32, device=device)
+    lo_w[:ends.shape[0]], wide[:ends.shape[0]] = ends[:, 0], ends[:, 1]
+    long_n = 0
+    for levels in (*LEVEL_CHOICES, None):
+        for op in ("min", "max"):
+            tab = rangemax.build(values, op=op, levels=levels)
+            for what, a, b in (("short", lo, short), ("long", lo_w, wide)):
+                before = kernels.COUNTS["keysearch.query"]
+                got = rangemax.query(tab, a, b, op=op)
+                if kernels.COUNTS["keysearch.query"] != before + 1:
+                    fail("keysearch.query: not one launch a call")
+                exact(f"keysearch.query L={tab.shape[0]} {op} {what}", got,
+                      rangemax.query_plain(tab, a, b, op=op))
+            long_n += int(((wide.clamp(0, m) - lo_w.clamp(0, m))
+                           > (1 << tab.shape[0])).sum())
+    log(f"  keysearch.query over {m} values at L = {LEVEL_CHOICES} and "
+        f"full, min and max: exact on {B} reads of -2 .. 64 leaves and "
+        f"{LONG_READS} of up to the whole range ({long_n} long-path reads "
+        "in all)")
 
 
 def tile_edge_checks(gen, device) -> None:
@@ -1169,13 +1213,16 @@ def _launch_bytes(entry: str, a: list) -> int:
     """The bytes one launch of a C entry point must move, from its
     arguments as kernels.launch gets them: its inputs read once and its
     outputs written once, as the phase-2 bounds count them, leaving out
-    what depends on the data (a query's partial chunks, the distinct rows
+    what depends on the data (the distinct rows
     of a dedup, the key rows that decide a probe's reads), so it is a
     floor, except for mm_merge: its rows are
     known on the card only, so both maps count whole, sentinel tails too,
     an upper figure for that entry. What depends on the data and is
     counted when launch_totals() is read (the launch's tensors are kept
-    until then, so the count syncs no run): sf_fold's 4 B a rank its
+    until then, so the count syncs no run): ks_query's 4 B a distinct
+    table entry a query reads (query_bytes; beside 12 B a query),
+    rm2_query's 4 B a row, chunk maximum or table entry its ranges read
+    (beside 12 B a query), sf_fold's 4 B a rank its
     writes cover (beside 9 B a write), ss_range's 4 B a value its queries
     read (beside 12 B a query) and ss_apply's 4 B a covered leaf, written
     and read back, the int32 min the function needs (beside 12 B a write
@@ -1184,7 +1231,9 @@ def _launch_bytes(entry: str, a: list) -> int:
         m, w, q = a[1], a[2], a[4]
         return 4 * (m * w + q * w + q)
     if entry == "ks_query":              # table, levels, m, lo, hi, q, ...
-        return 4 * 5 * a[5]
+        LAUNCH_BYTES["later"].append(
+            lambda: query_bytes(a[1], a[2], a[3], a[4]) - 12 * a[5])
+        return 12 * a[5]
     if entry == "ks_probe":              # keys, m, w, table, levels, rb,
         w, q = a[2], a[7]                # re, q, out
         return 4 * (2 * q * w + 3 * q)
@@ -1209,11 +1258,11 @@ def _launch_bytes(entry: str, a: list) -> int:
         return 4 * 4 * a[3] * a[2]
     if entry == "dd_gather":             # vmax_u, rank, n, u, vmax
         return 4 * 2 * a[2]
-    if entry == "rm2_chunks":            # values, m, chunk, nc, table, ns
-        return 4 * (a[1] + a[3] + a[5])
-    if entry == "rm2_levels":            # table, ns, levels, op_min
-        return 4 * a[1] * (a[2] - 1)
-    if entry == "rm2_query":             # ..., lo, hi, q (8), ...
+    if entry == "rm2_build":             # values, m, chunk, nc, table, ns,
+        return 4 * (a[1] + a[3] + a[6] * a[5])  # levels, ...
+    if entry == "rm2_query":             # values, m, ..., lo, hi, q (8)
+        LAUNCH_BYTES["later"].append(
+            lambda: 4 * rangemax2_rows(a[6], a[7], a[1]))
         return 12 * a[8]
     if entry == "sf_fold":               # wb, we, cw, nw, n, ...
         LAUNCH_BYTES["later"].append(
@@ -1359,6 +1408,85 @@ def group_ranks(batches, device):
     cuts = (0, nr, 2 * nr, 2 * nr + nw, 2 * nr + 2 * nw)
     return ([[grank[i, cuts[j]:cuts[j + 1]].contiguous() for j in range(4)]
              for i in range(gn)], pts.shape[0])
+
+
+def g_rows(ledger: dict, gen, ranks: list, n_map: int, device) -> None:
+    """Kernel G's ledger rows over a classic group of 8's n_map ranks:
+    its build (max, and min exact), and its query at batch 1's reads at
+    their own ranks (the path's input: the `rangemax2.query` row, with
+    the span histogram logged) and at a synthetic mix of those reads
+    (every 4th 33-200,000 ranks wide, every 16th empty: its
+    `synthetic_mix`), each exact against the plain version at max and
+    min and timed. G's values are random int32 versions, all but surely
+    distinct per chunk, so a wrong chunk, superchunk or table level shows
+    (a map of a few versions could answer right from the wrong entry)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import rangemax
+
+    seg = torch.randint(H.VERSION_NEG, rangemax.INT32_POS, (n_map,),
+                        generator=gen, device=device, dtype=torch.int32)
+    rrb, rre = ranks[1][0], ranks[1][1]        # batch 1's reads
+    qlo, qhi = rrb.clone(), rre.clone()
+    nr = qlo.shape[0]
+    wide = torch.arange(0, nr, 4, device=device)
+    qhi[wide] = (qlo[wide] + torch.randint(
+        33, 200_000, (wide.shape[0],), generator=gen, device=device,
+        dtype=torch.int32)).clamp(max=n_map)
+    empty = torch.arange(1, nr, 16, device=device)
+    qhi[empty] = qlo[empty] - torch.randint(0, 3, (empty.shape[0],),
+                                            generator=gen, device=device,
+                                            dtype=torch.int32)
+    for tag, lo, hi in (("stream ranks", rrb, rre),
+                        ("synthetic mix", qlo, qhi)):
+        span = (hi - lo).clamp(min=0)
+        hist = torch.bincount(span.clamp(max=33).to(torch.int64),
+                              minlength=34).tolist()
+        log(f"  rangemax2 {tag}: {n_map} ranks (a group of {GROUP}), {nr} "
+            f"queries: {hist[0]} empty, spans 1..8 {hist[1:9]}, 9..32 "
+            f"{sum(hist[9:33])}, wider {hist[33]} (max {int(span.max())})")
+    nc = -(-n_map // rangemax.CHUNK)
+    ns = -(-n_map // rangemax.SUPER)
+    ls = rangemax._num_levels(ns)
+
+    def rm2_check(op):
+        def check(name, got, want):
+            if len(got) == 2:   # a CPU tensor: build2 is the plain version
+                return max(exact(name + " fine", got[0], want[0]),
+                           exact(name + " coarse", got[1], want[1]))
+            chunk, table = rm2_expected(want, op)
+            return max(exact(name + " chunk maxima", got[1], chunk),
+                       exact(name + " table", got[2], table))
+        return check
+
+    measure(ledger, "rangemax2.build",
+            lambda: rangemax.build2(seg, op="max"),
+            lambda: rangemax.build2_plain(seg, op="max"),
+            n_bytes=4 * (n_map + nc + ls * ns), n_ops=n_map + nc + ls * ns,
+            check=rm2_check("max"), detail=True)
+    rm2_check("min")("rangemax2.build min", rangemax.build2(seg, op="min"),
+                     rangemax.build2_plain(seg, op="min"))
+    for op in ("max", "min"):
+        tabs = rangemax.build2(seg, op=op)
+        plain_tabs = rangemax.build2_plain(seg, op=op)
+        for tag, lo, hi in (("stream", rrb, rre), ("synthetic", qlo, qhi)):
+            key = ("rangemax2.query" if tag == "stream"
+                   else "rangemax2.query synthetic")
+            if op == "max":
+                rows = rangemax2_rows(lo, hi, n_map)
+                measure(ledger, "rangemax2.query",
+                        functools.partial(rangemax.query2, tabs, lo, hi,
+                                          op=op),
+                        functools.partial(rangemax.query2_plain, plain_tabs,
+                                          lo, hi, op=op),
+                        n_bytes=nr * 12 + rows * 4, n_ops=rows, key=key)
+            else:
+                exact(f"rangemax2.query min, {tag}",
+                      rangemax.query2(tabs, lo, hi, op=op),
+                      rangemax.query2_plain(plain_tabs, lo, hi, op=op))
+    ledger["rangemax2.query"]["synthetic_mix"] = ledger.pop(
+        "rangemax2.query synthetic")
 
 
 def rangemax2_rows(lo, hi, m: int) -> int:
@@ -2202,17 +2330,9 @@ def fixpoint_inputs(gen, batch, device) -> tuple:
     val random txn ids, 5% INT32_POS (uncommitted)."""
     import torch
 
-    from foundationdb_tpu_torch import interop
     from foundationdb_tpu_torch.ops import group as G
-    from foundationdb_tpu_torch.ops import keys as K
 
-    a = interop.device_args_to_torch(batch.device_args(), device)
-    live = torch.cat([a["read_valid"], a["read_valid"], a["write_valid"],
-                      a["write_valid"]])
-    pts = torch.where(live[:, None], torch.cat([
-        a["read_begin"], a["read_end"], a["write_begin"], a["write_end"]]),
-        K.SENTINEL_WORD).contiguous()
-    rank = K.dense_ranks(pts)
+    a, rank = local_ranks(batch, device)
     wv = a["write_valid"]
     val = torch.randint(0, B, (B,), generator=gen, device=device,
                         dtype=torch.int32)
@@ -2221,6 +2341,57 @@ def fixpoint_inputs(gen, batch, device) -> tuple:
     return (4 * B, torch.where(wv, rank[2 * B:3 * B], 0),
             torch.where(wv, rank[3 * B:], 0), val, rank[:B],
             rank[B:2 * B])
+
+
+def fixpoint_cover(fix):
+    """The exact fixpoint's min cover of a batch's writes (kernel C):
+    what kernel B builds the min table over."""
+    from foundationdb_tpu_torch.ops import segtree
+
+    leaves, wlo, whi, val = fix[:4]
+    return segtree.min_cover(leaves, wlo, whi, val)
+
+
+def local_ranks(batch, device) -> tuple:
+    """(the batch's torch arguments, the local ranks of its live endpoints
+    [rb, re, wb, we], dead rows at the sentinel's): the ranks the group
+    kernel's fixpoint works in."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import keys as K
+
+    a = interop.device_args_to_torch(batch.device_args(), device)
+    live = torch.cat([a["read_valid"], a["read_valid"], a["write_valid"],
+                      a["write_valid"]])
+    pts = torch.where(live[:, None], torch.cat([
+        a["read_begin"], a["read_end"], a["write_begin"], a["write_end"]]),
+        K.SENTINEL_WORD).contiguous()
+    return a, K.dense_ranks(pts)
+
+
+def survey_read_spans(device, streams: dict) -> dict:
+    """The fixpoint's read spans (local ranks) of every batch of each
+    stream: the largest, p50, p99 and the count past 2^L for each L the
+    fixpoint may take (FIXPOINT_LEVELS is chosen from these)."""
+    import torch
+
+    def spans_of(b):
+        a, rank = local_ranks(b, device)
+        nr = a["read_valid"].shape[0]
+        return (rank[nr:2 * nr] - rank[:nr])[a["read_valid"]]
+
+    out = {}
+    for tag, batches in streams.items():
+        spans = torch.cat([spans_of(b) for b in batches]).double()
+        row = dict(batches=len(batches), reads=int(spans.numel()),
+                   max=int(spans.max()), p50=float(spans.quantile(0.5)),
+                   p99=float(spans.quantile(0.99)))
+        for levels in LEVEL_CHOICES:
+            row[f"past_2^{levels}"] = int((spans > (1 << levels)).sum())
+        out[tag] = row
+        log(f"  read spans, {tag}: {row}")
+    return out
 
 
 def apply_bound(leaves: int, wlo, whi, val, lq_lo, lq_hi, ss: int):
@@ -2957,6 +3128,134 @@ def time_short_span(device) -> dict:
     return {name: row}
 
 
+def kernel_us(fn, reps: int = 10, sessions: int = 3) -> dict:
+    """Median device µs a call of fn() by kernel: the port's by their
+    function name (both instantiations of a template summed), other work
+    by its record's name; from checked profiler sessions."""
+    fn()
+
+    def many():
+        for _ in range(reps):
+            fn()
+
+    per = []
+    for _ in range(sessions):
+        row = {}
+        for k, t in profiled(many).items():
+            m = PORT_KERNEL.match(k)
+            name = m.group(1) if m else k[:60]
+            row[name] = row.get(name, 0.0) + t / reps
+        per.append(row)
+    return {k: round(statistics.median(p.get(k, 0.0) for p in per), 3)
+            for k in sorted(set().union(*per))}
+
+
+def long_path_rows(mw, lo, hi) -> dict:
+    """What the long path costs kernel A's query over the fixpoint's
+    FIXPOINT_LEVELS-level min table, beside the full table: the uniform
+    fixpoint's reads (lo, hi) as they are, then with read 0 spanning
+    2^10 .. 2^18 leaves from 0, with the first 32 reads (one warp's) over
+    the whole leaf range, and with every 32nd read (one a warp) over it.
+    Each held to the plain version; device µs of the query alone (the
+    tables built once)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import rangemax
+
+    m = mw.shape[0]
+    tables = {"cut": rangemax.build(mw, op="min", levels=G.FIXPOINT_LEVELS),
+              "full": rangemax.build(mw, op="min")}
+    cases = {"as is": lo.new_zeros(0)}
+    for bits in range(10, m.bit_length(), 2):
+        cases[f"read 0 over 2^{bits}"] = torch.tensor([0], device=lo.device)
+    cases["one warp's 32 reads over all"] = torch.arange(32, device=lo.device)
+    cases["a read a warp over all"] = torch.arange(0, lo.shape[0], 32,
+                                                   device=lo.device)
+    out = {}
+    for name, idx in cases.items():
+        qlo, qhi = lo.clone(), hi.clone()
+        qlo[idx] = 0
+        span = (1 << int(name.split("2^")[1])) if "2^" in name else m
+        qhi[idx] = span
+        want = rangemax.query_plain(tables["full"], qlo, qhi, op="min")
+        row = {}
+        for tag, tab in tables.items():
+            exact(f"A query long path, {name}, {tag}",
+                  rangemax.query(tab, qlo, qhi, op="min"), want)
+            us = kernel_us(lambda: rangemax.query(tab, qlo, qhi, op="min"))
+            row[f"{tag}_us"] = round(sum(us.values()), 3)
+        out[name] = row
+        log(f"  A query long path, {name}: {row}")
+    return out
+
+
+def time_queries(device) -> dict:
+    """Kernels A's query and G alone. The exact fixpoint's min table and
+    query (kernel B at op min, then A's query) at a uniform and a
+    range-scan batch's fixpoint (`fixpoint_inputs`: 65,536 writes and
+    reads in local ranks over 2^18 leaves; the table over their min
+    cover): at every level, and at each depth of LEVEL_CHOICES where this
+    tree's `rangemax.build` takes one, then what the long path costs
+    (`long_path_rows`); and kernel G's build and query at
+    a classic group of 8's 2,097,152 ranks (`g_rows`: the stream's ranks
+    and the synthetic mix). Each held to its plain version; device µs by
+    kernel (checked profiler sessions, median of three), the launches of
+    one call. The span survey of the batches used is logged. Run from
+    another checkout's root (a copy of this script there) it times that
+    tree's: parent, change, change, parent in one call."""
+    import inspect
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import rangemax
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261022)
+    cfg = bench_config(B)
+    uni = uniform_stream(cfg, GROUP)
+    fixes = {"uniform": uni[0], "range_scan": ycsb_stream(cfg, 1)[0]}
+    out = {"read_spans": survey_read_spans(
+        device, {k: [v] for k, v in fixes.items()})}
+    depths = ([None, *LEVEL_CHOICES] if "levels" in inspect.signature(
+        rangemax.build).parameters else [None])
+    for tag, batch in fixes.items():
+        fix = fixpoint_inputs(gen, batch, device)
+        mw, lo, hi = fixpoint_cover(fix), fix[4], fix[5]
+        want = rangemax.query_plain(rangemax.build_plain(mw, op="min"), lo,
+                                    hi, op="min")
+        for levels in depths:
+            kw = {} if levels is None else {"levels": levels}
+
+            def app():
+                return rangemax.query(rangemax.build(mw, op="min", **kw), lo,
+                                      hi, op="min")
+
+            before = kernels.counts()
+            got = app()
+            launched = {k: n - before[k] for k, n in kernels.counts().items()
+                        if n != before[k]}
+            depth = levels or rangemax._num_levels(mw.shape[0])
+            exact(f"B + A query, {tag}, L = {depth}", got, want)
+            by = kernel_us(app)
+            row = dict(levels=depth, launches_per_call=launched,
+                       device_us_by_kernel=by,
+                       device_us=round(sum(by.values()), 3),
+                       bound_us=bound_ms((1 + depth) * 4 * mw.shape[0]
+                                         + query_bytes(depth, mw.shape[0],
+                                                       lo, hi), 0)[0] * 1e3)
+            out[f"{tag} fixpoint, L = {depth}"] = row
+            log(f"  B + A query, {tag} fixpoint, L = {depth}: {row}")
+        if tag == "uniform" and len(depths) > 1:
+            out["long path"] = long_path_rows(mw, lo, hi)
+    ranks, n_map = group_ranks(uni, device)
+    ledger = {}
+    g_rows(ledger, gen, ranks, n_map, device)
+    out.update(ledger)
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2986,7 +3285,9 @@ def main(argv=None) -> int:
              "--probe-fold": ("kernels A's probe and H alone", "probe_fold",
                               time_probe_fold),
              "--short-span": ("kernel K's fixpoint application alone",
-                              "short_span", time_short_span)}
+                              "short_span", time_short_span),
+             "--queries": ("kernels A's query and G alone", "queries",
+                           time_queries)}
     if len(argv) == 1 and argv[0] in alone:
         title, key, timed = alone[argv[0]]
         heading(title)
@@ -3002,6 +3303,8 @@ def main(argv=None) -> int:
     uni = uniform_stream(cfg, N_BATCHES)
     dedup_u, max_uniq = dedup_size(zipf)
     heading("2. kernels vs plain versions (bench shapes)")
+    read_spans = survey_read_spans(device, {"uniform": uni, "hot_key": zipf,
+                                            "range_scan": ycsb})
     ledger = phase_kernels(device, zipf[0], ycsb[:GROUP], dedup_u,
                                      uni[:GROUP])
     torch_ops = phase_torch_ops(device)
@@ -3060,6 +3363,7 @@ def main(argv=None) -> int:
             st)
     streams["short_span"] = short
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
+                      "read_spans": read_spans,
                       "profiler_retakes": RETAKES,
                       "profiler_spin_kernels_lost": WARM_LOST}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -84,10 +84,8 @@ _SIGNATURES = {
     "dd_split": ("read_dedup", [_P, _I, _I, _I, _P, _P, _P]),
     # vmax_u, rank, n, u, vmax, stream
     "dd_gather": ("read_dedup", [_P, _P, _I, _I, _P, _P]),
-    # values, m, chunk, nc, table, ns, op_min, stream
-    "rm2_chunks": ("rangemax2", [_P, _I, _P, _I, _P, _I, _I, _P]),
-    # table, ns, levels, op_min, stream
-    "rm2_levels": ("rangemax2", [_P, _I, _I, _I, _P]),
+    # values, m, chunk, nc, table, ns, levels, arrive, op_min, stream
+    "rm2_build": ("rangemax2", [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P]),
     # values, m, chunk, nc, table, ns, lo, hi, q, op_min, out, stream
     "rm2_query": ("rangemax2",
                   [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P]),

@@ -14,7 +14,24 @@
 // 9.4 MB at bench shape), so the cost is dependent-load latency, not
 // bandwidth. Design: one thread per query, the query key held in
 // registers, compare as uint32 word by word; many queries in flight hide
-// the latency. The table query is two gathers per query.
+// the latency.
+//
+// The query reads a table [L, m], t[k][i] = op(values[i : i + 2^k]), of
+// ANY depth L from 1 to bit_length(m - 1) + 1, and returns op over
+// values[lo, hi) clamped to [0, m) exactly (the identity where empty):
+// a span of at most 2^L takes two lookups at level min(floor(log2(span)),
+// L - 1), both loaded together after both ends (every span over a full
+// table, so the probe's and the sweep's callers read what they read
+// before); a longer span the level-(L - 1) entries at lo, lo + 2^(L-1),
+// ..., and one at hi - 2^(L-1), taken by the whole warp in turn (a ballot
+// of its long queries), 32 x kLongUnroll entries a step, then a shuffle
+// reduction: the read over all m leaves costs m / 2^(L-1) / 32 loads a
+// lane, not a serial loop. Why: the exact fixpoint's reads span at most
+// a few hundred local ranks (ops/group.py FIXPOINT_LEVELS), so it asks
+// kernel B for a table of that depth only, not the 19 levels of its 2^18
+// leaves; B then writes (1 + L) in place of (1 + 19) x 4 B a leaf and
+// takes no grid sync. The query is two dependent memory trips and the
+// launch ramp: latency, not bytes, bounds it.
 //
 // The probe's byte floor is the key rows that decide its reads' ends (the
 // rows on both sides of each end, chip_smoke.py's deciding_rows), the
@@ -84,22 +101,84 @@ __device__ __forceinline__ int32_t table_query(const int32_t* __restrict__ t,
   return MIN ? min(va, vb) : max(va, vb);
 }
 
+#ifndef FDB_MARK
+#define FDB_MARK(k)  // phase_trace.py's %globaltimer marks; none here
+#endif
+#ifndef FDB_MARK_AFTER
+#define FDB_MARK_AFTER(k, v)  // a mark once v has arrived; none here
+#endif
+
+constexpr int kLongUnroll = 4;  // a lane's long-path loads in flight
+
+// One thread a query over a table of any depth `levels` (at most
+// bit_length(m - 1) + 1). Both ends are loaded before any branch; a span
+// of at most 2^levels takes its two lookups, issued together; the warp
+// then takes its long queries in turn (a ballot), 32 x kLongUnroll
+// level-(levels - 1) entries a step, and reduces them by shuffles.
 template <bool MIN>
-__global__ void query_kernel(const int32_t* __restrict__ table, int levels,
-                             int m, const int32_t* __restrict__ lo,
-                             const int32_t* __restrict__ hi, int q,
-                             int32_t* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  out[i] = table_query<MIN>(table, levels, m, lo[i], hi[i]);
+__global__ void __launch_bounds__(kThreads)
+    query_kernel(const int32_t* __restrict__ table, int levels, int m,
+                 const int32_t* __restrict__ lo,
+                 const int32_t* __restrict__ hi, int q,
+                 int32_t* __restrict__ out) {
+  constexpr int32_t kIdent = MIN ? INT32_POS : INT32_NEG;
+  FDB_MARK(0)
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < q;  // no early exit: the ballot needs every lane
+  const int l = live ? __ldg(lo + i) : 0;
+  const int h = live ? __ldg(hi + i) : 0;
+  FDB_MARK_AFTER(1, l ^ h)
+  const int loc = min(max(l, 0), m);
+  const int hic = min(max(h, 0), m);
+  const int span = hic - loc;
+  // 2^levels > m >= span for levels >= 31: never long there
+  const bool lng = levels < 31 && span > (1 << levels);
+  int32_t acc = kIdent;
+  if (span > 0 && !lng) {
+    const int k = min(floor_log2(span), levels - 1);
+    const int32_t* row = table + static_cast<size_t>(k) * m;
+    const int32_t va = __ldg(row + loc);
+    const int32_t vb = __ldg(row + hic - (1 << k));
+    acc = MIN ? min(va, vb) : max(va, vb);
+  }
+  FDB_MARK_AFTER(2, acc)
+  unsigned pending = __ballot_sync(0xffffffffu, live && lng);
+  if (pending) {  // warp-uniform
+    const int half = 1 << (levels - 1);
+    const int32_t* row = table + static_cast<size_t>(levels - 1) * m;
+    while (pending) {
+      const int src = __ffs(pending) - 1;
+      pending &= pending - 1;
+      const int a = __shfl_sync(0xffffffffu, loc, src);
+      const int b = __shfl_sync(0xffffffffu, hic, src);
+      const int n = (b - a - 1) / half + 1;  // entries; the last at b - half
+      int32_t x = kIdent;
+      for (int j0 = lane; j0 < n; j0 += 32 * kLongUnroll) {
+        int32_t v[kLongUnroll];
+#pragma unroll
+        for (int u = 0; u < kLongUnroll; ++u) {
+          const int j = j0 + 32 * u;
+          v[u] = j < n ? __ldg(row + min(a + j * half, b - half)) : kIdent;
+        }
+#pragma unroll
+        for (int u = 0; u < kLongUnroll; ++u)
+          x = MIN ? min(x, v[u]) : max(x, v[u]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const int32_t y = __shfl_xor_sync(0xffffffffu, x, o);
+        x = MIN ? min(x, y) : max(x, y);
+      }
+      if (lane == src) acc = x;
+    }
+  }
+  FDB_MARK_AFTER(3, acc)
+  if (live) out[i] = acc;
 }
 
 // ---------------------------------------------------------------------------
 // the probe
-
-#ifndef FDB_MARK
-#define FDB_MARK(k)  // phase_trace.py's %globaltimer marks; none here
-#endif
 
 constexpr int kProbeThreads = 512;
 constexpr int kFenceBytes = 12 * 1024;    // the fence's most bytes

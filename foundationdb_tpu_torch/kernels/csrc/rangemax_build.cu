@@ -215,8 +215,9 @@ int launch(const int32_t* values, int32_t* table, int m, int levels,
 
 extern "C" {
 
-// The whole [levels, m] table of values[m] in one launch; levels must be
-// bit_length(m - 1) + 1 (the wrapper's _num_levels).
+// The [levels, m] table of values[m] in one launch: at most
+// bit_length(m - 1) + 1 levels (the wrapper's _num_levels); fewer build a
+// truncated table that kernel A's query reads exactly.
 int rm_build(const void* values, void* table, int m, int levels, int op_min,
              void* stream) {
   if (m <= 0) return kNoLaunch;

@@ -2,7 +2,8 @@
 
     python -m foundationdb_tpu_torch.kernels.phase_trace \
         [--kernel lex_order|rangemax_build|min_cover|merge_maps|
-                  keysearch_probe|seg_fold|short_span]
+                  keysearch_probe|keysearch_query|rangemax2_build|
+                  rangemax2_query|seg_fold|short_span]
         [--direct-scatter] [--items N] [--threads N] [--fence-kb N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
@@ -41,6 +42,20 @@ less the latest arrival), in microseconds.
   786,432-row tier with 65,536 long reads (phase 2's) and 65,536 of the
   uniform stream's point reads. `--fence-kb` rebuilds it with another
   kFenceBytes fence (the fence sweep PERF.md cites).
+- keysearch_query (kernel A's query, no grid sync): a mark by every
+  warp's lane 0 (both ends loaded, the short path's two lookups, the
+  warp's long queries), over the fixpoint's min table of 2^18 leaves at
+  FIXPOINT_LEVELS and at every level, for 65,536 reads of a uniform
+  batch's local spans (1-2), a YCSB-E batch's (1-101) and spans up to
+  the whole leaf range (the long path).
+- rangemax2_build (kernel G's build, no grid sync): thread 0's marks in
+  every block (its superchunks, its fence and ticket) and in the last
+  block (the read of level 0, the levels), over a classic group of 8's
+  2,097,152 ranks.
+- rangemax2_query (kernel G's query, no grid sync): a mark by every
+  warp's lane 0 (both ends, a short range's own rows, the warp's wide
+  queries by teams), at batch 1's reads of a classic group of 8 uniform
+  batches at their own group ranks and at chip_smoke.py's synthetic mix.
 - seg_fold (kernel H, one grid sync): a mark by every block at each phase
   (after the block's threads meet there), printed the same way (survey,
   grid sync, paint, wide writes' share, the count where it runs, the
@@ -64,6 +79,7 @@ import ctypes
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from foundationdb_tpu_torch import kernels
@@ -129,8 +145,11 @@ __device__ __forceinline__ unsigned long long now_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
+__device__ int g_sink;
 #define FDB_MARK(k) { SYNC long long r_ = ROW; \
   if (LEAD && r_ < kMarkRows) g_mark[r_][k] = now_ns(); }
+#define FDB_MARK_AFTER(k, v) { if ((v) == 0x7EADBEEF) g_sink = 1; \
+  FDB_MARK(k) }
 extern "C" int pt_reset() {
   void* p = nullptr;
   cudaGetSymbolAddress(&p, g_mark);
@@ -142,14 +161,23 @@ extern "C" int pt_read(unsigned long long* out) {
 '''
 #: (rows, stamps a row) of the FDB_MARK marks
 _ROW_SHAPE = (8192, 8)
-#: each kernel's mark rows: a warp's lane 0 (the probe) or a block's
-#: thread 0 after the block's threads meet (the fold)
+#: each kernel's mark rows: a warp's lane 0 (the probe, A's and G's
+#: queries) or a block's thread 0 after the block's threads meet (the fold)
 _ROW_OF = {
     "keysearch_probe": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
                         "(threadIdx.x & 31) == 0"),
+    "keysearch_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                        "(threadIdx.x & 31) == 0"),
+    "rangemax2_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                        "(threadIdx.x & 31) == 0"),
+    "rangemax2_build": ("", "blockIdx.x", "threadIdx.x == 0"),
     "seg_fold": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
     "short_span": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
 }
+
+#: the source each traced name edits, where the two differ
+_SOURCE_OF = {"keysearch_probe": "keysearch", "keysearch_query": "keysearch",
+              "rangemax2_query": "rangemax2", "rangemax2_build": "rangemax2"}
 
 _READ = r'''
 extern "C" int pt_reset() {
@@ -241,12 +269,13 @@ _FENCE_OPT_IN = """    {
     probe_kernel<W><<<"""
 
 
-def traced_row_source(name: str, fence_kb: int = 0, threads: int = 0) -> str:
+def traced_row_source(name: str, fence_kb: int = 0,
+                      threads: int = 0) -> str:
     """keysearch.cu, seg_fold.cu or short_span.cu with its FDB_MARK hooks
     stamping a row of g_mark; for the probe, with `fence_kb` in place of
     its kFenceBytes; short_span.cu with `threads` a block in place of its
     kApplyThreads."""
-    src_name = "keysearch" if name == "keysearch_probe" else name
+    src_name = _SOURCE_OF.get(name, name)
     src = (kernels.CSRC / f"{src_name}.cu").read_text()
     if fence_kb:
         src = _edit(src, "constexpr int kFenceBytes = 12 * 1024;",
@@ -264,7 +293,8 @@ def traced_row_source(name: str, fence_kb: int = 0, threads: int = 0) -> str:
 
 
 def traced_source(name: str, direct_scatter: bool = False,
-                  items: int = 0, threads: int = 0, fence_kb: int = 0) -> str:
+                  items: int = 0, threads: int = 0,
+                  fence_kb: int = 0) -> str:
     if name in _ROW_OF:
         return traced_row_source(name, fence_kb, threads)
     if name == "merge_maps":
@@ -297,6 +327,9 @@ _ARGTYPES = {
     "mm_scratch_words": kernels._SIGNATURES["mm_scratch_words"][1],
     "mm_merge": kernels._SIGNATURES["mm_merge"][1],
     "ks_probe": kernels._SIGNATURES["ks_probe"][1],
+    "ks_query": kernels._SIGNATURES["ks_query"][1],
+    "rm2_query": kernels._SIGNATURES["rm2_query"][1],
+    "rm2_build": kernels._SIGNATURES["rm2_build"][1],
     "sf_scratch_words": kernels._SIGNATURES["sf_scratch_words"][1],
     "sf_fold": kernels._SIGNATURES["sf_fold"][1],
     "ss_apply": kernels._SIGNATURES["ss_apply"][1],
@@ -488,6 +521,68 @@ def run_keysearch_probe(lib, args) -> dict:
     return r
 
 
+def run_keysearch_query(lib, args) -> dict:
+    """A's query's per-warp phases: both ends, the short path's two
+    lookups, the warp's long queries; args (table, lo, hi, op)."""
+    table, lo, hi, op = args
+    q = lo.shape[0]
+    out = torch.empty((q,), dtype=torch.int32, device=lo.device)
+    r = row_trace(lib, lambda st: lib.ks_query(
+        table.data_ptr(), table.shape[0], table.shape[1], lo.data_ptr(),
+        hi.data_ptr(), q, int(op == "min"), out.data_ptr(), st),
+        (("ends", 0, 1), ("short lookups", 1, 2), ("long path", 2, 3)))
+    r["exact"] = torch.equal(out, R.query_plain(table, lo, hi, op=op))
+    return r
+
+
+def run_rangemax2_query(lib, args) -> dict:
+    """G's query's per-warp phases over a structure the shipped build
+    made: both ends, a short range's own rows, the warp's wide queries
+    by teams of 8 lanes (and the whole warp); args (values, lo, hi)."""
+    values, lo, hi = args
+    built = R.build2(values, op="max")
+    v, chunk, table = built
+    q = lo.shape[0]
+    out = torch.empty((q,), dtype=torch.int32, device=lo.device)
+    r = row_trace(lib, lambda st: lib.rm2_query(
+        v.data_ptr(), v.shape[0], chunk.data_ptr(), chunk.shape[0],
+        table.data_ptr(), table.shape[1], lo.data_ptr(), hi.data_ptr(), q,
+        0, out.data_ptr(), st),
+        (("ends", 0, 1), ("short rows", 1, 2), ("wide queries", 2, 3),
+         ("warp", 0, 3)))
+    r["exact"] = torch.equal(out.cpu(), R.query2_plain(
+        R.build2_plain(values.cpu(), op="max"), lo.cpu(), hi.cpu(),
+        op="max"))
+    return r
+
+
+def run_rangemax2_build(lib, args) -> dict:
+    """G's build's per-block phases (thread 0's marks): the block's chunk
+    and superchunk maxima, the fence and its ticket; in the last block
+    the read of level 0 and the levels above it; args (values,)."""
+    (values,) = args
+    m = values.shape[0]
+    nc, ns = -(-m // R.CHUNK), -(-m // R.SUPER)
+    levels = R._num_levels(ns)
+    chunk = torch.empty((nc,), dtype=torch.int32, device=values.device)
+    table = torch.empty((levels, ns), dtype=torch.int32, device=values.device)
+    arrive = torch.zeros((1,), dtype=torch.int32, device=values.device)
+    r = row_trace(lib, lambda st: lib.rm2_build(
+        values.data_ptr(), m, chunk.data_ptr(), nc, table.data_ptr(), ns,
+        levels, arrive.data_ptr(), 0, st),
+        (("chunks", 0, 1), ("fence and ticket", 1, 2), ("block", 0, 2),
+         ("level 0 read", 2, 3), ("levels", 3, 4)))
+    plain = R.build2_plain(values, op="max")
+    ns_pad = torch.full((ns * R.CHUNK,), R.INT32_NEG, dtype=torch.int32,
+                        device=values.device)
+    want_chunk = plain[0][R.CHUNK_BITS][::R.CHUNK]
+    ns_pad[:nc] = want_chunk
+    r["exact"] = (torch.equal(chunk, want_chunk) and torch.equal(
+        table, R.build_plain(ns_pad.reshape(ns, R.CHUNK).amax(dim=1),
+                             op="max")) and int(arrive) == 0)
+    return r
+
+
 def run_seg_fold(lib, args) -> dict:
     seg, wb, we, cw = args
     n = seg.shape[0]
@@ -584,6 +679,48 @@ def shapes(name: str, device) -> dict:
                     keys, ver, _int_keys(begin), _int_keys(end)),
                 "786432 rows of 1M keys, 65536 uniform point reads": (
                     ukeys, uver, _int_keys(point), _int_keys(point + 2))}
+    if name == "keysearch_query":
+        # the fixpoint's min table over 2^18 leaves, at FIXPOINT_LEVELS and
+        # at every level, and reads of a uniform batch's local spans (1-2),
+        # a YCSB-E batch's (1-101) and spans up to the whole leaf range
+        leaves, q = 262_144, 65_536
+        mw = ints(0, q, leaves)
+        lo = ints(0, leaves, q)
+        cut = R.build(mw, op="min", levels=G.FIXPOINT_LEVELS)
+        full = R.build(mw, op="min")
+        out = {}
+        for what, most in (("uniform spans 1-2", 2), ("YCSB-E spans 1-101",
+                                                      101),
+                           ("spans up to 2^18", leaves)):
+            hi = (lo + ints(1, most + 1, q)).clamp(max=leaves)
+            out[f"2^18 leaves, L = {G.FIXPOINT_LEVELS}, {what}"] = (
+                cut, lo, hi, "min")
+            if most == 2:
+                out[f"2^18 leaves, L = {full.shape[0]}, {what}"] = (
+                    full, lo, hi, "min")
+        return out
+    if name == "rangemax2_build":
+        # G's build over a classic group of 8's 2,097,152 ranks (2,048
+        # superchunks, 12 levels) of random versions
+        return {"2097152 ranks": (ints(H.VERSION_NEG, R.INT32_POS,
+                                       8 * 262_144),)}
+    if name == "rangemax2_query":
+        # G's cross query over a classic group of 8 uniform batches: random
+        # versions over the group's 2,097,152 ranks; batch 1's reads at
+        # their own ranks, and phase 2's synthetic mix of chip_smoke.py
+        # (every 4th 33-200,000 ranks wide, every 16th empty)
+        ranks, n_map = _uniform_group_ranks(device)
+        seg = ints(H.VERSION_NEG, R.INT32_POS, n_map)
+        rb, re = ranks[1][0], ranks[1][1]
+        lo, hi = rb.clone(), re.clone()
+        wide = torch.arange(0, lo.shape[0], 4, device=device)
+        hi[wide] = (lo[wide] + ints(33, 200_000, wide.shape[0])).clamp(
+            max=n_map)
+        empty = torch.arange(1, lo.shape[0], 16, device=device)
+        hi[empty] = lo[empty] - ints(0, 3, empty.shape[0])
+        return {f"{n_map} ranks, batch 1's reads at the stream's ranks": (
+                    seg, rb, re),
+                f"{n_map} ranks, the synthetic mix": (seg, lo, hi)}
     if name == "seg_fold":
         n, nw = 8 * 262_144, 65_536
         seg = ints(-5, 50, n)
@@ -671,6 +808,35 @@ def shapes(name: str, device) -> dict:
     }
 
 
+def _uniform_group_ranks(device, gn: int = 8, b: int = 65_536):
+    """A classic group of `gn` uniform bench batches (one point read and
+    write a txn over 1M 8-byte keys): each batch's [rb, re, wb, we]
+    group-wide ranks, as the group kernel computes them, and the map
+    size 2 gn (NR + NW)."""
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.config import KernelConfig
+    from foundationdb_tpu_torch.testing.benchgen import skiplist_style_batch
+
+    cfg = KernelConfig(max_key_bytes=8, max_txns=b, max_reads=b,
+                       max_writes=b, history_capacity=12 * b,
+                       delta_capacity=0)
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(gn):
+        a = interop.device_args_to_torch(skiplist_style_batch(
+            rng, cfg, b, version=(i + 1) * 200_000, keyspace=1_000_000,
+            snapshot_lag=400_000, key_bytes=8).device_args(), device)
+        live = torch.cat([a["read_valid"], a["read_valid"],
+                          a["write_valid"], a["write_valid"]])
+        rows.append(torch.where(live[:, None], torch.cat([
+            a["read_begin"], a["read_end"], a["write_begin"],
+            a["write_end"]]), K.SENTINEL_WORD))
+    pts = torch.cat(rows).contiguous()
+    grank = G._group_ranks(pts, gn)[0].reshape(gn, -1)
+    return ([[grank[i, j * b:(j + 1) * b].contiguous() for j in range(4)]
+             for i in range(gn)], pts.shape[0])
+
+
 def _int_keys(v):
     """int64 [N] (0 <= v < 2^63) -> [N, 3] packed 8-byte keys."""
     words = torch.stack([(v >> 32) & 0xFFFFFFFF, v & 0xFFFFFFFF,
@@ -681,7 +847,10 @@ def _int_keys(v):
 
 RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
         "min_cover": run_min_cover, "merge_maps": run_merge_maps,
-        "keysearch_probe": run_keysearch_probe, "seg_fold": run_seg_fold,
+        "keysearch_probe": run_keysearch_probe,
+        "keysearch_query": run_keysearch_query,
+        "rangemax2_build": run_rangemax2_build,
+        "rangemax2_query": run_rangemax2_query, "seg_fold": run_seg_fold,
         "short_span": run_short_span}
 
 

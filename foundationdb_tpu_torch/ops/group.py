@@ -109,6 +109,16 @@ class FixpointStats:
     max_applications: int = 0
 
 
+#: depth of the exact fixpoint's min table (kernel B at op min, read by
+#: kernel A's query): the bench streams' reads span at most 101 local
+#: ranks (YCSB-E; 2 uniform and zipf), and two lookups answer a span of up
+#: to 2^FIXPOINT_LEVELS = 128; a longer read takes the query's long path,
+#: exact all the same. Chosen on the card from 6, 7, 8, 10 and 13 by B +
+#: A's query device time at the uniform and range-scan fixpoints
+#: (PERF.md; 6 sends 29% of the YCSB-E reads down the long path).
+FIXPOINT_LEVELS = 7
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -174,7 +184,7 @@ def _fixpoint(ok, per_txn, *, r_txn, w_txn, rt, wt, read_live, write_live,
             minw = ss_apply(leaves, wlo, whi, val, lq_lo, lq_hi, ss)
         else:
             mw = segtree.min_cover(leaves, wlo, whi, val)
-            mtab = rangemax.build(mw, op="min")
+            mtab = rangemax.build(mw, op="min", levels=FIXPOINT_LEVELS)
             minw = rangemax.query(mtab, lq_lo, lq_hi, op="min")
         return (minw < r_txn) & read_live
 

@@ -3,7 +3,10 @@
 Port of foundationdb_tpu/ops/rangemax.py (`build`, `query`): the doubling
 table `t[k, i] = op(values[i : i + 2**k])`, clamped at the array end,
 answers "op over [lo, hi)" with two lookups. The history probe uses the
-max form, the intra-batch fixpoint the min form.
+max form over every level, the intra-batch fixpoint the min form over
+only `ops/group.FIXPOINT_LEVELS` levels (`build(levels=L)`): `query`
+reads a table of any depth exactly, a span past 2^L by the top level's
+entries (its long path).
 
 `build` is kernel B (kernels/csrc/rangemax_build.cu, the whole table in
 one launch) and `query` is kernel A's query entry (kernels/csrc/
@@ -15,9 +18,10 @@ conflict set serves its first decision.
 same exact queries over the group kernel's cross-batch map, which is
 rebuilt once per batch at up to 2.1M leaves. On the card kernel G
 (kernels/csrc/rangemax2.cu) builds the 32-row chunk maxima and a
-doubling table over 1024-row superchunk maxima in two launches, and its
-query entry reads the partial chunks and superchunks from the values
-and the chunk maxima. `build2_plain` / `query2_plain` keep the JAX
+doubling table over 1024-row superchunk maxima in one launch (its last
+block builds the table), and its query entry reads a short range's own
+rows, a wider one's partial chunks and superchunks from the values and
+the chunk maxima. `build2_plain` / `query2_plain` keep the JAX
 layout (the fine levels and the coarse table over the chunk maxima), so
 the CPU tests hold them against the JAX functions directly; a structure
 is queried on the device that built it.
@@ -55,31 +59,48 @@ def _op(op: str):
     raise ValueError(op)
 
 
-def build_plain(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
-    """Plain version of kernel B: values [M] int32 -> table [L, M]."""
+def _depth(m: int, levels) -> int:
+    """The levels a table of m values gets: all of them (`_num_levels`)
+    for None, else `levels` clipped to that; below 1 raises."""
+    full = _num_levels(m)
+    if levels is None:
+        return full
+    if levels < 1:
+        raise ValueError(f"rangemax: levels {levels} < 1")
+    return min(int(levels), full)
+
+
+def build_plain(values: torch.Tensor, *, op: str = "max",
+                levels: int | None = None) -> torch.Tensor:
+    """Plain version of kernel B: values [M] int32 -> table [L, M], L =
+    `_depth(M, levels)`."""
     fn = _op(op)
     m = values.shape[0]
-    levels = [values]
-    for k in range(1, _num_levels(m)):
-        prev = levels[-1]
+    rows = [values]
+    for k in range(1, _depth(m, levels)):
+        prev = rows[-1]
         half = min(1 << (k - 1), m - 1)
         shifted = torch.cat([prev[half:], prev[-1:].expand(half)])
-        levels.append(fn(prev, shifted))
-    return torch.stack(levels)
+        rows.append(fn(prev, shifted))
+    return torch.stack(rows)
 
 
-def build(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
-    """The doubling table of `values` ([M] int32) -> [L, M] int32."""
+def build(values: torch.Tensor, *, op: str = "max",
+          levels: int | None = None) -> torch.Tensor:
+    """The doubling table of `values` ([M] int32) -> [L, M] int32: every
+    level (L = `_num_levels(M)`) for `levels` None, else the first
+    `levels` of them (clipped to that; below 1 raises), a table `query`
+    reads exactly all the same."""
     _op(op)
     if values.ndim != 1 or values.shape[0] < 1:
         raise ValueError(f"build: values shape {tuple(values.shape)}")
-    if values.device.type == "cpu":
-        return build_plain(values, op=op)
-    kernels.check_cuda("rangemax.build", values)
     m = values.shape[0]
-    levels = _num_levels(m)
-    table = torch.empty((levels, m), dtype=torch.int32, device=values.device)
-    kernels.launch("rm_build", "rangemax_build", values, table, m, levels,
+    depth = _depth(m, levels)
+    if values.device.type == "cpu":
+        return build_plain(values, op=op, levels=depth)
+    kernels.check_cuda("rangemax.build", values)
+    table = torch.empty((depth, m), dtype=torch.int32, device=values.device)
+    kernels.launch("rm_build", "rangemax_build", values, table, m, depth,
                    int(op == "min"))
     return table
 
@@ -98,7 +119,11 @@ def _floor_log2(n: torch.Tensor, max_levels: int) -> torch.Tensor:
 def query_plain(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
                 op: str = "max") -> torch.Tensor:
     """Plain version of kernel A's query entry: op over [lo, hi) per
-    element; the op identity where the range is empty."""
+    element, clamped to [0, M); the op identity where the range is
+    empty. Exact over a table of any depth L: a span of at most 2^L takes
+    two lookups at level min(floor(log2(span)), L - 1) (every span, over
+    a full table); a longer one the level-(L - 1) entries at lo, lo +
+    2^(L-1), ... and one at hi - 2^(L-1) (the long path)."""
     fn = _op(op)
     levels, m = table.shape
     loc = lo.to(torch.int64).clamp(0, m)
@@ -109,8 +134,29 @@ def query_plain(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
     b = (hic - (torch.ones_like(k) << k)).clamp(0, m - 1)
     flat = table.reshape(-1)
     got = fn(flat[k * m + a], flat[k * m + b])
+    long_ = (length > (1 << levels)).nonzero().squeeze(1)
+    if long_.numel():
+        got[long_] = _long_plain(flat[(levels - 1) * m:levels * m],
+                                 loc[long_], hic[long_], levels, op)
     ident = torch.full_like(got, _IDENT[op])
     return torch.where(hic > loc, got, ident)
+
+
+def _long_plain(top: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                levels: int, op: str) -> torch.Tensor:
+    """op over [lo, hi) (spans past 2^levels, clamped) from the table's
+    top level `top`: its entries at lo + j 2^(levels-1), the last moved
+    back to hi - 2^(levels-1), gathered at once and reduced per query."""
+    h = 1 << (levels - 1)
+    n = (hi - lo + h - 1) // h
+    owner = torch.repeat_interleave(torch.arange(lo.shape[0],
+                                                 device=lo.device), n)
+    j = torch.arange(owner.shape[0], device=lo.device) - (
+        torch.cumsum(n, 0) - n)[owner]
+    pos = torch.minimum(lo[owner] + j * h, hi[owner] - h)
+    acc = torch.full(lo.shape, _IDENT[op], dtype=top.dtype, device=top.device)
+    return acc.scatter_reduce(0, owner, top[pos],
+                              reduce="amin" if op == "min" else "amax")
 
 
 def query(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, *,
@@ -135,6 +181,9 @@ CHUNK_BITS = 5
 CHUNK = 1 << CHUNK_BITS
 #: rows per superchunk of kernel G's table (kSuper in rangemax2.cu)
 SUPER = CHUNK * CHUNK
+#: the most superchunks kernel G's one-launch build takes (kMaxSuper in
+#: rangemax2.cu: its last block's two level buffers in shared memory)
+MAX_SUPER = 16384
 
 
 def build2_plain(values: torch.Tensor, *, op: str = "max"):
@@ -189,30 +238,52 @@ def query2_plain(tables, lo: torch.Tensor, hi: torch.Tensor, *,
     return torch.where(hic > loc, out, torch.full_like(out, _IDENT[op]))
 
 
+_BUILD2_ARRIVE: dict = {}
+
+
+def _build2_arrive(dev: torch.device) -> torch.Tensor:
+    """Kernel G's build's arrival counter (one zeroed word; each launch's
+    last block sets it back to 0) for `dev`'s current stream. Inside a
+    CUDA graph's capture a new one is made every call, in the graph's
+    memory, so a replay never shares a stream's counter."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((1,), dtype=torch.int32, device=dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    held = _BUILD2_ARRIVE.get(key)
+    if held is None:
+        held = _BUILD2_ARRIVE[key] = torch.zeros((1,), dtype=torch.int32,
+                                                 device=dev)
+    return held
+
+
 def build2(values: torch.Tensor, *, op: str = "max"):
     """The two-level structure of `values` ([M] int32, M >= 1).
 
     On the card: (values, chunk maxima [ceil(M / CHUNK)], the doubling
-    table [L, ceil(M / SUPER)] over the superchunk maxima), two launches
-    of kernel G. On the CPU: build2_plain's JAX layout. Pass the result
-    to query2 on the same device."""
+    table [L, ceil(M / SUPER)] over the superchunk maxima), one launch of
+    kernel G, for M up to MAX_SUPER * SUPER (16,777,216; past that it
+    raises). On the CPU: build2_plain's JAX layout. Pass the result to
+    query2 on the same device."""
     _op(op)
     if values.ndim != 1 or values.shape[0] < 1:
         raise ValueError(f"build2: values shape {tuple(values.shape)}")
     if values.device.type == "cpu":
         return build2_plain(values, op=op)
     kernels.check_cuda("rangemax.build2", values)
-    if values.data_ptr() % 16:   # kernel G reads whole 16-byte words
-        values = values.clone()
     m = values.shape[0]
     nc, ns = -(-m // CHUNK), -(-m // SUPER)
+    if ns > MAX_SUPER:
+        raise ValueError(
+            f"build2: {m} values make {ns} superchunks; kernel G's build "
+            f"takes at most {MAX_SUPER} ({MAX_SUPER * SUPER} values)")
+    if values.data_ptr() % 16:   # kernel G reads whole 16-byte words
+        values = values.clone()
     levels = _num_levels(ns)
     chunk = torch.empty((nc,), dtype=torch.int32, device=values.device)
     table = torch.empty((levels, ns), dtype=torch.int32, device=values.device)
-    op_min = int(op == "min")
-    kernels.launch("rm2_chunks", "rangemax2.build", values, m, chunk, nc,
-                   table, ns, op_min)
-    kernels.launch("rm2_levels", "rangemax2.build", table, ns, levels, op_min)
+    kernels.launch("rm2_build", "rangemax2.build", values, m, chunk, nc,
+                   table, ns, levels, _build2_arrive(values.device),
+                   int(op == "min"))
     return values, chunk, table
 
 

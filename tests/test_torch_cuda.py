@@ -12,6 +12,11 @@ back.
 
 from __future__ import annotations
 
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -99,6 +104,32 @@ def test_build_and_query(cuda_device, op, m):
                        dtype=torch.int32)
     assert_launched_and_equal("keysearch.query", R.query(tab, lo, hi, op=op),
                               R.query_plain(tab, lo, hi, op=op))
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("m", [1, 5, 1000, 4097, 262_144])
+def test_query_at_every_depth(cuda_device, op, m):
+    """Kernel A's query over kernel B's table at every depth 1 .. full
+    (the fixpoint's is ops/group.FIXPOINT_LEVELS), one launch a call,
+    exact against its plain version: reads of -3 .. 64 leaves, past both
+    ends, and up to the whole range (past 2^L: the warp's long path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * m)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen,
+                             device=cuda_device, dtype=torch.int32)
+
+    vals = ints(-10**9, 10**9, m)
+    lo = torch.cat([ints(-3, m + 3, 3000), ints(-3, m // 2 + 1, 256)])
+    hi = lo + torch.cat([ints(-3, 64, 3000), ints(0, m + 4, 256)])
+    lo[:3], hi[:3] = 0, m   # the whole range, three to a warp
+    for levels in range(1, R._num_levels(m) + 1):
+        tab = R.build(vals, op=op, levels=levels)
+        assert torch.equal(tab, R.build_plain(vals, op=op, levels=levels))
+        before = kernels.COUNTS["keysearch.query"]
+        got = R.query(tab, lo, hi, op=op)
+        assert kernels.COUNTS["keysearch.query"] == before + 1
+        assert torch.equal(got, R.query_plain(tab, lo, hi, op=op)), levels
 
 
 @pytest.mark.parametrize("w", [3, 5])
@@ -410,6 +441,108 @@ def test_rangemax2(cuda_device, op, m):
     assert_launched_and_equal("rangemax2.query",
                               R.query2(built, lo, hi, op=op),
                               R.query2_plain(plain, lo, hi, op=op))
+
+
+def rm2_layout(vals, op):
+    """Kernel G's chunk maxima and superchunk table, from the plain
+    (JAX-layout) structure."""
+    plain = R.build2_plain(vals, op=op)
+    chunk = plain[0][R.CHUNK_BITS][::R.CHUNK]
+    ns = -(-vals.shape[0] // R.SUPER)
+    padded = torch.full((ns * R.CHUNK,), R.INT32_POS if op == "min"
+                        else R.INT32_NEG, dtype=torch.int32,
+                        device=vals.device)
+    padded[:chunk.shape[0]] = chunk
+    fold = padded.reshape(ns, R.CHUNK)
+    fold = fold.min(dim=1).values if op == "min" else fold.max(dim=1).values
+    return chunk, R.build_plain(fold, op=op)
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("m", [1, 700, 1024, 1025, 2048, 2049 * 1024])
+def test_rangemax2_build_is_one_launch(cuda_device, op, m):
+    """Kernel G's build is one launch a call at one superchunk (m < 1,024,
+    m = 1,024), two, and 2,049 (its last block's table of 12 levels), and
+    exact call after call: the last block sets the arrival counter back,
+    so the next call's last block is found again."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    for rep in range(3):
+        vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                             device=cuda_device, dtype=torch.int32)
+        before = kernels.COUNTS["rangemax2.build"]
+        built = R.build2(vals, op=op)
+        assert kernels.COUNTS["rangemax2.build"] == before + 1
+        chunk, table = rm2_layout(vals, op)
+        assert torch.equal(built[1], chunk), rep
+        assert torch.equal(built[2], table), rep
+    key = (vals.device, torch.cuda.current_stream().cuda_stream)
+    assert int(R._BUILD2_ARRIVE[key]) == 0
+
+
+def test_rangemax2_build_fails_on_a_counter_left_off(cuda_device):
+    """A build whose stream's arrival counter does not start at 0 fails
+    its launch by a device assert, never a wrong table in silence. In a
+    child process: the assert leaves that process's CUDA context
+    unusable."""
+    code = textwrap.dedent("""
+        import torch
+        from foundationdb_tpu_torch.ops import rangemax as R
+        vals = torch.arange(1 << 21, dtype=torch.int32, device="cuda")
+        R.build2(vals)
+        torch.cuda.synchronize()
+        R._build2_arrive(vals.device).fill_(1 << 20)
+        R.build2(vals)
+        torch.cuda.synchronize()
+        print("built with no error")
+    """)
+    done = subprocess.run([sys.executable, "-c", code],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    said = done.stdout + done.stderr
+    assert done.returncode != 0, said
+    assert "built with no error" not in said
+    assert "device-side assert" in said, said
+
+
+def test_rangemax2_build_refuses_too_many_superchunks(cuda_device):
+    m = R.MAX_SUPER * R.SUPER + 1
+    with pytest.raises(ValueError, match="superchunks"):
+        R.build2(torch.zeros((m,), dtype=torch.int32, device=cuda_device))
+
+
+def test_rangemax2_in_a_cuda_graph(cuda_device):
+    """G's build and query captured in a CUDA graph replay exact: the
+    capture's arrival counter lives in the graph's memory and returns to 0
+    each replay; eager builds on the stream between replays stay exact."""
+    m, q = 70_001, 5000
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    vals = torch.randint(-10**9, 10**9, (m,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    lo = torch.randint(-3, m, (q,), generator=gen, device=cuda_device,
+                       dtype=torch.int32)
+    hi = lo + torch.randint(-2, 3000, (q,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+    st = torch.cuda.Stream()
+    with torch.cuda.stream(st):   # warm: the library loads outside
+        R.query2(R.build2(vals, op="max"), lo, hi, op="max")
+    st.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        built = R.build2(vals, op="max")
+        out = R.query2(built, lo, hi, op="max")
+    for rep in range(3):
+        vals.copy_(torch.randint(-10**9, 10**9, (m,), generator=gen,
+                                 device=cuda_device, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        chunk, table = rm2_layout(vals, "max")
+        assert torch.equal(built[1], chunk) and torch.equal(built[2], table)
+        assert torch.equal(out, R.query2_plain(R.build2_plain(vals, op="max"),
+                                               lo, hi, op="max")), rep
+        with torch.cuda.stream(st):
+            eager = R.build2(vals, op="min")
+        st.synchronize()
+        assert torch.equal(eager[2], rm2_layout(vals, "min")[1])
 
 
 @pytest.mark.parametrize(

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --probe-fold    # kernels A's probe and H alone
     python3 chip_smoke.py --short-span    # kernel K's application alone
     python3 chip_smoke.py --queries       # kernels A's query and G alone
+    python3 chip_smoke.py --searches      # kernels A's search and E alone
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -50,7 +51,15 @@ any fault:
    probe and H one launch a call and exact on every case of
    testing/probe_cases (the probe at W = 3 and 5: the fence's rows, the
    window, inverted, empty and dead reads, the tier's ends; H's inverted
-   committed writes, a write over the whole space, rank n);
+   committed writes, a write over the whole space, rank n); kernel A's
+   search timed left, right and both sides at the short-span classic
+   path's shapes (65,536 and 524,288 read begins over a 786,432-row tier
+   of the uniform keyspace, both sides of a group of 8's 2,097,152
+   distinct point keys; the `keysearch.search` row is the 524,288 left
+   search, the rest its `shapes`), its counts entry at K6's shape, and
+   the search, the counts, E and the probe exact, one launch a call, on
+   every case of testing/search_cases (W = 1 .. 8) and E on the probe's
+   cases;
 3. the uniform stream at full width: 65,536-txn skiplist-style batches
    through `make_conflict_set(cfg, "cuda")` (whose constructor runs the
    rangemax self-check, timed), launch counts reset just before and
@@ -101,7 +110,9 @@ any fault:
    classic (3 groups of 8) and on 4 shards (1 group), every field and
    tier identical to the same batches at S = 0 on the card (phases 3, 6
    and 9), batch or group 0 to the CPU plain path, kernels K and L
-   launched and C and G not; a YCSB-E group of 2 at S must raise
+   launched and C and G not, kernel E once a tiered batch and once a
+   classic group, A's search twice a classic group (the cross span)
+   and on no other path; a YCSB-E group of 2 at S must raise
    HistoryOverflowError (and does not at S = 0);
 11. a reduced-shape contended stream (2,048 txns) through `resolve()`,
    exact, latched + dedup, sweep + spill, classic (one batch at a
@@ -121,8 +132,10 @@ A's probe at its two and kernel H (`time_probe_fold`), with
 (`time_short_span`), with `--queries` only the exact fixpoint's min
 table and query (kernels B and A's query) at every level and at each
 depth the fixpoint may take, and kernel G's build and query
-(`time_queries`), printing their JSON and the card's name and power
-limit.
+(`time_queries`), with `--searches` only kernel A's search at the
+short-span classic path's shapes, K6's counts, kernel E, A's probe and
+one short-span classic group of 8 (`time_searches`), printing their JSON
+and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -450,28 +463,25 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
                 **kw)
 
     steps = M.bit_length()
-    # -- A.search at its main-path shape: K6's W=1 left search of the
-    #    segment ids 0..B+1 into B nondecreasing read txn ids
+    # -- A.counts at its main-path shape: K6's offsets of the segment ids
+    #    0..B+1 over B nondecreasing read txn ids, one launch
     ids = torch.sort(torch.randint(0, B + 1, (B,), generator=gen,
                                    device=device)).values.to(torch.int32)
     segs = torch.arange(B + 2, dtype=torch.int32, device=device)
-    ids2, segs2 = ids.reshape(-1, 1), segs.reshape(-1, 1)
-    entry("keysearch.search",
-          lambda: K.searchsorted(ids2, segs2, side="left"),
-          lambda: K.searchsorted_plain(ids2, segs2, side="left"),
-          n_bytes=(B + 2 * (B + 2)) * 4,
-          n_ops=(B + 2) * (B.bit_length() + 1),
+    entry("keysearch.counts",
+          lambda: G._sorted_counts(ids, B + 1),
+          lambda: G._sorted_counts_plain(ids, B + 1),
+          n_bytes=(B + B + 2) * 4, n_ops=B,
           library=lambda: torch.searchsorted(ids, segs, side="left"))
-    # the lexicographic W=3 search, both sides, against main-sized keys
+    # -- A.search at the short-span classic path's shapes, W = 3 over a
+    #    786,432-row tier: left, right and both sides
+    search_rows(ledger, *search_inputs(gen, uniform_group, device))
+    search_edge_checks(device)
     main_keys, n_main = random_sorted_keys(gen, 3 * M // 4, M, device)
     q_raw = torch.randint(0, 1 << 40, (B,), generator=gen, device=device)
     q = int_keys(q_raw)
     q[: B // 4] = main_keys[torch.randint(0, n_main, (B // 4,), generator=gen,
                                           device=device)]
-    for side in ("left", "right"):
-        exact(f"keysearch.search W={W} {side}",
-              K.searchsorted(main_keys, q, side=side),
-              K.searchsorted_plain(main_keys, q, side=side))
 
     # -- B: the main tier's max table, and the fixpoint's min table (its
     #    row carries the second shape), one launch a call at each
@@ -572,34 +582,17 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
                  "call, not one")
     merge_edge_checks(device)
 
-    def both(name, got, want):
-        return max(exact(f"{name} [{i}]", g, w)
-                   for i, (g, w) in enumerate(zip(got, want)))
-
     # -- E: one group's main-tier ranks, against a main tier dense in the
     #    YCSB keyspace, so both ends tie with main boundaries often
-    sk = torch.unique(torch.randint(0, KEYSPACE + 1, (M,), generator=gen,
-                                    device=device))[: 3 * M // 4]
-    sweep_main = K.sentinel_like(M, W, device)
-    sweep_main[: sk.shape[0]] = int_keys(sk)
-
-    def flat(key):
-        a = np.stack([b.device_args()[key] for b in ycsb_group])
-        return interop.to_torch(a.reshape(-1, *a.shape[2:]), device)
-
-    srb, sre, srv = flat("read_begin"), flat("read_end"), flat("read_valid")
+    sweep_main, srb, sre, srv = sweep_inputs(gen, ycsb_group, device)
     r, live = srb.shape[0], int(srv.sum())
-    ties = [int((K.searchsorted(sweep_main, q, side="left")
-                 != K.searchsorted(sweep_main, q, side="right"))[srv].sum())
-            for q in (srb, sre)]
-    log(f"  sweep_ranks input: {r} reads ({live} live) of a group of "
-        f"{len(ycsb_group)}; {ties[0]} begins and {ties[1]} ends equal a "
-        f"main boundary of {sk.shape[0]}")
     entry("sweep_ranks",
           lambda: D.sweep_read_ranks(sweep_main, srb, sre, srv),
           lambda: D.sweep_read_ranks_plain(sweep_main, srb, sre, srv),
-          n_bytes=2 * r * W * 4 + r + M * W * 4 + 2 * r * 4,
-          n_ops=2 * live * steps * W, check=both)
+          n_bytes=sweep_bytes(sweep_main, srb, sre, srv),
+          n_ops=2 * live * steps * W, check=exact_parts)
+    ledger["sweep_ranks"]["bound_ms_whole_tier"] = bound_ms(
+        2 * r * W * 4 + r + M * W * 4 + 2 * r * 4, 0)[0]
 
     # -- F: one zipf batch's reads, the dedup cap the stream sizes, and a
     #    cap under the distinct count (the tripping case)
@@ -617,7 +610,7 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     for u in (TRIP_U, dedup_u):
         got = D.dedup_vmax(dhist, tab, zrb, zre, zrv, u)
         want = D.dedup_vmax_plain(dkeys, tab, rows, u)
-        both(f"read_dedup U={u}", got, want)
+        exact_parts(f"read_dedup U={u}", got, want)
         n_uniq = int(got[1])
     nr = zrb.shape[0]
     pairs = np.concatenate([args["read_begin"][args["read_valid"]],
@@ -634,7 +627,7 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           + nr * 4,
           n_ops=2 * W * nr + 2 * n_uniq * steps * W,
           library=lambda: torch.unique(rows, dim=0, return_inverse=True),
-          check=both)
+          check=exact_parts)
 
     # -- G and H: the cross-batch phase of a classic group of 8 uniform
     #    batches, over its group-wide endpoint ranks (2G(NR+NW) rows)
@@ -714,14 +707,14 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
     entry("lex_order",
           lambda: K.lex_sort_perm(masked),
           lambda: K.lex_sort_perm_plain(masked),
-          n_bytes=p * (2 * W * 4 + 4), n_ops=p * 4 * W, check=both,
+          n_bytes=p * (2 * W * 4 + 4), n_ops=p * 4 * W, check=exact_parts,
           detail=True)
     ends = torch.cat([torch.where(cw[:, None], rb, K.SENTINEL_WORD),
                       torch.where(cw[:, None], re, K.SENTINEL_WORD)])
     group_pts = group_points(uniform_group, device)
     for tag, x in (("dedup rows", D.dedup_rows(zrb, zre, zrv)),
                    ("coverage ends", ends), ("group of 8", group_pts)):
-        both(f"lex_order {tag} {tuple(x.shape)}", K.lex_sort_perm(x),
+        exact_parts(f"lex_order {tag} {tuple(x.shape)}", K.lex_sort_perm(x),
              K.lex_sort_perm_plain(x))
         log(f"  lex_order {tag} {tuple(x.shape)}: {radix_passes(x)} of "
             f"{4 * x.shape[1]} digits not constant; device "
@@ -741,7 +734,7 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           n_bytes=p * (2 * W * 4 + 4 + 1) + 4,
           n_ops=p * W * (p.bit_length() - 1),
           library=lambda: torch.unique(masked, dim=0, return_inverse=True),
-          check=both, detail=True)
+          check=exact_parts, detail=True)
 
     # -- D's mm_mark_runs: merge_writes of 131,072 run bounds into a tier
     #    of 655,360 live rows (profile_serialized.py's 655K + 131K), an
@@ -1060,20 +1053,217 @@ def uniform_point_reads(gen, batch, device) -> tuple:
     return hist, rangemax.build_plain(ver, op="max"), rb, re
 
 
-def deciding_rows(keys, rb, re) -> int:
-    """The distinct key rows that decide a probe's answers: for each read
-    the rows on both sides of its begin's right search and of its end's
-    left search ({il, il + 1, ir, ir + 1} within the map), which any
-    search must read to know where its key falls; counted on the host."""
+def answer_rows(keys, *answers) -> int:
+    """The distinct key rows that decide searches' answers: for each
+    answer a the rows a - 1 and a within the map, which any search must
+    read to know where its key falls; counted on the host."""
     import torch
 
-    from foundationdb_tpu_torch.ops import keys as K
-
-    il = K.searchsorted_plain(keys, rb, side="right") - 1
-    ir = K.searchsorted_plain(keys, re, side="left") - 1
-    rows = torch.cat([il, il + 1, ir, ir + 1])
+    rows = torch.cat([x for a in answers for x in (a - 1, a)])
     rows = rows[(rows >= 0) & (rows < keys.shape[0])]
     return int(torch.unique(rows).numel())
+
+
+def deciding_rows(keys, rb, re) -> int:
+    """The distinct key rows that decide a probe's answers: those of its
+    begin's right search and its end's left search (answer_rows: {il,
+    il + 1, ir, ir + 1} within the map)."""
+    from foundationdb_tpu_torch.ops import keys as K
+
+    return answer_rows(keys, K.searchsorted_plain(keys, rb, side="right"),
+                       K.searchsorted_plain(keys, re, side="left"))
+
+
+def exact_parts(name: str, got, want) -> float:
+    """exact() on a tensor, or on each of a tuple's (a both-sides search,
+    kernel E's two ends)."""
+    if isinstance(want, tuple):
+        if not isinstance(got, tuple) or len(got) != len(want):
+            fail(f"{name}: {type(got).__name__} where {len(want)} parts "
+                 "were expected")
+        return max(exact(f"{name} [{i}]", g, w)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    return exact(name, got, want)
+
+
+def search_inputs(gen, batches, device) -> tuple:
+    """Kernel A's search at the short-span classic path's shapes: a
+    786,432-row tier 3/4 live of the uniform stream's 1M keyspace (as
+    uniform_point_reads makes it); the read begins of one uniform batch
+    (65,536) and of a group of 8 (524,288: _block_spans' left search);
+    and the group's distinct point keys (2,097,152 rows with a sentinel
+    tail: its both-sides search). Returns (keys, {count: queries},
+    distinct keys)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import keys as K
+
+    live = torch.sort(torch.randperm(KEYSPACE + 1, generator=gen,
+                                     device=device)[: 3 * M // 4]).values
+    keys = K.sentinel_like(M, W, device)
+    keys[: live.shape[0]] = int_keys(live)
+    rb = torch.cat([interop.to_torch(b.device_args()["read_begin"], device)
+                    for b in batches]).contiguous()
+    ukeys = K.sort_ranks(group_points(batches, device))[1]
+    return keys, {B: rb[:B].contiguous(), rb.shape[0]: rb}, ukeys
+
+
+def search_bound(keys, q, answers) -> tuple:
+    """(bytes, operations) of a search: the queries and the key rows that
+    decide their answers (answer_rows) read once, the indices written
+    once; a compare of W words a step of a binary search."""
+    m, w = keys.shape
+    return (4 * (answer_rows(keys, *answers) * w + q.shape[0] * w
+                 + len(answers) * q.shape[0]),
+            len(answers) * q.shape[0] * m.bit_length() * w)
+
+
+def search_rows(ledger: dict, keys, queries: dict, ukeys) -> None:
+    """Kernel A's search timed at the short-span classic path's shapes
+    (search_inputs), each exact against its plain version: left, right
+    and both sides at each query count, and both sides of the group's
+    distinct point keys. The `keysearch.search` row is the left search
+    of the group's read begins (_block_spans' own); the others go under
+    its `shapes`."""
+    from foundationdb_tpu_torch.ops import keys as K
+
+    cases = [(side, n, q) for n, q in queries.items()
+             for side in ("left", "right", "both")]
+    cases.append(("both", "distinct point keys", ukeys))
+    for side, n, q in cases:
+        want = K.searchsorted_plain(keys, q, side=side)
+        n_bytes, n_ops = search_bound(
+            keys, q, want if side == "both" else (want,))
+        measure(ledger, "keysearch.search",
+                functools.partial(K.searchsorted, keys, q, side=side),
+                functools.partial(K.searchsorted_plain, keys, q, side=side),
+                n_bytes=n_bytes, n_ops=n_ops, check=exact_parts,
+                key=f"A search {side} {n}")
+    row = ledger.pop(f"A search left {max(queries)}")
+    row["shapes"] = {k[len("A search "):]: ledger.pop(k)
+                     for k in list(ledger) if k.startswith("A search ")}
+    ledger["keysearch.search"] = row
+
+
+def search_edge_checks(device) -> None:
+    """Kernels A's search and counts and E, and A's probe beside E, exact
+    against their plain versions on every case of testing/search_cases,
+    one launch a call: the search left, right and both sides at W = 1 ..
+    8 (tiers of one row, in the fence, at and one past its cap, far past
+    it, full, repeated rows, a sentinel tail of the window's rows;
+    sentinel queries), the counts (gaps, all equal, 70,000 ids in one
+    bin, none, a tile past the block's threads and bins, ids past the last
+    segment, a classic group of 8's), E and the probe on each search
+    case's reads (forward, inverted, empty, a tenth dead) and E on
+    testing/probe_cases at W = 3 and 5."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import delta as D
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+    from foundationdb_tpu_torch.ops import rangemax
+    from foundationdb_tpu_torch.testing import probe_cases as PC
+    from foundationdb_tpu_torch.testing import search_cases as SC
+
+    def one(name, tag, fn):
+        before = kernels.COUNTS[name]
+        got = fn()
+        if kernels.COUNTS[name] - before != 1:
+            fail(f"{tag}: {kernels.COUNTS[name] - before} launches, not one")
+        return got
+
+    def sweep_and_probe(tag, keys, rb, re, live):
+        exact_parts(f"sweep_ranks {tag}", one(
+            "sweep_ranks", tag, lambda: D.sweep_read_ranks(keys, rb, re,
+                                                           live)),
+            D.sweep_read_ranks_plain(keys, rb, re, live))
+        ver = torch.randint(0, 10**6, (keys.shape[0],), device=device,
+                            dtype=torch.int32)
+        tab = rangemax.build_plain(ver, op="max")
+        hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                                torch.zeros((), dtype=torch.bool,
+                                            device=device))
+        exact(f"keysearch.probe {tag}", one(
+            "keysearch.probe", tag,
+            lambda: H.query_reads_vmax(hist, rb, re, tab)),
+            H.query_reads_vmax_plain(keys, tab, rb, re))
+
+    for name in SC.SEARCH_NAMES:
+        for w in SC.WIDTHS:
+            keys, q = (torch.from_numpy(a).to(device)
+                       for a in SC.search_case(name, w))
+            for side in K.SIDES:
+                tag = f"keysearch.search {name} W={w} {side}"
+                exact_parts(tag, one("keysearch.search", tag,
+                                     lambda: K.searchsorted(keys, q,
+                                                            side=side)),
+                            K.searchsorted_plain(keys, q, side=side))
+            sweep_and_probe(f"{name} W={w}", *(
+                torch.from_numpy(a).to(device) for a in SC.sweep_case(name,
+                                                                       w)))
+    for name in PC.PROBE_NAMES:
+        for w in (3, 5):
+            keys, _, rb, re = (torch.from_numpy(a).to(device)
+                               for a in PC.probe_case(name, w))
+            live = ~torch.all(rb == K.SENTINEL_WORD, dim=1)
+            tag = f"probe case {name} W={w}"
+            exact_parts(f"sweep_ranks {tag}", one(
+                "sweep_ranks", tag,
+                lambda: D.sweep_read_ranks(keys, rb, re, live)),
+                D.sweep_read_ranks_plain(keys, rb, re, live))
+    for name in SC.COUNT_NAMES:
+        c = SC.count_case(name)
+        ids = torch.from_numpy(c.ids).to(device)
+        tag = f"keysearch.counts {name}"
+        exact(tag, one("keysearch.counts", tag,
+                       lambda: G._sorted_counts(ids, c.n_seg)),
+              G._sorted_counts_plain(ids, c.n_seg))
+    log(f"  keysearch.search on {len(SC.SEARCH_NAMES)} search cases at W = "
+        f"1 .. 8 (left, right, both), sweep_ranks and keysearch.probe on "
+        f"their reads, sweep_ranks on {len(PC.PROBE_NAMES)} probe cases at "
+        f"W = 3 and 5, keysearch.counts on {len(SC.COUNT_NAMES)} count "
+        "cases: exact, one launch each")
+
+
+def sweep_bytes(main, rb, re, live) -> int:
+    """Kernel E's bytes: the reads' ends and liveness read once, the two
+    ranks written once, and the key rows that decide the live reads'
+    ends (deciding_rows) read once."""
+    r, w = rb.shape
+    return (4 * (deciding_rows(main, rb[live], re[live]) * w + 2 * r * w
+                 + 2 * r) + r)
+
+
+def sweep_inputs(gen, ycsb_group, device) -> tuple:
+    """Kernel E at the range-scan path's shape: a group of YCSB-E batches'
+    reads (rb, re, liveness, flattened: 524,288 at a group of 8) against
+    a main tier dense in the YCSB keyspace, 3/4 live, so both ends tie
+    with main boundaries often. Returns (main, rb, re, live)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop
+    from foundationdb_tpu_torch.ops import keys as K
+
+    sk = torch.unique(torch.randint(0, KEYSPACE + 1, (M,), generator=gen,
+                                    device=device))[: 3 * M // 4]
+    main = K.sentinel_like(M, W, device)
+    main[: sk.shape[0]] = int_keys(sk)
+
+    def flat(key):
+        a = np.stack([b.device_args()[key] for b in ycsb_group])
+        return interop.to_torch(a.reshape(-1, *a.shape[2:]), device)
+
+    rb, re, live = flat("read_begin"), flat("read_end"), flat("read_valid")
+    ties = [int((K.searchsorted_plain(main, q, side="left")
+                 != K.searchsorted_plain(main, q, side="right"))[live].sum())
+            for q in (rb, re)]
+    log(f"  sweep_ranks input: {rb.shape[0]} reads ({int(live.sum())} live) "
+        f"of a group of {len(ycsb_group)}; {ties[0]} begins and {ties[1]} "
+        f"ends equal a main boundary of {sk.shape[0]}")
+    return main, rb, re, live
 
 
 def probe_rows(ledger: dict, long_reads: tuple, point_reads: tuple) -> None:
@@ -1214,8 +1404,8 @@ def _launch_bytes(entry: str, a: list) -> int:
     arguments as kernels.launch gets them: its inputs read once and its
     outputs written once, as the phase-2 bounds count them, leaving out
     what depends on the data (the distinct rows
-    of a dedup, the key rows that decide a probe's reads), so it is a
-    floor, except for mm_merge: its rows are
+    of a dedup, the key rows that decide a search's or a probe's
+    answers), so it is a floor, except for mm_merge: its rows are
     known on the card only, so both maps count whole, sentinel tails too,
     an upper figure for that entry. What depends on the data and is
     counted when launch_totals() is read (the launch's tensors are kept
@@ -1227,9 +1417,11 @@ def _launch_bytes(entry: str, a: list) -> int:
     read (beside 12 B a query) and ss_apply's 4 B a covered leaf, written
     and read back, the int32 min the function needs (beside 12 B a write
     and 12 B a read; its design moves 8 B a leaf, stamp and min)."""
-    if entry == "ks_search":             # keys, m, w, queries, q, ...
-        m, w, q = a[1], a[2], a[4]
-        return 4 * (m * w + q * w + q)
+    if entry == "ks_search":             # keys, m, w, queries, q, side
+        w, q = a[2], a[4]                # (2: both indices), out
+        return 4 * q * (w + (2 if a[5] == 2 else 1))
+    if entry == "ks_counts":             # ids, n, n_seg, off
+        return 4 * (a[1] + a[2] + 1)
     if entry == "ks_query":              # table, levels, m, lo, hi, q, ...
         LAUNCH_BYTES["later"].append(
             lambda: query_bytes(a[1], a[2], a[3], a[4]) - 12 * a[5])
@@ -1246,8 +1438,8 @@ def _launch_bytes(entry: str, a: list) -> int:
     if entry == "mm_scatter":            # ..., w (4), ..., cap (9), ...
         return 4 * a[9] * (a[4] + 1)
     if entry == "sw_ranks":              # keys, m, w, rb, re, rvalid, r
-        m, w, r = a[1], a[2], a[6]
-        return 4 * (2 * r * w + m * w + 2 * r) + r
+        w, r = a[2], a[6]
+        return 4 * (2 * r * w + 2 * r) + r
     if entry == "lo_sort":               # rows, n, w, out_rows, out_perm
         return a[1] * (2 * a[2] * 4 + 4)
     if entry == "sr_heads":              # srt, n, w, sums
@@ -1680,6 +1872,9 @@ CLASSIC_ONLY = ("rangemax2.build", "rangemax2.query", "seg_fold")
 SHARDED_ONLY = ("shard_clip", "shard_combine")
 #: the kernels only the short-span variant launches
 SHORT_SPAN_ONLY = ("short_span.range", "short_span.apply")
+#: the kernel only the short-span group kernel's cross span at G > 1
+#: launches (ops/group._block_spans: a both-sides and a left search)
+CROSS_SPAN_ONLY = ("keysearch.search",)
 #: the kernels no resolver path launches: the reference's scripts alone
 #: reach K16 and K19, so their path launches are 0 (phase 2's one call
 #: each is in launches_per_call)
@@ -1798,7 +1993,8 @@ def phase_stream(device, batches) -> dict:
     cs.check_overflow()
     require_launched("uniform", launches,
                      ("sweep_ranks", "read_dedup", *CLASSIC_ONLY,
-                      *SHARDED_ONLY, *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHARDED_ONLY, *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY,
+                      *OFF_PATH))
     log(f"  {N_BATCHES} batches x {B} txns; launches on the main path: "
         f"{launches}")
 
@@ -1905,7 +2101,7 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     launches, launch_bytes = launch_totals()
     require_launched("hot-key", launches,
                      ("sweep_ranks", *CLASSIC_ONLY, *SHARDED_ONLY,
-                      *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
@@ -2001,7 +2197,7 @@ def phase_range_scan(device, batches) -> dict:
     launches, launch_bytes = launch_totals()
     require_launched("range-scan", launches,
                      ("read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
-                      *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"launches: {launches}")
@@ -2079,7 +2275,7 @@ def phase_classic(device, batches, tiered_outs: list) -> dict:
     cs.check_overflow()
     require_launched("classic uniform", launches,
                      ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
-                      *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
     one_fold_a_batch("classic uniform", launches, len(batches))
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} "
         f"(history {cfg.history_capacity}, no delta tier); launches: "
@@ -2166,7 +2362,7 @@ def phase_classic_hot(device, batches) -> dict:
     launches, launch_bytes = launch_totals()
     require_launched("classic hot-key", launches,
                      ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
-                      *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
     counters = dict(cs.metrics.counters)
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"counters {counters}; launches: {launches}")
@@ -2489,9 +2685,13 @@ def phase_short_span(device, uni, ycsb, tiered_ref: dict,
     except HistoryOverflowError:
         fail(f"the uniform stream tripped the span latch at S = {ss}")
     require_launched("short-span uniform", launches,
-                     ("keysearch.query", "min_cover", "sweep_ranks",
-                      "read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
+                     ("keysearch.query", "min_cover", "read_dedup",
+                      *CLASSIC_ONLY, *SHARDED_ONLY, *CROSS_SPAN_ONLY,
                       *OFF_PATH))
+    # phase (b) against the delta tier: one kernel E launch a batch
+    if launches["sweep_ranks"] != len(uni):
+        fail(f"short-span uniform: {launches['sweep_ranks']} kernel E "
+             f"launches over {len(uni)} batches, not one a batch")
     for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
         if launches[name]:
             fail(f"{name}: launched on the short-span uniform path")
@@ -2542,9 +2742,15 @@ def phase_short_span(device, uni, ycsb, tiered_ref: dict,
     c_launches, c_bytes = launch_totals()
     require_launched("short-span classic", c_launches,
                      ("keysearch.query", "keysearch.probe", "rangemax_build",
-                      "min_cover", "sweep_ranks", "read_dedup",
-                      "rangemax2.build", "rangemax2.query", *SHARDED_ONLY,
-                      *OFF_PATH))
+                      "min_cover", "read_dedup", "rangemax2.build",
+                      "rangemax2.query", *SHARDED_ONLY, *OFF_PATH))
+    # a group's phase (b) is one kernel E launch, its cross span one
+    # both-sides and one left search (ops/group._block_spans)
+    if (c_launches["sweep_ranks"], c_launches["keysearch.search"]) != (
+            len(groups), 2 * len(groups)):
+        fail(f"short-span classic: {c_launches['sweep_ranks']} kernel E and "
+             f"{c_launches['keysearch.search']} search launches over "
+             f"{len(groups)} groups, not 1 and 2 a group")
     for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
         if c_launches[name]:
             fail(f"{name}: launched on the short-span classic path")
@@ -2726,7 +2932,7 @@ def phase_sharded(device, uni, ycsb) -> dict:
     cs.check_overflow()
     require_launched("sharded uniform", launches,
                      ("sweep_ranks", "read_dedup", *CLASSIC_ONLY,
-                      *SHORT_SPAN_ONLY, *OFF_PATH))
+                      *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
     splits = [int.from_bytes(k, "big") for k in bounds]
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP} on "
         f"{SHARDS} shards split at {splits} (tiers of "
@@ -3039,12 +3245,28 @@ def time_probe_fold(device) -> dict:
     script there) it times that tree's kernels."""
     import torch
 
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261020)
+    uni = uniform_stream(bench_config(B), GROUP)
+    ledger = {}
+    probe_rows(ledger, probe_long_reads(gen, device),
+               uniform_point_reads(gen, uni[0], device))
+    ranks, n_map = group_ranks(uni, device)
+    fold_row(ledger, gen, ranks, n_map)
+    return ledger
+
+
+def probe_long_reads(gen, device) -> tuple:
+    """Kernel A's probe at long reads: 65,536 reads over a 786,432-row
+    tier 3/4 live of random 8-byte keys, most spanning many segments, a
+    quarter of each end on a tier key, with random versions: (hist,
+    table, rb, re)."""
+    import torch
+
     from foundationdb_tpu_torch.ops import history as H
     from foundationdb_tpu_torch.ops import keys as K
     from foundationdb_tpu_torch.ops import rangemax
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(20261020)
     main_keys, n_main = random_sorted_keys(gen, 3 * M // 4, M, device)
     ver = torch.randint(-5_000_000, 5_000_000, (M,), generator=gen,
                         device=device, dtype=torch.int32)
@@ -3061,13 +3283,7 @@ def time_probe_fold(device) -> dict:
               torch.where(inv, rb, re).contiguous())
     hist = H.VersionHistory(main_keys, ver, H.VERSION_NEG,
                             torch.zeros((), dtype=torch.bool, device=device))
-    uni = uniform_stream(bench_config(B), GROUP)
-    ledger = {}
-    probe_rows(ledger, (hist, rangemax.build_plain(ver, op="max"), rb, re),
-               uniform_point_reads(gen, uni[0], device))
-    ranks, n_map = group_ranks(uni, device)
-    fold_row(ledger, gen, ranks, n_map)
-    return ledger
+    return hist, rangemax.build_plain(ver, op="max"), rb, re
 
 
 def time_short_span(device) -> dict:
@@ -3256,6 +3472,116 @@ def time_queries(device) -> dict:
     return out
 
 
+def time_searches(device) -> dict:
+    """Kernels A's search and E alone, as this tree runs them, each held
+    to its plain version, device µs by kernel (checked profiler sessions,
+    median of three), the bound and the launches of one call: A's search
+    left, right and both sides at the short-span classic path's shapes
+    (search_inputs: 65,536 and 524,288 queries over a 786,432-row tier,
+    and the group's 2,097,152 distinct point keys; "both" in a tree
+    before the both-sides mode is its left and right searches); K6's
+    counts at a uniform batch's read txn ids and a classic group of 8's
+    flat segment ids; E at a YCSB-E group of 8's 524,288 reads
+    (sweep_inputs); A's probe at long and point reads (probe_rows'
+    inputs); and one short-span classic group of 8 (S = 4) over the
+    tier its first group leaves, device µs by kernel. Run from another
+    checkout's root (a copy of this script there) it times that tree's:
+    parent, change, change, parent in one call."""
+    import torch
+
+    from foundationdb_tpu_torch import interop, kernels, make_conflict_set
+    from foundationdb_tpu_torch.ops import delta as D
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261023)
+    cfg = bench_config(B)
+    uni = uniform_stream(cfg, GROUP)
+    out = {}
+
+    def row(name, fn, want, n_bytes, n_ops=0):
+        before = kernels.counts()
+        got = fn()
+        launched = {k: n - before[k] for k, n in kernels.counts().items()
+                    if n != before[k]}
+        exact_parts(name, got, want)
+        by = kernel_us(fn)
+        out[name] = dict(device_us=round(sum(by.values()), 3),
+                         device_us_by_kernel=by,
+                         bound_us=bound_ms(n_bytes, n_ops)[0] * 1e3,
+                         launches_per_call=launched)
+        log(f"  {name}: {out[name]}")
+
+    def search(keys, q, side):
+        if side == "both" and "both" not in getattr(K, "SIDES", ()):
+            return (K.searchsorted(keys, q, side="left"),
+                    K.searchsorted(keys, q, side="right"))
+        return K.searchsorted(keys, q, side=side)
+
+    keys, queries, ukeys = search_inputs(gen, uni, device)
+    cases = [(side, n, q) for n, q in queries.items()
+             for side in ("left", "right", "both")]
+    cases.append(("both", "distinct point keys", ukeys))
+    for side, n, q in cases:
+        want = K.searchsorted_plain(keys, q, side=side) if side != "both" \
+            else (K.searchsorted_plain(keys, q, side="left"),
+                  K.searchsorted_plain(keys, q, side="right"))
+        row(f"A search {side}, {n}", functools.partial(search, keys, q, side),
+            want, *search_bound(keys, q, want if side == "both" else
+                                (want,)))
+    a = interop.device_args_to_torch(uni[0].device_args(), device)
+    ids = {"uniform batch": (a["read_txn"], B + 1)}
+    txn = torch.stack([interop.to_torch(b.device_args()["read_txn"], device)
+                       for b in uni])
+    seg = (torch.arange(GROUP, device=device)[:, None] * (B + 1) + txn)
+    ids["classic group of 8"] = (seg.reshape(-1).to(torch.int32).contiguous(),
+                                 GROUP * (B + 1))
+    for tag, (x, n_seg) in ids.items():
+        t = torch.arange(n_seg + 1, dtype=torch.int32, device=device)
+        row(f"K6 counts, {tag}", functools.partial(G._sorted_counts, x, n_seg),
+            K.searchsorted_plain(x.reshape(-1, 1), t.reshape(-1, 1),
+                                 side="left"),
+            4 * (x.shape[0] + n_seg + 1))
+    main, rb, re, live = sweep_inputs(gen, ycsb_stream(cfg, GROUP), device)
+    row("E, YCSB-E group of 8", functools.partial(D.sweep_read_ranks, main,
+                                                  rb, re, live),
+        D.sweep_read_ranks_plain(main, rb, re, live),
+        sweep_bytes(main, rb, re, live))
+    for tag, (hist, tab, prb, pre) in (
+            ("long reads", probe_long_reads(gen, device)),
+            ("point reads", uniform_point_reads(gen, uni[0], device))):
+        q = prb.shape[0]
+        row(f"A probe, {tag}", functools.partial(H.query_reads_vmax, hist,
+                                                 prb, pre, tab),
+            H.query_reads_vmax_plain(hist.main_keys, tab, prb, pre),
+            4 * (deciding_rows(hist.main_keys, prb, pre) * W + 2 * q * W
+                 + 3 * q))
+    ss = 4
+    ccfg = bench_config(B, delta_capacity=0, short_span_limit=ss)
+    cl = make_conflict_set(ccfg, "cuda")
+    cl.resolve_group_args(groups_of(uni)[0])
+    g = interop.device_args_to_torch(groups_of(uniform_stream(
+        ccfg, GROUP, seed=1, start=GROUP))[0], device)
+    state = cl.state
+
+    def group():
+        return G.resolve_group(state, g, short_span_limit=ss)
+
+    before = kernels.counts()
+    group()
+    launched = {k: n - before[k] for k, n in kernels.counts().items()
+                if n != before[k]}
+    by = kernel_us(group)
+    out["short-span classic group of 8"] = dict(
+        device_us=round(sum(by.values()), 3), device_us_by_kernel=by,
+        launches_per_call=launched)
+    log(f"  short-span classic group of 8 (S = {ss}): "
+        f"{out['short-span classic group of 8']}")
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3287,7 +3613,9 @@ def main(argv=None) -> int:
              "--short-span": ("kernel K's fixpoint application alone",
                               "short_span", time_short_span),
              "--queries": ("kernels A's query and G alone", "queries",
-                           time_queries)}
+                           time_queries),
+             "--searches": ("kernels A's search and E alone", "searches",
+                            time_searches)}
     if len(argv) == 1 and argv[0] in alone:
         title, key, timed = alone[argv[0]]
         heading(title)
@@ -3341,7 +3669,8 @@ def main(argv=None) -> int:
     path_of = {"read_dedup": hot, "sweep_ranks": scan,
                **{name: classic for name in CLASSIC_ONLY},
                **{name: sharded for name in SHARDED_ONLY},
-               **{name: short["uniform"] for name in SHORT_SPAN_ONLY}}
+               **{name: short["uniform"] for name in SHORT_SPAN_ONLY},
+               **{name: short["classic"] for name in CROSS_SPAN_ONLY}}
     rows = []
     for name, info in kernels.KERNELS.items():
         launches = (0 if name in OFF_PATH

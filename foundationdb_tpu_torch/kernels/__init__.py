@@ -57,8 +57,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: entry point -> (library, argtypes)
 _SIGNATURES = {
-    # keys, m, w, queries, q, right, out, stream
+    # keys, m, w, queries, q, side (0 left, 1 right, 2 both), out, stream
     "ks_search": ("keysearch", [_P, _I, _I, _P, _I, _I, _P, _P]),
+    # ids, n, n_seg, off, stream
+    "ks_counts": ("keysearch", [_P, _I, _I, _P, _P]),
     # table, levels, m, lo, hi, q, op_min, out, stream
     "ks_query": ("keysearch", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     # keys, m, w, table, levels, rb, re, q, out, stream
@@ -149,6 +151,9 @@ KERNELS = {
         KernelInfo("keysearch.search",
                    "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
                    "foundationdb_tpu/ops/keys.py:50"),
+        KernelInfo("keysearch.counts",
+                   "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
+                   "foundationdb_tpu/ops/group.py:105"),
         KernelInfo("keysearch.query",
                    "foundationdb_tpu_torch/kernels/csrc/keysearch.cu",
                    "foundationdb_tpu/ops/rangemax.py:71"),
@@ -242,7 +247,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for part in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}.{h.hexdigest()[:12]}.so"

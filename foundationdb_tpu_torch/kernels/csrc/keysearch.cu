@@ -1,20 +1,42 @@
-// Kernel A: keysearch — binary search over sorted packed keys, the O(1)
-// doubling-table query, and the two fused into one history probe.
+// Kernel A: keysearch — the fenced search over sorted packed keys, the
+// segment-id counts, the doubling-table query, and the history probe.
 //
 // Replaces (JAX/XLA programs of foundationdb_tpu):
-//   search  K2 ops/keys.py:50 searchsorted (and K6 ops/group.py:105
-//           _sorted_counts, which is a left search at W=1 over
-//           nondecreasing txn ids);
+//   search  K2 ops/keys.py:50 searchsorted: left, right, or both sides of
+//           each query in one launch;
+//   counts  K6 ops/group.py:105 _sorted_counts: off[t] = #{ids < t} for
+//           t in [0, n_seg] over nondecreasing segment ids;
 //   query   K3 ops/rangemax.py:71 query;
 //   probe   K4 ops/history.py:77 query_reads_vmax: il = search_right(rb)-1,
 //           ir = search_left(re)-1, then a max query over [max(il,0), ir+1).
 //
-// Bound on this card, search and query: a search reads ~log2(M) rows per
-// query from a key array that fits the 50 MB L2 (786,432 x 3 words =
-// 9.4 MB at bench shape), so the cost is dependent-load latency, not
-// bandwidth. Design: one thread per query, the query key held in
-// registers, compare as uint32 word by word; many queries in flight hide
-// the latency.
+// Bound on this card, search and probe: the passes of dependent loads,
+// not bytes (the tier fits the 50 MB L2; the byte floor is the queries
+// in, the indices out and the key rows that decide them). Both run on
+// the fenced tier search of tier_search.cuh, which kernel E shares; its
+// note says why the fence, the 16-byte row loads and the window. The
+// search's first design (one thread a query, ~20 steps of W dependent
+// word loads) was the probe's too; the probe went 19.2 -> 10.0 us on the
+// fence (an H100, chip_smoke.py --probe-fold). Its both-sides mode takes
+// the left index by the fence and its bucket and the rows equal to the
+// query from one window load, so a right and a left search of one key
+// cost one search (ops/group._block_spans).
+//
+// The counts are one coalesced pass, no search a segment id: the ids are
+// sorted and the t's dense, so a block owns a tile of kCountTile segment
+// ids [t0, t1), finds a = #{ids < t0} and b = #{ids < t1} by two warps'
+// searches side by side (rounds of a load a lane, the first about the
+// interpolated place: two where it was near, at most six at 524,288
+// ids, in place of ~19 dependent loads a thread a segment id; a first
+// design, the whole block's 513-ary search, issued 512 scattered loads a
+// round and ran slower than the search it replaced: 17.4 against 8.2 us
+// at a group of 8's 524,288 ids), counts ids[a, b) into a shared-memory
+// histogram with integer atomics, one a run of equal ids a warp
+// (__match_any_sync: the padding rows, all at id B, are one run, which
+// a thread a row would serialise on), and writes off[t] = a + the
+// histogram's exclusive scan. Order does not matter, and a tile whose
+// ids outnumber the block strides over them. Bound: the ids read once
+// and the offsets written once.
 //
 // The query reads a table [L, m], t[k][i] = op(values[i : i + 2^k]), of
 // ANY depth L from 1 to bit_length(m - 1) + 1, and returns op over
@@ -35,55 +57,134 @@
 //
 // The probe's byte floor is the key rows that decide its reads' ends (the
 // rows on both sides of each end, chip_smoke.py's deciding_rows), the
-// reads and the output, each read or written once. The first design ran
-// two full searches a read, ~20 steps each, each step's row compare
-// issuing its W word loads one after another (less_rm's early exit): 17.7
-// us at long reads, 19.2 at the uniform stream's point reads (an H100,
-// chip_smoke.py --probe-fold). Every warp of a batch is resident at once,
-// and a step's uncoalesced loads cost the L1 one pass per distinct line
-// each (kernels/phase_trace.py --kernel keysearch_probe: a step in global
-// memory ~0.35 us with every warp of the SM issuing); so this design cuts
-// the passes a read makes:
-//   fence   each block stages every 2^s-th row of the tier (the fence, at
-//           most kFenceBytes: s = 10 at 786,432 x 3 words, 768 rows, 9
-//           KB) in shared memory by 4-byte cp.async, once, and strides
-//           over its reads; the top levels of a search run there, then at
-//           most s steps in global memory, each loading its row as the
-//           16-byte chunks that hold it (1.5 loads a row at W = 3, in
-//           place of 3). A sentinel tail costs nothing: its rows are
-//           fence rows like any other. A larger fence stages longer than
-//           it saves (24 and 48 KB measured slower at both shapes);
-//   window  the end from the begin: for rb < re every row up to il is
-//           <= rb < re, so search_left(re) >= il + 1, and re's fence
-//           count comes by a gallop from rb's. Where no fence row lies
-//           between (a point read: always), the kWindow rows after il
-//           (the JAX program's 4-boundary window) are loaded in one go
-//           and one of them >= re is the answer; past them, the rest of
-//           that bucket. Otherwise re's own bucket, from il + 1 on. Reads
-//           with re <= rb (inverted or empty, and the all-ones dead rows)
-//           take the full search for re, which keeps the plain formula's
-//           answer for them exactly (an inverted read strictly inside one
-//           segment returns that segment's version; elsewhere the window
-//           is empty);
-//   gather  the table's two loads, issued together.
-// The passes, not the latency, bound it: a read's two bucket searches run
-// in one loop, their loads in flight together, measured no faster.
+// reads and the output, each read or written once. Each read takes
+// tier_ends (the begin's right search by the fence and its bucket, the
+// end from the begin by a gallop over the fence and the window), then
+// the table's two loads, issued together. Reads with re <= rb (inverted
+// or empty, and the all-ones dead rows) take the full search for re,
+// which keeps the plain formula's answer for them exactly. The passes,
+// not the latency, bound it: a read's two bucket searches run in one
+// loop, their loads in flight together, measured no faster.
 
 #include "common.cuh"
+#include "tier_search.cuh"
 
 namespace {
 
 using namespace fdb;
 
-template <int W, bool RIGHT>
-__global__ void search_kernel(const uint32_t* __restrict__ keys, int m,
-                              const uint32_t* __restrict__ queries, int q,
-                              int32_t* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  uint32_t k[W];
-  load_key<W>(k, queries + static_cast<size_t>(i) * W);
-  out[i] = search<W, RIGHT>(keys, m, k);
+constexpr int kBoth = 2;          // the search's side: 0 left, 1 right, 2 both
+
+// Each query's left or right index, or both (left to out[i], right to
+// out[q + i]), on the fence staged once a block.
+template <int W, int SIDE>
+__global__ void __launch_bounds__(kFenceThreads)
+    search_kernel(const uint32_t* __restrict__ keys, int m,
+                  const uint32_t* __restrict__ queries, int q,
+                  int32_t* __restrict__ out, int shift, int nf) {
+  extern __shared__ uint32_t fence[];
+  FDB_MARK(0)
+  stage_fence<W>(fence, keys, shift, nf);
+  FDB_MARK(1)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < q;
+       i += gridDim.x * blockDim.x) {
+    uint32_t k[W];
+    ld_row<W>(k, queries + static_cast<size_t>(i) * W);
+    if (SIDE == kBoth) {
+      int left, right;
+      tier_both<W>(keys, m, fence, nf, shift, k, left, right);
+      out[i] = left;
+      out[q + i] = right;
+    } else {
+      int c;
+      out[i] = tier_bound<W, SIDE == 1>(keys, m, fence, nf, shift, k, c);
+    }
+    FDB_MARK(5)
+  }
+}
+
+constexpr int kCountThreads = 512;
+constexpr int kCountTile = 2 * kCountThreads;  // segment ids a block owns
+
+// #{ids < x} over the nondecreasing ids[0, n), compared as uint32 (the
+// W = 1 search's order), found by one warp in rounds of one load a lane:
+// the loads below x are a prefix of a round's, so a ballot's count names
+// the part of the range that holds the answer. The first round's loads
+// are 32 ids apart about x's interpolated place x * n / (n_seg + 1)
+// (K6's ids run about one a segment, so the answer most often lies
+// among them: then one round of 32 ids is left); past them, each round
+// splits the range left into 33 parts; a range of at most 32 ids takes a
+// last round. Two rounds where the place was near, at most six at
+// 524,288 ids.
+__device__ __forceinline__ int warp_count_below(
+    const uint32_t* __restrict__ ids, int n, int n_seg, uint32_t x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  if (n > 32 * 32) {
+    const long long guess = static_cast<long long>(x) * n / (n_seg + 1LL);
+    const int w0 = static_cast<int>(min(max(guess - 16 * 32, 0LL),
+                                        n - 32 * 32LL));
+    // loads at w0 + 31, w0 + 63, ..., w0 + 1023
+    const int cnt = __popc(__ballot_sync(
+        0xffffffffu, __ldg(ids + w0 + 32 * lane + 31) < x));
+    lo = cnt == 0 ? lo : w0 + 32 * cnt;
+    hi = cnt == 32 ? hi : w0 + 32 * cnt + 31;
+  }
+  while (hi - lo > 32) {  // warp-uniform
+    const long long len = hi - lo;
+    const int p = lo + static_cast<int>((lane + 1) * len / 33);
+    const int cnt = __popc(__ballot_sync(0xffffffffu, __ldg(ids + p) < x));
+    // the answer lies in (p[cnt - 1], p[cnt]]
+    const int a = cnt == 0 ? lo : lo + static_cast<int>(cnt * len / 33) + 1;
+    hi = cnt == 32 ? hi : lo + static_cast<int>((cnt + 1) * len / 33);
+    lo = a;
+  }
+  const int p = lo + lane;
+  return lo + __popc(__ballot_sync(0xffffffffu,
+                                   p < hi && __ldg(ids + p) < x));
+}
+
+// off[t] = #{ids < t} for t in [0, n_seg]: a block a tile of kCountTile
+// segment ids [t0, t1) (two bins a thread), warps 0 and 1 searching a =
+// #{ids < t0} and b = #{ids < t1} together, a histogram of ids[a, b), a
+// scan.
+__global__ void __launch_bounds__(kCountThreads)
+    counts_kernel(const uint32_t* __restrict__ ids, int n, int n_seg,
+                  int32_t* __restrict__ off) {
+  __shared__ int bins[kCountTile];
+  __shared__ int warp_sums[32];
+  __shared__ int ends[2];
+  const int t0 = blockIdx.x * kCountTile;
+  const int t1 = min(t0 + kCountTile, n_seg + 1);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int c = warp_count_below(
+        ids, n, n_seg, static_cast<uint32_t>(warp == 0 ? t0 : t1));
+    if ((threadIdx.x & 31) == 0) ends[warp] = c;
+  }
+  bins[2 * threadIdx.x] = 0;
+  bins[2 * threadIdx.x + 1] = 0;
+  __syncthreads();
+  const int a = ends[0], b = ends[1];
+  const uint32_t span = static_cast<uint32_t>(t1 - t0);
+  for (int base = a; base < b; base += kCountThreads) {  // block-uniform
+    const int i = base + threadIdx.x;
+    int bin = -1;  // ids[a, b) lie in [t0, t1); an id outside (unsorted
+    if (i < b) {   // ids break the contract) is dropped, not written
+      const uint32_t d = __ldg(ids + i) - static_cast<uint32_t>(t0);
+      if (d < span) bin = static_cast<int>(d);
+    }
+    const unsigned run = __match_any_sync(0xffffffffu, bin);
+    if (bin >= 0 && (threadIdx.x & 31) == __ffs(run) - 1)
+      atomicAdd(&bins[bin], __popc(run));
+  }
+  __syncthreads();
+  const int v0 = bins[2 * threadIdx.x], v1 = bins[2 * threadIdx.x + 1];
+  int total;
+  const int incl = block_inclusive_scan(v0 + v1, warp_sums, &total);
+  const int t = t0 + 2 * static_cast<int>(threadIdx.x);
+  if (t < t1) off[t] = a + incl - v0 - v1;
+  if (t + 1 < t1) off[t + 1] = a + incl - v1;
 }
 
 template <bool MIN>
@@ -100,13 +201,6 @@ __device__ __forceinline__ int32_t table_query(const int32_t* __restrict__ t,
   int32_t vb = __ldg(t + static_cast<size_t>(k) * m + b);
   return MIN ? min(va, vb) : max(va, vb);
 }
-
-#ifndef FDB_MARK
-#define FDB_MARK(k)  // phase_trace.py's %globaltimer marks; none here
-#endif
-#ifndef FDB_MARK_AFTER
-#define FDB_MARK_AFTER(k, v)  // a mark once v has arrived; none here
-#endif
 
 constexpr int kLongUnroll = 4;  // a lane's long-path loads in flight
 
@@ -177,118 +271,9 @@ __global__ void __launch_bounds__(kThreads)
   if (live) out[i] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// the probe
-
-constexpr int kProbeThreads = 512;
-constexpr int kFenceBytes = 12 * 1024;    // the fence's most bytes
-constexpr int kWindow = 4;                // rows after il loaded at once
-
-// a < b for W-word keys in registers, every word compared (no branch)
-template <int W>
-__device__ __forceinline__ bool lt_rr(const uint32_t (&a)[W],
-                                      const uint32_t (&b)[W]) {
-  bool lt = false;
-#pragma unroll
-  for (int i = W - 1; i >= 0; --i)
-    lt = a[i] < b[i] ? true : (a[i] > b[i] ? false : lt);
-  return lt;
-}
-
-// The search's predicate on a row: true while the answer lies past it.
-template <int W, bool RIGHT>
-__device__ __forceinline__ bool past(const uint32_t (&row)[W],
-                                     const uint32_t (&q)[W]) {
-  return RIGHT ? !lt_rr<W>(q, row) : lt_rr<W>(row, q);
-}
 
 template <int W>
-__device__ __forceinline__ void fence_row(uint32_t (&r)[W],
-                                          const uint32_t* fence, int j) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) r[i] = fence[j * W + i];
-}
-
-// Words [p, p + n) (n <= N) from the aligned 16-byte chunks that hold
-// them: ceil((p % 16 + 4n) / 16) vector loads in place of n word loads
-// (an uncoalesced load costs the L1 a pass per distinct line whatever its
-// width, so wide ones cost fewer passes). A chunk holding a word of the
-// tensor lies within its allocation.
-template <int N>
-__device__ __forceinline__ void ld_words(uint32_t (&out)[N],
-                                         const uint32_t* p, int n) {
-  constexpr int kChunks = (N + 6) / 4;  // the most N words can touch
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uint4* c = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
-  const int off = static_cast<int>((a >> 2) & 3);
-  const int need = n > 0 ? (off + n + 3) >> 2 : 0;
-  uint32_t buf[4 * kChunks];
-#pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (i < need) v = __ldg(c + i);
-    buf[4 * i] = v.x;
-    buf[4 * i + 1] = v.y;
-    buf[4 * i + 2] = v.z;
-    buf[4 * i + 3] = v.w;
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    out[i] = off == 0 ? buf[i]
-                      : off == 1 ? buf[i + 1]
-                                 : off == 2 ? buf[i + 2] : buf[i + 3];
-}
-
-template <int W>
-__device__ __forceinline__ void ld_row(uint32_t (&r)[W], const uint32_t* p) {
-  ld_words<W>(r, p, W);
-}
-
-// 4 bytes from device memory (L2) to shared memory, asynchronously
-__device__ __forceinline__ void copy4(uint32_t* dst, const uint32_t* src) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// The first fence row in [lo, hi) the predicate fails on, or hi.
-template <int W, bool RIGHT>
-__device__ __forceinline__ int fence_search(const uint32_t* fence, int lo,
-                                            int hi, const uint32_t (&q)[W]) {
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    uint32_t row[W];
-    fence_row<W>(row, fence, mid);
-    if (past<W, RIGHT>(row, q)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// The rows' bucket after c passed fence rows: ((c-1) << s, min(c << s,
-// m)] holds the search's answer, or it is 0 when c = 0; as [lo, hi].
-__device__ __forceinline__ void bucket_of(int c, int shift, int m, int& lo,
-                                          int& hi) {
-  lo = c == 0 ? 0 : ((c - 1) << shift) + 1;
-  hi = c == 0 ? 0 : min(c << shift, m);
-}
-
-// The first row of [lo, hi) the predicate fails on, or hi (which the
-// caller knows to be the answer when every row before it passes).
-template <int W, bool RIGHT>
-__device__ __forceinline__ int bucket_search(const uint32_t* __restrict__ keys,
-                                             int lo, int hi,
-                                             const uint32_t (&q)[W]) {
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    uint32_t row[W];
-    ld_row<W>(row, keys + static_cast<size_t>(mid) * W);
-    if (past<W, RIGHT>(row, q)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-template <int W>
-__global__ void __launch_bounds__(kProbeThreads)
+__global__ void __launch_bounds__(kFenceThreads)
     probe_kernel(const uint32_t* __restrict__ keys, int m,
                  const int32_t* __restrict__ table, int levels,
                  const uint32_t* __restrict__ rb,
@@ -296,95 +281,18 @@ __global__ void __launch_bounds__(kProbeThreads)
                  int32_t* __restrict__ out, int shift, int nf) {
   extern __shared__ uint32_t fence[];
   FDB_MARK(0)
-  for (int i = threadIdx.x; i < nf * W; i += blockDim.x) {
-    int j = i / W;
-    copy4(fence + i, keys + (static_cast<size_t>(j) << shift) * W + (i - j * W));
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
+  stage_fence<W>(fence, keys, shift, nf);
   FDB_MARK(1)
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < q;
        i += gridDim.x * blockDim.x) {
     uint32_t kb[W], ke[W];
     ld_row<W>(kb, rb + static_cast<size_t>(i) * W);
     ld_row<W>(ke, re + static_cast<size_t>(i) * W);
-    // il: the begin's right search, the fence then its bucket
-    const int c = fence_search<W, true>(fence, 0, nf, kb);
-    int lo, hi;
-    bucket_of(c, shift, m, lo, hi);
-    FDB_MARK(2)
-    const int first = bucket_search<W, true>(keys, lo, hi, kb);  // il + 1
-    FDB_MARK(3)
-    // ir + 1 = search_left(re). For rb < re every row before `first` is
-    // <= rb < re, so it is >= first, and the fence rows before c are
-    // passed: re's fence count fc comes by a gallop from c (a read's end
-    // lies few fence rows past its begin). fc == c: no fence row between,
-    // so the answer is in [first, min(c << s, m)]: the window, then the
-    // rest of that bucket. Otherwise re's own bucket, from `first` on.
-    // For re <= rb the full search from the fence. Each search has one
-    // call site, so the warp's lanes step through it together whichever
-    // case each is in.
-    const bool fwd = lt_rr<W>(kb, ke);
-    int from = 0, to = nf;  // for rb < re, fence rows [c, from) are < re
-    if (fwd) {
-      from = c;
-      for (int step = 1;; step <<= 1) {
-        int j = c + step - 1;
-        if (j >= nf) break;
-        uint32_t row[W];
-        fence_row<W>(row, fence, j);
-        if (!lt_rr<W>(row, ke)) { to = j; break; }
-        from = j + 1;
-      }
-    }
-    const int fc = fence_search<W, false>(fence, from, to, ke);
-    if (fwd && fc == c) {
-      const int rows = min(kWindow, m - first);
-      uint32_t win[kWindow * W];
-      ld_words<kWindow * W>(win, keys + static_cast<size_t>(first) * W,
-                            max(rows, 0) * W);
-      int cnt = 0;
-#pragma unroll
-      for (int k = 0; k < kWindow; ++k) {
-        uint32_t row[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) row[w] = win[k * W + w];
-        cnt += (k < rows && lt_rr<W>(row, ke)) ? 1 : 0;
-      }
-      lo = first + cnt;  // the answer, unless past the window
-      hi = cnt < kWindow ? lo : c == nf ? m : min(c << shift, m);
-    } else {
-      bucket_of(fc, shift, m, lo, hi);
-      if (fwd) lo = max(lo, first);
-    }
-    const int p = bucket_search<W, false>(keys, lo, hi, ke);
-    FDB_MARK(4)
+    int first, p;
+    tier_ends<W>(keys, m, fence, nf, shift, kb, ke, first, p);
     out[i] = table_query<false>(table, levels, m, max(first - 1, 0), p);
     FDB_MARK(5)
   }
-}
-
-// The fence's shift s: the least with ceil(m / 2^s) rows of W words
-// within kFenceBytes.
-int fence_shift(int m, int w) {
-  int s = 0;
-  while (((static_cast<long long>(m) + (1LL << s) - 1) >> s) * w * 4 >
-         kFenceBytes)
-    ++s;
-  return s;
-}
-
-int probe_blocks(int q) {
-  static const int most = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 0;
-    return 2 * sms;
-  }();
-  long long want = (q + kProbeThreads - 1LL) / kProbeThreads;
-  return static_cast<int>(most > 0 && want > most ? most : want);
 }
 
 }  // namespace
@@ -392,18 +300,36 @@ int probe_blocks(int q) {
 extern "C" {
 
 int ks_search(const void* keys, int m, int w, const void* queries, int q,
-              int right, void* out, void* stream) {
+              int side, void* out, void* stream) {
   if (q <= 0) return kNoLaunch;
+  if (side < 0 || side > kBoth) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const uint32_t*>(keys);
   auto qs = static_cast<const uint32_t*>(queries);
   auto o = static_cast<int32_t*>(out);
+  const Fence f = fence_of(m, w);
+  const int blocks = fence_blocks(q);
   FDB_DISPATCH_W(w, {
-    if (right)
-      search_kernel<W, true><<<blocks_for(q), kThreads, 0, s>>>(k, m, qs, q, o);
+    if (side == 0)
+      search_kernel<W, 0><<<blocks, kFenceThreads, f.smem, s>>>(
+          k, m, qs, q, o, f.shift, f.nf);
+    else if (side == 1)
+      search_kernel<W, 1><<<blocks, kFenceThreads, f.smem, s>>>(
+          k, m, qs, q, o, f.shift, f.nf);
     else
-      search_kernel<W, false><<<blocks_for(q), kThreads, 0, s>>>(k, m, qs, q, o);
+      search_kernel<W, kBoth><<<blocks, kFenceThreads, f.smem, s>>>(
+          k, m, qs, q, o, f.shift, f.nf);
   });
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ks_counts(const void* ids, int n, int n_seg, void* off, void* stream) {
+  if (n_seg < 0 || n < 0) return kNoLaunch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = static_cast<int>((n_seg + 1LL + kCountTile - 1) /
+                                      kCountTile);
+  counts_kernel<<<blocks, kCountThreads, 0, s>>>(
+      static_cast<const uint32_t*>(ids), n, n_seg, static_cast<int32_t*>(off));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,12 +357,10 @@ int ks_probe(const void* keys, int m, int w, const void* table, int levels,
   auto b = static_cast<const uint32_t*>(rb);
   auto e = static_cast<const uint32_t*>(re);
   auto o = static_cast<int32_t*>(out);
-  const int shift = fence_shift(m, w);
-  const int nf = static_cast<int>((m + (1LL << shift) - 1) >> shift);
-  const size_t smem = static_cast<size_t>(nf) * w * 4;
+  const Fence f = fence_of(m, w);
   FDB_DISPATCH_W(w, {
-    probe_kernel<W><<<probe_blocks(q), kProbeThreads, smem, s>>>(
-        k, m, t, levels, b, e, q, o, shift, nf);
+    probe_kernel<W><<<fence_blocks(q), kFenceThreads, f.smem, s>>>(
+        k, m, t, levels, b, e, q, o, f.shift, f.nf);
   });
   return static_cast<int>(cudaGetLastError());
 }

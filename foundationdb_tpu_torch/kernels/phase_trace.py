@@ -2,8 +2,9 @@
 
     python -m foundationdb_tpu_torch.kernels.phase_trace \
         [--kernel lex_order|rangemax_build|min_cover|merge_maps|
-                  keysearch_probe|keysearch_query|rangemax2_build|
-                  rangemax2_query|seg_fold|short_span]
+                  keysearch_probe|keysearch_search|keysearch_query|
+                  sweep_ranks|rangemax2_build|rangemax2_query|seg_fold|
+                  short_span]
         [--direct-scatter] [--items N] [--threads N] [--fence-kb N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
@@ -42,6 +43,19 @@ less the latest arrival), in microseconds.
   786,432-row tier with 65,536 long reads (phase 2's) and 65,536 of the
   uniform stream's point reads. `--fence-kb` rebuilds it with another
   kFenceBytes fence (the fence sweep PERF.md cites).
+- keysearch_search (kernel A's search, no grid sync): a mark by every
+  warp's lane 0 at each phase of its last query (the `FDB_MARK` hooks
+  of keysearch.cu and tier_search.cuh), printed as the probe's are
+  (fence stage, shared-memory levels, global levels, for both sides the
+  window and the search past it, the write); at a 786,432-row tier of
+  1M keys, left, right and both sides of a group of 8's 524,288 point
+  read begins, and both sides of 2,097,152 distinct point keys, half
+  the sentinel (the short-span classic path's searches).
+- sweep_ranks (kernel E, no grid sync): the same marks over its reads
+  (fence stage, shared-memory levels and global levels of the begin's
+  search, the end by the gallop and window or its bucket, the write),
+  at a group of 8 YCSB-E-like scans (524,288 reads of 1-100 keys, a
+  twentieth dead) over a 786,432-row tier of 1M keys.
 - keysearch_query (kernel A's query, no grid sync): a mark by every
   warp's lane 0 (both ends loaded, the short path's two lookups, the
   warp's long queries), over the fixpoint's min table of 2^18 leaves at
@@ -83,6 +97,7 @@ import numpy as np
 import torch
 
 from foundationdb_tpu_torch import kernels
+from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
@@ -166,6 +181,10 @@ _ROW_SHAPE = (8192, 8)
 _ROW_OF = {
     "keysearch_probe": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
                         "(threadIdx.x & 31) == 0"),
+    "keysearch_search": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                         "(threadIdx.x & 31) == 0"),
+    "sweep_ranks": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                    "(threadIdx.x & 31) == 0"),
     "keysearch_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
                         "(threadIdx.x & 31) == 0"),
     "rangemax2_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
@@ -177,6 +196,7 @@ _ROW_OF = {
 
 #: the source each traced name edits, where the two differ
 _SOURCE_OF = {"keysearch_probe": "keysearch", "keysearch_query": "keysearch",
+              "keysearch_search": "keysearch",
               "rangemax2_query": "rangemax2", "rangemax2_build": "rangemax2"}
 
 _READ = r'''
@@ -327,6 +347,8 @@ _ARGTYPES = {
     "mm_scratch_words": kernels._SIGNATURES["mm_scratch_words"][1],
     "mm_merge": kernels._SIGNATURES["mm_merge"][1],
     "ks_probe": kernels._SIGNATURES["ks_probe"][1],
+    "ks_search": kernels._SIGNATURES["ks_search"][1],
+    "sw_ranks": kernels._SIGNATURES["sw_ranks"][1],
     "ks_query": kernels._SIGNATURES["ks_query"][1],
     "rm2_query": kernels._SIGNATURES["rm2_query"][1],
     "rm2_build": kernels._SIGNATURES["rm2_build"][1],
@@ -521,6 +543,47 @@ def run_keysearch_probe(lib, args) -> dict:
     return r
 
 
+def run_keysearch_search(lib, args) -> dict:
+    """A's search's per-warp phases: the fence stage, shared-memory and
+    global levels, for both sides the window and the search past it, the
+    write; args (keys, queries, side)."""
+    keys, q, side = args
+    n = q.shape[0]
+    both = side == "both"
+    out = torch.empty(((2 if both else 1) * n,), dtype=torch.int32,
+                      device=q.device)
+    tail = (("window and past it", 3, 4), ("write", 4, 5)) if both else (
+        ("write", 3, 5),)
+    r = row_trace(lib, lambda st: lib.ks_search(
+        keys.data_ptr(), keys.shape[0], keys.shape[1], q.data_ptr(), n,
+        K.SIDES.index(side), out.data_ptr(), st),
+        (("fence stage", 0, 1), ("shared levels", 1, 2),
+         ("global levels", 2, 3), *tail))
+    want = K.searchsorted_plain(keys, q, side=side)
+    r["exact"] = (torch.equal(out[:n], want[0])
+                  and torch.equal(out[n:], want[1])) if both else \
+        torch.equal(out, want)
+    return r
+
+
+def run_sweep_ranks(lib, args) -> dict:
+    """E's per-warp phases: the fence stage, the begin's shared-memory and
+    global levels, the end (gallop, window or bucket), the write; args
+    (keys, rb, re, live)."""
+    keys, rb, re, live = args
+    r_ = rb.shape[0]
+    il = torch.empty((r_,), dtype=torch.int32, device=rb.device)
+    ir = torch.empty_like(il)
+    r = row_trace(lib, lambda st: lib.sw_ranks(
+        keys.data_ptr(), keys.shape[0], keys.shape[1], rb.data_ptr(),
+        re.data_ptr(), live.data_ptr(), r_, il.data_ptr(), ir.data_ptr(), st),
+        (("fence stage", 0, 1), ("shared levels", 1, 2),
+         ("global levels", 2, 3), ("end", 3, 4), ("write", 4, 5)))
+    want = D.sweep_read_ranks_plain(keys, rb, re, live)
+    r["exact"] = torch.equal(il, want[0]) and torch.equal(ir, want[1])
+    return r
+
+
 def run_keysearch_query(lib, args) -> dict:
     """A's query's per-warp phases: both ends, the short path's two
     lookups, the warp's long queries; args (table, lo, hi, op)."""
@@ -679,6 +742,32 @@ def shapes(name: str, device) -> dict:
                     keys, ver, _int_keys(begin), _int_keys(end)),
                 "786432 rows of 1M keys, 65536 uniform point reads": (
                     ukeys, uver, _int_keys(point), _int_keys(point + 2))}
+    if name in ("keysearch_search", "sweep_ranks"):
+        # the short-span classic path's tier: 786,432 rows, 3/4 live, of
+        # the uniform stream's 1M keys
+        m, q = 786_432, 8 * 65_536
+        v = torch.sort(torch.randperm(1_000_001, generator=gen,
+                                      device=device)[: 3 * m // 4]).values
+        keys = K.sentinel_like(m, 3, device)
+        keys[: v.shape[0]] = _int_keys(v)
+        begin = torch.randint(0, 1_000_000, (q,), generator=gen,
+                              device=device)
+        if name == "sweep_ranks":
+            end = begin + torch.randint(1, 101, (q,), generator=gen,
+                                        device=device)
+            live = torch.rand((q,), generator=gen, device=device) >= 0.05
+            return {"786432 rows of 1M keys, 524288 scans of 1-100 keys": (
+                keys, _int_keys(begin), _int_keys(end), live)}
+        u = torch.unique(torch.randint(0, 1_000_000, (4 * q,), generator=gen,
+                                       device=device))
+        ukeys = K.sentinel_like(4 * q, 3, device)
+        ukeys[: u.shape[0]] = _int_keys(u)
+        rb = _int_keys(begin)
+        out = {f"786432 rows of 1M keys, 524288 point reads, {side}": (
+            keys, rb, side) for side in K.SIDES}
+        out[f"786432 rows of 1M keys, {4 * q} distinct point keys "
+            f"({u.shape[0]} live), both"] = (keys, ukeys, "both")
+        return out
     if name == "keysearch_query":
         # the fixpoint's min table over 2^18 leaves, at FIXPOINT_LEVELS and
         # at every level, and reads of a uniform batch's local spans (1-2),
@@ -848,7 +937,9 @@ def _int_keys(v):
 RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
         "min_cover": run_min_cover, "merge_maps": run_merge_maps,
         "keysearch_probe": run_keysearch_probe,
+        "keysearch_search": run_keysearch_search,
         "keysearch_query": run_keysearch_query,
+        "sweep_ranks": run_sweep_ranks,
         "rangemax2_build": run_rangemax2_build,
         "rangemax2_query": run_rangemax2_query, "seg_fold": run_seg_fold,
         "short_span": run_short_span}

@@ -167,8 +167,15 @@ def sweep_read_ranks(main_keys, rb, re, rvalid):
     il = searchsorted_right(main, rb) - 1 and
     ir = searchsorted_left(main, re) - 1 on every live read — the JAX
     co-sort's tie order re < main < rb — and (-1, -1) on dead reads
-    (JAX leaves those arbitrary; callers mask them). CUDA tensors run
-    kernel E.
+    (JAX leaves those arbitrary; callers mask them). CPU tensors take
+    the plain version (two searches); CUDA tensors run kernel E, one
+    launch: the fenced tier search that kernel A's probe runs
+    (kernels/csrc/tier_search.cuh `tier_ends`), the main tier's fence
+    staged once a block in shared memory, each read's begin searched
+    from the fence into its bucket and its end from the begin by a
+    gallop over the fence and a 4-row window. The short-span group
+    kernel takes its phase-(b) segments from it too (ops/group.py
+    `_tier_segments`).
     """
     if rb.shape != re.shape or rb.ndim != 2 or rb.shape[1] != \
             main_keys.shape[1] or rvalid.shape != rb.shape[:1]:

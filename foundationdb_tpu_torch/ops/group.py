@@ -13,7 +13,7 @@ kernel A's searches instead. Per batch:
       (`extra_stale`, the main tier of the tiered path);
   (c) dense local ranks of each batch's four endpoint sets (lexicographic
       stable sort + diff + cumsum + inverse permutation);
-  (d) per-txn read windows from K6 (kernel A's search at W=1 over the
+  (d) per-txn read windows from K6 (kernel A's counts over the
       nondecreasing flat segment ids batch * (B + 1) + txn) and cumsum
       differences;
   (e) the alternating fixpoint: committed[t] = ok[t] and no committed
@@ -49,7 +49,7 @@ tier comes back unchanged (one sync per group).
 With `short_span_limit` = S > 0 (K13) every range op of the call is a
 direct S-wide read or write, kernel K (kernels/csrc/short_span.cu):
 phase (b) takes the max of the tier's versions over [max(il, 0), ir + 1)
-by `ss_range`, il/ir from kernel A's searches; each fixpoint
+by `ss_range`, il/ir from kernel E (`sweep_ranks`); each fixpoint
 application is one `ss_apply` (the writers' scatter-min over the batch's
 local ranks and the reads' min over it, one launch, no fill) instead of
 kernels C, B and A; and the cross query at G > 1 is an `ss_range` max
@@ -123,15 +123,31 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def _sorted_counts_plain(ids: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Plain version of kernel A's counts entry: a left search of 0..n_seg
+    into the ids at W = 1."""
+    t = torch.arange(n_seg + 1, dtype=torch.int32, device=ids.device)
+    return K.searchsorted_plain(
+        ids.to(torch.int32).reshape(-1, 1).contiguous(), t.reshape(-1, 1),
+        side="left")
+
+
 def _sorted_counts(ids: torch.Tensor, n_seg: int) -> torch.Tensor:
     """off[t] = #{ids < t} for t in [0, n_seg]: [n_seg + 1] int32.
 
-    `ids` must be nondecreasing (the packing layout contract), so this
-    is a left search of 0..n_seg into them — kernel A at W=1.
+    `ids` must be nondecreasing (the packing layout contract). CPU
+    tensors take the plain version; CUDA tensors launch kernel A's
+    counts entry: a block a tile of segment ids, a histogram of the ids
+    in it and a scan, one pass over the ids (keysearch.cu).
     """
-    t = torch.arange(n_seg + 1, dtype=torch.int32, device=ids.device)
-    return K.searchsorted(ids.to(torch.int32).reshape(-1, 1).contiguous(),
-                          t.reshape(-1, 1), side="left")
+    if ids.device.type == "cpu":
+        return _sorted_counts_plain(ids, n_seg)
+    ids = ids.to(torch.int32).reshape(-1).contiguous()
+    kernels.check_cuda("sorted_counts", ids)
+    off = torch.empty((n_seg + 1,), dtype=torch.int32, device=ids.device)
+    kernels.launch("ks_counts", "keysearch.counts", ids, ids.shape[0], n_seg,
+                   off)
+    return off
 
 
 def _pad(x: torch.Tensor, fill) -> torch.Tensor:
@@ -324,7 +340,7 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
     # ---- (b) reads vs. this tier ----------------------------------------
     ss = short_span_limit
     if ss:
-        vmax, span_ok = _tier_vmax_short(state, rb, re, read_live, ss)
+        vmax, span_ok, _ = _tier_vmax_short(state, rb, re, read_live, ss)
     else:
         vmax = H.query_reads_vmax(state, rb, re)
         span_ok = torch.ones((), dtype=torch.bool, device=rb.device)
@@ -402,21 +418,27 @@ def resolve_group(state: H.VersionHistory, g: dict, *,
 
 
 def _tier_vmax_short(state: H.VersionHistory, rb, re, read_live, ss: int):
-    """Phase (b) under short_span_limit S: (vmax [NR], span_ok []) —
-    each read's max tier version over [max(il, 0), ir + 1) by kernel K's
-    direct reads, il = search_right(rb) - 1 and ir = search_left(re) - 1
-    from kernel A, and the latch on those spans in tier segments (the
-    JAX co-sort's il/ir; a read before the first boundary has il = -1,
-    so its span starts at 0)."""
-    lo, hi = _tier_segments(state.main_keys, rb, re)
+    """Phase (b) under short_span_limit S: (vmax [NR], span_ok [], hi
+    [NR]) — each live read's max tier version over [max(il, 0), ir + 1)
+    by kernel K's direct reads, il = search_right(rb) - 1 and ir =
+    search_left(re) - 1 from kernel E, the latch on those spans in tier
+    segments (the JAX co-sort's il/ir; a read before the first boundary
+    has il = -1, so its span starts at 0), and hi = search_left(re) for
+    _block_spans. A dead read's vmax is the empty range's: every use of
+    vmax masks it by read_live."""
+    lo, hi = _tier_segments(state.main_keys, rb, re, read_live)
     return (ss_range(state.main_ver, lo, hi, ss, op="max"),
-            _spans_within(hi - lo, read_live, ss))
+            _spans_within(hi - lo, read_live, ss), hi)
 
 
-def _tier_segments(main_keys, rb, re):
-    """Each read's tier segments [lo, hi) = [max(il, 0), ir + 1)."""
-    il = K.searchsorted(main_keys, rb, side="right") - 1
-    ir = K.searchsorted(main_keys, re, side="left") - 1
+def _tier_segments(main_keys, rb, re, live):
+    """Each live read's tier segments [lo, hi) = [max(il, 0), ir + 1),
+    so hi = search_left(re); [0, 0) for a dead read. One kernel E launch
+    (on CUDA tensors) for both ends of every read."""
+    # ops/delta imports this module, so its kernel E wrapper comes here
+    from foundationdb_tpu_torch.ops import delta as D
+
+    il, ir = D.sweep_read_ranks(main_keys, rb, re, live)
     return il.clamp(min=0), ir + 1
 
 
@@ -428,33 +450,33 @@ def _local_spans_ok(read_live, write_live, lq_lo, lq_hi, lw_lo, lw_hi,
             & _spans_within(lq_hi - lq_lo, read_live, ss))
 
 
-def _block_spans(main_keys, ukeys, rank_rb, rank_re, rb, re):
-    """Each read's span in the JAX co-sort's block index: the distinct
-    keys among the tier's live rows and the group's live points in
-    [rb, re).
+def _block_spans(main_keys, ukeys, rank_rb, rank_re, rb, left_re):
+    """Each live read's span in the JAX co-sort's block index: the
+    distinct keys among the tier's live rows and the group's live points
+    in [rb, re).
 
     The block index of a live point key k is (distinct point keys < k) +
     (tier rows < k) - (distinct point keys < k that are tier keys too):
     its dense rank among the points (sort_ranks, `rank_*`), a left
     search of k in the tier, and the running count of the sorted
-    distinct point keys `ukeys` that sit in the tier (a left and a right
-    search of each, then one cumsum). Point ranks never exceed block
-    ranks, so a group the JAX latch passes is exact under the port's
-    point-rank ops, and this count refuses exactly the groups JAX
-    refuses.
+    distinct point keys `ukeys` that sit in the tier (one both-sides
+    search of each, then one cumsum). The read ends' left searches come
+    in as `left_re` (phase (b)'s hi, from kernel E), the begins' take
+    one left search here. Point ranks never exceed block ranks, so a
+    group the JAX latch passes is exact under the port's point-rank ops,
+    and this count refuses exactly the groups JAX refuses.
     """
-    in_tier = (K.searchsorted(main_keys, ukeys, side="right")
-               > K.searchsorted(main_keys, ukeys, side="left"))
+    left_u, right_u = K.searchsorted(main_keys, ukeys, side="both")
     shared = torch.cat([torch.zeros((1,), dtype=torch.int32,
                                     device=ukeys.device),
-                        torch.cumsum(in_tier.to(torch.int32), 0,
+                        torch.cumsum((right_u > left_u).to(torch.int32), 0,
                                      dtype=torch.int32)])
 
-    def block(rank, k):
-        return (rank + K.searchsorted(main_keys, k, side="left")
-                - shared[rank.to(torch.int64)])
+    def block(rank, left):
+        return rank + left - shared[rank.to(torch.int64)]
 
-    return block(rank_re, re) - block(rank_rb, rb)
+    return (block(rank_re, left_re)
+            - block(rank_rb, K.searchsorted(main_keys, rb, side="left")))
 
 
 def _point_ranks(g: dict, rl2, wl2):
@@ -492,16 +514,17 @@ def span_widths(state: H.VersionHistory, g: dict) -> dict:
     rl2, wl2 = g["read_valid"], g["write_valid"]
     rb = g["read_begin"].reshape(-1, w).contiguous()
     re = g["read_end"].reshape(-1, w).contiguous()
-    lo, hi = _tier_segments(state.main_keys, rb, re)
+    live = rl2.reshape(-1).contiguous()
+    lo, hi = _tier_segments(state.main_keys, rb, re, live)
     grank, lrank, ukeys = _point_ranks(g, rl2, wl2)
     lq_lo, lq_hi, lw_lo, lw_hi = _cols(lrank, nr, nw)
-    spans = {"tier": (hi - lo, rl2.reshape(-1)),
+    spans = {"tier": (hi - lo, live),
              "read": (lq_hi - lq_lo, rl2), "write": (lw_hi - lw_lo, wl2)}
     if gn > 1:
         rank_rb, rank_re, _, _ = _cols(grank, nr, nw)
         spans["blocks"] = (_block_spans(
             state.main_keys, ukeys, rank_rb.reshape(-1),
-            rank_re.reshape(-1), rb, re), rl2.reshape(-1))
+            rank_re.reshape(-1), rb, hi), live)
     return {k: int(torch.where(live, span, 0).max())
             for k, (span, live) in spans.items()}
 
@@ -575,7 +598,8 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, short_span_limit: int,
     ss = short_span_limit
     rb, re = rb.contiguous(), re.contiguous()
     if ss:
-        vmax, span_ok = _tier_vmax_short(state, rb, re, read_live, ss)
+        vmax, span_ok, left_re = _tier_vmax_short(state, rb, re, read_live,
+                                                  ss)
     else:
         vmax = H.query_reads_vmax(state, rb, re)
         span_ok = torch.ones((), dtype=torch.bool, device=dev)
@@ -595,7 +619,7 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, short_span_limit: int,
                                             lw_hi, ss)
         cross_span = _block_spans(state.main_keys, ukeys,
                                   rank_rb.reshape(-1), rank_re.reshape(-1),
-                                  rb, re)
+                                  rb, left_re)
         span_ok = span_ok & _spans_within(cross_span, read_live, ss)
 
     # ---- (e) per-txn read windows over the flat segment ids --------------

@@ -8,7 +8,8 @@ int64 before comparing, because torch on the CPU lacks uint32 shifts,
 `flip` and `searchsorted`, and the CUDA kernels read them as uint32.
 
 `searchsorted` is kernel A's search entry on CUDA tensors
-(kernels/csrc/keysearch.cu) and `searchsorted_plain` on CPU tensors.
+(kernels/csrc/keysearch.cu, one launch for a left, a right or both
+indices) and `searchsorted_plain` on CPU tensors.
 `lex_sort_perm` is kernel N (kernels/csrc/lex_order.cu, a radix sort of
 the rows) on CUDA tensors and `lex_sort_perm_plain` (the library's stable
 sort, one pass per word) on CPU tensors. `sort_ranks` (K17) is kernel N
@@ -59,15 +60,23 @@ def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.all(a == b, dim=-1)
 
 
+#: searchsorted's sides: one index a query, or both (left, right)
+SIDES = ("left", "right", "both")
+
+
 def searchsorted_plain(keys: torch.Tensor, queries: torch.Tensor, *,
-                       side: str) -> torch.Tensor:
+                       side: str):
     """Plain version of kernel A's search: a vectorized binary search.
 
     keys: [M, W] sorted ascending (tail padded with sentinel);
-    queries: [Q, W]. Returns [Q] int32 numpy.searchsorted indices.
+    queries: [Q, W]. Returns [Q] int32 numpy.searchsorted indices, or
+    for side="both" the pair (left, right).
     """
-    if side not in ("left", "right"):
+    if side not in SIDES:
         raise ValueError(side)
+    if side == "both":
+        return (searchsorted_plain(keys, queries, side="left"),
+                searchsorted_plain(keys, queries, side="right"))
     m = keys.shape[0]
     q = queries.shape[0]
     lo = torch.zeros((q,), dtype=torch.int64, device=queries.device)
@@ -85,14 +94,16 @@ def searchsorted_plain(keys: torch.Tensor, queries: torch.Tensor, *,
     return lo.to(torch.int32)
 
 
-def searchsorted(keys: torch.Tensor, queries: torch.Tensor, *,
-                 side: str) -> torch.Tensor:
-    """numpy.searchsorted over sorted packed keys: [Q] int32 indices.
+def searchsorted(keys: torch.Tensor, queries: torch.Tensor, *, side: str):
+    """numpy.searchsorted over sorted packed keys: [Q] int32 indices, or
+    for side="both" the pair (left, right) of [Q] int32 from one launch.
 
     CPU tensors take the plain version; CUDA tensors launch kernel A's
-    search entry (one thread per query, binary search in registers).
+    search entry: the tier's fence in shared memory, a bucket search in
+    global memory, and for "both" the rows equal to the query from one
+    window load after the left index (tier_search.cuh).
     """
-    if side not in ("left", "right"):
+    if side not in SIDES:
         raise ValueError(side)
     if keys.ndim != 2 or queries.ndim != 2 or keys.shape[1] != queries.shape[1]:
         raise ValueError(f"searchsorted: shapes {tuple(keys.shape)} and "
@@ -101,12 +112,12 @@ def searchsorted(keys: torch.Tensor, queries: torch.Tensor, *,
         return searchsorted_plain(keys, queries, side=side)
     kernels.check_cuda("searchsorted", keys, queries)
     kernels.check_words("searchsorted", keys.shape[1])
-    out = torch.empty((queries.shape[0],), dtype=torch.int32,
+    q = queries.shape[0]
+    out = torch.empty(((2 if side == "both" else 1) * q,), dtype=torch.int32,
                       device=keys.device)
     kernels.launch("ks_search", "keysearch.search", keys, keys.shape[0],
-                   keys.shape[1], queries, queries.shape[0],
-                   int(side == "right"), out)
-    return out
+                   keys.shape[1], queries, q, SIDES.index(side), out)
+    return (out[:q], out[q:]) if side == "both" else out
 
 
 def lex_sort_perm_plain(points: torch.Tensor):

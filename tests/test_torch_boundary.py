@@ -133,9 +133,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     keys = torch.stack([keys, torch.full_like(keys, 4)], 1)
     q = keys[::3].contiguous()
     K.searchsorted(keys, q, side="left")
+    K.searchsorted(keys, q, side="both")
     vals = torch.from_numpy(rng.integers(0, 99, 64).astype(np.int32))
     tab = R.build(vals, op="max")
     lo = torch.arange(32, dtype=torch.int32)
+    G._sorted_counts(lo, 40)
     R.query(tab, lo, lo + 5, op="min")
     S.min_cover(64, lo, lo + 3, lo)
     hist = H.VersionHistory(keys, vals, H.VERSION_NEG, torch.tensor(False))

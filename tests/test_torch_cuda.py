@@ -32,6 +32,7 @@ from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.testing import merge_cases as MC
 from foundationdb_tpu_torch.testing import probe_cases as PC
+from foundationdb_tpu_torch.testing import search_cases as SSC
 from foundationdb_tpu_torch.testing import span_cases as SC
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
@@ -289,12 +290,13 @@ def test_stream_matches_cpu_plain_path(cuda_device):
     # below), the classic group kernel's cross phase (kernels G and H:
     # test_classic_stream_matches_cpu_plain_path), the sharded path's
     # clip and combine (kernels I and J: test_sharded_stream_...), the
-    # short-span kernel K (test_short_span_streams_...) and the kernels
-    # of no resolver path
+    # short-span kernel K and the search only its cross span at G > 1
+    # runs (test_short_span_streams_..., test_short_span_search_launches)
+    # and the kernels of no resolver path
     for name, n in kernels.counts().items():
         assert (n > 0) == (name not in (
-            "sweep_ranks", "read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
-            *SHORT_SPAN_ONLY, *OFF_PATH)), name
+            "keysearch.search", "sweep_ranks", "read_dedup", *CLASSIC_ONLY,
+            *SHARDED_ONLY, *SHORT_SPAN_ONLY, *OFF_PATH)), name
 
 
 def test_sweep_ranks(cuda_device):
@@ -321,6 +323,126 @@ def test_sweep_ranks(cuda_device):
         want = D.sweep_read_ranks_plain(main, rb, re, rvalid)
         for g, w in zip(got, want):
             assert_launched_and_equal("sweep_ranks", g, w)
+
+
+@pytest.mark.parametrize("w", SSC.WIDTHS)
+@pytest.mark.parametrize("name", SSC.SEARCH_NAMES)
+def test_search_cases(cuda_device, name, w):
+    """Kernel A's fenced search, left, right and both sides, against its
+    plain version on every case of testing/search_cases (tiers of one
+    row, in the fence, at and past its cap, full, repeated rows, a
+    sentinel tail of the window's rows; sentinel queries), one launch a
+    call."""
+    keys, q = (torch.from_numpy(a).to(cuda_device)
+               for a in SSC.search_case(name, w))
+    for side in ("left", "right"):
+        before = kernels.COUNTS["keysearch.search"]
+        got = K.searchsorted(keys, q, side=side)
+        assert kernels.COUNTS["keysearch.search"] == before + 1
+        assert torch.equal(got, K.searchsorted_plain(keys, q, side=side)), side
+    before = kernels.COUNTS["keysearch.search"]
+    left, right = K.searchsorted(keys, q, side="both")
+    assert kernels.COUNTS["keysearch.search"] == before + 1
+    want = K.searchsorted_plain(keys, q, side="both")
+    assert torch.equal(left, want[0]) and torch.equal(right, want[1])
+
+
+@pytest.mark.parametrize("name", SSC.COUNT_NAMES)
+def test_counts_cases(cuda_device, name):
+    """Kernel A's counts entry against its plain version (the W = 1 left
+    search): ids with gaps, all equal, 70,000 at B in one bin, none, a
+    tile whose ids outnumber the block's threads and bins, ids past the last
+    segment, a classic group of 8's 524,288 ids; one launch a call."""
+    c = SSC.count_case(name)
+    ids = torch.from_numpy(c.ids).to(cuda_device)
+    got = G._sorted_counts(ids, c.n_seg)
+    assert kernels.COUNTS["keysearch.counts"] == 1
+    assert kernels.COUNTS["keysearch.search"] == 0
+    assert torch.equal(got, G._sorted_counts_plain(ids, c.n_seg))
+
+
+def assert_sweep_and_probe(keys, rb, re, live, dev):
+    """Kernel E and A's probe against their plain versions, one launch
+    each: E on every read (dead ones (-1, -1)), the probe on every read
+    over random versions of the tier."""
+    kernels.reset_counts()
+    got = D.sweep_read_ranks(keys, rb, re, live)
+    assert kernels.COUNTS["sweep_ranks"] == 1
+    for g, w in zip(got, D.sweep_read_ranks_plain(keys, rb, re, live)):
+        assert torch.equal(g, w)
+    ver = torch.randint(0, 10**6, (keys.shape[0],), device=dev,
+                        dtype=torch.int32)
+    tab = R.build_plain(ver, op="max")
+    hist = H.VersionHistory(keys, ver, H.VERSION_NEG,
+                            torch.tensor(False, device=dev))
+    got = H.query_reads_vmax(hist, rb, re, tab)
+    assert kernels.COUNTS["keysearch.probe"] == 1
+    assert torch.equal(got, H.query_reads_vmax_plain(keys, tab, rb, re))
+
+
+@pytest.mark.parametrize("w", SSC.WIDTHS)
+@pytest.mark.parametrize("name", SSC.SEARCH_NAMES)
+def test_sweep_and_probe_search_cases(cuda_device, name, w):
+    c = SSC.sweep_case(name, w)
+    assert_sweep_and_probe(*(torch.from_numpy(a).to(cuda_device)
+                             for a in c), cuda_device)
+
+
+@pytest.mark.parametrize("w", [3, 5])
+@pytest.mark.parametrize("case", PC.PROBE_NAMES)
+def test_sweep_probe_cases(cuda_device, case, w):
+    """Kernel E on testing/probe_cases (the probe's own cases: the fence
+    rows, the window, inverted, empty and dead reads, the tier's ends,
+    duplicate keys), dead where the case's read is all-ones."""
+    keys, _, rb, re = (torch.from_numpy(a).to(cuda_device)
+                       for a in PC.probe_case(case, w))
+    live = ~torch.all(rb == K.SENTINEL_WORD, dim=1)
+    assert_sweep_and_probe(keys, rb, re, live, cuda_device)
+
+
+def test_short_span_search_launches(cuda_device):
+    """The launches ISSUE's prediction names: phase (b)'s segments are one
+    kernel E launch (no search), the cross span at G > 1 one both-sides
+    and one left search; a short-span classic group of 4 launches
+    kernel A's search twice, E once and the counts once, a tiered batch
+    at S no search, E once and the counts once."""
+    n = 1024
+    rng = np.random.default_rng(21)
+    keys, m = sorted_keys(rng, 3000, 4000, cuda_device)
+    rb = keys[torch.from_numpy(rng.integers(0, m, n)).to(cuda_device)]
+    re = keys[torch.from_numpy(rng.integers(0, m, n)).to(cuda_device)]
+    rb, re = torch.minimum(rb, re).contiguous(), torch.maximum(rb,
+                                                               re).contiguous()
+    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    kernels.reset_counts()
+    lo, hi = G._tier_segments(keys, rb, re, live)
+    assert kernels.counts()["sweep_ranks"] == 1
+    assert kernels.counts()["keysearch.search"] == 0
+    pts = torch.cat([rb, re])
+    rank, ukeys, _ = K.sort_ranks(pts)
+    kernels.reset_counts()
+    G._block_spans(keys, ukeys, rank[:n], rank[n:], rb, hi)
+    assert kernels.counts()["keysearch.search"] == 2
+    assert kernels.counts()["sweep_ranks"] == 0
+    for classic in (True, False):
+        cfg = KernelConfig(max_key_bytes=8, max_txns=n, max_reads=n,
+                           max_writes=n, history_capacity=24 * n,
+                           delta_capacity=0 if classic else 12 * n,
+                           window_versions=5000, compact_interval=0,
+                           short_span_limit=8)
+        batches = [skiplist_style_batch(rng, cfg, n, version=1000 * (i + 1),
+                                        keyspace=4000, snapshot_lag=2000)
+                   for i in range(8)]
+        gpu = make_conflict_set(cfg, "cuda", device=cuda_device)
+        for lo_i in range(0, 8, 4):
+            stacked = stack_device_args(batches[lo_i:lo_i + 4])
+            kernels.reset_counts()
+            gpu.resolve_group_args(stacked)
+            c = kernels.counts()
+            per = 1 if classic else 4   # a group, or one a batch
+            assert c["keysearch.search"] == (2 if classic else 0), c
+            assert c["sweep_ranks"] == per, c
+            assert c["keysearch.counts"] == per, c
 
 
 @pytest.mark.parametrize("u", [4096, 64])

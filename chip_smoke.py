@@ -8,6 +8,7 @@
     python3 chip_smoke.py --short-span    # kernel K's application alone
     python3 chip_smoke.py --queries       # kernels A's query and G alone
     python3 chip_smoke.py --searches      # kernels A's search and E alone
+    python3 chip_smoke.py --writes-radix4 # K16 and kernel M, with B, C, D
 
 Builds the hand-written kernels from `foundationdb_tpu_torch/kernels/
 csrc` and runs these phases, failing (non-zero exit, no result line) on
@@ -22,8 +23,11 @@ any fault:
    shards, kernels N (the radix sort) and L over a uniform batch's
    262,144 endpoint rows, N also over a zipf batch's 65,536 x 6 dedup
    rows, 131,072 coverage rows and a group of 8's 2,097,152 rows, kernel
-   D's merge_writes entry at 655,360 + 131,072 rows and kernel M at
-   262,144 leaves and 65,536 queries, the reference scripts' shapes),
+   D's merge_writes entry (its row-keeping mode, one launch) at 655,360
+   + 131,072 rows and kernel M (B and C at radix 4, and its query, one
+   launch each) at 262,144 leaves and 65,536 queries, the reference
+   scripts' shapes, and both exact, one launch a call, on every case of
+   testing/writes_cases),
    held exactly
    against its plain PyTorch version on the same CUDA tensors, and
    timed beside its bound, the plain version and, where one exists, a
@@ -134,8 +138,11 @@ table and query (kernels B and A's query) at every level and at each
 depth the fixpoint may take, and kernel G's build and query
 (`time_queries`), with `--searches` only kernel A's search at the
 short-span classic path's shapes, K6's counts, kernel E, A's probe and
-one short-span classic group of 8 (`time_searches`), printing their JSON
-and the card's name and power limit.
+one short-span classic group of 8 (`time_searches`), with
+`--writes-radix4` only K16 and kernel M's build, query and cover at
+phase 2's shapes, then B and C as `--build-cover` and D as `--merge`
+times them (`time_writes_radix4`), printing their JSON and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -544,22 +551,11 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
                uniform_point_reads(gen, uniform_group[0], device))
 
     # -- C: the fixpoint's writer cover at 2^18 leaves
-    wlo = torch.randint(0, leaves, (B,), generator=gen, device=device,
-                        dtype=torch.int32)
-    wlen = torch.randint(-1, 8, (B,), generator=gen, device=device,
-                         dtype=torch.int32)
-    wlen[: B // 64] = torch.randint(0, leaves, (B // 64,), generator=gen,
-                                    device=device, dtype=torch.int32)
-    whi = wlo + wlen
-    wval = torch.randint(0, B, (B,), generator=gen, device=device,
-                         dtype=torch.int32)
-    wval[::3] = rangemax.INT32_POS
-    log_l = leaves.bit_length() - 1
+    wlo, whi, wval = writer_cover(gen, leaves, device)
     entry("min_cover",
           lambda: segtree.min_cover(leaves, wlo, whi, wval),
           lambda: segtree.min_cover_plain(leaves, wlo, whi, wval),
-          n_bytes=3 * B * 4 + leaves * 4,
-          n_ops=2 * B + 2 * log_l * leaves)
+          **cover_bound(leaves))
 
     # -- D: the compaction fold (main (+) delta at M + M rows) and the
     #    batch merge (delta (+) the committed-write coverage), one launch
@@ -736,85 +732,15 @@ def phase_kernels(device, zipf_batch, ycsb_group, dedup_u: int,
           library=lambda: torch.unique(masked, dim=0, return_inverse=True),
           check=exact_parts, detail=True)
 
-    # -- D's mm_mark_runs: merge_writes of 131,072 run bounds into a tier
-    #    of 655,360 live rows (profile_serialized.py's 655K + 131K), an
-    #    eighth of the bounds equal to tier keys, GC at a floor
-    n_runs = M // 6                        # 131,072 at bench shape
-    wt_keys, n_wt = random_sorted_keys(gen, M - n_runs, M, device)
-    wt_ver = torch.randint(0, 1_000_000, (M,), generator=gen, device=device,
-                           dtype=torch.int32)
-    wt_ver[n_wt:] = H.VERSION_NEG
-    fresh = torch.randint(0, 1 << 40, (n_runs,), generator=gen,
-                          device=device)
-    on_tier = torch.randint(0, n_wt, (n_runs // 8,), generator=gen,
-                            device=device)
-    tier_ints = ((wt_keys[on_tier, 0].to(torch.int64) & 0xFFFFFFFF) << 32) \
-        | (wt_keys[on_tier, 1].to(torch.int64) & 0xFFFFFFFF)
-    bounds = torch.unique(torch.cat([fresh[: n_runs - on_tier.shape[0]],
-                                     tier_ints]))
-    bounds = bounds[: bounds.shape[0] // 2 * 2]
-    runs = K.sentinel_like(n_runs, W, device)
-    runs[: bounds.shape[0]] = int_keys(bounds)
-    whist = H.VersionHistory(wt_keys, wt_ver, 0, torch.zeros(
-        (), dtype=torch.bool, device=device))
-    log(f"  merge_writes input: {n_wt} live tier rows of {M}, "
-        f"{bounds.shape[0]} run bounds ({int(torch.isin(bounds, tier_ints).sum())}"
-        " equal to tier keys), version 1,200,000, floor 200,000")
-
-    def history_parts(name, got, want):
-        return max(exact(f"{name} keys", got.main_keys, want.main_keys),
-                   exact(f"{name} ver", got.main_ver, want.main_ver),
-                   exact(f"{name} overflow", got.overflow, want.overflow))
-
-    entry("merge_writes",
-          lambda: H.merge_writes(whist, runs, 1_200_000, 200_000),
-          lambda: H.merge_writes_plain(whist, runs, 1_200_000, 200_000),
-          n_bytes=2 * M * (W + 1) * 4 + n_runs * W * 4,
-          n_ops=(M + n_runs) * 2 * (M.bit_length() + 1) * W,
-          check=history_parts)
-
-    # -- M: the radix-4 table at 262,144 leaves, 65,536 queries of 1..63
-    #    (experiments6.py's shapes), and its cover of 65,536 intervals
-    leaves4 = 4 * B                         # 262,144 at bench shape
-    vals4 = torch.randint(0, 1 << 30, (leaves4,), generator=gen,
-                          device=device, dtype=torch.int32)
-    lv4 = rangemax._num_levels4(leaves4)
-    entry("rangemax4.build",
-          lambda: rangemax.build4(vals4, op="max"),
-          lambda: rangemax.build4_plain(vals4, op="max"),
-          n_bytes=(1 + lv4) * leaves4 * 4, n_ops=3 * (lv4 - 1) * leaves4)
-    exact("rangemax4.build min", rangemax.build4(vals4, op="min"),
-          rangemax.build4_plain(vals4, op="min"))
-    tab4 = rangemax.build4_plain(vals4, op="max")
-    q4 = B
-    qlo4 = torch.randint(0, leaves4 - 1, (q4,), generator=gen, device=device,
-                         dtype=torch.int32)
-    qhi4 = (qlo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
-                                 dtype=torch.int32)).clamp(max=leaves4)
-    entry("rangemax4.query",
-          lambda: rangemax.query4(tab4, qlo4, qhi4, op="max"),
-          lambda: rangemax.query4_plain(tab4, qlo4, qhi4, op="max"),
-          n_bytes=q4 * 4 * 7, n_ops=q4 * 4)
-    exact("rangemax4.query min",
-          rangemax.query4(rangemax.build4_plain(vals4, op="min"), qlo4, qhi4,
-                          op="min"),
-          rangemax.query4_plain(rangemax.build4_plain(vals4, op="min"), qlo4,
-                                qhi4, op="min"))
-    ilo4 = torch.randint(0, leaves4 - 64, (q4,), generator=gen,
-                         device=device, dtype=torch.int32)
-    ihi4 = ilo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
-                                dtype=torch.int32)
-    ival4 = torch.randint(0, q4, (q4,), generator=gen, device=device,
-                          dtype=torch.int32)
-    nlev4 = segtree._cover4_levels(leaves4)
-    entry("rangemax4.cover",
-          lambda: segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
-          lambda: segtree.min_cover4_plain(leaves4, ilo4, ihi4, ival4),
-          n_bytes=3 * q4 * 4 + leaves4 * 4,
-          n_ops=4 * q4 + 3 * (nlev4 - 1) * leaves4)
-    exact("rangemax4.cover vs min_cover",
-          segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
-          segtree.min_cover(leaves4, ilo4, ihi4, ival4))
+    # -- K16 on D's row-keeping mode and kernel M (B and C at radix 4):
+    #    the reference scripts' shapes, then every case of
+    #    testing/writes_cases, one launch a call
+    writes_radix4_rows(ledger, gen, device)
+    for name in OFF_PATH:
+        if ledger[name]["launches_per_call"] != 1:
+            fail(f"{name}: {ledger[name]['launches_per_call']} launches a "
+                 "call, not one")
+    writes_edge_checks(device)
     return ledger
 
 
@@ -1024,6 +950,187 @@ def merge_edge_checks(device) -> None:
                 exact(f"merge_maps {name} W={w} {part}", g, x)
     log(f"  merge_maps on {len(MC.NAMES)} edge cases at W = 3 and 5: "
         "exact, one launch each")
+
+
+def writer_cover(gen, leaves: int, device) -> tuple:
+    """Kernel C's input at its phase-2 shape: [B] lo, hi, val of the
+    fixpoint's writes over `leaves` (-1 .. 7 leaves wide, a 64th up to
+    the whole width; a third of the values INT32_POS)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import rangemax
+
+    wlo = torch.randint(0, leaves, (B,), generator=gen, device=device,
+                        dtype=torch.int32)
+    wlen = torch.randint(-1, 8, (B,), generator=gen, device=device,
+                         dtype=torch.int32)
+    wlen[: B // 64] = torch.randint(0, leaves, (B // 64,), generator=gen,
+                                    device=device, dtype=torch.int32)
+    wval = torch.randint(0, B, (B,), generator=gen, device=device,
+                         dtype=torch.int32)
+    wval[::3] = rangemax.INT32_POS
+    return wlo, wlo + wlen, wval
+
+
+def cover_bound(leaves: int) -> dict:
+    """Kernel C's bound inputs at B intervals: lo, hi and val read once
+    and the leaves written once; two atomics an interval and a min a leaf
+    a level."""
+    return dict(n_bytes=3 * B * 4 + leaves * 4,
+                n_ops=2 * B + 2 * (leaves.bit_length() - 1) * leaves)
+
+
+def writes_input(gen, device) -> tuple:
+    """K16's input at the reference's shape (profile_serialized.py's 655K +
+    131K): a tier of 655,360 live rows of M, 131,072 run bounds (an eighth
+    equal to tier keys), version 1,200,000, floor 200,000."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import keys as K
+
+    n_runs = M // 6                        # 131,072 at bench shape
+    wt_keys, n_wt = random_sorted_keys(gen, M - n_runs, M, device)
+    wt_ver = torch.randint(0, 1_000_000, (M,), generator=gen, device=device,
+                           dtype=torch.int32)
+    wt_ver[n_wt:] = H.VERSION_NEG
+    fresh = torch.randint(0, 1 << 40, (n_runs,), generator=gen,
+                          device=device)
+    on_tier = torch.randint(0, n_wt, (n_runs // 8,), generator=gen,
+                            device=device)
+    tier_ints = ((wt_keys[on_tier, 0].to(torch.int64) & 0xFFFFFFFF) << 32) \
+        | (wt_keys[on_tier, 1].to(torch.int64) & 0xFFFFFFFF)
+    bounds = torch.unique(torch.cat([fresh[: n_runs - on_tier.shape[0]],
+                                     tier_ints]))
+    bounds = bounds[: bounds.shape[0] // 2 * 2]
+    runs = K.sentinel_like(n_runs, W, device)
+    runs[: bounds.shape[0]] = int_keys(bounds)
+    whist = H.VersionHistory(wt_keys, wt_ver, 0, torch.zeros(
+        (), dtype=torch.bool, device=device))
+    log(f"  merge_writes input: {n_wt} live tier rows of {M}, "
+        f"{bounds.shape[0]} run bounds "
+        f"({int(torch.isin(bounds, tier_ints).sum())} equal to tier keys), "
+        "version 1,200,000, floor 200,000")
+    return whist, runs, n_wt + bounds.shape[0]
+
+
+def history_parts(name, got, want) -> float:
+    return max(exact(f"{name} keys", got.main_keys, want.main_keys),
+               exact(f"{name} ver", got.main_ver, want.main_ver),
+               exact(f"{name} overflow", got.overflow, want.overflow))
+
+
+def writes_radix4_rows(ledger: dict, gen, device) -> None:
+    """K16 and kernel M's three entries at the reference scripts' shapes
+    (profile_serialized.py's 655,360 + 131,072 rows; experiments6.py's
+    262,144 leaves and 65,536 queries of 1..63, 65,536 intervals), each
+    held exactly to its plain version and timed (`measure`)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import rangemax, segtree
+
+    whist, runs, real = writes_input(gen, device)
+    n_runs = runs.shape[0]
+    measure(ledger, "merge_writes",
+            lambda: H.merge_writes(whist, runs, 1_200_000, 200_000),
+            lambda: H.merge_writes_plain(whist, runs, 1_200_000, 200_000),
+            n_bytes=2 * M * (W + 1) * 4 + n_runs * W * 4,
+            n_ops=4 * real * W, check=history_parts)
+    leaves4 = 4 * B                         # 262,144 at bench shape
+    vals4 = torch.randint(0, 1 << 30, (leaves4,), generator=gen,
+                          device=device, dtype=torch.int32)
+    lv4 = rangemax._num_levels4(leaves4)
+    measure(ledger, "rangemax4.build",
+            lambda: rangemax.build4(vals4, op="max"),
+            lambda: rangemax.build4_plain(vals4, op="max"),
+            n_bytes=(1 + lv4) * leaves4 * 4, n_ops=3 * (lv4 - 1) * leaves4)
+    exact("rangemax4.build min", rangemax.build4(vals4, op="min"),
+          rangemax.build4_plain(vals4, op="min"))
+    tab4 = rangemax.build4_plain(vals4, op="max")
+    q4 = B
+    qlo4 = torch.randint(0, leaves4 - 1, (q4,), generator=gen, device=device,
+                         dtype=torch.int32)
+    qhi4 = (qlo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
+                                 dtype=torch.int32)).clamp(max=leaves4)
+    measure(ledger, "rangemax4.query",
+            lambda: rangemax.query4(tab4, qlo4, qhi4, op="max"),
+            lambda: rangemax.query4_plain(tab4, qlo4, qhi4, op="max"),
+            n_bytes=q4 * 4 * 7, n_ops=q4 * 4)
+    tab4n = rangemax.build4_plain(vals4, op="min")
+    exact("rangemax4.query min",
+          rangemax.query4(tab4n, qlo4, qhi4, op="min"),
+          rangemax.query4_plain(tab4n, qlo4, qhi4, op="min"))
+    ilo4 = torch.randint(0, leaves4 - 64, (q4,), generator=gen,
+                         device=device, dtype=torch.int32)
+    ihi4 = ilo4 + torch.randint(1, 64, (q4,), generator=gen, device=device,
+                                dtype=torch.int32)
+    ival4 = torch.randint(0, q4, (q4,), generator=gen, device=device,
+                          dtype=torch.int32)
+    nlev4 = segtree._cover4_levels(leaves4)
+    measure(ledger, "rangemax4.cover",
+            lambda: segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
+            lambda: segtree.min_cover4_plain(leaves4, ilo4, ihi4, ival4),
+            n_bytes=3 * q4 * 4 + leaves4 * 4,
+            n_ops=4 * q4 + 3 * (nlev4 - 1) * leaves4)
+    exact("rangemax4.cover vs min_cover",
+          segtree.min_cover4(leaves4, ilo4, ihi4, ival4),
+          segtree.min_cover(leaves4, ilo4, ihi4, ival4))
+
+
+def writes_edge_checks(device) -> None:
+    """K16 (kernel D's row-keeping mode) exact against its plain version
+    on every case of testing/writes_cases at W = 3 and 5 (keys, versions,
+    overflow), and kernel M's build, query (max and min) and cover on its
+    sizes and intervals there, one launch a call each."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.ops import history as H
+    from foundationdb_tpu_torch.ops import rangemax, segtree
+    from foundationdb_tpu_torch.testing import writes_cases as WC
+
+    def once(name, tag, fn):
+        before = kernels.COUNTS[name]
+        got = fn()
+        if kernels.COUNTS[name] - before != 1:
+            fail(f"{tag}: {kernels.COUNTS[name] - before} launches, not one")
+        return got
+
+    def on_card(*xs):
+        return [torch.from_numpy(x).to(device) for x in xs]
+
+    for name in WC.NAMES:
+        for w in (3, 5):
+            c = WC.case(name, w)
+            keys, ver, runs = on_card(c.main_keys, c.main_ver, c.runs)
+            state = H.VersionHistory(keys, ver, c.oldest, torch.tensor(
+                c.overflow, device=device))
+            tag = f"merge_writes {name} W={w}"
+            got = once("merge_writes", tag, lambda: H.merge_writes(
+                state, runs, c.version, c.floor))
+            history_parts(tag, got, H.merge_writes_plain(
+                state, runs, c.version, c.floor))
+    for m in WC.BUILD_ROWS:
+        vals, lo, hi = on_card(*WC.build_case(m))
+        for op in ("max", "min"):
+            tag = f"rangemax4 {op} m={m}"
+            tab = once("rangemax4.build", tag + " build",
+                       lambda: rangemax.build4(vals, op=op))
+            exact(tag + " build", tab, rangemax.build4_plain(vals, op=op))
+            exact(tag + " query",
+                  once("rangemax4.query", tag + " query",
+                       lambda: rangemax.query4(tab, lo, hi, op=op)),
+                  rangemax.query4_plain(tab, lo, hi, op=op))
+    for leaves in WC.COVER_LEAVES:
+        lo, hi, val = on_card(*WC.cover_case(leaves))
+        tag = f"rangemax4.cover leaves={leaves}"
+        exact(tag, once("rangemax4.cover", tag,
+                        lambda: segtree.min_cover4(leaves, lo, hi, val)),
+              segtree.min_cover4_plain(leaves, lo, hi, val))
+    log(f"  merge_writes on {len(WC.NAMES)} cases at W = 3 and 5, "
+        f"rangemax4 build and query at m in {WC.BUILD_ROWS} (max, min) and "
+        f"its cover at leaves in {WC.COVER_LEAVES}: exact, one launch each")
 
 
 def uniform_point_reads(gen, batch, device) -> tuple:
@@ -1435,8 +1542,15 @@ def _launch_bytes(entry: str, a: list) -> int:
         return 4 * (3 * a[3] + a[4])
     if entry == "mm_merge":              # a_keys, a_val, na, b_keys,
         return merge_bound(a[2], a[5], a[8], a[6])["n_bytes"]  # nb, w, cap
-    if entry == "mm_scatter":            # ..., w (4), ..., cap (9), ...
-        return 4 * a[9] * (a[4] + 1)
+    if entry == "mm_merge_writes":       # a_keys, a_val, na, b_keys, nb,
+        w, na, nb, cap = a[5], a[2], a[4], a[8]  # w, version, floor, cap
+        return 4 * ((na + cap) * (w + 1) + nb * w)
+    if entry == "rm4_build":             # values, table, m, levels, ...
+        return 4 * a[2] * (1 + a[3])
+    if entry == "rm4_query":             # table, levels, m, lo, hi, q, ...
+        return 7 * 4 * a[5]
+    if entry == "mc_cover4":             # lo, hi, val, n, leaves, table
+        return 4 * (3 * a[3] + a[4])
     if entry == "sw_ranks":              # keys, m, w, rb, re, rvalid, r
         w, r = a[2], a[6]
         return 4 * (2 * r * w + 2 * r) + r
@@ -3236,6 +3350,43 @@ def time_merge(device) -> dict:
     return ledger
 
 
+def time_writes_radix4(device) -> dict:
+    """K16 and kernel M's three entries alone at phase 2's shapes
+    (`writes_radix4_rows`), on inputs made as phase 2 makes them from a
+    seed of its own; then, in the same process, the kernels the new
+    entries share code with: B and C as `time_build_cover` times them, B
+    at the fixpoint's depth and C over phase 2's writer cover, and D at
+    its two shapes (`time_merge`). Run from another checkout's root (a
+    copy of this script there) it times that tree's kernels."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import group as G
+    from foundationdb_tpu_torch.ops import rangemax, segtree
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20261021)
+    ledger = {}
+    writes_radix4_rows(ledger, gen, device)
+    ledger.update(time_build_cover(device))
+    # B at the fixpoint's depth and C at phase 2's writer cover: the rows
+    # the resolver path reads
+    leaves, depth = 4 * B, G.FIXPOINT_LEVELS
+    vals = torch.randint(0, B, (leaves,), generator=gen, device=device,
+                         dtype=torch.int32)
+    measure(ledger, "rangemax_build",
+            lambda: rangemax.build(vals, op="min", levels=depth),
+            lambda: rangemax.build_plain(vals, op="min", levels=depth),
+            n_bytes=(1 + depth) * leaves * 4, n_ops=(depth - 1) * leaves,
+            key=f"B min {leaves} L{depth}")
+    wlo, whi, wval = writer_cover(gen, leaves, device)
+    measure(ledger, "min_cover",
+            lambda: segtree.min_cover(leaves, wlo, whi, wval),
+            lambda: segtree.min_cover_plain(leaves, wlo, whi, wval),
+            **cover_bound(leaves), key=f"C {leaves} writer cover")
+    ledger.update(time_merge(device))
+    return ledger
+
+
 def time_probe_fold(device) -> dict:
     """Kernels A's probe and H alone at the resolver path's shapes, as
     phase 2 times them (`probe_rows`: long reads and the uniform stream's
@@ -3615,7 +3766,9 @@ def main(argv=None) -> int:
              "--queries": ("kernels A's query and G alone", "queries",
                            time_queries),
              "--searches": ("kernels A's search and E alone", "searches",
-                            time_searches)}
+                            time_searches),
+             "--writes-radix4": ("K16 and kernel M alone, with B, C and D",
+                                 "writes_radix4", time_writes_radix4)}
     if len(argv) == 1 and argv[0] in alone:
         title, key, timed = alone[argv[0]]
         heading(title)

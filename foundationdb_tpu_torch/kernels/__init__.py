@@ -76,10 +76,11 @@ _SIGNATURES = {
     "mm_merge": ("merge_maps",
                  [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                   _P]),
-    # a_keys, b_keys, na, nb, w, row_pos, row_val, keep_at, dest, cap,
-    # out_keys, out_val, stream
-    "mm_scatter": ("merge_maps",
-                   [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
+    # a_keys, a_val, na, b_keys, nb, w, version, floor, cap, out_keys,
+    # out_val, count, overflow_in, overflow_out, scratch, epoch, stream
+    "mm_merge_writes": ("merge_maps",
+                        [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _I, _P]),
     # keys, m, w, rb, re, rvalid, r, il, ir, stream
     "sw_ranks": ("sweep_ranks", [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
     # ukeys, nr, w, u, urb, ure, stream
@@ -106,10 +107,6 @@ _SIGNATURES = {
     "sc_combine": ("shard_combine",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),
-    # a_keys, a_val, na, b_keys, nb, w, version, floor, keep_at, row_pos,
-    # row_val, stream
-    "mm_mark_runs": ("merge_maps",
-                     [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     # values, n, lo, hi, q, span, op_min, out, stream
     "ss_range": ("short_span", [_P, _I, _P, _P, _I, _I, _I, _P, _P]),
     # wlo, whi, val, nw, qlo, qhi, nr, span, leaves, flat, cap, out, stream
@@ -121,14 +118,12 @@ _SIGNATURES = {
     "sr_heads": ("sort_ranks", [_P, _I, _I, _P, _P]),
     # srt, perm, n, w, sums, ranks, ukeys, count, stream
     "sr_write": ("sort_ranks", [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
-    # values, table, m, level, s, op_min, stream
-    "rm4_build_level": ("rangemax4", [_P, _P, _I, _I, _I, _I, _P]),
+    # values, table, m, levels, op_min, stream
+    "rm4_build": ("rangemax_build", [_P, _P, _I, _I, _I, _P]),
     # table, levels, m, lo, hi, q, op_min, out, stream
     "rm4_query": ("rangemax4", [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
-    # lo, hi, val, n, leaves, nlev, table, stream
-    "rm4_cover_scatter": ("rangemax4", [_P, _P, _P, _I, _I, _I, _P, _P]),
-    # table, leaves, level, stream
-    "rm4_cover_sweep_level": ("rangemax4", [_P, _I, _I, _P]),
+    # lo, hi, val, n, leaves, table, stream
+    "mc_cover4": ("min_cover", [_P, _P, _P, _I, _I, _P, _P]),
     # n, w -> scratch words (no stream: a host query, see size())
     "lo_scratch_words": ("lex_order", [_I, _I]),
     # rows, n, w, out_rows, out_perm, scratch, stream
@@ -203,13 +198,13 @@ KERNELS = {
                    "foundationdb_tpu_torch/kernels/csrc/merge_maps.cu",
                    "foundationdb_tpu/ops/history.py:114"),
         KernelInfo("rangemax4.build",
-                   "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
+                   "foundationdb_tpu_torch/kernels/csrc/rangemax_build.cu",
                    "foundationdb_tpu/ops/rangemax.py:190"),
         KernelInfo("rangemax4.query",
                    "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
                    "foundationdb_tpu/ops/rangemax.py:210"),
         KernelInfo("rangemax4.cover",
-                   "foundationdb_tpu_torch/kernels/csrc/rangemax4.cu",
+                   "foundationdb_tpu_torch/kernels/csrc/min_cover.cu",
                    "foundationdb_tpu/ops/segtree.py:79"),
         KernelInfo("lex_order",
                    "foundationdb_tpu_torch/kernels/csrc/lex_order.cu",

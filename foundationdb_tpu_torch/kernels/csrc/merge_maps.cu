@@ -98,29 +98,31 @@
 // time instead of hiding behind them (kernels/phase_trace.py --kernel
 // merge_maps shows each phase).
 //
-// Two more entries serve K16, foundationdb_tpu/ops/history.py:114
-// merge_writes, which overwrites the union of sorted disjoint run
-// intervals (b0, e0, b1, e1, ...) with the batch version. Its JAX program
-// keeps rows, not keys: it sorts the tier's rows and the run bounds
-// together (a tier row before a run bound at equal keys, each list in its
-// own order), gives each row the tier value in force there (the last tier
-// row at or before it), raised to max(value, version) where the row lies
-// inside a run (a run bound of even ordinal, or a tier row after an odd
-// number of bounds), NEG under the floor, and keeps a real row whose value
-// differs from the row just before it in that order. A run begin equal to
-// a tier key so keeps two rows of one key, which the canonical merge above
-// would fold into one; so the rows are marked by these rules:
-//   mm_mark_runs  one thread per row: its position (own index + a search
-//               into the other list), its value, and the value of the row
-//               just before it, found with one more search (the previous
-//               row is the other list's last row before this one when a row
-//               of that list lies between this row and its own list's
-//               predecessor); keep_at[position] = keep;
-//   (torch)     dest = exclusive cumsum of keep_at;
-//   mm_scatter  one thread per row: kept rows with dest < cap are written
-//               to the output, in key order.
-// Its bound: searches per row into two sorted lists that fit L2, i.e.
-// dependent load latency; no resolver path runs it.
+// K16, foundationdb_tpu/ops/history.py:114 merge_writes, runs on the same
+// kernel in its row-keeping mode (mm_merge_writes, the template's kRows).
+// merge_writes overwrites the union of sorted disjoint run intervals (b0,
+// e0, b1, e1, ...) with the batch version. Its JAX program keeps rows, not
+// keys: it sorts the tier's rows (A) and the run bounds (B) together (a
+// tier row before a run bound at equal keys, each list in its own order:
+// the merge path's tie rule), gives each row the tier value in force there
+// raised to the version inside a run, NEG under the floor, and keeps a real
+// row whose value differs from the row just before it in that order. In
+// merge coordinates, with a and b the A and B rows at or before a merged
+// position, the position's value depends on those two counts alone:
+//   new(a, b) = gc(b odd ? max(A_val[a-1], version) : A_val[a-1]),
+// A_val[-1] = NEG, and the position is kept iff real and new(a, b) differs
+// from new at the position before it (new(0, 0) = NEG). A run begin equal
+// to a tier key so keeps two rows of one key, which the canonical merge
+// folds into one; and there are no runs of equal keys to gallop over: a
+// thread's value before its first position comes from its own split (the
+// A row before it, a halo row in shared memory, and the parity of the B
+// rows before it), so no tile or thread waits on another but for the
+// look-back over kept counts. Everything else (the grid and its ticket,
+// the partition, the staging, the scan and look-back, the write, the tail)
+// is mm_merge's, on the same scratch; the last tile also writes
+// overflow = overflow_in | (count > cap) on the card. Its bound: bytes, the
+// tier and the bounds read once and the tier written once, 4 ((na + cap)
+// (W + 1) + nb W); 8.0 us at 786,432 + 131,072 rows of W = 3 words.
 
 #include "common.cuh"
 
@@ -174,6 +176,11 @@ struct MergeArgs {
   unsigned* ticket;
   unsigned long long* status;  // one a small tile of na + nb positions
   unsigned epoch;
+  // the row-keeping mode's (K16's): the run version, and the overflow flag
+  // before the call and after it (bytes, 0 or 1)
+  int32_t version;
+  const uint8_t* overflow_in;
+  uint8_t* overflow_out;
 };
 
 // One sorted list as a tile reads it: rows [lo, hi) staged in shared
@@ -375,7 +382,32 @@ __device__ int look_back(const MergeArgs& a, int t, int total, int lane) {
   return prefix;
 }
 
+// A thread's split in its tile's staged rows: how many of the tile's
+// first k0 merged rows are A rows (of la A and lb B rows), the merge
+// order's tie rule as split()'s.
 template <int W>
+__device__ __forceinline__ int thread_split(const List<W>& A,
+                                            const List<W>& B, int k0, int la,
+                                            int lb) {
+  int lo = max(0, k0 - lb), hi = min(k0, la);
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (less_rr<W>(B.s + (k0 - 1 - m) * W, A.s + m * W)) hi = m;
+    else lo = m + 1;
+  }
+  return lo;
+}
+
+// The value K16 gives a merged position after a tier rows and b run
+// bounds, from the tier value in force there (av = A_val[a - 1]).
+__device__ __forceinline__ int32_t row_value(const MergeArgs& a, int32_t av,
+                                             int b) {
+  return gc((b & 1) ? max(av, a.version) : av, a.floor);
+}
+
+// kRows false: the canonical map merge (mm_merge); true: K16's row-keeping
+// merge (mm_merge_writes, no B values, the rows kept by row_value).
+template <int W, bool kRows>
 __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* s_keys = smem;                                     // [kSlots][W]
@@ -466,10 +498,11 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
     stage(s_keys + kb + (B.lo - j0 + 1) * W,
           a.b_keys + static_cast<size_t>(B.lo) * W, (B.hi - B.lo) * W);
     stage(s_val_u + A.lo - i0 + 1, a.a_val + A.lo, A.hi - A.lo);
-    stage(s_val_u + vb + B.lo - j0 + 1, a.b_val + B.lo, B.hi - B.lo);
+    if constexpr (!kRows)  // the run bounds carry no values
+      stage(s_val_u + vb + B.lo - j0 + 1, a.b_val + B.lo, B.hi - B.lo);
     if (tid == 0) {  // the value before a list's first row is NEG
       if (i0 == 0) s_val[0] = VERSION_NEG;
-      if (j0 == 0) s_val[vb] = VERSION_NEG;
+      if (!kRows && j0 == 0) s_val[vb] = VERSION_NEG;
     }
     asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();
@@ -486,14 +519,37 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
       slot_of[q] = 0;
       val_of[q] = 0;
     }
-    if (k0 < nloc) {
-      int lo = max(0, k0 - lb), hi = min(k0, la);
-      while (lo < hi) {
-        const int m = (lo + hi) >> 1;
-        if (less_rr<W>(B.s + (k0 - 1 - m) * W, A.s + m * W)) hi = m;
-        else lo = m + 1;
+    if constexpr (kRows) {
+      if (k0 < nloc) {
+        // K16: each position's value from its merge coordinates alone, the
+        // value before the thread's first one from its own split
+        int ia = thread_split<W>(A, B, k0, la, lb), jb = k0 - ia;
+        const int nq = min(items, nloc - k0);
+        uint32_t x[W], y[W];
+        load_row<W>(x, A.s + ia * W);
+        load_row<W>(y, B.s + jb * W);
+        int32_t before = row_value(a, sav[ia - 1], j0 + jb);
+#pragma unroll
+        for (int q = 0; q < kItems; ++q) {
+          if (q < nq) {
+            const bool take_a = ia < la && (jb >= lb || !lex_less<W>(y, x));
+            const bool real = (take_a ? x[W - 1] : y[W - 1]) != kFull;
+            slot_of[q] = static_cast<uint16_t>(take_a ? W + ia * W
+                                                      : kb + W + jb * W);
+            if (take_a) load_row<W>(x, A.s + ++ia * W);
+            else load_row<W>(y, B.s + ++jb * W);
+            const int32_t v = row_value(a, sav[ia - 1], j0 + jb);
+            if (real && v != before) {
+              keep |= 1u << q;
+              val_of[q] = v;
+            }
+            before = v;
+          }
+        }
       }
-      int ia = lo, jb = k0 - lo;  // tile-local merge coordinates
+    } else if (k0 < nloc) {
+      // tile-local merge coordinates
+      int ia = thread_split<W>(A, B, k0, la, lb), jb = k0 - ia;
       const int nq = min(items, nloc - k0);
       // the next row of each list (past its end: a slot not read)
       uint32_t x[W], y[W], k[W];
@@ -581,7 +637,11 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
     }
     for (int r = tid; r < rows; r += kMergeThreads)
       a.out_val[prefix + r] = s_out_val[r];
-    if (tid == 0 && t == tiles - 1) *a.count = prefix + total;
+    if (tid == 0 && t == tiles - 1) {
+      *a.count = prefix + total;
+      if constexpr (kRows)
+        *a.overflow_out = *a.overflow_in | (prefix + total > a.cap);
+    }
     // -- 6. the tile's share of the tail [count, real rows): each real row
     //    that is not kept frees one, counted down from the real rows' end,
     //    so the shares need no count: tile t takes the D_t + 1-th .. the
@@ -597,7 +657,10 @@ __global__ void __launch_bounds__(kMergeThreads) merge_kernel(MergeArgs a) {
     }
     __syncthreads();  // shared memory is the next tile's
   }
-  if (tiles == 0 && blockIdx.x == 0 && tid == 0) *a.count = 0;
+  if (tiles == 0 && blockIdx.x == 0 && tid == 0) {
+    *a.count = 0;
+    if constexpr (kRows) *a.overflow_out = *a.overflow_in;
+  }
 }
 
 struct Plan {
@@ -605,21 +668,22 @@ struct Plan {
   int err;     // a CUDA error from asking, 0 if none
 };
 
-// The kernel's grid, asked once per key width (C++ statics).
-template <int W>
+// The kernel's grid, asked once per key width and mode (C++ statics).
+template <int W, bool kRows>
 const Plan& plan() {
   static const Plan p = [] {
     Plan r{0, 0};
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaFuncSetAttribute(
-        merge_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_kernel<W, kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         merge_smem_bytes<W>());
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, merge_kernel<W>, kMergeThreads, merge_smem_bytes<W>());
+          &per_sm, merge_kernel<W, kRows>, kMergeThreads,
+          merge_smem_bytes<W>());
     r.err = static_cast<int>(e);
     r.blocks = sms * per_sm;
     if (r.err == 0 && r.blocks <= 0)
@@ -629,103 +693,13 @@ const Plan& plan() {
   return p;
 }
 
-template <int W>
+template <int W, bool kRows>
 int launch_merge(const MergeArgs& a, cudaStream_t stream) {
-  const Plan& p = plan<W>();
+  const Plan& p = plan<W, kRows>();
   if (p.err) return p.err;
-  merge_kernel<W><<<p.blocks, kMergeThreads, merge_smem_bytes<W>(), stream>>>(
-      a);
+  merge_kernel<W, kRows>
+      <<<p.blocks, kMergeThreads, merge_smem_bytes<W>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// K16: mm_mark_runs + mm_scatter
-
-template <int W>
-__global__ void scatter_kernel(const uint32_t* __restrict__ a_keys,
-                               const uint32_t* __restrict__ b_keys, int na,
-                               int nb, const int32_t* __restrict__ row_pos,
-                               const int32_t* __restrict__ row_val,
-                               const int32_t* __restrict__ keep_at,
-                               const int32_t* __restrict__ dest, int cap,
-                               uint32_t* __restrict__ out_keys,
-                               int32_t* __restrict__ out_val) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= na + nb) return;
-  int pos = row_pos[r];
-  if (!keep_at[pos]) return;
-  int d = dest[pos];
-  if (d >= cap) return;
-  bool own_a = r < na;
-  const uint32_t* src =
-      (own_a ? a_keys : b_keys) + static_cast<size_t>(own_a ? r : r - na) * W;
-  uint32_t* dst = out_keys + static_cast<size_t>(d) * W;
-#pragma unroll
-  for (int i = 0; i < W; ++i) dst[i] = src[i];
-  out_val[d] = row_val[r];
-}
-
-// K16's row marks (see the header). a = the tier (na rows), b = the run
-// bounds (nb rows, sorted, begin/end alternating, sentinel tail).
-template <int W>
-__global__ void mark_runs_kernel(const uint32_t* __restrict__ a_keys,
-                                 const int32_t* __restrict__ a_val, int na,
-                                 const uint32_t* __restrict__ b_keys, int nb,
-                                 int32_t version, int32_t floor,
-                                 int32_t* __restrict__ keep_at,
-                                 int32_t* __restrict__ row_pos,
-                                 int32_t* __restrict__ row_val) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= na + nb) return;
-  bool own_a = r < na;
-  int i = own_a ? r : r - na;
-  uint32_t k[W];
-  load_key<W>(k, (own_a ? a_keys : b_keys) + static_cast<size_t>(i) * W);
-  // the value a tier row takes (inside a run: raised to the version)
-  auto tier_val = [&](int row, bool covered) {
-    int32_t v = __ldg(a_val + row);
-    return gc(covered ? max(v, version) : v, floor);
-  };
-  // the value a run bound of ordinal j takes over the tier value `carry`
-  auto run_val = [&](int j, int32_t carry) {
-    return gc((j & 1) == 0 ? max(carry, version) : carry, floor);
-  };
-  int pos;
-  int32_t val;
-  int32_t prev = VERSION_NEG;
-  uint32_t kp[W];
-  if (own_a) {
-    int bl = search<W, false>(b_keys, nb, k);  // bounds before this row
-    pos = i + bl;
-    val = tier_val(i, bl & 1);
-    int bl_prev = 0;
-    if (i > 0) {
-      load_key<W>(kp, a_keys + static_cast<size_t>(i - 1) * W);
-      bl_prev = search<W, false>(b_keys, nb, kp);
-    }
-    if (bl > bl_prev)  // bound bl - 1 lies between tier rows i-1 and i
-      prev = run_val(bl - 1, i > 0 ? __ldg(a_val + i - 1) : VERSION_NEG);
-    else if (i > 0)
-      prev = tier_val(i - 1, bl & 1);
-  } else {
-    int ar = search<W, true>(a_keys, na, k);  // tier rows before this row
-    pos = i + ar;
-    int32_t carry = ar > 0 ? __ldg(a_val + ar - 1) : VERSION_NEG;
-    val = run_val(i, carry);
-    int ar_prev = 0;
-    if (i > 0) {
-      load_key<W>(kp, b_keys + static_cast<size_t>(i - 1) * W);
-      ar_prev = search<W, true>(a_keys, na, kp);
-    }
-    if (ar > ar_prev)  // tier row ar - 1 lies between bounds i-1 and i,
-      prev = tier_val(ar - 1, i & 1);  // after exactly i bounds
-    else if (i > 0)
-      prev = run_val(i - 1, carry);
-  }
-  bool real = k[W - 1] != 0xFFFFFFFFu;
-  keep_at[pos] = (real && val != prev) ? 1 : 0;
-  row_pos[r] = pos;
-  row_val[r] = val;
 }
 
 }  // namespace
@@ -751,7 +725,7 @@ int mm_merge(const void* a_keys, const void* a_val, int na,
   if (na < 0 || nb < 0 || cap < 0 || epoch <= 0 ||
       static_cast<long long>(na) + nb >= kMaxRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  MergeArgs a;
+  MergeArgs a{};
   a.a_keys = static_cast<const uint32_t*>(a_keys);
   a.a_val = static_cast<const int32_t*>(a_val);
   a.na = na;
@@ -768,38 +742,46 @@ int mm_merge(const void* a_keys, const void* a_val, int na,
   a.epoch = static_cast<unsigned>(epoch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = 0;
-  FDB_DISPATCH_W(w, rc = launch_merge<W>(a, s));
+  FDB_DISPATCH_W(w, (rc = launch_merge<W, false>(a, s)));
   return rc;
 }
 
-int mm_scatter(const void* a_keys, const void* b_keys, int na, int nb, int w,
-               const void* row_pos, const void* row_val, const void* keep_at,
-               const void* dest, int cap, void* out_keys, void* out_val,
-               void* stream) {
-  if (na + nb <= 0) return kNoLaunch;
+// K16 in one launch: the tier (a_keys, a_val: na rows) with the run bounds
+// (b_keys: nb rows, sorted, begin / end alternating, sentinel tail)
+// overwritten with `version` inside the runs, GC'd at `floor`, the rows
+// kept as the JAX program keeps them, into out_keys [cap, w] and out_val
+// [cap] with a sentinel / NEG tail; count (int64) and overflow_out = the
+// byte overflow_in | (count > cap) written. Scratch and epoch as mm_merge's
+// (the same scratch serves both).
+int mm_merge_writes(const void* a_keys, const void* a_val, int na,
+                    const void* b_keys, int nb, int w, int version,
+                    int floor, int cap, void* out_keys, void* out_val,
+                    void* count, const void* overflow_in, void* overflow_out,
+                    void* scratch, int epoch, void* stream) {
+  if (na < 0 || nb < 0 || cap < 0 || epoch <= 0 ||
+      static_cast<long long>(na) + nb >= kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MergeArgs a{};
+  a.a_keys = static_cast<const uint32_t*>(a_keys);
+  a.a_val = static_cast<const int32_t*>(a_val);
+  a.na = na;
+  a.b_keys = static_cast<const uint32_t*>(b_keys);
+  a.nb = nb;
+  a.floor = floor;
+  a.cap = cap;
+  a.out_keys = static_cast<uint32_t*>(out_keys);
+  a.out_val = static_cast<int32_t*>(out_val);
+  a.count = static_cast<long long*>(count);
+  a.ticket = static_cast<unsigned*>(scratch);
+  a.status = static_cast<unsigned long long*>(scratch) + 1;
+  a.epoch = static_cast<unsigned>(epoch);
+  a.version = version;
+  a.overflow_in = static_cast<const uint8_t*>(overflow_in);
+  a.overflow_out = static_cast<uint8_t*>(overflow_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FDB_DISPATCH_W(w, scatter_kernel<W><<<blocks_for(na + nb), kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(a_keys),
-      static_cast<const uint32_t*>(b_keys), na, nb,
-      static_cast<const int32_t*>(row_pos),
-      static_cast<const int32_t*>(row_val),
-      static_cast<const int32_t*>(keep_at), static_cast<const int32_t*>(dest),
-      cap, static_cast<uint32_t*>(out_keys), static_cast<int32_t*>(out_val)));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int mm_mark_runs(const void* a_keys, const void* a_val, int na,
-                 const void* b_keys, int nb, int w, int version, int floor,
-                 void* keep_at, void* row_pos, void* row_val, void* stream) {
-  if (na + nb <= 0) return kNoLaunch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FDB_DISPATCH_W(w, mark_runs_kernel<W><<<blocks_for(na + nb), kThreads, 0,
-                                          s>>>(
-      static_cast<const uint32_t*>(a_keys), static_cast<const int32_t*>(a_val),
-      na, static_cast<const uint32_t*>(b_keys), nb, version, floor,
-      static_cast<int32_t*>(keep_at), static_cast<int32_t*>(row_pos),
-      static_cast<int32_t*>(row_val)));
-  return static_cast<int>(cudaGetLastError());
+  int rc = 0;
+  FDB_DISPATCH_W(w, (rc = launch_merge<W, true>(a, s)));
+  return rc;
 }
 
 }  // extern "C"

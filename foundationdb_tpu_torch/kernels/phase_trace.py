@@ -4,7 +4,8 @@
         [--kernel lex_order|rangemax_build|min_cover|merge_maps|
                   keysearch_probe|keysearch_search|keysearch_query|
                   sweep_ranks|rangemax2_build|rangemax2_query|seg_fold|
-                  short_span]
+                  short_span|merge_writes|rangemax4_build|min_cover4|
+                  rangemax4_query]
         [--direct-scatter] [--items N] [--threads N] [--fence-kb N]
 
 Builds a copy of the kernel's source with a `%globaltimer` mark at every
@@ -35,6 +36,19 @@ less the latest arrival), in microseconds.
   another tile shape (merged positions a thread, threads a block; the
   small tile is half the large one): the sweep that chose the shipped
   8 x 256, which PERF.md's kernel D findings cite.
+- merge_writes (K16, kernel D's row-keeping mode `mm_merge_writes`):
+  merge_maps's marks and print, at the reference's 655,360 live tier
+  rows of 786,432 and 131,072 run bounds (an eighth on tier keys);
+  `--items` / `--threads` as for merge_maps.
+- rangemax4_build (kernel M's build, B's kernel at radix 4, `rm4_build`):
+  262,144 leaves, max and min.
+- min_cover4 (kernel M's cover, C's kernel at radix 4, `mc_cover4`):
+  65,536 intervals of 1-63 leaves over 2^18 leaves (the reference
+  script's shape), and the same with intervals of every level.
+- rangemax4_query (kernel M's query, no grid sync): a mark by every
+  warp's lane 0 (start, its queries' ends loaded, its gathers arrived),
+  for 65,536 queries of 1-63 leaves over the radix-4 max table of 2^18
+  leaves (the reference script's shape).
 - keysearch_probe (kernel A's probe, no grid sync): a `%globaltimer` mark
   by every warp's lane 0 at each phase of its reads (the `FDB_MARK`
   hooks of keysearch.cu), printed as each phase's mean and largest time
@@ -190,6 +204,8 @@ _ROW_OF = {
     "rangemax2_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
                         "(threadIdx.x & 31) == 0"),
     "rangemax2_build": ("", "blockIdx.x", "threadIdx.x == 0"),
+    "rangemax4_query": ("", "(blockIdx.x * blockDim.x + threadIdx.x) >> 5",
+                        "(threadIdx.x & 31) == 0"),
     "seg_fold": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
     "short_span": ("__syncthreads();", "blockIdx.x", "threadIdx.x == 0"),
 }
@@ -197,7 +213,10 @@ _ROW_OF = {
 #: the source each traced name edits, where the two differ
 _SOURCE_OF = {"keysearch_probe": "keysearch", "keysearch_query": "keysearch",
               "keysearch_search": "keysearch",
-              "rangemax2_query": "rangemax2", "rangemax2_build": "rangemax2"}
+              "rangemax2_query": "rangemax2", "rangemax2_build": "rangemax2",
+              "merge_writes": "merge_maps", "rangemax4_query": "rangemax4",
+              "rangemax4_build": "rangemax_build",
+              "min_cover4": "min_cover"}
 
 _READ = r'''
 extern "C" int pt_reset() {
@@ -291,10 +310,10 @@ _FENCE_OPT_IN = """    {
 
 def traced_row_source(name: str, fence_kb: int = 0,
                       threads: int = 0) -> str:
-    """keysearch.cu, seg_fold.cu or short_span.cu with its FDB_MARK hooks
-    stamping a row of g_mark; for the probe, with `fence_kb` in place of
-    its kFenceBytes; short_span.cu with `threads` a block in place of its
-    kApplyThreads."""
+    """keysearch.cu, seg_fold.cu, short_span.cu or rangemax4.cu with its
+    FDB_MARK hooks stamping a row of g_mark; for the probe, with
+    `fence_kb` in place of its kFenceBytes; short_span.cu with `threads` a
+    block in place of its kApplyThreads."""
     src_name = _SOURCE_OF.get(name, name)
     src = (kernels.CSRC / f"{src_name}.cu").read_text()
     if fence_kb:
@@ -317,8 +336,9 @@ def traced_source(name: str, direct_scatter: bool = False,
                   fence_kb: int = 0) -> str:
     if name in _ROW_OF:
         return traced_row_source(name, fence_kb, threads)
-    if name == "merge_maps":
+    if name in ("merge_maps", "merge_writes"):
         return traced_merge_source(items, threads)
+    name = _SOURCE_OF.get(name, name)
     src = (kernels.CSRC / f"{name}.cu").read_text()
     src = _edit(src, '#include "common.cuh"\n',
                 '#include "common.cuh"\n' + _MARKS, name)
@@ -346,6 +366,10 @@ _ARGTYPES = {
     "mc_cover": kernels._SIGNATURES["mc_cover"][1],
     "mm_scratch_words": kernels._SIGNATURES["mm_scratch_words"][1],
     "mm_merge": kernels._SIGNATURES["mm_merge"][1],
+    "mm_merge_writes": kernels._SIGNATURES["mm_merge_writes"][1],
+    "rm4_build": kernels._SIGNATURES["rm4_build"][1],
+    "rm4_query": kernels._SIGNATURES["rm4_query"][1],
+    "mc_cover4": kernels._SIGNATURES["mc_cover4"][1],
     "ks_probe": kernels._SIGNATURES["ks_probe"][1],
     "ks_search": kernels._SIGNATURES["ks_search"][1],
     "sw_ranks": kernels._SIGNATURES["sw_ranks"][1],
@@ -440,21 +464,85 @@ def run_min_cover(lib, args):
     return r
 
 
+def run_rangemax4_build(lib, args):
+    values, op = args
+    m = values.shape[0]
+    levels = R._num_levels4(m)
+    table = torch.empty((levels, m), dtype=torch.int32, device=values.device)
+    r = trace(lib, lambda st: lib.rm4_build(
+        values.data_ptr(), table.data_ptr(), m, levels, int(op == "min"), st))
+    r["exact"] = torch.equal(table, R.build4_plain(values, op=op))
+    return r
+
+
+def run_min_cover4(lib, args):
+    leaves, lo, hi, val = args
+    table = torch.empty((S._cover4_levels(leaves), leaves), dtype=torch.int32,
+                        device=val.device)
+    r = trace(lib, lambda st: lib.mc_cover4(
+        lo.data_ptr(), hi.data_ptr(), val.data_ptr(), lo.shape[0], leaves,
+        table.data_ptr(), st))
+    r["exact"] = torch.equal(table[0],
+                             S.min_cover4_plain(leaves, lo, hi, val))
+    return r
+
+
 def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
     """mm_merge's per-tile phases (microseconds) in the last of `reps`
     launches, and its output held to merge_maps_plain."""
     a_keys, a_val, b_keys, b_val, floor, cap = args
     dev = a_keys.device
     na, nb, w = a_keys.shape[0], b_keys.shape[0], a_keys.shape[1]
-    # the kernel takes tiles of `tile` or `tile // 2` positions
-    n_tiles = (na + nb + tile // 2 - 1) // (tile // 2)
-    if n_tiles > _TILE_SHAPE[0]:
-        raise ValueError("phase_trace: more tiles than marks")
     out_keys = torch.empty((cap, w), dtype=torch.int32, device=dev)
     out_val = torch.empty((cap,), dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.zeros((lib.mm_scratch_words(na, nb),), dtype=torch.int64,
-                          device=dev)
+    r = tile_trace(lib, na + nb, tile, reps, lambda scratch, epoch, st:
+                   lib.mm_merge(
+                       a_keys.data_ptr(), a_val.data_ptr(), na,
+                       b_keys.data_ptr(), b_val.data_ptr(), nb, w, floor,
+                       cap, out_keys.data_ptr(), out_val.data_ptr(),
+                       count.data_ptr(), scratch.data_ptr(), epoch, st))
+    want = H.merge_maps_plain(a_keys, a_val, b_keys, b_val, floor=floor,
+                              capacity=cap)
+    r["exact"] = all(torch.equal(g, x) for g, x in
+                     zip((out_keys, out_val, count), want))
+    return r
+
+
+def run_merge_writes(lib, args, reps: int = 4, tile: int = 2048) -> dict:
+    """mm_merge_writes's per-tile phases, as run_merge_maps gives
+    mm_merge's, and its output held to merge_writes_plain."""
+    state, runs, version, floor = args
+    keys, ver = state.main_keys, state.main_ver
+    dev = keys.device
+    (m, w), nb = keys.shape, runs.shape[0]
+    out_keys = torch.empty((m, w), dtype=torch.int32, device=dev)
+    out_val = torch.empty((m,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    r = tile_trace(lib, m + nb, tile, reps, lambda scratch, epoch, st:
+                   lib.mm_merge_writes(
+                       keys.data_ptr(), ver.data_ptr(), m, runs.data_ptr(),
+                       nb, w, version, floor, m, out_keys.data_ptr(),
+                       out_val.data_ptr(), count.data_ptr(),
+                       state.overflow.data_ptr(), overflow.data_ptr(),
+                       scratch.data_ptr(), epoch, st))
+    want = H.merge_writes_plain(state, runs, version, floor)
+    r["exact"] = all(torch.equal(g, x) for g, x in zip(
+        (out_keys, out_val, overflow),
+        (want.main_keys, want.main_ver, want.overflow)))
+    return r
+
+
+def tile_trace(lib, n: int, tile: int, reps: int, launch) -> dict:
+    """Kernel D's per-tile phases (microseconds) in the last of `reps`
+    launches by launch(scratch, epoch, stream), over n merged positions."""
+    # the kernel takes tiles of `tile` or `tile // 2` positions
+    n_tiles = (n + tile // 2 - 1) // (tile // 2)
+    if n_tiles > _TILE_SHAPE[0]:
+        raise ValueError("phase_trace: more tiles than marks")
+    scratch = torch.zeros((lib.mm_scratch_words(n, 0),), dtype=torch.int64,
+                          device="cuda")
     n_tile = _TILE_SHAPE[0] * _TILE_SHAPE[1]
     marks = torch.zeros((n_tile + _BLOCK_SHAPE[0] * _BLOCK_SHAPE[1],),
                         dtype=torch.int64)
@@ -462,11 +550,7 @@ def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
     for epoch in range(1, reps + 1):
         torch.cuda.synchronize()
         lib.pt_reset()
-        err = lib.mm_merge(
-            a_keys.data_ptr(), a_val.data_ptr(), na, b_keys.data_ptr(),
-            b_val.data_ptr(), nb, w, floor, cap, out_keys.data_ptr(),
-            out_val.data_ptr(), count.data_ptr(), scratch.data_ptr(), epoch,
-            stream)
+        err = launch(scratch, epoch, stream)
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
         torch.cuda.synchronize()
@@ -479,8 +563,6 @@ def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
     steps = (tile[:, 1:] - tile[:, :-1]).double() / 1e3
     names = ("split", "stage", "merge", "scan", "look-back", "write",
              "tail share")
-    want = H.merge_maps_plain(a_keys, a_val, b_keys, b_val, floor=floor,
-                              capacity=cap)
     return dict(
         total_us=(int(blk[:, 0].max()) - begin) / 1e3,
         tiles=int(tile.shape[0]), blocks=int(blk.shape[0]),
@@ -489,9 +571,7 @@ def run_merge_maps(lib, args, reps: int = 4, tile: int = 2048) -> dict:
         mean_us={k: round(float(steps[:, i].mean()), 2)
                  for i, k in enumerate(names)},
         max_us={k: round(float(steps[:, i].max()), 2)
-                for i, k in enumerate(names)},
-        exact=all(torch.equal(g, x) for g, x in
-                  zip((out_keys, out_val, count), want)))
+                for i, k in enumerate(names)})
 
 
 def row_phases(marks: torch.Tensor, phases: tuple) -> dict:
@@ -595,6 +675,20 @@ def run_keysearch_query(lib, args) -> dict:
         hi.data_ptr(), q, int(op == "min"), out.data_ptr(), st),
         (("ends", 0, 1), ("short lookups", 1, 2), ("long path", 2, 3)))
     r["exact"] = torch.equal(out, R.query_plain(table, lo, hi, op=op))
+    return r
+
+
+def run_rangemax4_query(lib, args) -> dict:
+    """M's query's per-warp phases: the ends loaded, the gathers
+    arrived; args (table, lo, hi, op)."""
+    table, lo, hi, op = args
+    q = lo.shape[0]
+    out = torch.empty((q,), dtype=torch.int32, device=lo.device)
+    r = row_trace(lib, lambda st: lib.rm4_query(
+        table.data_ptr(), table.shape[0], table.shape[1], lo.data_ptr(),
+        hi.data_ptr(), q, int(op == "min"), out.data_ptr(), st),
+        (("ends", 0, 1), ("gathers", 1, 2)))
+    r["exact"] = torch.equal(out, R.query4_plain(table, lo, hi, op=op))
     return r
 
 
@@ -870,6 +964,44 @@ def shapes(name: str, device) -> dict:
                                                  m),
                 "786432 + 131072 (batch merge)": (*delta, *cov, 2_500_000,
                                                   m)}
+    if name == "merge_writes":
+        m, n_runs = 786_432, 131_072
+        v = torch.unique(torch.randint(0, 1 << 40, (m,), generator=gen,
+                                       device=device))[: m - n_runs]
+        keys = K.sentinel_like(m, 3, device)
+        keys[: v.shape[0]] = _int_keys(v)
+        ver = ints(0, 1_000_000, m)
+        ver[v.shape[0]:] = H.VERSION_NEG
+        b = torch.randint(0, 1 << 40, (n_runs,), generator=gen,
+                          device=device)
+        b[: n_runs // 8] = v[torch.randint(0, v.shape[0], (n_runs // 8,),
+                                           generator=gen, device=device)]
+        b = torch.unique(b)
+        b = b[: b.shape[0] // 2 * 2]
+        runs = K.sentinel_like(n_runs, 3, device)
+        runs[: b.shape[0]] = _int_keys(b)
+        state = H.VersionHistory(keys, ver, 0, torch.zeros(
+            (), dtype=torch.bool, device=device))
+        return {f"{v.shape[0]} + {b.shape[0]} real rows": (
+            state, runs, 1_200_000, 200_000)}
+    if name == "rangemax4_query":
+        leaves, q = 262_144, 65_536
+        table = R.build4_plain(ints(0, 1 << 30, leaves), op="max")
+        lo = ints(0, leaves - 1, q)
+        hi = (lo + ints(1, 64, q)).clamp(max=leaves)
+        return {"2^18 leaves, 65536 queries of 1-63": (table, lo, hi,
+                                                        "max")}
+    if name == "rangemax4_build":
+        return {"262144 leaves, max": (ints(0, 1 << 30, 262_144), "max"),
+                "262144 leaves, min": (ints(0, 1 << 30, 262_144), "min")}
+    if name == "min_cover4":
+        leaves, n = 262_144, 65_536
+        lo = ints(0, leaves - 64, n)
+        spans = lo + (1 << ints(0, 19, n))
+        return {"2^18 leaves, 65536 intervals of 1-63":
+                (leaves, lo, lo + ints(1, 64, n), ints(0, n, n)),
+                "2^18 leaves, 65536 of every level":
+                (leaves, lo, spans, ints(0, n, n))}
     if name == "min_cover":
         leaves, n = 262_144, 65_536
         lo = ints(0, leaves, n)
@@ -942,7 +1074,10 @@ RUNS = {"lex_order": run_lex_order, "rangemax_build": run_rangemax_build,
         "sweep_ranks": run_sweep_ranks,
         "rangemax2_build": run_rangemax2_build,
         "rangemax2_query": run_rangemax2_query, "seg_fold": run_seg_fold,
-        "short_span": run_short_span}
+        "short_span": run_short_span, "merge_writes": run_merge_writes,
+        "rangemax4_build": run_rangemax4_build,
+        "rangemax4_query": run_rangemax4_query,
+        "min_cover4": run_min_cover4}
 
 
 def main(argv=None) -> int:
@@ -951,16 +1086,20 @@ def main(argv=None) -> int:
     ap.add_argument("--direct-scatter", action="store_true",
                     help="lex_order only: the unstaged scatter")
     ap.add_argument("--items", type=int, default=0,
-                    help="merge_maps only: merged positions a thread")
+                    help="merge_maps and merge_writes: merged positions a "
+                    "thread")
     ap.add_argument("--threads", type=int, default=0,
-                    help="merge_maps and short_span: threads a block")
+                    help="merge_maps, merge_writes and short_span: threads "
+                    "a block")
     ap.add_argument("--fence-kb", type=int, default=0,
                     help="keysearch_probe only: the fence's most KB")
     args = ap.parse_args(argv)
-    if args.items and args.kernel != "merge_maps":
-        ap.error("--items is merge_maps's")
-    if args.threads and args.kernel not in ("merge_maps", "short_span"):
-        ap.error("--threads is merge_maps's and short_span's")
+    merges = ("merge_maps", "merge_writes")
+    if args.items and args.kernel not in merges:
+        ap.error("--items is merge_maps's and merge_writes's")
+    if args.threads and args.kernel not in (*merges, "short_span"):
+        ap.error("--threads is merge_maps's, merge_writes's and "
+                 "short_span's")
     if args.fence_kb and args.kernel != "keysearch_probe":
         ap.error("--fence-kb is keysearch_probe's")
     if args.direct_scatter and args.kernel != "lex_order":
@@ -987,9 +1126,9 @@ def main(argv=None) -> int:
             if not r["exact"]:
                 return 1
             continue
-        if args.kernel == "merge_maps":
-            r = run_merge_maps(lib, inputs, tile=(args.items or 8)
-                               * (args.threads or 256))
+        if args.kernel in merges:
+            r = RUNS[args.kernel](lib, inputs, tile=(args.items or 8)
+                                  * (args.threads or 256))
             print(f"{name}: {r}")
             if not r["exact"]:
                 return 1

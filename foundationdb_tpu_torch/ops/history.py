@@ -16,8 +16,8 @@ at the tail.
   `mm_merge` entry on CUDA tensors.
 * `merge_writes` — K16: overwrite the union of sorted run intervals
   with a version, GC and compact, row for row as the JAX program keeps
-  its rows: kernel D's `mm_mark_runs` entry and its scatter on CUDA
-  tensors.
+  its rows: kernel D's row-keeping mode (`mm_merge_writes`, one launch
+  on `mm_merge`'s merge path and scratch) on CUDA tensors.
 
 The CPU tensors take the plain versions beside them. `oldest` is a host
 int (every floor comes from host-packed batch arguments); `overflow` is
@@ -182,12 +182,7 @@ def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
     kernels.check_cuda("merge_maps", a_keys, a_val, b_keys, b_val)
     kernels.check_words("merge_maps", w)
     dev = a_keys.device
-    if torch.cuda.is_current_stream_capturing():
-        # a graph would replay the epoch it was captured with, and take the
-        # status words of its last replay for this one's
-        raise RuntimeError("merge_maps: kernel D takes its scratch's epoch "
-                           "from the host and cannot be captured in a "
-                           "CUDA graph")
+    _no_capture("merge_maps")
     na, nb = a_keys.shape[0], b_keys.shape[0]
     out_keys = torch.empty((capacity, w), dtype=torch.int32, device=dev)
     out_val = torch.empty((capacity,), dtype=torch.int32, device=dev)
@@ -198,6 +193,15 @@ def merge_maps(a_keys: torch.Tensor, a_val: torch.Tensor,
                    nb, w, floor, capacity, out_keys, out_val, count, scratch,
                    epoch)
     return out_keys, out_val, count
+
+
+def _no_capture(name: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        # a graph would replay the epoch it was captured with, and take the
+        # status words of its last replay for this one's
+        raise RuntimeError(f"{name}: kernel D takes its scratch's epoch "
+                           "from the host and cannot be captured in a "
+                           "CUDA graph")
 
 
 #: the largest epoch kernel D takes (a C int); past it the scratch is
@@ -286,7 +290,8 @@ def merge_writes(state: VersionHistory, run_bounds: torch.Tensor,
     NEG under the floor; the rows kept are the JAX program's, row for
     row (a run begin equal to a tier key keeps both rows, the later one
     in force). Rows past the tier's capacity latch `overflow`. CUDA
-    tensors run kernel D's mm_mark_runs and mm_scatter entries.
+    tensors run kernel D's `mm_merge_writes`: one launch, which also
+    writes the new overflow flag on the card.
     """
     m, w = state.main_keys.shape
     if run_bounds.ndim != 2 or run_bounds.shape[1] != w:
@@ -296,21 +301,23 @@ def merge_writes(state: VersionHistory, run_bounds: torch.Tensor,
     kernels.check_cuda("merge_writes", state.main_keys, state.main_ver,
                        run_bounds)
     kernels.check_words("merge_writes", w)
+    if state.overflow.dtype != torch.bool or state.overflow.shape != ():
+        raise ValueError("merge_writes: overflow must be a 0-d bool tensor")
+    if state.overflow.device != state.main_keys.device:
+        raise ValueError("merge_writes: overflow on another device")
+    _no_capture("merge_writes")
     dev = state.main_keys.device
-    na, nb = m, run_bounds.shape[0]
-    keep_at = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    row_pos = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    row_val = torch.empty((na + nb,), dtype=torch.int32, device=dev)
-    kernels.launch("mm_mark_runs", "merge_writes", state.main_keys,
-                   state.main_ver, na, run_bounds, nb, w, int(version),
-                   int(new_oldest), keep_at, row_pos, row_val)
-    dest = torch.cumsum(keep_at, 0, dtype=torch.int32) - keep_at
-    out_keys = K.sentinel_like(m, w, dev)
-    out_val = torch.full((m,), VERSION_NEG, dtype=torch.int32, device=dev)
-    kernels.launch("mm_scatter", "merge_writes", state.main_keys, run_bounds,
-                   na, nb, w, row_pos, row_val, keep_at, dest, m, out_keys,
-                   out_val)
-    count = keep_at.sum()
+    nb = run_bounds.shape[0]
+    out_keys = torch.empty((m, w), dtype=torch.int32, device=dev)
+    out_val = torch.empty((m,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    scratch, epoch = _merge_scratch(
+        dev, kernels.size("mm_scratch_words", m, nb))
+    kernels.launch("mm_merge_writes", "merge_writes", state.main_keys,
+                   state.main_ver, m, run_bounds, nb, w, int(version),
+                   int(new_oldest), m, out_keys, out_val, count,
+                   state.overflow, overflow, scratch, epoch)
     return VersionHistory(main_keys=out_keys, main_ver=out_val,
                           oldest=max(state.oldest, int(new_oldest)),
-                          overflow=state.overflow | (count > m))
+                          overflow=overflow)

@@ -27,8 +27,9 @@ the CPU tests hold them against the JAX functions directly; a structure
 is queried on the device that built it.
 
 `build4` / `query4` (K19, the JAX package's radix-4 table: half the
-levels, four overlapping spans per query) are kernel M's build and query
-entries (kernels/csrc/rangemax4.cu) on CUDA tensors and `build4_plain` /
+levels, four overlapping spans per query) are kernel M's build (kernel
+B's one launch at radix 4, `rm4_build` in kernels/csrc/rangemax_build.cu)
+and query (kernels/csrc/rangemax4.cu) on CUDA tensors and `build4_plain` /
 `query4_plain` on CPU tensors. Only the reference's experiment scripts
 reach them; no resolver path does.
 """
@@ -350,10 +351,8 @@ def build4(values: torch.Tensor, *, op: str = "max") -> torch.Tensor:
     m = values.shape[0]
     table = torch.empty((_num_levels4(m), m), dtype=torch.int32,
                         device=values.device)
-    for k in range(table.shape[0]):
-        s = min(1 << (2 * (k - 1)), m - 1) if k else 0
-        kernels.launch("rm4_build_level", "rangemax4.build", values, table, m,
-                       k, s, int(op == "min"))
+    kernels.launch("rm4_build", "rangemax4.build", values, table, m,
+                   table.shape[0], int(op == "min"))
     return table
 
 

@@ -13,9 +13,9 @@ in one launch) on CUDA tensors and `min_cover_plain` on CPU tensors.
 
 `min_cover4` (K19) is the radix-4 form: each interval lands at level
 k = floor(log4(len)) at up to four positions, and the sweep has half the
-levels. Kernel M (kernels/csrc/rangemax4.cu) on CUDA tensors,
-`min_cover4_plain` on CPU tensors; only the reference's experiment
-scripts reach it.
+levels. Kernel M's cover on CUDA tensors (kernel C's launch at radix 4,
+`mc_cover4` in kernels/csrc/min_cover.cu), `min_cover4_plain` on CPU
+tensors; only the reference's experiment scripts reach it.
 """
 
 from __future__ import annotations
@@ -136,11 +136,8 @@ def min_cover4(leaves: int, lo: torch.Tensor, hi: torch.Tensor,
     if val.device.type == "cpu":
         return min_cover4_plain(leaves, lo, hi, val)
     kernels.check_cuda("min_cover4", lo, hi, val)
-    table = torch.full((nlev, leaves), INT32_POS, dtype=torch.int32,
-                       device=val.device)
-    kernels.launch("rm4_cover_scatter", "rangemax4.cover", lo, hi, val,
-                   lo.shape[0], leaves, nlev, table)
-    for j in range(nlev - 1, 0, -1):
-        kernels.launch("rm4_cover_sweep_level", "rangemax4.cover", table,
-                       leaves, j)
+    # the kernel's scratch levels, filled by the kernel itself
+    table = torch.empty((nlev, leaves), dtype=torch.int32, device=val.device)
+    kernels.launch("mc_cover4", "rangemax4.cover", lo, hi, val, lo.shape[0],
+                   leaves, table)
     return table[0]

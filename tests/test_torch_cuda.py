@@ -34,6 +34,7 @@ from foundationdb_tpu_torch.testing import merge_cases as MC
 from foundationdb_tpu_torch.testing import probe_cases as PC
 from foundationdb_tpu_torch.testing import search_cases as SSC
 from foundationdb_tpu_torch.testing import span_cases as SC
+from foundationdb_tpu_torch.testing import writes_cases as WC
 from foundationdb_tpu_torch.testing.benchgen import (
     int_keys_packed,
     skiplist_style_batch,
@@ -1150,12 +1151,116 @@ def test_merge_writes(cuda_device, floor):
     for cap_hist in (hist, hist._replace(
             main_keys=keys[:3100].contiguous(),
             main_ver=ver[:3100].contiguous())):       # overflow
+        before = kernels.COUNTS["merge_writes"]
         got = H.merge_writes(cap_hist, runs, 6000, floor)
+        assert kernels.COUNTS["merge_writes"] == before + 1
         want = H.merge_writes_plain(cap_hist, runs, 6000, floor)
         for part in ("main_keys", "main_ver", "overflow"):
             assert_launched_and_equal("merge_writes", getattr(got, part),
                                       getattr(want, part))
         assert got.oldest == want.oldest
+
+
+def writes_state(c, dev) -> H.VersionHistory:
+    return H.VersionHistory(
+        torch.from_numpy(c.main_keys).to(dev),
+        torch.from_numpy(c.main_ver).to(dev), c.oldest,
+        torch.tensor(c.overflow, device=dev))
+
+
+@pytest.mark.parametrize("w", [3, 5])
+@pytest.mark.parametrize("name", WC.NAMES)
+def test_merge_writes_case(cuda_device, name, w):
+    """Kernel D's row-keeping mode against its plain version on every
+    case of testing/writes_cases (real rows about its tiles, a run begin
+    on a tier key at every tile edge, every bound on a tier key, no
+    bounds, an empty tier, one run over every key, everything under the
+    floor, a capacity under the count, an overflow already latched; past
+    700,000 real rows, where it takes 2,048-position tiles): keys,
+    versions, floor and overflow exactly, from one launch."""
+    c = WC.case(name, w)
+    state = writes_state(c, cuda_device)
+    runs = torch.from_numpy(c.runs).to(cuda_device)
+    got = H.merge_writes(state, runs, c.version, c.floor)
+    assert kernels.COUNTS["merge_writes"] == 1
+    assert sum(kernels.counts().values()) == 1
+    want = H.merge_writes_plain(state, runs, c.version, c.floor)
+    for part in ("main_keys", "main_ver", "overflow"):
+        g, x = getattr(got, part), getattr(want, part)
+        assert g.dtype == x.dtype and g.shape == x.shape, part
+        assert torch.equal(g, x), part
+    assert got.oldest == want.oldest
+
+
+def test_merge_writes_shares_the_merge_scratch(cuda_device):
+    """merge_writes and merge_maps one after another on one stream's
+    scratch and epochs (growing it, and across an epoch wrap): every call
+    exact, one launch each, and refused inside a CUDA graph's capture."""
+    small = WC.case("live 2049")
+    big = WC.case("large")
+    maps = MC.case("run 5000")
+    margs = [torch.from_numpy(x).to(cuda_device) for x in maps[:4]]
+    kernels.reset_counts()
+    calls = 0
+    for i in range(2):
+        if i:   # the next call wraps the epoch
+            key = H._scratch_key(margs[0].device)
+            H._MERGE_SCRATCH[key][1] = H._EPOCH_MAX
+        for c in (small, big, small):
+            state = writes_state(c, cuda_device)
+            runs = torch.from_numpy(c.runs).to(cuda_device)
+            got = H.merge_writes(state, runs, c.version, c.floor)
+            want = H.merge_writes_plain(state, runs, c.version, c.floor)
+            for part in ("main_keys", "main_ver", "overflow"):
+                assert torch.equal(getattr(got, part), getattr(want, part))
+            got = H.merge_maps(*margs, floor=maps.floor,
+                               capacity=maps.capacity)
+            want = H.merge_maps_plain(*margs, floor=maps.floor,
+                                      capacity=maps.capacity)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x)
+            calls += 1
+    assert kernels.COUNTS["merge_writes"] == calls
+    assert kernels.COUNTS["merge_maps"] == calls
+    state = writes_state(small, cuda_device)
+    runs = torch.from_numpy(small.runs).to(cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            H.merge_writes(state, runs, small.version, small.floor)
+    assert kernels.COUNTS["merge_writes"] == calls
+
+
+@pytest.mark.parametrize("m", WC.BUILD_ROWS)
+def test_rangemax4_case(cuda_device, m):
+    """Kernel M's build (B at radix 4) and query on testing/writes_cases'
+    sizes and queries, max and min: exact, one launch a call each."""
+    vals, lo, hi = (torch.from_numpy(x).to(cuda_device)
+                    for x in WC.build_case(m))
+    for op in ("max", "min"):
+        kernels.reset_counts()
+        tab = R.build4(vals, op=op)
+        assert kernels.counts()["rangemax4.build"] == 1
+        assert sum(kernels.counts().values()) == 1
+        assert torch.equal(tab, R.build4_plain(vals, op=op)), op
+        got = R.query4(tab, lo, hi, op=op)
+        assert kernels.counts()["rangemax4.query"] == 1
+        assert torch.equal(got, R.query4_plain(tab, lo, hi, op=op)), op
+        # ends that start one element into their tensors
+        got = R.query4(tab, lo[1:], hi[1:], op=op)
+        assert torch.equal(got, R.query4_plain(tab, lo[1:], hi[1:], op=op))
+
+
+@pytest.mark.parametrize("leaves", WC.COVER_LEAVES)
+def test_cover4_case(cuda_device, leaves):
+    """Kernel M's cover (C at radix 4) on testing/writes_cases' widths
+    (odd log2 ones too) and intervals: exact, one launch."""
+    lo, hi, val = (torch.from_numpy(x).to(cuda_device)
+                   for x in WC.cover_case(leaves))
+    got = S.min_cover4(leaves, lo, hi, val)
+    assert kernels.counts()["rangemax4.cover"] == 1
+    assert sum(kernels.counts().values()) == 1
+    assert torch.equal(got, S.min_cover4_plain(leaves, lo, hi, val))
 
 
 @pytest.mark.parametrize("m", [1, 5, 1000, 131_072, 262_144])
@@ -1168,12 +1273,15 @@ def test_rangemax4(cuda_device, m):
     hi = lo + torch.randint(-3, m + 5, (65_536,), generator=gen,
                             device=cuda_device, dtype=torch.int32)
     for op in ("max", "min"):
+        kernels.reset_counts()
         tab = R.build4(vals, op=op)
+        assert kernels.COUNTS["rangemax4.build"] == 1
         assert_launched_and_equal("rangemax4.build", tab,
                                   R.build4_plain(vals, op=op))
         assert_launched_and_equal("rangemax4.query",
                                   R.query4(tab, lo, hi, op=op),
                                   R.query4_plain(tab, lo, hi, op=op))
+        assert kernels.COUNTS["rangemax4.query"] == 1
     leaves = 1 << max(0, (m - 1).bit_length())
     wlo = lo.clamp(0, leaves)
     whi = wlo + torch.randint(-1, max(leaves // 4, 2), (65_536,),
@@ -1181,9 +1289,11 @@ def test_rangemax4(cuda_device, m):
                               dtype=torch.int32)
     wval = torch.randint(0, 65_536, (65_536,), generator=gen,
                          device=cuda_device, dtype=torch.int32)
+    kernels.reset_counts()
     assert_launched_and_equal("rangemax4.cover",
                               S.min_cover4(leaves, wlo, whi, wval),
                               S.min_cover4_plain(leaves, wlo, whi, wval))
+    assert kernels.COUNTS["rangemax4.cover"] == 1
 
 
 def test_short_span_streams_match_cpu_plain_path(cuda_device):

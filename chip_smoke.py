@@ -123,10 +123,35 @@ any fault:
    time, and groups of 4 through `resolve_group_args`) and sharded at 2
    and 4 shards: each must match the copied ConflictOracle (the sharded
    ones the copied MultiResolverOracle) verdict for verdict.
+12. the staging pipeline: phase 3's uniform batches through
+   `resolve_stream_pipelined` (chunks of 8, depth 2: a staging thread
+   stacks each chunk into a pinned slab and copies it on a copy stream)
+   and phase 6's classic groups of 8 through `resolve_group_stream`, on
+   fresh sets, every field identical to phases 3 and 6; each beside the
+   same batches one by one (pageable copies) on a fresh set, then, warm,
+   3 rounds of 16 batches replayed later in time, staged and one by one
+   in turns; a profiled staged run that must show pinned host-to-device
+   copies and no pageable one; the bytes each call of
+   `interop.device_args_to_torch` copies on each path; one copy of each
+   shape timed pageable (also after a 256 MiB host write) and pinned;
+   and `stage_ledger` at the bench shapes (fuse 8);
+13. the Resolver role: at the wire shape (phase 8's config), 64 chained
+   requests from two proxies through `Resolver(backend="cuda")` on the
+   card, one carrying a state transaction (which must reach the other
+   proxy) and one replayed as a duplicate (answered from the cache),
+   every verdict and conflict report identical to phase 8's (the copied
+   ConflictOracle's), p50 / p99 a request; at full width, 8 requests of
+   65,536 txns (a point read and write over 1M 8-byte keys) through the
+   knob-routed backend (`backend=None`, which must build the card's
+   TorchConflictSet), identical to a bare TorchConflictSet on the card
+   and, the first 2, to the CPU plain path (the copied oracle takes
+   minutes a batch at that size), p50 / p99 a request beside the bare
+   `resolve()`'s.
 
-The last lines are the streams' numbers (JSON), the kernel ledger
-(JSON), the card's name and power limit, and `{"ok": true, "device":
-{...}}`. Exits non-zero without a result when no CUDA device is present.
+The last lines are the streams' numbers (JSON; phases 12 and 13 under
+`pipelined_uniform`, `pipelined_classic`, `staging` and `resolver`),
+the kernel ledger (JSON), the card's name and power limit, and `{"ok":
+true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
 With `--build-cover` it builds the kernels and times only kernels B and
 C at the resolver path's shapes (`time_build_cover`), with `--merge`
@@ -2176,15 +2201,19 @@ def profile_run(run, wall_ms: float, n_batches: int) -> dict:
 
     lib = sum(t for k, t in by_name.items() if library(k))
     lib_ms = lib / 1e3 / n_batches
+    htod = {k: t / 1e3 / n_batches for k, t in by_name.items()
+            if k.startswith("Memcpy HtoD")}
     log(f"  profiler over {n_batches} more batches: device busy "
         f"{total:.3f} ms/batch of {wall_ms:.3f} ms wall (idle share "
         f"{1 - total / wall_ms:.3f}); library sort/scan {lib_ms:.3f} "
-        f"ms/batch = {lib_ms / total:.3f} of device time")
+        f"ms/batch = {lib_ms / total:.3f} of device time; host-to-device "
+        f"copies (ms/batch) {htod}")
     for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {t / 1e3 / n_batches:9.3f} ms/batch  {k[:100]}")
     return {"device_ms_per_batch": total, "idle_share": 1 - total / wall_ms,
             "sort_scan_ms_per_batch": lib_ms,
-            "sort_scan_share_of_device": lib_ms / total}
+            "sort_scan_share_of_device": lib_ms / total,
+            "htod_ms_per_batch": htod}
 
 
 def group_timing(tag: str, times: list) -> float:
@@ -2572,7 +2601,7 @@ def phase_resolver_role(device) -> dict:
     oracle = make_conflict_set(cfg, "cpu")
     torch.cuda.synchronize()
     reset_launches()
-    times, n_conflict, occupancy = [], 0, []
+    times, n_conflict, occupancy, results = [], 0, [], []
     for i, (txns, version) in enumerate(stream):
         t0 = time.perf_counter()
         got = cs.resolve(txns, version)
@@ -2583,6 +2612,7 @@ def phase_resolver_role(device) -> dict:
             fail(f"resolver-role batch {i}: verdicts differ from the oracle")
         if got.conflicting_key_ranges != want.conflicting_key_ranges:
             fail(f"resolver-role batch {i}: conflicting key ranges differ")
+        results.append((want.verdicts, want.conflicting_key_ranges))
         n_conflict += sum(int(v) == 0 for v in got.verdicts)
     launches, launch_bytes = launch_totals()
     cs.check_overflow()
@@ -2601,7 +2631,497 @@ def phase_resolver_role(device) -> dict:
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=len(stream), p50_ms=p50,
                 p99_ms=p99, conflicts=n_conflict, peak_rows=max(occupancy),
-                **prof)
+                results=results, **prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the staging pipeline
+
+
+def args_bytes(args: dict) -> int:
+    """The bytes one call of interop.device_args_to_torch copies to the
+    card: its numpy array leaves (the HOST_ARGS scalars stay numpy, and
+    tensors already on the card pass through)."""
+    from foundationdb_tpu_torch import interop
+
+    return sum(v.nbytes for k, v in args.items()
+               if k not in interop.HOST_ARGS and isinstance(v, np.ndarray))
+
+
+def args_copies(fn) -> list:
+    """The bytes of each interop.device_args_to_torch call over fn()."""
+    from foundationdb_tpu_torch import interop
+
+    real, seen = interop.device_args_to_torch, []
+
+    def counting(args, device):
+        seen.append(args_bytes(args))
+        return real(args, device)
+
+    interop.device_args_to_torch = counting
+    try:
+        fn()
+    finally:
+        interop.device_args_to_torch = real
+    return seen
+
+
+def copy_timing(fn, n_batches: int, n_bytes: int) -> dict:
+    """One argument copy: the wall to a sync, and the device time of its
+    host-to-device copies by kind (a checked profiler session), per
+    batch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    htod = {k: t / n_batches for k, t in profiled(fn).items()
+            if k.startswith("Memcpy HtoD")}
+    us = sum(htod.values())
+    return {"bytes_per_batch": n_bytes / n_batches,
+            "wall_ms_per_batch": wall * 1e3 / n_batches,
+            "htod_us_per_batch": htod,
+            "gb_per_s": n_bytes / n_batches / (us * 1e3) if us else None}
+
+
+#: rounds of the staged / one-by-one comparison in phase 12
+ROUNDS = 3
+
+
+def shifted(batches, by: int) -> list:
+    """The batches again with every version, floor and snapshot `by`
+    later: the same conflicts replayed later in time."""
+    import dataclasses
+
+    return [dataclasses.replace(
+        b, version=np.int32(int(b.version) + by),
+        new_oldest=np.int32(int(b.new_oldest) + by),
+        snapshot=(b.snapshot + np.int32(by)).astype(np.int32))
+        for b in batches]
+
+
+def no_pageable(tag: str, prof: dict) -> None:
+    """The staged run's profile: host-to-device copies from pinned
+    buffers only."""
+    htod = prof["htod_ms_per_batch"]
+    pageable = {k: v for k, v in htod.items() if "Pageable" in k}
+    if pageable:
+        fail(f"{tag}: pageable host-to-device copies in the staged chunks: "
+             f"{pageable}")
+    if not any("Pinned" in k for k in htod):
+        fail(f"{tag}: no pinned host-to-device copy on record: {htod}")
+
+
+def phase_pipeline(device, uni, uniform: dict, classic: dict) -> dict:
+    """The staging pipeline on the card: phase 3's uniform batches
+    through resolve_stream_pipelined (chunks of 8, depth 2) and phase
+    6's classic groups of 8 through resolve_group_stream, every field
+    identical to those phases' outputs, the staged chunks' copies pinned
+    only; each beside the same batches dispatched one by one (pageable
+    copies) with one sync at the end. Then the bytes each call of
+    interop.device_args_to_torch copies on each path, one copy of each
+    shape timed pageable and pinned, and stage_ledger at the bench
+    shapes (fuse 8)."""
+    import torch
+
+    from foundationdb_tpu_torch import interop, make_conflict_set
+    from foundationdb_tpu_torch.models.conflict_set import stage_ledger
+    from foundationdb_tpu_torch.utils.packing import (
+        group_args,
+        stack_device_args,
+    )
+
+    def synced(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    n = len(uni)
+    out = {}
+    for tag, cfg in (("uniform", bench_config(B)),
+                     ("classic", bench_config(B, delta_capacity=0))):
+        classic_path = cfg.delta_capacity == 0
+        groups = groups_of(uni) if classic_path else None
+        cs = make_conflict_set(cfg, "cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        res = []
+        if classic_path:
+            wall = synced(lambda: res.extend(cs.resolve_group_stream(groups)))
+        else:
+            wall = synced(lambda: res.extend(cs.resolve_stream_pipelined(
+                uni, chunk=GROUP, depth=2)))
+        launches, launch_bytes = launch_totals()
+        unused = ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
+                  *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH)
+        if classic_path:
+            one_fold_a_batch(f"pipelined {tag}", launches, n)
+            for gi, want in enumerate(classic["outs"]):
+                same_fields(f"pipelined classic group {gi} vs phase 6",
+                            verdict_fields(res[gi]), want)
+        else:
+            unused += CLASSIC_ONLY
+            for i, want in enumerate(uniform["outs"]):
+                gi, j = divmod(i, GROUP)
+                same_fields(f"pipelined uniform batch {i} vs phase 3",
+                            {f: getattr(res[gi], f)[j].cpu() for f in want},
+                            want)
+        require_launched(f"pipelined {tag}", launches, unused)
+        c = cs.metrics.counters
+        if not c["stagedChunks"] == len(res) > 0:
+            fail(f"pipelined {tag}: {c['stagedChunks']} staged chunks for "
+                 f"{len(res)} groups")
+        ms = wall / n * 1e3
+        # the same batches dispatched one by one, numpy args (pageable)
+        ref = make_conflict_set(cfg, "cuda")
+        if classic_path:
+            ref_ms = synced(lambda: [ref.resolve_group_args(g)
+                                     for g in groups]) / n * 1e3
+        else:
+            ref_ms = synced(lambda: [ref.resolve_packed(b)
+                                     for b in uni]) / n * 1e3
+        m = cs.metrics
+        log(f"  {tag}: {n} batches x {B} txns in chunks of {GROUP}, every "
+            f"field identical to phase {6 if classic_path else 3}; "
+            f"{ms:.3f} ms/batch to one sync at the end, {B / ms * 1e3:,.0f}"
+            f" txn/s (one by one, pageable, one sync: {ref_ms:.3f} "
+            f"ms/batch); staging thread pack {m.pack.mean * 1e3:.3f} ms and "
+            f"copy enqueue {m.transfer.mean * 1e3:.3f} ms a chunk; "
+            f"launches {launches}")
+        # the steady state: both sets warm (the staged one's pinned
+        # slabs allocated), the first 16 batches replayed later in time,
+        # staged and one by one in turns (staged first in even rounds)
+        def runs(k: int):
+            rb = shifted(uni[:2 * GROUP], (k + 1) * n * VERSION_STEP)
+            if classic_path:
+                rg = groups_of(rb)
+                return (functools.partial(cs.resolve_group_stream, rg),
+                        lambda: [ref.resolve_group_args(g) for g in rg])
+            return (functools.partial(cs.resolve_stream_pipelined, rb,
+                                      chunk=GROUP, depth=2),
+                    lambda: [ref.resolve_packed(b) for b in rb])
+
+        staged_ms, one_ms = [], []
+        for k in range(ROUNDS):
+            staged_run, one_run = runs(k)
+            for which in ((0, 1) if k % 2 == 0 else (1, 0)):
+                if which == 0:
+                    staged_ms.append(synced(staged_run) / 16 * 1e3)
+                else:
+                    one_ms.append(synced(one_run) / 16 * 1e3)
+        warm_ms = statistics.median(staged_ms)
+        one_warm_ms = statistics.median(one_ms)
+        log(f"  {tag}, warm, {ROUNDS} rounds of 16 batches in turns: staged "
+            f"{warm_ms:.3f} ms/batch (median; {[round(x, 3) for x in staged_ms]}"
+            f"), one by one {one_warm_ms:.3f} "
+            f"({[round(x, 3) for x in one_ms]}); staging thread pack "
+            f"{m.pack.mean * 1e3:.3f} ms and copy enqueue "
+            f"{m.transfer.mean * 1e3:.3f} ms a chunk over the run")
+        prof = profile_run(runs(ROUNDS)[0], warm_ms, 2 * GROUP)
+        no_pageable(f"pipelined {tag}", prof)
+        base = classic if classic_path else uniform
+        log(f"  beside phase {6 if classic_path else 3}'s per-batch path: "
+            f"{base['ms_per_batch']:.3f} ms/batch, idle share "
+            f"{base['idle_share']:.3f}, host-to-device copies "
+            f"{base['htod_ms_per_batch']} ms/batch")
+        out[tag] = dict(launches=launches, launch_bytes=launch_bytes,
+                        batches=n, ms_per_batch=ms, txn_per_s=B / ms * 1e3,
+                        one_by_one_ms_per_batch=ref_ms,
+                        warm_ms_per_batch=warm_ms,
+                        warm_one_by_one_ms_per_batch=one_warm_ms,
+                        warm_runs_ms_per_batch={"staged": staged_ms,
+                                                "one_by_one": one_ms},
+                        pack_ms_per_chunk=m.pack.mean * 1e3,
+                        transfer_enqueue_ms_per_chunk=m.transfer.mean * 1e3,
+                        staged_chunks=c["stagedChunks"], **prof)
+
+    # the bytes each call of device_args_to_torch copies, on each path
+    tcfg, ccfg = bench_config(B), bench_config(B, delta_capacity=0)
+    t_one, c_one = make_conflict_set(tcfg, "cuda"), make_conflict_set(
+        ccfg, "cuda")
+    c_grp, staged = (make_conflict_set(ccfg, "cuda"),
+                     make_conflict_set(tcfg, "cuda"))
+    paths = {
+        "tiered, one batch (resolve_packed; phase 3)":
+            (lambda: t_one.resolve_packed(uni[0]), 1),
+        "classic G = 1 (resolve_packed; phase 6's G = 1)":
+            (lambda: c_one.resolve_packed(uni[0]), 1),
+        "classic G = 8 (resolve_group_args; phase 6)":
+            (lambda: c_grp.resolve_group_args(groups_of(uni[:GROUP])[0]),
+             GROUP),
+        "staged, chunks of 8 (resolve_stream_pipelined)":
+            (lambda: staged.resolve_stream_pipelined(uni[:GROUP]), GROUP),
+    }
+    calls = {}
+    for name, (fn, nb) in paths.items():
+        seen = args_copies(fn)
+        calls[name] = {"calls_per_batch": len(seen) / nb,
+                       "bytes_per_call": seen,
+                       "bytes_per_batch": sum(seen) / nb}
+        log(f"  device_args_to_torch, {name}: {len(seen)} calls, bytes "
+            f"{seen}")
+    torch.cuda.synchronize()
+    one = stack_device_args(uni[:1])
+    grp = stack_device_args(uni[:GROUP])
+    stager = interop.Stager(device, depth=1)
+    # 256 MiB written on the host: what was in its caches is gone
+    flush = np.empty(1 << 28, np.uint8)
+
+    def evicted(args):
+        def run():
+            flush.fill(1)
+            interop.device_args_to_torch(args, device)
+        return run
+
+    def pinned(args):
+        def run():
+            stager.receive(*stager.stage(args))
+        return run
+
+    copies = {
+        "pageable, one batch": copy_timing(
+            lambda: interop.device_args_to_torch(one, device), 1,
+            args_bytes(one)),
+        "pageable, a group of 8 stacked before": copy_timing(
+            lambda: interop.device_args_to_torch(grp, device), GROUP,
+            args_bytes(grp)),
+        "pageable, a group of 8 stacked in the call": copy_timing(
+            lambda: interop.device_args_to_torch(
+                stack_device_args(uni[:GROUP]), device), GROUP,
+            args_bytes(grp)),
+        "pageable, one batch, host caches flushed first (the wall holds "
+        "the 256 MiB flush)": copy_timing(
+            evicted(one), 1, args_bytes(one)),
+        "pinned (Stager), one batch": copy_timing(
+            pinned(one), 1, args_bytes(one)),
+        "pinned (Stager), a group of 8": copy_timing(
+            pinned(grp), GROUP, args_bytes(grp)),
+        "pinned (Stager), 8 batches stacked in the slab (the pipeline's "
+        "pack and copy)": copy_timing(
+            lambda: stager.receive(*stager.send(stager.fill(
+                group_args(uni[:GROUP]), stack=True))), GROUP,
+            args_bytes(grp)),
+    }
+    for name, row in copies.items():
+        log(f"  copy {name}: {row}")
+
+    # stage_ledger at the bench shapes: 2 groups of 8, on sets that
+    # have taken one group before (the pipelined one its slabs)
+    batches = uni[GROUP:3 * GROUP]
+    dev_groups = [interop.device_args_to_torch(g, device)
+                  for g in groups_of(uni[:3 * GROUP])]
+    k_cs = make_conflict_set(tcfg, "cuda")
+    k_cs.resolve_group_args(dev_groups[0], check_latch=False)
+    kernel_s = synced(lambda: [k_cs.resolve_group_args(g, check_latch=False)
+                               for g in dev_groups[1:]])
+    p_cs = make_conflict_set(tcfg, "cuda")
+    p_cs.resolve_stream_pipelined(uni[:GROUP], chunk=GROUP)
+    pipelined_s = synced(lambda: p_cs.resolve_stream_pipelined(
+        batches, chunk=GROUP))
+    t0 = time.perf_counter()
+    ledger = stage_ledger(tcfg, batches, fuse=GROUP, kernel_s=kernel_s,
+                          pipelined_s=pipelined_s,
+                          occupancy_delta_capacity=tcfg.history_capacity,
+                          device=device)
+    log(f"  stage_ledger (fuse {GROUP}, {len(batches)} batches, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(ledger)}")
+    out["args_copies"] = calls
+    out["copies"] = copies
+    out["stage_ledger"] = ledger
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the Resolver role
+
+
+def point_txns(gen, version: int, n: int) -> list:
+    """n txns of one point read and one point write over KEYSPACE
+    8-byte keys ([k, k + 1) on the integer keys, as the bench's), a
+    snapshot up to SNAPSHOT_LAG behind, every third reporting."""
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+
+    kv = gen.integers(0, KEYSPACE, (n, 2)).tolist()
+    lag = gen.integers(1, SNAPSHOT_LAG, n).tolist()
+
+    def key(i):
+        return i.to_bytes(KEY_BYTES, "big")
+
+    return [CommitTransaction([(key(a), key(a + 1))], [(key(b), key(b + 1))],
+                              read_snapshot=version - d,
+                              report_conflicting_keys=t % 3 == 0)
+            for t, ((a, b), d) in enumerate(zip(kv, lag))]
+
+
+def drive(res, req) -> tuple:
+    """One request through the role on its scheduler: (reply, seconds)."""
+    t0 = time.perf_counter()
+    task = res.sched.spawn(res.resolve(req))
+    reply = res.sched.run_until(task.done)
+    return reply, time.perf_counter() - t0
+
+
+def quantiles_ms(times: list) -> tuple:
+    t = sorted(times)
+    return (statistics.median(t) * 1e3,
+            t[min(len(t) - 1, int(0.99 * len(t)))] * 1e3)
+
+
+def phase_resolver(device, role_results: list) -> dict:
+    """The Resolver role on the card. At the wire shape: 64 chained
+    requests from two proxies (backend "cuda"), one carrying a state
+    transaction and one replayed as a duplicate; every verdict and
+    conflict report identical to phase 8's (which equal the copied
+    ConflictOracle's). At full width: 8 requests of 65,536 txns through
+    the knob-routed backend, which must be the card's TorchConflictSet;
+    every verdict and report identical to a bare TorchConflictSet on the
+    card, the first 2 to the CPU plain path."""
+    import dataclasses
+
+    import torch
+
+    from foundationdb_tpu_torch import make_conflict_set
+    from foundationdb_tpu_torch.config import KernelConfig
+    from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet
+    from foundationdb_tpu_torch.models.types import (
+        ResolveTransactionBatchRequest as Request,
+    )
+    from foundationdb_tpu_torch.resolver import Resolver
+    from foundationdb_tpu_torch.runtime.flow import Scheduler
+    from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
+
+    out = {}
+    cfg = KernelConfig(max_key_bytes=ROLE_KEY_BYTES, max_txns=ROLE_TXNS,
+                       max_reads=ROLE_RANGES, max_writes=ROLE_RANGES,
+                       history_capacity=ROLE_HISTORY,
+                       window_versions=ROLE_WINDOW)
+    res = Resolver(Scheduler(sim=True), cfg, backend="cuda",
+                   commit_proxy_count=2)
+    if not (isinstance(res.conflict_set, TorchConflictSet)
+            and res.conflict_set.device == device):
+        fail(f"Resolver(backend='cuda') built {res.conflict_set!r}")
+    torch.cuda.synchronize()
+    reset_launches()
+    drive(res, Request(-1, 0, -1))
+    state_at, dup_at = 4, 10
+    mut = ("set", b"\xff/conf/resolvers", b"2")
+    prev, seen, times, replies = 0, {}, [], []
+    for i, (txns, version) in enumerate(role_stream(n=ROLE_BATCHES)):
+        proxy = "AB"[i % 2]
+        state_idx = []
+        if i == state_at:
+            txns = [dataclasses.replace(txns[0], mutations=[mut])] + txns[1:]
+            state_idx = [0]
+        req = Request(prev, version, seen.get(proxy, 0), txns, state_idx,
+                      proxy_id=proxy)
+        reply, dt = drive(res, req)
+        times.append(dt)
+        replies.append(reply)
+        if i == dup_at:
+            again, _ = drive(res, req)
+            if again is not reply:
+                fail("resolver role: a duplicate request was not answered "
+                     "from the reply cache")
+        seen[proxy], prev = version, version
+    launches, launch_bytes = launch_totals()
+    for i, (reply, (verdicts, reports)) in enumerate(zip(replies,
+                                                         role_results)):
+        if reply.committed != verdicts:
+            fail(f"resolver role request {i}: verdicts differ from phase 8")
+        if reply.conflicting_key_range_map != reports:
+            fail(f"resolver role request {i}: conflict reports differ")
+    forwarded = [s for group in replies[state_at + 1].state_mutations
+                 for s in group if s.mutations == [mut]]
+    if len(forwarded) != 1:
+        fail("resolver role: the state transaction did not reach the other "
+             "proxy")
+    c = res.counters.as_dict()
+    if (c["resolveBatchStart"], c["resolveBatchIn"]) != (
+            ROLE_BATCHES + 1, ROLE_BATCHES + 2):
+        fail(f"resolver role counters {c}")
+    p50, p99 = quantiles_ms(times[1:])
+    kernel = res.saturation()["kernel"]
+    log(f"  wire shape: {ROLE_BATCHES} requests x {ROLE_TXNS} txns from 2 "
+        f"proxies, a state transaction (forwarded, committed "
+        f"{forwarded[0].committed}) and a replayed duplicate; verdicts and "
+        f"reports identical to phase 8 and ConflictOracle; per request "
+        f"p50 {p50:.3f} ms, p99 {p99:.3f} ms (requests 1..); counters {c}; "
+        f"kernel qos {json.dumps(kernel)}; launches {launches}")
+    out["wire"] = dict(launches=launches, launch_bytes=launch_bytes,
+                       batches=ROLE_BATCHES, p50_ms=p50, p99_ms=p99,
+                       counters=c, kernel_qos=kernel)
+
+    # full width: the knob-routed backend
+    fcfg = bench_config(B)
+    if (SERVER_KNOBS.RESOLVER_BACKEND != "cuda"
+            or fcfg.max_txns < SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH):
+        fail("the knob would not route a 65,536-txn config to the card")
+    gen = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    stream = [(point_txns(gen, v, B), v) for v in
+              (SNAPSHOT_LAG + (i + 1) * VERSION_STEP for i in range(8))]
+    make_s = time.perf_counter() - t0
+    res = Resolver(Scheduler(sim=True), fcfg)
+    bare = make_conflict_set(fcfg, "cuda")
+    cpu = make_conflict_set(fcfg, "cuda", device="cpu")
+    drive(res, Request(-1, 0, -1))
+    bare.resolve([], 0)
+    cpu.resolve([], 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    if not (isinstance(res.conflict_set, TorchConflictSet)
+            and res.conflict_set.device == device):
+        fail(f"the knob routed a {B}-txn config to {res.conflict_set!r}")
+    prev, times, replies = 0, [], []
+    for txns, version in stream:
+        reply, dt = drive(res, Request(prev, version, prev, txns,
+                                       proxy_id="p0"))
+        times.append(dt)
+        replies.append(reply)
+        prev = version
+    launches, launch_bytes = launch_totals()
+    bare_times, n_conflict = [], 0
+    for i, ((txns, version), reply) in enumerate(zip(stream, replies)):
+        t0 = time.perf_counter()
+        want = bare.resolve(txns, version)
+        bare_times.append(time.perf_counter() - t0)
+        if (reply.committed != want.verdicts
+                or reply.conflicting_key_range_map
+                != want.conflicting_key_ranges):
+            fail(f"full-width request {i}: the Resolver differs from a bare "
+                 "TorchConflictSet on the card")
+        n_conflict += sum(int(v) == 0 for v in want.verdicts)
+    t0 = time.perf_counter()
+    for i, ((txns, version), reply) in enumerate(zip(stream[:2], replies)):
+        want = cpu.resolve(txns, version)
+        if (reply.committed != want.verdicts
+                or reply.conflicting_key_range_map
+                != want.conflicting_key_ranges):
+            fail(f"full-width request {i}: the Resolver differs from the "
+                 "CPU plain path")
+    cpu_s = time.perf_counter() - t0
+    if n_conflict == 0:
+        fail("the full-width stream produced no conflicts")
+    p50, p99 = quantiles_ms(times)
+    b50, b99 = quantiles_ms(bare_times)
+    log(f"  full width: 8 requests x {B} txns (made in {make_s:.1f} s), "
+        f"routed by the knob to {type(res.conflict_set).__name__} on "
+        f"{res.conflict_set.device}; identical to a bare TorchConflictSet "
+        f"on the card ({n_conflict} conflicts) and, requests 0-1, to the "
+        f"CPU plain path ({cpu_s:.1f} s); per request p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms (bare resolve() p50 {b50:.3f}, p99 {b99:.3f}); "
+        f"launches {launches}")
+    out["full_width"] = dict(launches=launches, launch_bytes=launch_bytes,
+                             batches=len(stream), p50_ms=p50, p99_ms=p99,
+                             bare_p50_ms=b50, bare_p99_ms=b99,
+                             conflicts=n_conflict,
+                             kernel_qos=res.saturation()["kernel"])
+    return out
 
 
 def survey_spans(device, uni) -> tuple:
@@ -3791,16 +4311,23 @@ def main(argv=None) -> int:
     torch_ops = phase_torch_ops(device)
     heading("3. uniform stream (bench default, exact)")
     uniform = phase_stream(device, uni)
+    uniform_ref = {k: uniform[k] for k in ("outs", "ms_per_batch",
+                                           "idle_share",
+                                           "htod_ms_per_batch")}
     heading("4. hot-key stream (bench zipf: latch + read dedup)")
     hot = phase_hot_key(device, zipf, dedup_u, max_uniq)
     heading("5. range-scan stream (bench ycsb_e: sweep + spill + latch)")
     scan = phase_range_scan(device, ycsb)
     heading("6. classic uniform stream (bench BENCH_KERNEL=classic)")
     classic = phase_classic(device, uni, uniform["outs"])
+    classic_ref = {k: classic[k] for k in ("outs", "ms_per_batch",
+                                           "idle_share",
+                                           "htod_ms_per_batch")}
     heading("7. classic hot-key stream (bench classic zipf: latch)")
     classic_hot = phase_classic_hot(device, zipf)
     heading("8. the wire Resolver role's shape vs ConflictOracle")
     role = phase_resolver_role(device)
+    role_results = role.pop("results")
     heading(f"9. sharded uniform stream ({SHARDS} resolvers on the card)")
     sharded = phase_sharded(device, uni, ycsb)
     heading("10. short-span streams (short_span_limit = S)")
@@ -3813,6 +4340,10 @@ def main(argv=None) -> int:
     ledger.update(short.pop("ledger"))
     heading("11. reduced-shape stream vs ConflictOracle")
     phase_oracle(device)
+    heading("12. the staging pipeline (pinned, a copy stream)")
+    pipeline = phase_pipeline(device, uni, uniform_ref, classic_ref)
+    heading("13. the Resolver role")
+    resolver = phase_resolver(device, role_results)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -3837,13 +4368,19 @@ def main(argv=None) -> int:
                     ("classic_hot_key", classic_hot),
                     ("resolver_role", role), ("sharded_uniform", sharded),
                     ("short_span_uniform", short.pop("uniform")),
-                    ("short_span_classic", short.pop("classic"))):
+                    ("short_span_classic", short.pop("classic")),
+                    ("pipelined_uniform", pipeline.pop("uniform")),
+                    ("pipelined_classic", pipeline.pop("classic"))):
         streams[tag] = {k: v for k, v in st.items() if k != "launches"}
         streams[tag]["launches_per_batch"] = {
             k: n / st["batches"] for k, n in st["launches"].items()}
         streams[tag]["kernel_bound_ms_per_batch"] = device_bound_per_batch(
             st)
     streams["short_span"] = short
+    streams["staging"] = pipeline
+    streams["resolver"] = {tag: {k: v for k, v in st.items()
+                                 if k not in ("launches", "launch_bytes")}
+                           for tag, st in resolver.items()}
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

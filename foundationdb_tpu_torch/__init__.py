@@ -15,6 +15,12 @@ path for path.
     cs = make_conflict_set(config, device="cpu")   # plain versions
     cs = make_conflict_set(config.scaled(n_shards=4),
                            shard_boundaries=[b"\x40", b"\x80", b"\xc0"])
+    cs.resolve_stream_pipelined(batches)           # staged: pinned, async
+
+The Resolver role (`resolver.Resolver`, on the port's own actor runtime
+`runtime/flow.py`) serves ResolveTransactionBatchRequests through a
+conflict set built by the same factory, or by the resolver_backend knob
+(`utils/knobs.SERVER_KNOBS`).
 """
 
 from foundationdb_tpu_torch.config import KernelConfig

@@ -18,6 +18,12 @@ non-zero code.
 `COUNTS` holds one plain integer per kernel entry. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (`reset_counts` / `counts`).
+
+`build_stats()` is the port's compile-cache view (the JAX package's
+`utils/compile_cache.stats()`): libraries loaded from the build
+directory as they were (hits), libraries built by `nvcc` in this
+process (misses), and the seconds of the last build that compiled
+anything. Like the JAX compiler's cache, it is process-wide.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -218,6 +225,10 @@ COUNTS = {name: 0 for name in KERNELS}
 _LIBS: dict = {}
 _FNS: dict = {}
 _LOCK = threading.Lock()
+#: the libraries this process built (a load of any other is a hit)
+_BUILT: set = set()
+_BUILD_STATS = {"cache_hits": 0, "cache_misses": 0,
+                "last_compile_seconds": 0.0}
 
 
 def reset_counts() -> None:
@@ -227,6 +238,12 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return dict(COUNTS)
+
+
+def build_stats() -> dict:
+    """{cache_hits, cache_misses, last_compile_seconds} (see the module
+    docstring)."""
+    return dict(_BUILD_STATS)
 
 
 def _nvcc() -> str:
@@ -260,6 +277,7 @@ def build_all() -> dict:
     if not todo:
         return {}
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         out = _lib_path(name)
@@ -278,6 +296,9 @@ def build_all() -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            _BUILT.add(name)
+    _BUILD_STATS["cache_misses"] += len(todo) - len(failed)
+    _BUILD_STATS["last_compile_seconds"] = time.perf_counter() - t0
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"
@@ -298,6 +319,8 @@ def _fn(entry: str):
             lib = _LIBS.get(lib_name)
             if lib is None:
                 lib = _LIBS[lib_name] = ctypes.CDLL(str(_lib_path(lib_name)))
+                if lib_name not in _BUILT:
+                    _BUILD_STATS["cache_hits"] += 1
             f = getattr(lib, entry)
             f.argtypes = argtypes
             f.restype = ctypes.c_int

@@ -40,8 +40,28 @@ ConflictBatch, fdbserver/include/fdbserver/ConflictSet.h:30-75).
   history capacity before the first decision.
 
 The profile router (`profile_batch`, `profile_transactions`,
-`backend_for_profile`, `fallback_free`) is the JAX package's host-side
-classifier, copied: it answers "cuda" where the JAX one answers "tpu".
+`backend_for_profile`, `fallback_free`, `route_stream`) is the JAX
+package's host-side classifier, copied: it answers "cuda" where the JAX
+one answers "tpu".
+
+The backend names, against the JAX package's `make_conflict_set`:
+
+| JAX backend | port backend | builds |
+|---|---|---|
+| "tpu-force" | "cuda" (the port's default) | TorchConflictSet, never gated |
+| "tpu" (and None, knob "tpu") | None, knob RESOLVER_BACKEND "cuda" | CpuConflictSet under SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH (the JAX RESOLVER_TPU_MIN_BATCH), else TorchConflictSet |
+| "cpu" (and None, knob "cpu") | "cpu" (and None, knob "cpu") | CpuConflictSet |
+
+Explicit "cuda" means the card whatever the batch size: gating it would
+turn every caller that asks for the card at a small batch into an
+oracle run. The Resolver role's routed construction (backend None with
+the knob's "cuda") takes the gated path.
+
+The staging pipeline (`resolve_stream_pipelined`, `resolve_group_stream`)
+stacks and stages chunks on a thread of its own through
+`interop.Stager` (pinned buffers, a copy stream, an event a chunk) while
+the calling thread dispatches compute; `stage_ledger` fences each stage
+to measure it.
 
 `short_span_limit` S > 0 runs the group kernel's range ops as kernel K's
 direct S-wide reads and writes (ops/group.py, K13) where the JAX
@@ -56,6 +76,8 @@ never falls back to the general path.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 
 import numpy as np
@@ -75,6 +97,9 @@ from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import rangemax
 from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.utils import packing
+from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
+from foundationdb_tpu_torch.utils.metrics import LatencySample
+from foundationdb_tpu_torch.utils.trace import SEV_WARN, TraceEvent
 
 # Rebase when offsets pass 2**30 (the window is ~5e6; huge margin).
 REBASE_THRESHOLD = 1 << 30
@@ -84,38 +109,29 @@ REBASE_THRESHOLD = 1 << 30
 OVERFLOW_CHECK_INTERVAL = 32
 
 
-class Stage:
-    """Count, total and max of one sampled quantity (seconds or rows)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-        self.total = 0.0
-        self.max = 0.0
-
-    def sample(self, v: float) -> None:
-        self.count += 1
-        self.total += v
-        self.max = max(self.max, v)
-
-    def as_dict(self) -> dict:
-        return {"count": self.count, "total": self.total, "max": self.max}
-
-
 class KernelStageMetrics:
     """Per-stage telemetry of the resolve paths.
 
-    pack / kernel / fence are host wall-clock seconds: "kernel" covers
-    the dispatch of the tiered or classic kernel (asynchronous on the
-    card except the fixpoint loop's and the latch's syncs), "fence" the
-    reply assembly that waits for the verdicts. Occupancy (the worst
-    shard's, when sharded) and device memory are sampled on the
-    overflow-check syncs, and so is `collective` on a sharded set: the
-    fenced seconds of one cross-shard combine (kernel J alone).
-    `fixpoint` counts the fixpoint's depth.
+    pack / transfer / kernel / fence are host wall-clock seconds
+    (`LatencySample`s, so quantiles): "kernel" covers the dispatch of
+    the tiered or classic kernel (asynchronous on the card except the
+    fixpoint loop's and the latch's syncs), "fence" the reply assembly
+    that waits for the verdicts; the staging pipeline samples pack and
+    transfer (the stacking and the enqueue of the pinned copy) on its
+    staging thread. "compile" holds `prewarm_exact`'s seconds (building
+    and loading the kernel libraries). Occupancy (the worst shard's,
+    when sharded) and device memory are sampled on the overflow-check
+    syncs, and so is `collective` on a sharded set: the fenced seconds
+    of one cross-shard combine (kernel J alone). `fixpoint` counts the
+    fixpoint's depth (the port's own entry of `as_dict`).
     """
 
-    COUNTERS = ("resolveBatches", "groupDispatches", "compactions",
+    COUNTERS = ("resolveBatches", "groupDispatches",
+                # the columnar path's batches (not ported yet: stays 0)
+                "columnarBatches",
+                # chunks the staging pipeline staged
+                "stagedChunks",
+                "compactions",
                 # pressure-driven compactions (delta_spill), counted in
                 # compactions too
                 "spills",
@@ -125,16 +141,20 @@ class KernelStageMetrics:
                 # groups dispatched through the endpoint sweep probe
                 "sweepGroups",
                 "latchTrips", "exactFallbacks", "rebases",
-                "overflowRaised")
+                "overflowRaised",
+                # prewarm_exact calls that built and loaded the kernels
+                "warmCompiles")
 
     def __init__(self):
         self.counters = {name: 0 for name in self.COUNTERS}
-        self.pack = Stage("packSeconds")
-        self.kernel = Stage("kernelSeconds")
-        self.fence = Stage("fenceSeconds")
-        self.delta_occupancy = Stage("deltaLiveBoundaries")
-        self.main_occupancy = Stage("mainLiveBoundaries")
-        self.collective = Stage("collectiveSeconds")
+        self.compile = LatencySample("compileSeconds")
+        self.pack = LatencySample("packSeconds")
+        self.transfer = LatencySample("transferSeconds")
+        self.kernel = LatencySample("kernelSeconds")
+        self.fence = LatencySample("fenceSeconds")
+        self.delta_occupancy = LatencySample("deltaLiveBoundaries")
+        self.main_occupancy = LatencySample("mainLiveBoundaries")
+        self.collective = LatencySample("collectiveSeconds")
         self.shard_count = 1
         self.fixpoint = G.FixpointStats()
         self.device_bytes_in_use = 0
@@ -156,14 +176,71 @@ class KernelStageMetrics:
 
     def as_dict(self) -> dict:
         out: dict = dict(self.counters)
-        for s in (self.pack, self.kernel, self.fence, self.delta_occupancy,
-                  self.main_occupancy, self.collective):
+        for s in (self.compile, self.pack, self.transfer, self.kernel,
+                  self.fence, self.delta_occupancy, self.main_occupancy,
+                  self.collective):
             out[s.name] = s.as_dict()
         out["shardCount"] = self.shard_count
         out["fixpoint"] = dataclasses.asdict(self.fixpoint)
         out["deviceBytesInUse"] = self.device_bytes_in_use
         out["devicePeakBytes"] = self.device_peak_bytes
         return out
+
+    def qos(self) -> dict:
+        """The compressed view the Resolver's saturation() reads: per
+        batch stage seconds, per-stage p99s, the kernel libraries' build
+        cache (`kernels.build_stats()`, process-wide), device memory,
+        tier fill and the fallback, spill and sweep counts; the keys of
+        the JAX package's `KernelStageMetrics.qos()`."""
+        batches = self.counters["resolveBatches"]
+        stage_total = (
+            self.pack.total + self.transfer.total + self.kernel.total
+            + self.fence.total
+        )
+        cc = kernels.build_stats()
+        d_occ = self.delta_occupancy.max or 0.0
+        m_occ = self.main_occupancy.max or 0.0
+        return {
+            "batches": batches,
+            "kernel_seconds_per_batch": (
+                stage_total / batches if batches else 0.0
+            ),
+            "kernel_p99_seconds": self.kernel.quantile(0.99),
+            "stage_p99_seconds": {
+                "pack": self.pack.quantile(0.99),
+                "transfer": self.transfer.quantile(0.99),
+                "kernel": self.kernel.quantile(0.99),
+                "fence": self.fence.quantile(0.99),
+            },
+            "compile_seconds": self.compile.total,
+            "compile_cache_hits": cc["cache_hits"],
+            "compile_cache_misses": cc["cache_misses"],
+            "last_compile_seconds": cc["last_compile_seconds"],
+            "device_bytes_in_use": self.device_bytes_in_use,
+            "device_peak_bytes": self.device_peak_bytes,
+            "delta_occupancy": d_occ,
+            "main_occupancy": m_occ,
+            "compactions": self.counters["compactions"],
+            "spills": self.counters["spills"],
+            "sweep_groups": self.counters["sweepGroups"],
+            "fallbacks": (
+                self.counters["latchTrips"] + self.counters["exactFallbacks"]
+            ),
+            # a sharded set samples its worst shard's counts into the
+            # occupancy samples above: one value, two names
+            "shards": self.shard_count,
+            "worst_shard_delta_occupancy": d_occ,
+            "worst_shard_main_occupancy": m_occ,
+            "collective_time_share": (
+                min(
+                    1.0,
+                    (self.collective.total / self.collective.count)
+                    / (stage_total / batches),
+                )
+                if self.collective.count and batches and stage_total
+                else 0.0
+            ),
+        }
 
 
 class HistoryOverflowError(RuntimeError):
@@ -232,6 +309,9 @@ class TorchConflictSet:
         #: delta_spill pressure signal, host arithmetic only, so a spill
         #: decision never costs a device sync
         self._spill_bound_rows = 0
+        #: the staging pipeline's pinned ring (interop.Stager), made at
+        #: its first stream
+        self._staging = None
 
     # -- state carried across from the JAX package ----------------------
 
@@ -400,6 +480,116 @@ class TorchConflictSet:
                                          check_latch=check_latch)
         return self._dispatch_classic(stacked_args, check_latch=check_latch)
 
+    # -- the staging pipeline -------------------------------------------
+
+    def resolve_group_stream(self, host_groups: list,
+                             check_latch: bool = True) -> list:
+        """Resolve a stream of pre-stacked groups (numpy device_args
+        with a leading [G] axis) through the staging pipeline; the
+        GroupVerdicts in order."""
+        return self._pipelined([[g] for g in host_groups], stack=False,
+                               check_latch=check_latch)
+
+    def resolve_stream_pipelined(self, batches: list, *, chunk: int = 8,
+                                 depth: int = 2,
+                                 check_latch: bool = False) -> list:
+        """Resolve a stream of PackedBatches through a pack -> transfer ->
+        compute pipeline: a staging thread stacks `chunk` batches at a
+        time straight into a pinned slab (interop.Stager; versions must
+        ascend in a chunk, as packing.stack_device_args requires) and
+        copies it onto the device on a copy stream, at most `depth`
+        staged chunks ahead of this thread, which only dispatches
+        compute. The GroupVerdicts in chunk order; with check_latch
+        False (the default, as in the JAX package) a refused chunk comes
+        back `unconverged` for the caller to fall back."""
+        groups = [batches[lo:lo + chunk]
+                  for lo in range(0, len(batches), chunk)]
+        return self._pipelined(groups, stack=True, depth=depth,
+                               check_latch=check_latch)
+
+    def _stager(self, depth: int) -> interop.Stager:
+        """The pinned ring of this set's staging pipeline (kept while
+        the depth stays the same, so its buffers are reused)."""
+        stager = self._staging
+        if stager is None or stager.n_slots != max(1, depth) + 1:
+            stager = self._staging = interop.Stager(self.device, depth)
+        return stager
+
+    def _pipelined(self, items: list, *, stack: bool, depth: int = 2,
+                   check_latch: bool = True) -> list:
+        """The staging thread `resolver-staging` packs each item (with
+        `stack`, a list of PackedBatches stacked into the slab; else a
+        one-element list of a stacked group) and enqueues its copy
+        (interop.Stager: the pack and transfer stages); this thread
+        waits on each chunk's copy event and runs `resolve_group_args`.
+        A sharded set stages once: its shard axis is a tensor axis of
+        the group kernel.
+
+        A failure on either side surfaces here: the staging thread hands
+        its exception through the queue, and on a failure of this thread
+        (HistoryOverflowError from the overflow check, say) the abort
+        flag bounds every put of the staging thread, the queue is
+        drained and the thread joined before the error propagates."""
+        if not items:
+            return []
+        stager = self._stager(depth)
+        q: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        done = object()
+        abort = threading.Event()
+
+        def _put(obj) -> bool:
+            while not abort.is_set():
+                try:
+                    q.put(obj, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def _stage():
+            try:
+                for item in items:
+                    t0 = time.perf_counter()
+                    ticket = stager.fill(
+                        packing.group_args(item) if stack else item, stack)
+                    t1 = time.perf_counter()
+                    staged = stager.send(ticket)
+                    # the enqueue of the copy: the copy itself overlaps
+                    # compute (stage_ledger fences it)
+                    self.metrics.pack.sample(t1 - t0)
+                    self.metrics.transfer.sample(time.perf_counter() - t1)
+                    self.metrics.add("stagedChunks")
+                    if not _put(staged):
+                        return
+            except BaseException as e:  # surfaced on the consumer thread
+                _put(e)
+                return
+            _put(done)
+
+        t = threading.Thread(target=_stage, name="resolver-staging",
+                             daemon=True)
+        t.start()
+        outs = []
+        try:
+            while True:
+                staged = q.get()
+                if staged is done:
+                    break
+                if isinstance(staged, BaseException):
+                    raise staged
+                args = stager.receive(*staged)
+                outs.append(
+                    self.resolve_group_args(args, check_latch=check_latch))
+        finally:
+            abort.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join()
+        return outs
+
     def _run_classic(self, g: dict, latch: bool):
         return G.resolve_group(
             self.state, g, short_span_limit=self.config.short_span_limit,
@@ -504,10 +694,14 @@ class TorchConflictSet:
         no dlopen. It runs no resolve and
         leaves the state untouched; on the CPU it does nothing.
         `stacked_args` is accepted for the JAX signature. The classic
-        path's fallback is served the same way."""
+        path's fallback is served the same way. On the card its seconds
+        go to the `compile` stage and it counts one `warmCompiles`."""
         del stacked_args
         if self.device.type == "cuda":
+            t0 = time.perf_counter()
             kernels.load_all()
+            self.metrics.compile.sample(time.perf_counter() - t0)
+            self.metrics.add("warmCompiles")
 
     def compact_history(self) -> None:
         """Fold the delta tier into main (ops/delta.compact; every shard,
@@ -666,21 +860,138 @@ class CpuConflictSet:
 
 def make_conflict_set(config: KernelConfig, backend: str = "cuda",
                       device=None, shard_boundaries=None):
-    """The port's conflict-set factory.
+    """The port's conflict-set factory and the resolver_backend knob gate.
 
     backend "cuda": TorchConflictSet on `device` (None = the card; a
     missing card raises unless device="cpu" is passed, which runs the
     plain PyTorch versions on the CPU), sharded over `shard_boundaries`
     when config.n_shards > 1. backend "cpu": the host oracle (one
     resolver's semantics; testing/oracle.MultiResolverOracle models the
-    sharded deployment).
+    sharded deployment). backend None: the knob
+    SERVER_KNOBS.RESOLVER_BACKEND, gated: its "cuda" serves configs whose
+    max_txns is under SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH on the CPU
+    backend, with a ResolverBackendAutoRouted warning.
     """
+    if backend is None:
+        backend = SERVER_KNOBS.RESOLVER_BACKEND
+        if backend == "cuda":
+            return _gated_conflict_set(config, device, shard_boundaries)
     if backend == "cuda":
         return TorchConflictSet(config, device=device,
                                 shard_boundaries=shard_boundaries)
     if backend == "cpu":
         return CpuConflictSet(config)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def _gated_conflict_set(config: KernelConfig, device=None,
+                        shard_boundaries=None):
+    """The knob's "cuda" (the JAX package's gated "tpu"): the CPU backend
+    under the min batch, else the card. The gate reads the config's
+    static batch capacity, the largest batch this instance could take."""
+    if config.max_txns < SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH:
+        TraceEvent(
+            "ResolverBackendAutoRouted", severity=SEV_WARN
+        ).detail("Requested", "cuda").detail("Chosen", "cpu").detail(
+            "MaxTxns", config.max_txns
+        ).detail(
+            "MinBatch", SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH
+        ).log()
+        return CpuConflictSet(config)
+    return TorchConflictSet(config, device=device,
+                            shard_boundaries=shard_boundaries)
+
+
+def stage_ledger(config: KernelConfig, batches, *, fuse: int,
+                 kernel_s: float, pipelined_s: float = 0.0,
+                 occupancy_delta_capacity: int = None,
+                 device=None) -> dict:
+    """The per-stage ledger: pack / transfer / kernel / fence ms per
+    fused group and the merge-row accounting, from the same
+    `KernelStageMetrics` the resolve paths fill (the JAX package's
+    `stage_ledger`, its keys; values unrounded), on `device` (None =
+    the card).
+
+    * pack: stacking every group on the host (the staging thread's
+      work), through the pack stage.
+    * transfer: each stacked group staged (interop.Stager: pinned slot,
+      copy stream) and fenced, one sync a group: the copy the pipeline
+      overlaps with compute.
+    * kernel: `kernel_s`, the caller's measurement of the stream with
+      its arguments already on the device.
+    * fence: a pass of the same groups with a sync after each group,
+      minus `kernel_s`.
+    * merge rows: what one group's history merge touches; tiered, the
+      delta tier's end-of-stream occupancy comes from a second pass with
+      compaction and spill off (delta sized by
+      `occupancy_delta_capacity`, else the history capacity).
+    """
+    n_batches = len(batches)
+    groups = [batches[g: g + fuse] for g in range(0, n_batches, fuse)]
+    n_groups = len(groups)
+    tiered = config.delta_capacity > 0
+
+    cs = TorchConflictSet(config, device=device)
+    cuda = cs.device.type == "cuda"
+    host_groups = []
+    for grp in groups:
+        t0 = time.perf_counter()
+        host_groups.append(packing.stack_device_args(grp))
+        cs.metrics.pack.sample(time.perf_counter() - t0)
+    stager = interop.Stager(cs.device, depth=1)
+    if cuda:  # the pinned slabs are allocated before the timed copies
+        stager.reserve(max(interop.slab_layout([hg], False)[2]
+                           for hg in host_groups))
+    staged = []
+    for hg in host_groups:
+        t0 = time.perf_counter()
+        args, event = stager.stage(hg)
+        # a sync a group is the measurement here: the copy's true cost
+        if event is not None:
+            event.synchronize()
+        cs.metrics.transfer.sample(time.perf_counter() - t0)
+        staged.append(stager.receive(args, event))
+    pack_s = cs.metrics.pack.total
+    transfer_s = cs.metrics.transfer.total
+
+    t0 = time.perf_counter()
+    for dg in staged:
+        out = cs.resolve_group_args(dg, check_latch=False)
+        out.verdict.cpu()  # a fence a group
+    fenced_s = time.perf_counter() - t0
+
+    nrw = config.max_reads + config.max_writes
+    ledger = {
+        "pack_ms_per_group": pack_s / n_groups * 1e3,
+        "transfer_ms_per_group": transfer_s / n_groups * 1e3,
+        "kernel_ms_per_group": kernel_s / n_groups * 1e3,
+        "fence_ms_per_group": max(0.0, fenced_s - kernel_s) / n_groups * 1e3,
+        "pipelined_ms_per_group": pipelined_s / n_groups * 1e3,
+        "merge_rows_classic_per_group": (
+            config.history_capacity + 2 * fuse * nrw
+        ),
+    }
+    if tiered:
+        occ_cap = occupancy_delta_capacity or config.history_capacity
+        cs_occ = TorchConflictSet(
+            dataclasses.replace(config, compact_interval=0,
+                                delta_capacity=occ_cap, delta_spill=False),
+            device=cs.device)
+        for dg in staged:
+            cs_occ.resolve_group_args(dg, check_latch=False)
+        m_cnt, d_cnt = D.boundary_counts(cs_occ.state)
+        d_live, m_live = int(d_cnt), int(m_cnt)
+        cs_occ.metrics.delta_occupancy.sample(float(d_live))
+        cs_occ.metrics.main_occupancy.sample(float(m_live))
+        ledger["merge_rows_tiered_per_batch_cap"] = (
+            config.delta_capacity + 2 * nrw
+        )
+        ledger["merge_rows_tiered_per_batch_live"] = d_live + 2 * nrw
+        ledger["delta_live_boundaries"] = d_live
+        ledger["main_live_boundaries"] = m_live
+    if cuda:
+        torch.cuda.synchronize(cs.device)
+    return ledger
 
 
 # ---------------------------------------------------------------------------
@@ -860,3 +1171,17 @@ def fallback_free(config) -> bool:
             or getattr(config, "range_sweep", False)
         )
     )
+
+
+def route_stream(batches, config, sample_batches: int = 2) -> str:
+    """The backend for a stream, from its leading batches' profiles and
+    the batch-capacity gate (SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH):
+    "cuda" when every sampled profile is served on the card by this
+    config (backend_for_profile), else "cpu"."""
+    if config.max_txns < SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH:
+        return "cpu"
+    profiles = [profile_batch(b) for b in batches[:sample_batches]]
+    chosen = {backend_for_profile(p, config) for p in profiles}
+    if chosen == {"cuda"}:
+        return "cuda"
+    return "cpu"

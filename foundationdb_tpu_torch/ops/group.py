@@ -584,8 +584,10 @@ def _resolve_many(state: H.VersionHistory, g: dict, *, short_span_limit: int,
             (gn, 1), fill, dtype=x.dtype, device=dev)], dim=1).reshape(-1)
 
     # ---- (a) tooOld per batch floor --------------------------------------
-    floor_t = torch.tensor(floors, dtype=torch.int32,
-                           device=dev).repeat_interleave(b)
+    # from a pinned buffer on the card: no pageable copy on any path
+    floor_t = torch.tensor(
+        floors, dtype=torch.int32, pin_memory=dev.type == "cuda",
+    ).to(dev, non_blocking=True).repeat_interleave(b)
     too_old = txn_valid & fl("has_reads") & (snapshot < floor_t)
     read_live = fl("read_valid") & ~padded(too_old, False)[r_gid]
     write_live = fl("write_valid") & ~padded(too_old, False)[w_gid]

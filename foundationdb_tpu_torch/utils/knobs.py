@@ -1,0 +1,88 @@
+"""Knobs: named, typed runtime constants (the port's own copy of the
+server knobs that the Resolver role, the conflict-set factory and the
+stream router read, from foundationdb_tpu.utils.knobs).
+
+Behavioral mirror of the reference's knob system (`flow/Knobs.cpp`,
+`fdbclient/ServerKnobs.cpp`): every tunable is a named constant whose
+type is its default's; `set` is `--knob_<name>=<value>`.
+
+The port's spelling of the device: `RESOLVER_BACKEND` takes "cuda" (the
+card, gated by `RESOLVER_CUDA_MIN_BATCH`) or "cpu" (the host oracle);
+`RESOLVER_CUDA_MIN_BATCH` is the JAX package's `RESOLVER_TPU_MIN_BATCH`,
+with the same default. Every other default is the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass
+class _KnobDef:
+    name: str
+    default: Any
+    ktype: type
+
+
+class Knobs:
+    """A named knob collection (the SERVER_KNOBS shape)."""
+
+    def __init__(self, name: str):
+        object.__setattr__(self, "_name", name)
+        object.__setattr__(self, "_defs", {})
+        object.__setattr__(self, "_values", {})
+
+    def define(self, name: str, default) -> None:
+        self._defs[name] = _KnobDef(name, default, type(default))
+        self._values[name] = default
+
+    def __getattr__(self, name: str):
+        try:
+            return object.__getattribute__(self, "_values")[name]
+        except KeyError:
+            raise AttributeError(f"unknown knob {name!r}") from None
+
+    def __setattr__(self, name: str, value) -> None:
+        self.set(name, value)
+
+    def set(self, name: str, value) -> None:
+        """--knob_<name>=<value> (type-checked against the default)."""
+        if name not in self._defs:
+            raise KeyError(f"unknown knob {name!r}")
+        d = self._defs[name]
+        if not isinstance(value, d.ktype):
+            value = d.ktype(value)
+        self._values[name] = value
+
+    def reset(self) -> None:
+        for n, d in self._defs.items():
+            self._values[n] = d.default
+
+    def as_dict(self) -> dict:
+        return dict(self._values)
+
+
+def make_server_knobs() -> Knobs:
+    """The knobs the Resolver role reads, with the reference's defaults
+    (fdbclient/ServerKnobs.cpp)."""
+    k = Knobs("ServerKnobs")
+    # state-transaction bytes a resolver holds before it delays new
+    # batches (Resolver.actor.cpp:254-268)
+    k.define("RESOLVER_STATE_MEMORY_LIMIT", 1_000_000)
+    # the resolver_backend knob: "cuda" | "cpu"
+    k.define("RESOLVER_BACKEND", "cuda")
+    # below this batch capacity the knob's "cuda" serves the CPU backend
+    # instead (make_conflict_set's gate, route_stream): the JAX
+    # package's measured single-dispatch crossover, kept as its default
+    k.define("RESOLVER_CUDA_MIN_BATCH", 65536)
+    # version-vector unicast: replies carry tpcvMap + writtenTags
+    # (ResolverInterface.h:140-151); off, as in the reference
+    k.define("ENABLE_VERSION_VECTOR_TLOG_UNICAST", False)
+    # resolver-generated private mutations and the resolver-side
+    # txnStateStore (ServerKnobs.cpp:549-550); off by default
+    k.define("PROXY_USE_RESOLVER_PRIVATE_MUTATIONS", False)
+    return k
+
+
+SERVER_KNOBS = make_server_knobs()

@@ -1,0 +1,158 @@
+"""Counters, a decaying rate and latency samples: the Stats.h / DDSketch
+analog (the port's own copy of the four classes of
+foundationdb_tpu.utils.metrics that the Resolver and the conflict set's
+stage metrics read).
+
+* `Counter` / `CounterCollection` ~ fdbrpc/include/fdbrpc/Stats.h:77-113.
+* `Smoother` ~ the reference's exponential time-decay Smoother, on an
+  injected clock (a simulation passes its virtual clock).
+* `LatencySample` ~ DDSketch (fdbrpc/include/fdbrpc/DDSketch.h): a
+  log-bucketed histogram with relative error eps (gamma = (1 + eps) /
+  (1 - eps)), for p50 / p95 / p99.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+
+class Counter:
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0
+
+    def add(self, n: int = 1) -> None:
+        self.value += n
+
+
+class CounterCollection:
+    """A named group of counters."""
+
+    def __init__(self, name: str, counters: list[str] = ()):  # type: ignore[assignment]
+        self.name = name
+        self._counters: dict[str, Counter] = {}
+        for c in counters:
+            self._counters[c] = Counter(c)
+
+    def __getitem__(self, name: str) -> Counter:
+        if name not in self._counters:
+            self._counters[name] = Counter(name)
+        return self._counters[name]
+
+    def add(self, name: str, n: int = 1) -> None:
+        self[name].add(n)
+
+    def get(self, name: str) -> int:
+        return self[name].value
+
+    def as_dict(self) -> dict[str, int]:
+        return {k: c.value for k, c in self._counters.items()}
+
+
+class Smoother:
+    """Exponential time-decay smoother (fdbrpc/Stats.h Smoother).
+
+    Tracks a total whose smoothed estimate decays toward the true total
+    with e-folding time `folding_time`; `smooth_rate()` is the decayed
+    estimate of d(total)/dt. The clock is injected, so a simulation's
+    virtual clock keeps the values deterministic per seed. Updates at a
+    clock that has not moved are absorbed exactly.
+    """
+
+    __slots__ = ("folding_time", "clock", "time", "total", "estimate")
+
+    def __init__(self, folding_time: float,
+                 clock: Optional[Callable[[], float]] = None):
+        if folding_time <= 0:
+            raise ValueError(f"folding_time must be > 0, got {folding_time}")
+        self.folding_time = folding_time
+        self.clock = clock or (lambda: 0.0)
+        self.reset(0.0)
+
+    def reset(self, value: float) -> None:
+        self.time = self.clock()
+        self.total = value
+        self.estimate = value
+
+    def _update(self) -> None:
+        t = self.clock()
+        elapsed = t - self.time
+        if elapsed > 0:
+            self.time = t
+            self.estimate += (self.total - self.estimate) * (
+                1.0 - math.exp(-elapsed / self.folding_time)
+            )
+
+    def set_total(self, total: float) -> None:
+        self.add_delta(total - self.total)
+
+    def add_delta(self, delta: float) -> None:
+        self._update()
+        self.total += delta
+
+    def smooth_total(self) -> float:
+        self._update()
+        return self.estimate
+
+    def smooth_rate(self) -> float:
+        """Decayed d(total)/dt."""
+        self._update()
+        return (self.total - self.estimate) / self.folding_time
+
+
+class LatencySample:
+    """Log-bucketed quantile sketch (DDSketch-style, relative error eps)."""
+
+    def __init__(self, name: str, eps: float = 0.01):
+        self.name = name
+        self.eps = eps
+        self._gamma = (1 + eps) / (1 - eps)
+        self._log_gamma = math.log(self._gamma)
+        self._buckets: dict[int, int] = {}
+        self._zero = 0
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+
+    def sample(self, value: float) -> None:
+        self.count += 1
+        self.total += value
+        self.min = value if self.min is None else min(self.min, value)
+        self.max = value if self.max is None else max(self.max, value)
+        if value <= 0:
+            self._zero += 1
+            return
+        idx = math.ceil(math.log(value) / self._log_gamma)
+        self._buckets[idx] = self._buckets.get(idx, 0) + 1
+
+    def quantile(self, q: float) -> float:
+        if self.count == 0:
+            return 0.0
+        rank = q * (self.count - 1)
+        if rank < self._zero:
+            return 0.0
+        acc = self._zero
+        for idx in sorted(self._buckets):
+            acc += self._buckets[idx]
+            if acc > rank:
+                # midpoint of bucket (gamma^(idx-1), gamma^idx]
+                return 2.0 * self._gamma**idx / (1 + self._gamma)
+        return self.max or 0.0
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def as_dict(self) -> dict[str, float]:
+        return {
+            "count": self.count,
+            "mean": self.mean,
+            "p50": self.quantile(0.50),
+            "p95": self.quantile(0.95),
+            "p99": self.quantile(0.99),
+            "max": self.max or 0.0,
+        }

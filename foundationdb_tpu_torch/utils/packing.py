@@ -248,11 +248,18 @@ def pack_batch(
     )
 
 
-def stack_device_args(batches) -> dict:
-    """Stack PackedBatch device_args along a new leading axis (the input
-    contract of the group entry points). Versions must ascend."""
+def group_args(batches) -> list:
+    """The device_args of PackedBatches to be stacked into one group;
+    raises ValueError unless their versions ascend."""
     args = [b.device_args() for b in batches]
     versions = [int(a["version"]) for a in args]
     if any(b <= a for a, b in zip(versions, versions[1:])):
         raise ValueError(f"stacked batch versions must ascend: {versions}")
+    return args
+
+
+def stack_device_args(batches) -> dict:
+    """Stack PackedBatch device_args along a new leading axis (the input
+    contract of the group entry points). Versions must ascend."""
+    args = group_args(batches)
     return {k: np.stack([a[k] for a in args]) for k in args[0]}

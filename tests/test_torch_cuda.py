@@ -1335,3 +1335,170 @@ def test_short_span_streams_match_cpu_plain_path(cuda_device):
             assert launched[name] > 0, name
         for name in ("min_cover", "rangemax2.build", "rangemax2.query"):
             assert launched[name] == 0, name
+
+
+# ---------------------------------------------------------------------------
+# the staging pipeline and the Resolver role on the card
+
+def pipeline_config(classic: bool, n: int = 1024):
+    return KernelConfig(max_key_bytes=8, max_txns=n, max_reads=n,
+                        max_writes=n, history_capacity=24 * n,
+                        delta_capacity=0 if classic else 12 * n,
+                        window_versions=5000, compact_interval=4)
+
+
+def pipeline_batches(cfg, n_batches, seed=17, n=1024):
+    rng = np.random.default_rng(seed)
+    return [skiplist_style_batch(rng, cfg, n, version=1000 * (i + 1),
+                                 keyspace=6000, snapshot_lag=2000)
+            for i in range(n_batches)]
+
+
+@pytest.mark.parametrize("classic", [False, True])
+def test_pipelined_stream_equals_per_group_dispatch(cuda_device, classic):
+    """resolve_stream_pipelined (pinned ring, copy stream, events) and
+    resolve_group_stream on the card: every field of every chunk equal
+    to the same groups dispatched one by one (`resolve_group_args` on
+    numpy args: the pageable path), and the history equal."""
+    cfg = pipeline_config(classic)
+    batches = pipeline_batches(cfg, 12)
+    groups = [stack_device_args(batches[i:i + 4]) for i in range(0, 12, 4)]
+    ref = make_conflict_set(cfg, "cuda", device=cuda_device)
+    want = [ref.resolve_group_args(g) for g in groups]
+    for api in ("stream", "groups"):
+        cs = make_conflict_set(cfg, "cuda", device=cuda_device)
+        got = (cs.resolve_stream_pipelined(batches, chunk=4, depth=2)
+               if api == "stream" else cs.resolve_group_stream(groups))
+        for g, w in zip(got, want):
+            for f in w._fields:
+                assert torch.equal(getattr(g, f), getattr(w, f)), (api, f)
+        for a, b in zip(flat_state(cs), flat_state(ref)):
+            assert np.array_equal(a, b)
+        assert cs.metrics.counters["stagedChunks"] == 3
+
+
+def test_staged_source_buffers_are_pinned(cuda_device):
+    cfg = pipeline_config(False)
+    batches = pipeline_batches(cfg, 7)
+    cs = make_conflict_set(cfg, "cuda", device=cuda_device)
+    cs.resolve_stream_pipelined(batches[:6], chunk=2, depth=2)
+    stager = cs._staging
+    assert stager.n_slots == 3 and stager.stream is not None
+    assert len(stager.slots) == 3
+    assert all(slab.is_pinned() for slab in stager.slots)
+    assert stager.stream != torch.cuda.current_stream(cuda_device)
+    # a smaller chunk (the stream's last) reuses the slabs it finds
+    slabs = [slab.data_ptr() for slab in stager.slots]
+    cs.resolve_stream_pipelined(batches[6:], chunk=2, depth=2)
+    assert [slab.data_ptr() for slab in stager.slots] == slabs
+
+
+def test_many_chunks_at_depth_2_stay_exact(cuda_device):
+    """48 chunks of one batch through a ring of 3 pinned slots: the
+    copies run ahead on their stream while compute frees and the
+    caching allocator reuses the staged tensors; every chunk equals the
+    same batch resolved alone on the default stream."""
+    cfg = pipeline_config(False, n=512)
+    batches = pipeline_batches(cfg, 48, seed=23, n=512)
+    ref = make_conflict_set(cfg, "cuda", device=cuda_device)
+    want = [ref.resolve_packed(b) for b in batches]
+    cs = make_conflict_set(cfg, "cuda", device=cuda_device)
+    got = cs.resolve_stream_pipelined(batches, chunk=1, depth=2)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        for f in w._fields:
+            assert torch.equal(getattr(g, f)[0], getattr(w, f)), (i, f)
+    for a, b in zip(flat_state(cs), flat_state(ref)):
+        assert np.array_equal(a, b)
+
+
+def test_overflow_leaves_no_staging_thread(cuda_device):
+    import threading
+
+    from foundationdb_tpu_torch import HistoryOverflowError
+    from foundationdb_tpu_torch.models.conflict_set import (
+        OVERFLOW_CHECK_INTERVAL,
+    )
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+    from foundationdb_tpu_torch.utils.packing import pack_batch
+
+    cfg = KernelConfig(max_key_bytes=8, max_txns=8, max_reads=8,
+                       max_writes=8, history_capacity=64, delta_capacity=8,
+                       compact_interval=0, window_versions=100_000)
+    batches = [pack_batch([CommitTransaction(
+        [], [(bytes([(3 * j + i) % 250]), bytes([(3 * j + i) % 250, 1]))],
+        read_snapshot=50) for j in range(8)], 100 + i, 0, cfg)
+        for i in range(3 * OVERFLOW_CHECK_INTERVAL)]
+    cs = make_conflict_set(cfg, "cuda", device=cuda_device)
+    with pytest.raises(HistoryOverflowError):
+        cs.resolve_stream_pipelined(batches, chunk=1, check_latch=False)
+    assert not [t for t in threading.enumerate()
+                if t.name == "resolver-staging"]
+
+
+def test_resolver_role_on_the_card(cuda_device):
+    """Resolver(backend="cuda") builds a TorchConflictSet on the card,
+    and the knob-routed one does at the min batch; both answer a stream
+    as the CPU plain path's Resolver does."""
+    from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet
+    from foundationdb_tpu_torch.models.types import (
+        CommitTransaction,
+        ResolveTransactionBatchRequest,
+    )
+    from foundationdb_tpu_torch.resolver import Resolver
+    from foundationdb_tpu_torch.runtime.flow import Scheduler
+    from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
+
+    cfg = pipeline_config(True, n=256)
+    rng = np.random.default_rng(4)
+
+    def key(i):  # 7 bytes: a point write's end adds one
+        return int(i).to_bytes(7, "big")
+
+    reqs, prev = [ResolveTransactionBatchRequest(-1, 0, -1)], 0
+    for b in range(6):
+        version = 1000 * (b + 1)
+        txns = [CommitTransaction(
+            [(key(k), key(k + 2))], [(key(w), key(w) + b"\0")],
+            read_snapshot=version - 1500, report_conflicting_keys=True)
+            for k, w in rng.integers(0, 300, (256, 2))]
+        reqs.append(ResolveTransactionBatchRequest(prev, version, prev, txns,
+                                                   proxy_id="p0"))
+        prev = version
+
+    def run(res):
+        sched = res.sched
+        out = []
+        for r in reqs:
+            t = sched.spawn(res.resolve(r))
+            out.append(sched.run_until(t.done))
+        return [(o.committed, o.conflicting_key_range_map) for o in out]
+
+    want = run(Resolver(Scheduler(), cfg, backend="cuda", device="cpu"))
+    res = Resolver(Scheduler(), cfg, backend="cuda")
+    assert isinstance(res.conflict_set, TorchConflictSet)
+    assert res.conflict_set.device.type == "cuda"
+    assert run(res) == want
+    old = SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH
+    SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH = cfg.max_txns
+    try:
+        routed = Resolver(Scheduler(), cfg)
+        assert run(routed) == want
+    finally:
+        SERVER_KNOBS.RESOLVER_CUDA_MIN_BATCH = old
+    assert isinstance(routed.conflict_set, TorchConflictSet)
+    assert routed.conflict_set.device.type == "cuda"
+    assert any(v == 0 for c, _ in want for v in c)
+
+
+def test_prewarm_records_the_compile_stage(cuda_device):
+    cfg = pipeline_config(False)
+    cs = make_conflict_set(cfg.scaled(fixpoint_latch=True), "cuda",
+                           device=cuda_device)
+    cs.prewarm_exact(None)
+    assert cs.metrics.compile.count == 1
+    assert cs.metrics.counters["warmCompiles"] == 1
+    q = cs.metrics.qos()
+    assert q["compile_seconds"] > 0.0
+    stats = kernels.build_stats()
+    assert stats["cache_hits"] + stats["cache_misses"] == len(kernels.SOURCES)

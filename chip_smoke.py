@@ -146,10 +146,33 @@ any fault:
    TorchConflictSet), identical to a bare TorchConflictSet on the card
    and, the first 2, to the CPU plain path (the copied oracle takes
    minutes a batch at that size), p50 / p99 a request beside the bare
-   `resolve()`'s.
+   `resolve()`'s;
+14. the wire resolver: four port resolver processes
+   (`cluster/multiprocess.spawn_role`, backend "cuda"), spawned at once
+   once the kernels are built, each reached over a Unix socket and
+   failing the phase at once if it exits. WC (the wire role's default
+   config): phase 8's 64 batches as columnar frames, chained, identical
+   to phase 8's verdicts and reports, a duplicate answered from the
+   reply cache, a stale-epoch request refused, its status showing 64
+   columnar batches, 128 copies and phase 8's kernel launches, each as
+   often; then the same batches as object frames past the window,
+   identical again, with the same launches. W2 (two such processes): the
+   batches clipped to the keyspace halves (`default_resolver_boundaries(2)`,
+   then the middle of phase 8's keys) and min-combined here, identical
+   to the copied MultiResolverOracle, each child launching phase 8's
+   kernels and the fixed-per-batch ones phase 8's count a request. WF
+   (phase 13's full-width config through RESOLVER_KERNEL): phase 13's 8
+   requests as columnar frames, identical to phase 13's replies, with
+   phase 13's launches. It
+   prints each child's seconds from spawn to first answer and its
+   warm-up, the round trips (p50 / p99) beside phases 8 and 13, the
+   roles' compute time, the proxy's pack_columnar + encode and the
+   role's decode + pack_batch_columnar ms, `path_stats` and the
+   children's kernel launches.
 
-The last lines are the streams' numbers (JSON; phases 12 and 13 under
-`pipelined_uniform`, `pipelined_classic`, `staging` and `resolver`),
+The last lines are the streams' numbers (JSON; phases 12, 13 and 14
+under `pipelined_uniform`, `pipelined_classic`, `staging`, `resolver`
+and `wire`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -3121,6 +3144,449 @@ def phase_resolver(device, role_results: list) -> dict:
                              bare_p50_ms=b50, bare_p99_ms=b99,
                              conflicts=n_conflict,
                              kernel_qos=res.saturation()["kernel"])
+    # phase 14 sends the same requests over the wire
+    out["full_width_inputs"] = (stream, [
+        (r.committed, r.conflicting_key_range_map) for r in replies])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the wire resolver
+
+#: versions a second pass over phase 8's batches is shifted by: past the
+#: window, so the first pass's history can neither conflict with it nor
+#: outlive its first batch
+WIRE_SHIFT = ROLE_WINDOW + 70 * ROLE_VERSION_STEP
+WIRE_CHILDREN = ("WC", "W2a", "W2b", "WF")
+#: the kernels the wire role's default config (classic, G = 1) launches a
+#: fixed number of times a batch, whatever the batch holds: A's counts
+#: and probe, D, and the two sorts (L, N)
+WIRE_PER_BATCH = ("keysearch.counts", "keysearch.probe", "merge_maps",
+                  "sort_ranks", "lex_order")
+
+
+def shift_stream(stream, by: int) -> list:
+    import dataclasses
+
+    return [([dataclasses.replace(t, read_snapshot=t.read_snapshot + by)
+              for t in txns], version + by) for txns, version in stream]
+
+
+def combine_clipped(txns, ranges, replies) -> tuple:
+    """The proxy's min-combine of the resolvers' replies to one clipped
+    batch: each verdict the least of its slot's, each resolver's
+    reported read indices mapped back to the unclipped transaction and
+    merged, kept where the combined verdict is a conflict (the
+    MultiResolverOracle's rule)."""
+    n = len(txns)
+    verdict = [min(int(r.committed[t]) for r in replies) for t in range(n)]
+    merged: dict = {}
+    for (lo, hi), rep in zip(ranges, replies):
+        for t, idxs in rep.conflicting_key_range_map.items():
+            kept = [i for i, (b, e) in enumerate(txns[t].read_conflict_ranges)
+                    if max(b, lo) < (e if hi is None else min(e, hi))]
+            merged.setdefault(t, set()).update(kept[i] for i in idxs)
+    return verdict, {t: sorted(v) for t, v in merged.items()
+                     if verdict[t] == 0}
+
+
+def dist_ms(d: dict) -> dict:
+    """A status LatencySample (seconds) as p50 / p99 / count in ms."""
+    return dict(p50_ms=d["p50"] * 1e3, p99_ms=d["p99"] * 1e3,
+                count=d["count"])
+
+
+def phase_wire(role: dict, role_results: list, resolver: dict) -> dict:
+    """Four port resolver processes (`cluster/multiprocess.spawn_role`,
+    backend "cuda" on the card), spawned at once after the kernels are
+    built, reached over Unix sockets with the wire codec's frames:
+
+    * WC, the wire role's default config: phase 8's 64 batches as
+      columnar frames, chained, every verdict and report identical to
+      phase 8's; a duplicate answered from the cache; a request at a
+      stale epoch refused; its status (64 columnar batches, 128 copies,
+      the kernels launched exactly as often as in phase 8); then the
+      same batches as object frames, shifted past the window, identical
+      again, with the same launches;
+    * W2, two such processes: phase 8's batches clipped to the keyspace
+      halves of default_resolver_boundaries(2), and again at the middle
+      of phase 8's keyspace (phase 8's keys share one first byte, so the
+      default split gives the second process empty slots), min-combined
+      here, identical to the MultiResolverOracle; each child launches
+      phase 8's kernels, those of WIRE_PER_BATCH phase 8's count a batch
+      for each of its requests;
+    * WF, phase 13's full-width config (RESOLVER_KERNEL): phase 13's 8
+      requests of 65,536 txns as columnar frames after the same empty
+      first request, identical to phase 13's replies, the kernels
+      launched exactly as often as in phase 13.
+
+    Every child is stopped on the way out, whatever happened."""
+    import asyncio
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from foundationdb_tpu_torch.cluster import generation
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.config import KernelConfig
+    from foundationdb_tpu_torch.models.types import (
+        ResolveTransactionBatchRequest as Request,
+    )
+    from foundationdb_tpu_torch.testing.oracle import (
+        MultiResolverOracle,
+        OracleTxn,
+    )
+    from foundationdb_tpu_torch.utils import packing
+    from foundationdb_tpu_torch.wire import codec, transport
+
+    wc_cfg = KernelConfig(max_key_bytes=ROLE_KEY_BYTES, max_txns=ROLE_TXNS,
+                          max_reads=ROLE_RANGES, max_writes=ROLE_RANGES,
+                          history_capacity=ROLE_HISTORY,
+                          window_versions=ROLE_WINDOW)
+    wf_cfg = bench_config(B)
+    wf_stream, wf_want = resolver.pop("full_width_inputs")
+    stream = role_stream(n=ROLE_BATCHES)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()  # the children's tiers share the card
+    sock_dir = tempfile.mkdtemp(prefix="fdbw")
+    rel = os.path.relpath(sock_dir)
+    if len(rel) < len(sock_dir):
+        sock_dir = rel  # a Unix socket path holds at most 107 bytes
+    out: dict = {}
+
+    async def drive_children(procs, t_spawn):
+        conns: dict = {}
+
+        async def up(name):
+            conns[name] = await mp.connect(procs[name].address,
+                                           proc=procs[name])
+            await conns[name].call(mp.TOKEN_PING, mp.Ping(payload=b"up"))
+            return time.perf_counter() - t_spawn
+
+        async def status(name):
+            rep = await conns[name].call(mp.TOKEN_STATUS,
+                                         mp.StatusRequest(pad=0))
+            return json.loads(rep.payload)
+
+        async def call(name, req):
+            t0 = time.perf_counter()
+            rep = await conns[name].call(mp.TOKEN_RESOLVE, req)
+            return rep, time.perf_counter() - t0
+
+        def launches(after, before):
+            """The child's kernel launches between two status reads
+            (the kernels it launched at all)."""
+            a, b = after["kernel_launches"], before["kernel_launches"]
+            return {k: a[k] - b[k] for k in a if a[k] != b[k]}
+
+        def launched(counts):
+            return {k: v for k, v in counts.items() if v}
+
+        def check_w2_launches(name, counts, requests):
+            """A W2 child launches the kernels phase 8 launched, and those
+            that run a fixed number of times a batch (WIRE_PER_BATCH)
+            exactly phase 8's count a batch times its requests; B, A's
+            query and C follow the data."""
+            want = launched(role["launches"])
+            if set(counts) != set(want):
+                fail(f"wire {name} launched {sorted(counts)}, phase 8 "
+                     f"{sorted(want)}")
+            for k in WIRE_PER_BATCH:
+                per, rest = divmod(want[k], ROLE_BATCHES)
+                if rest or counts[k] != per * requests:
+                    fail(f"wire {name}: {k} launched {counts[k]} times in "
+                         f"{requests} requests, phase 8 {want[k]} in "
+                         f"{ROLE_BATCHES} batches")
+
+        def children_alive():
+            for name, p in procs.items():
+                if p.exited() is not None:
+                    fail(f"wire resolver {name} exited with code "
+                         f"{p.exited()}")
+
+        try:
+            firsts = await asyncio.gather(*(up(n) for n in WIRE_CHILDREN))
+            started = dict(zip(WIRE_CHILDREN, firsts))
+            st0 = {n: await status(n) for n in WIRE_CHILDREN}
+            warm = {n: st0[n]["qos"]["kernel"]["compile_seconds"]
+                    for n in WIRE_CHILDREN}
+            for n in WIRE_CHILDREN:
+                if st0[n]["qos"]["kernel_stages"]["warmCompiles"] != 1:
+                    fail(f"wire resolver {n} did not warm up once")
+            log("  children up (spawn to first answer, s): "
+                + ", ".join(f"{n} {started[n]:.2f}" for n in WIRE_CHILDREN)
+                + "; warm-up (s): "
+                + ", ".join(f"{n} {warm[n]:.2f}" for n in WIRE_CHILDREN))
+
+            # -- WC: columnar frames -----------------------------------
+            rtt, pack_ms, enc_ms, dec_ms, pbc_ms, replies = [], [], [], \
+                [], [], []
+            prev = -1
+            for i, (txns, version) in enumerate(stream):
+                t0 = time.perf_counter()
+                cols = packing.pack_columnar(txns)
+                t1 = time.perf_counter()
+                req = codec.ResolveBatchColumnar(prev, version, prev, cols,
+                                                 proxy_id="p0")
+                raw = codec.encode(req)
+                t2 = time.perf_counter()
+                rep, dt = await call("WC", req)
+                t3 = time.perf_counter()
+                dec = codec.decode(raw)
+                t4 = time.perf_counter()
+                packing.pack_batch_columnar(dec.cols, version, 0, wc_cfg)
+                t5 = time.perf_counter()
+                pack_ms.append((t1 - t0) * 1e3)
+                enc_ms.append((t2 - t1) * 1e3)
+                dec_ms.append((t4 - t3) * 1e3)
+                pbc_ms.append((t5 - t4) * 1e3)
+                rtt.append(dt)
+                verdicts, reports = role_results[i]
+                if rep.committed != verdicts:
+                    fail(f"wire WC request {i}: verdicts differ from phase 8")
+                if rep.conflicting_key_range_map != reports:
+                    fail(f"wire WC request {i}: conflict reports differ from "
+                         "phase 8")
+                replies.append(rep)
+                prev = version
+            dup_at = ROLE_BATCHES - 5  # inside the role's replay window
+            txns, version = stream[dup_at]
+            again, _ = await call("WC", codec.ResolveBatchColumnar(
+                stream[dup_at - 1][1], version, prev,
+                packing.pack_columnar(txns), proxy_id="p0"))
+            if codec.encode(again) != codec.encode(replies[dup_at]):
+                fail("wire WC: the duplicate's reply differs")
+            try:
+                await call("WC", codec.ResolveBatchColumnar(
+                    prev, prev + ROLE_VERSION_STEP, prev,
+                    packing.pack_columnar(stream[0][0]), epoch=7))
+            except transport.RemoteError as e:
+                if not generation.is_stale_epoch(e):
+                    fail(f"wire WC: the stale request failed otherwise: {e}")
+            else:
+                fail("wire WC: a request at a stale epoch was resolved")
+            st1 = await status("WC")
+            path1 = dict(st1["qos"]["resolve_path"])
+            stages = st1["qos"]["kernel_stages"]
+            if (stages["columnarBatches"], path1["columnar_batches"],
+                    path1["copies"], st1["qos"]["stale_epoch_rejects"]) != (
+                    ROLE_BATCHES, ROLE_BATCHES, 2 * ROLE_BATCHES, 1):
+                fail(f"wire WC status: columnarBatches "
+                     f"{stages['columnarBatches']}, path {path1}, stale "
+                     f"rejects {st1['qos']['stale_epoch_rejects']}")
+            wc_launch = launches(st1, st0["WC"])
+            if wc_launch != launched(role["launches"]):
+                fail(f"wire WC launched {wc_launch}, phase 8 "
+                     f"{launched(role['launches'])}")
+            p50, p99 = quantiles_ms(rtt)
+            out["WC"] = dict(
+                batches=ROLE_BATCHES, frame="columnar", rtt_p50_ms=p50,
+                rtt_p99_ms=p99, phase8_resolve_p50_ms=role["p50_ms"],
+                phase8_resolve_p99_ms=role["p99_ms"],
+                compute_time=dist_ms(st1["qos"]["compute_time_dist"]),
+                proxy_pack_columnar_p50_ms=statistics.median(pack_ms),
+                proxy_encode_p50_ms=statistics.median(enc_ms),
+                role_decode_p50_ms=statistics.median(dec_ms),
+                role_pack_batch_columnar_p50_ms=statistics.median(pbc_ms),
+                child_pack_p50_ms=stages["packSeconds"]["p50"] * 1e3,
+                path_stats=path1, launches=wc_launch)
+            log(f"  WC: {ROLE_BATCHES} columnar requests x {ROLE_TXNS} txns "
+                f"identical to phase 8 (reports included), a duplicate "
+                f"from the cache, the stale epoch refused; round trip p50 "
+                f"{p50:.3f} ms, p99 {p99:.3f} ms (phase 8's bare resolve() "
+                f"p50 {role['p50_ms']:.3f}, p99 {role['p99_ms']:.3f}); role "
+                f"compute {json.dumps(out['WC']['compute_time'])}; proxy "
+                f"pack_columnar {out['WC']['proxy_pack_columnar_p50_ms']:.3f}"
+                f" + encode {out['WC']['proxy_encode_p50_ms']:.3f} ms; role "
+                f"decode {out['WC']['role_decode_p50_ms']:.3f} + "
+                f"pack_batch_columnar "
+                f"{out['WC']['role_pack_batch_columnar_p50_ms']:.3f} ms "
+                f"(here), child pack p50 "
+                f"{out['WC']['child_pack_p50_ms']:.3f} ms; path {path1}; "
+                f"launches {wc_launch} (phase 8's)")
+
+            # -- WC: the same batches as object frames, past the window --
+            children_alive()
+            rtt = []
+            for i, (txns, version) in enumerate(shift_stream(stream,
+                                                             WIRE_SHIFT)):
+                rep, dt = await call("WC", Request(prev, version, prev, txns,
+                                                   proxy_id="p0"))
+                rtt.append(dt)
+                verdicts, reports = role_results[i]
+                if (rep.committed != verdicts
+                        or rep.conflicting_key_range_map != reports):
+                    fail(f"wire WC object request {i} differs from phase 8")
+                prev = version
+            st2 = await status("WC")
+            path2 = dict(st2["qos"]["resolve_path"])
+            obj = {k: path2[k] - path1[k] for k in path2}
+            if obj["object_batches"] != ROLE_BATCHES or obj["copies"] != (
+                    3 * ROLE_BATCHES):
+                fail(f"wire WC object frames: path {obj}")
+            obj_launch = launches(st2, st1)
+            if obj_launch != wc_launch:
+                fail(f"wire WC object frames launched {obj_launch}, the "
+                     f"columnar ones {wc_launch}")
+            p50, p99 = quantiles_ms(rtt)
+            out["WC_object"] = dict(
+                batches=ROLE_BATCHES, frame="object", rtt_p50_ms=p50,
+                rtt_p99_ms=p99, path_stats=obj, launches=obj_launch)
+            log(f"  WC object frames: the same {ROLE_BATCHES} batches "
+                f"{WIRE_SHIFT} versions later, identical; round trip p50 "
+                f"{p50:.3f} ms, p99 {p99:.3f} ms; path {obj}")
+
+            # -- W2: two processes over a split keyspace -----------------
+            children_alive()
+            w2 = {}
+            prev = -1
+            middle = b"\x02tbl/" + (ROLE_KEYSPACE // 2).to_bytes(10, "big")
+            for label, bounds, by in (
+                    ("default", mp.default_resolver_boundaries(2), 0),
+                    ("middle", [middle], WIRE_SHIFT)):
+                ranges = mp.resolver_key_ranges(bounds)
+                oracle = MultiResolverOracle(bounds, window=ROLE_WINDOW)
+                rtt, shares = [], [0, 0]
+                for i, (txns, version) in enumerate(shift_stream(stream, by)):
+                    parts = [mp.clip_transactions(txns, lo, hi)
+                             for lo, hi in ranges]
+                    for s_, part in enumerate(parts):
+                        shares[s_] += sum(len(t.read_conflict_ranges)
+                                          + len(t.write_conflict_ranges)
+                                          for t in part)
+                    t0 = time.perf_counter()
+                    reps = await asyncio.gather(*(
+                        conns[n].call(mp.TOKEN_RESOLVE,
+                                      codec.ResolveBatchColumnar(
+                                          prev, version, prev,
+                                          packing.pack_columnar(part),
+                                          proxy_id="p0"))
+                        for n, part in zip(("W2a", "W2b"), parts)))
+                    rtt.append(time.perf_counter() - t0)
+                    verdict, ckr = combine_clipped(txns, ranges, reps)
+                    want = oracle.resolve(
+                        [OracleTxn(t.read_conflict_ranges,
+                                   t.write_conflict_ranges, t.read_snapshot,
+                                   t.report_conflicting_keys)
+                         for t in txns], version)
+                    if verdict != list(want.verdicts):
+                        fail(f"wire W2 ({label}) batch {i}: verdicts differ "
+                             "from MultiResolverOracle")
+                    if ckr != want.conflicting_ranges:
+                        fail(f"wire W2 ({label}) batch {i}: conflict reports "
+                             "differ from MultiResolverOracle")
+                    prev = version
+                p50, p99 = quantiles_ms(rtt)
+                w2[label] = dict(boundaries=[b.hex() for b in bounds],
+                                 ranges_per_resolver=shares,
+                                 rtt_p50_ms=p50, rtt_p99_ms=p99)
+                log(f"  W2 split at {[b.hex() for b in bounds]}: "
+                    f"{ROLE_BATCHES} batches identical to "
+                    f"MultiResolverOracle; ranges per resolver {shares}; "
+                    f"both round trips p50 {p50:.3f} ms, p99 {p99:.3f} ms")
+            st_w2 = {n: await status(n) for n in ("W2a", "W2b")}
+            for n in ("W2a", "W2b"):
+                check_w2_launches(n, launches(st_w2[n], st0[n]),
+                                  2 * ROLE_BATCHES)
+            out["W2"] = dict(**w2, **{
+                n: dict(compute_time=dist_ms(
+                    st_w2[n]["qos"]["compute_time_dist"]),
+                    path_stats=st_w2[n]["qos"]["resolve_path"],
+                    launches=launches(st_w2[n], st0[n]))
+                for n in ("W2a", "W2b")})
+
+            # -- WF: full width --------------------------------------------
+            children_alive()
+            rtt, pack_ms, enc_ms, dec_ms, pbc_ms = [], [], [], [], []
+            await call("WF", codec.ResolveBatchColumnar(
+                -1, 0, -1, packing.pack_columnar([]), proxy_id="p0"))
+            st_f0 = await status("WF")
+            prev = 0
+            for i, (txns, version) in enumerate(wf_stream):
+                t0 = time.perf_counter()
+                cols = packing.pack_columnar(txns)
+                t1 = time.perf_counter()
+                req = codec.ResolveBatchColumnar(prev, version, prev, cols,
+                                                 proxy_id="p0")
+                raw = codec.encode(req)
+                t2 = time.perf_counter()
+                rep, dt = await call("WF", req)
+                t3 = time.perf_counter()
+                dec = codec.decode(raw)
+                t4 = time.perf_counter()
+                packing.pack_batch_columnar(dec.cols, version, 0, wf_cfg)
+                t5 = time.perf_counter()
+                pack_ms.append((t1 - t0) * 1e3)
+                enc_ms.append((t2 - t1) * 1e3)
+                dec_ms.append((t4 - t3) * 1e3)
+                pbc_ms.append((t5 - t4) * 1e3)
+                rtt.append(dt)
+                committed, reports = wf_want[i]
+                if (rep.committed != committed
+                        or rep.conflicting_key_range_map != reports):
+                    fail(f"wire WF request {i}: differs from phase 13")
+                prev = version
+            st_f = await status("WF")
+            wf_launch = launches(st_f, st_f0)
+            full = resolver["full_width"]
+            if wf_launch != launched(full["launches"]):
+                fail(f"wire WF launched {wf_launch}, phase 13 "
+                     f"{launched(full['launches'])}")
+            p50, p99 = quantiles_ms(rtt)
+            out["WF"] = dict(
+                batches=len(wf_stream), frame="columnar", rtt_p50_ms=p50,
+                rtt_p99_ms=p99, phase13_resolver_p50_ms=full["p50_ms"],
+                phase13_resolver_p99_ms=full["p99_ms"],
+                phase13_bare_p50_ms=full["bare_p50_ms"],
+                phase13_bare_p99_ms=full["bare_p99_ms"],
+                compute_time=dist_ms(st_f["qos"]["compute_time_dist"]),
+                proxy_pack_columnar_p50_ms=statistics.median(pack_ms),
+                proxy_encode_p50_ms=statistics.median(enc_ms),
+                role_decode_p50_ms=statistics.median(dec_ms),
+                role_pack_batch_columnar_p50_ms=statistics.median(pbc_ms),
+                child_pack_p50_ms=st_f["qos"]["kernel_stages"][
+                    "packSeconds"]["p50"] * 1e3,
+                path_stats=st_f["qos"]["resolve_path"], launches=wf_launch)
+            log(f"  WF: {len(wf_stream)} columnar requests x {B} txns "
+                f"identical to phase 13; round trip p50 {p50:.3f} ms, p99 "
+                f"{p99:.3f} ms (phase 13: Resolver p50 {full['p50_ms']:.3f},"
+                f" p99 {full['p99_ms']:.3f}; bare resolve() p50 "
+                f"{full['bare_p50_ms']:.3f}, p99 {full['bare_p99_ms']:.3f});"
+                f" role compute {json.dumps(out['WF']['compute_time'])}; "
+                f"proxy pack_columnar "
+                f"{out['WF']['proxy_pack_columnar_p50_ms']:.3f} + encode "
+                f"{out['WF']['proxy_encode_p50_ms']:.3f} ms; role decode "
+                f"{out['WF']['role_decode_p50_ms']:.3f} + "
+                f"pack_batch_columnar "
+                f"{out['WF']['role_pack_batch_columnar_p50_ms']:.3f} ms "
+                f"(here), child pack p50 "
+                f"{out['WF']['child_pack_p50_ms']:.3f} ms; launches "
+                f"{wf_launch} (phase 13's)")
+            out["children"] = {n: dict(spawn_to_first_answer_s=started[n],
+                                       warm_up_s=warm[n])
+                               for n in WIRE_CHILDREN}
+            children_alive()
+        finally:
+            for c in conns.values():
+                await c.close()
+
+    procs = {}
+    try:
+        t_spawn = time.perf_counter()
+        for i, name in enumerate(WIRE_CHILDREN):
+            procs[name] = mp.spawn_role(
+                "resolver", sock_dir, index=i,
+                env={"RESOLVER_KERNEL": repr(wf_cfg) if name == "WF"
+                     else ""})
+        asyncio.run(drive_children(procs, t_spawn))
+    finally:
+        for p in procs.values():
+            p.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
     return out
 
 
@@ -4344,6 +4810,8 @@ def main(argv=None) -> int:
     pipeline = phase_pipeline(device, uni, uniform_ref, classic_ref)
     heading("13. the Resolver role")
     resolver = phase_resolver(device, role_results)
+    heading("14. the wire resolver (four resolver processes)")
+    wire = phase_wire(role, role_results, resolver)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -4381,6 +4849,7 @@ def main(argv=None) -> int:
     streams["resolver"] = {tag: {k: v for k, v in st.items()
                                  if k not in ("launches", "launch_bytes")}
                            for tag, st in resolver.items()}
+    streams["wire"] = wire
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

@@ -20,7 +20,12 @@ path for path.
 The Resolver role (`resolver.Resolver`, on the port's own actor runtime
 `runtime/flow.py`) serves ResolveTransactionBatchRequests through a
 conflict set built by the same factory, or by the resolver_backend knob
-(`utils/knobs.SERVER_KNOBS`).
+(`utils/knobs.SERVER_KNOBS`). The wire-served resolver
+(`cluster/multiprocess.py`: `python -m
+foundationdb_tpu_torch.cluster.multiprocess --role resolver`) serves it
+as an OS process over the JAX package's frames (`wire/`), columnar
+frames straight into the kernel's arrays, with the C++ skip list
+(`native/`) as one of its backends.
 """
 
 from foundationdb_tpu_torch.config import KernelConfig

@@ -1,8 +1,23 @@
-"""The key-sample sensor block the Resolver role reports (the port's own
-copy of `printable` and `key_sample_qos` from
-foundationdb_tpu.cluster.sampling)."""
+"""The key-sample sensor block the Resolver roles report (the port's own
+copy of `KEY_SAMPLE_LIMIT`, `decay_key_sample`, `printable` and
+`key_sample_qos` from foundationdb_tpu.cluster.sampling)."""
 
 from __future__ import annotations
+
+#: key-sample capacity before decay
+KEY_SAMPLE_LIMIT = 4096
+
+
+def decay_key_sample(sample: dict, limit: int = KEY_SAMPLE_LIMIT) -> None:
+    """In place: halve every count, dropping zeros; if the key set is
+    still too wide, keep the heaviest half. Hot boundaries survive the
+    decay while memory stays O(limit)."""
+    kept = {k: c // 2 for k, c in sample.items() if c // 2 > 0}
+    if len(kept) > limit:
+        top = sorted(kept.items(), key=lambda kv: -kv[1])
+        kept = dict(top[: limit // 2])
+    sample.clear()
+    sample.update(kept)
 
 
 def printable(key: bytes) -> str:

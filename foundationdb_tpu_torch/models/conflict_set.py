@@ -63,6 +63,13 @@ stacks and stages chunks on a thread of its own through
 the calling thread dispatches compute; `stage_ledger` fences each stage
 to measure it.
 
+The columnar path (`pack_columnar_batch`, `resolve_columnar_packed`,
+`resolve_columnar`) takes a batch as the wire's flat columns
+(utils/packing.ColumnarBatch) and dispatches it exactly as resolve()
+does; only its pack and its report's begin keys differ. CpuConflictSet
+has none of it, as in JAX: the wire ResolverRole tells a set that
+dispatches kernels from the host oracle by that method.
+
 `short_span_limit` S > 0 runs the group kernel's range ops as kernel K's
 direct S-wide reads and writes (ops/group.py, K13) where the JAX
 TpuConflictSet passes the knob: the tiered and sharded dispatch and
@@ -127,7 +134,8 @@ class KernelStageMetrics:
     """
 
     COUNTERS = ("resolveBatches", "groupDispatches",
-                # the columnar path's batches (not ported yet: stays 0)
+                # batches packed from columnar wire frames
+                # (pack_columnar_batch)
                 "columnarBatches",
                 # chunks the staging pipeline staged
                 "stagedChunks",
@@ -364,6 +372,55 @@ class TorchConflictSet:
             transactions, version, self.base_version, self.config
         )
         self.metrics.pack.sample(time.perf_counter() - t0)
+        return self._dispatch_and_assemble(
+            batch,
+            report=[t.report_conflicting_keys for t in transactions],
+            begin_key_of_row=lambda r: transactions[
+                int(batch.read_txn[r])
+            ].read_conflict_ranges[int(batch.read_index[r])][0],
+        )
+
+    # -- the columnar path (the wire resolver's hop from frame to kernel) --
+
+    def pack_columnar_batch(self, cols: packing.ColumnarBatch,
+                            version: int) -> packing.PackedBatch:
+        """Rebase, then scatter a columnar wire batch straight into the
+        kernel's arrays (packing.pack_batch_columnar, byte-identical to
+        pack_batch on the same transactions). Split from
+        resolve_columnar so the wire ResolverRole can bracket exactly
+        this stage with its ColumnarDecode mark."""
+        self._maybe_rebase(version)
+        t0 = time.perf_counter()
+        batch = packing.pack_batch_columnar(
+            cols, version, self.base_version, self.config
+        )
+        self.metrics.pack.sample(time.perf_counter() - t0)
+        self.metrics.add("columnarBatches")
+        return batch
+
+    def resolve_columnar_packed(self, cols: packing.ColumnarBatch,
+                                batch: packing.PackedBatch) -> BatchResult:
+        """Dispatch and reply assembly for a pack_columnar_batch result.
+        The conflicting-key report's begin keys are sliced out of the
+        blob lazily: only for the rows the kernel flagged."""
+        return self._dispatch_and_assemble(
+            batch,
+            report=[bool(int(f) & packing.COLUMNAR_FLAG_REPORT)
+                    for f in cols.flags],
+            begin_key_of_row=lambda r: packing.columnar_key(cols, r),
+        )
+
+    def resolve_columnar(self, cols: packing.ColumnarBatch,
+                         version: int) -> BatchResult:
+        """The columnar twin of resolve(): flat wire columns in, a
+        BatchResult out, no per-transaction objects."""
+        batch = self.pack_columnar_batch(cols, version)
+        return self.resolve_columnar_packed(cols, batch)
+
+    def _dispatch_and_assemble(self, batch: packing.PackedBatch, report,
+                               begin_key_of_row) -> BatchResult:
+        """The shared tail of resolve() and resolve_columnar(): dispatch
+        the packed batch (tiered or classic) and assemble the reply."""
         self.metrics.add("resolveBatches")
         if self.tiered:
             out = self.resolve_args(batch.device_args())
@@ -371,13 +428,7 @@ class TorchConflictSet:
             # the reply assembly below reads the overflow flag itself
             out = self._resolve_classic(batch.device_args())
         t2 = time.perf_counter()
-        result = self._assemble_result(
-            batch, out,
-            report=[t.report_conflicting_keys for t in transactions],
-            begin_key_of_row=lambda r: transactions[
-                int(batch.read_txn[r])
-            ].read_conflict_ranges[int(batch.read_index[r])][0],
-        )
+        result = self._assemble_result(batch, out, report, begin_key_of_row)
         self.metrics.fence.sample(time.perf_counter() - t2)
         return result
 

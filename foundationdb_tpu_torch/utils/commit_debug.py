@@ -11,4 +11,8 @@ read them from here and never spell them inline.
 RESOLVER_BEFORE = "Resolver.resolveBatch.Before"
 RESOLVER_AFTER_QUEUE = "Resolver.resolveBatch.AfterQueueSizeCheck"
 RESOLVER_AFTER_ORDERER = "Resolver.resolveBatch.AfterOrderer"
+#: the columnar frame has become the conflict backend's input (kernel
+#: tensors, or rebuilt objects on the object fallback): with
+#: AfterOrderer as the opening mark it brackets exactly the decode
+RESOLVER_COLUMNAR_DECODE = "Resolver.resolveBatch.ColumnarDecode"
 RESOLVER_AFTER = "Resolver.resolveBatch.After"

@@ -4,7 +4,8 @@ stream router read, from foundationdb_tpu.utils.knobs).
 
 Behavioral mirror of the reference's knob system (`flow/Knobs.cpp`,
 `fdbclient/ServerKnobs.cpp`): every tunable is a named constant whose
-type is its default's; `set` is `--knob_<name>=<value>`.
+type is its default's; `set` is `--knob_<name>=<value>`, and
+`apply_env_overrides` reads FDBTPU_KNOB_OVERRIDES in a role process.
 
 The port's spelling of the device: `RESOLVER_BACKEND` takes "cuda" (the
 card, gated by `RESOLVER_CUDA_MIN_BATCH`) or "cpu" (the host oracle);
@@ -15,6 +16,7 @@ with the same default. Every other default is the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 
@@ -61,6 +63,41 @@ class Knobs:
 
     def as_dict(self) -> dict:
         return dict(self._values)
+
+    def apply_env_overrides(self, env_var: str = None) -> dict:
+        """Apply `NAME=value;NAME=value` overrides from an environment
+        variable (default FDBTPU_KNOB_OVERRIDES): how a launcher's knob
+        settings reach a role process, a fresh interpreter with the
+        defaults. Values are coerced by set()'s type check; a boolean
+        takes true/false/1/0/yes/no/on/off and anything else raises.
+        Returns {name: value} of what was applied."""
+        raw = os.environ.get(env_var or "FDBTPU_KNOB_OVERRIDES", "")
+        applied = {}
+        for part in raw.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, value = part.partition("=")
+            name, value = name.strip(), value.strip()
+            d = self._defs.get(name)
+            if d is not None and d.ktype is bool:
+                # bool("False") is True: an env string needs parsing,
+                # and an unknown spelling is a config error
+                lowered = value.lower()
+                if lowered in ("1", "true", "yes", "on"):
+                    parsed = True
+                elif lowered in ("0", "false", "no", "off"):
+                    parsed = False
+                else:
+                    raise ValueError(
+                        f"knob {name!r}: {value!r} is not a boolean "
+                        "(use true/false/1/0)"
+                    )
+                self.set(name, parsed)
+            else:
+                self.set(name, value)
+            applied[name] = self._values[name]
+        return applied
 
 
 def make_server_knobs() -> Knobs:

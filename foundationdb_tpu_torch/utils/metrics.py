@@ -1,11 +1,12 @@
 """Counters, a decaying rate and latency samples: the Stats.h / DDSketch
-analog (the port's own copy of the four classes of
-foundationdb_tpu.utils.metrics that the Resolver and the conflict set's
-stage metrics read).
+analog (the port's own copy of the classes of
+foundationdb_tpu.utils.metrics that the Resolver, the wire ResolverRole
+and the conflict set's stage metrics read).
 
 * `Counter` / `CounterCollection` ~ fdbrpc/include/fdbrpc/Stats.h:77-113.
 * `Smoother` ~ the reference's exponential time-decay Smoother, on an
-  injected clock (a simulation passes its virtual clock).
+  injected clock (a simulation passes its virtual clock);
+  `TimerSmoother` is the same on the wall clock, for role processes.
 * `LatencySample` ~ DDSketch (fdbrpc/include/fdbrpc/DDSketch.h): a
   log-bucketed histogram with relative error eps (gamma = (1 + eps) /
   (1 - eps)), for p50 / p95 / p99.
@@ -14,6 +15,7 @@ stage metrics read).
 from __future__ import annotations
 
 import math
+import time as _time
 from typing import Callable, Optional
 
 
@@ -101,6 +103,16 @@ class Smoother:
         """Decayed d(total)/dt."""
         self._update()
         return (self.total - self.estimate) / self.folding_time
+
+
+class TimerSmoother(Smoother):
+    """Smoother on the wall clock (the reference's TimerSmoother reads
+    timer() where Smoother reads now()): for a role served as an OS
+    process, where there is no virtual clock. Never inside a
+    simulation, whose traced output must stay deterministic."""
+
+    def __init__(self, folding_time: float):
+        super().__init__(folding_time, clock=_time.monotonic)
 
 
 class LatencySample:

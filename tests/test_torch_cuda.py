@@ -1502,3 +1502,93 @@ def test_prewarm_records_the_compile_stage(cuda_device):
     assert q["compile_seconds"] > 0.0
     stats = kernels.build_stats()
     assert stats["cache_hits"] + stats["cache_misses"] == len(kernels.SOURCES)
+
+
+def wire_txns(rng, version: int, n: int = 256):
+    def key(i):  # 7 bytes: a point write's end adds one
+        return int(i).to_bytes(7, "big")
+
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+
+    return [CommitTransaction(
+        [(key(k), key(k + 3))], [(key(w), key(w) + b"\0")],
+        read_snapshot=version - 1500, report_conflicting_keys=bool(k % 2))
+        for k, w in rng.integers(0, 400, (n, 2))]
+
+
+def test_resolve_columnar_equals_resolve_on_the_card(cuda_device):
+    from foundationdb_tpu_torch.utils import packing
+
+    for classic in (False, True):
+        cfg = pipeline_config(classic, n=256)
+        a = make_conflict_set(cfg, "cuda", device=cuda_device)
+        b = make_conflict_set(cfg, "cuda", device=cuda_device)
+        rng = np.random.default_rng(12)
+        conflicts = 0
+        for i in range(6):
+            version = 1000 * (i + 1)
+            txns = wire_txns(rng, version)
+            got = a.resolve_columnar(packing.pack_columnar(txns), version)
+            want = b.resolve(txns, version)
+            assert got.verdicts == want.verdicts
+            assert got.conflicting_key_ranges == want.conflicting_key_ranges
+            conflicts += sum(int(v) == 0 for v in got.verdicts)
+        assert conflicts
+        assert a.metrics.counters["columnarBatches"] == 6
+        assert b.metrics.counters["columnarBatches"] == 0
+
+
+def test_wire_resolver_child_on_the_card(cuda_device, tmp_path):
+    """A spawned "cuda" resolver process answers 16 columnar requests as
+    an in-process TorchConflictSet on the card does; its status reports
+    the 16 columnar batches and its warm-up's compile sample."""
+    import asyncio
+    import json
+
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.config import KernelConfig
+    from foundationdb_tpu_torch.utils import packing
+    from foundationdb_tpu_torch.wire import codec
+
+    kernels.build_all()  # the child loads what the parent built
+    cfg = KernelConfig(max_key_bytes=16, max_txns=256, max_reads=512,
+                       max_writes=512, history_capacity=4096,
+                       window_versions=5000)
+    bare = make_conflict_set(cfg, "cuda", device=cuda_device)
+    rng = np.random.default_rng(13)
+    stream = [(wire_txns(rng, 1000 * (i + 1)), 1000 * (i + 1))
+              for i in range(16)]
+    proc = mp.spawn_role("resolver", str(tmp_path), backend="cuda",
+                         env={"RESOLVER_KERNEL": repr(cfg)})
+
+    async def go():
+        conn = await mp.connect(proc.address, proc=proc)
+        try:
+            prev = -1
+            for txns, version in stream:
+                rep = await conn.call(mp.TOKEN_RESOLVE,
+                                      codec.ResolveBatchColumnar(
+                                          prev, version, prev,
+                                          packing.pack_columnar(txns)))
+                want = bare.resolve(txns, version)
+                assert rep.committed == want.verdicts
+                assert (rep.conflicting_key_range_map
+                        == want.conflicting_key_ranges)
+                prev = version
+            st = json.loads((await conn.call(
+                mp.TOKEN_STATUS, mp.StatusRequest(pad=0))).payload)
+        finally:
+            await conn.close()
+        return st
+
+    try:
+        st = asyncio.run(go())
+    finally:
+        proc.stop()
+    stages = st["qos"]["kernel_stages"]
+    assert st["backend"] == "cuda"
+    assert stages["columnarBatches"] == 16
+    assert stages["compileSeconds"]["count"] == 1
+    assert stages["warmCompiles"] == 1
+    assert st["qos"]["resolve_path"]["copies"] == 32
+    assert sum(st["kernel_launches"].values()) > 0

@@ -169,10 +169,35 @@ any fault:
    roles' compute time, the proxy's pack_columnar + encode and the
    role's decode + pack_batch_columnar ms, `path_stats` and the
    children's kernel launches.
+15. the commit path: three port processes (`spawn_role`: a "cuda"
+   resolver on the card at `commit_config()`, the tiered path at 4,096
+   txns with 16-byte keys, through RESOLVER_KERNEL; a tlog and a
+   storage, each on a data dir of its own, the memory engine) under the
+   port's ProxyPipeline in this process (max_batch 4,096, 1 ms batch
+   interval), driven through get_read_version, read and commit: YCSB's
+   load (100,000 records of ten 100-byte fields, one insert a
+   transaction, in a seeded order), then workload A (256 clients x 40
+   operations, half reads, half read-modify-write updates of a counter
+   field with read and write conflict ranges, retried up to 8 times on
+   a conflict, zipfian 0.99 over the records). It fails unless every
+   resolver reply (recorded by a thin subclass of the connection) is
+   the copied ConflictOracle's on the requests replayed in version
+   order, the storage snapshot at the last committed version is the
+   replay of the committed mutations, every record's counter is its
+   committed updates, every tlog push is its batch's committed
+   mutations and the tlog holds the pushes past its last pop, no batch
+   failed, and the resolver child launched the card's kernels, A's
+   counts and probe, L and N phase 3's count a batch (the same tiered
+   path) times its batches and D one a batch and one a compaction. It
+   prints the cut, the load's seconds, the committed and conflicted
+   updates and the abort share, commits a second, commit p50 / p99,
+   GRV and read p50, batches and their mean size, the resolver's
+   compute p50, its launches a batch and each child's seconds from
+   spawn to first answer, each beside the card's name and power limit.
 
-The last lines are the streams' numbers (JSON; phases 12, 13 and 14
-under `pipelined_uniform`, `pipelined_classic`, `staging`, `resolver`
-and `wire`),
+The last lines are the streams' numbers (JSON; phases 12, 13, 14 and 15
+under `pipelined_uniform`, `pipelined_classic`, `staging`, `resolver`,
+`wire` and `commit_path`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -197,6 +222,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import statistics
 import sys
@@ -3590,6 +3616,421 @@ def phase_wire(role: dict, role_results: list, resolver: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the commit path
+
+#: the cut of scale (YCSB's own runs load millions of records): enough for
+#: a load through one Python proxy to finish inside the phase's time
+COMMIT_RECORDS = 100_000
+COMMIT_FIELDS = 10          # YCSB's default record: ten 100-byte fields
+COMMIT_FIELD_BYTES = 100
+COMMIT_CLIENTS = 256
+COMMIT_OPS = 40             # operations a client
+COMMIT_RETRIES = 8          # a conflicted update is tried again this often
+COMMIT_ZIPF = 0.99          # YCSB's zipfian constant
+COMMIT_TXNS = 4096          # the pipeline's max_batch and the kernel's batch
+COMMIT_BATCH_INTERVAL = 0.001
+COMMIT_CHILDREN = ("resolver", "tlog", "storage")
+#: the kernels the tiered path launches a fixed number of times a batch
+#: (merge_maps is one a batch and one a compaction)
+TIERED_PER_BATCH = ("keysearch.counts", "keysearch.probe", "sort_ranks",
+                    "lex_order")
+
+
+def commit_config(n: int = COMMIT_TXNS):
+    """The resolver child's config: the tiered main path at n txns, with
+    16-byte keys (b"user%010d" is 14 bytes, its end key 15), the
+    5,000,000-version window, a 2^20-row main tier (100,000 loaded keys
+    are about 200,000 boundaries) and a 2^17-row delta tier (bench's 12 x
+    n rows would not hold the 2 x n rows a full load batch adds over the
+    compaction interval's 8 batches)."""
+    return bench_config(n, max_key_bytes=16, history_capacity=1 << 20,
+                        delta_capacity=1 << 17, window_versions=ROLE_WINDOW)
+
+
+def ycsb_a_inputs(seed: int, records: int, clients: int, ops: int) -> dict:
+    """YCSB's load and workload A from one seed: the records (key
+    b"user%010d", ten random 100-byte fields, the first field's 8 leading
+    bytes the read-modify-write counter, 0), inserted in a seeded order
+    (YCSB's hashed insert order), and for each client `ops` operations,
+    half reads and half read-modify-write updates, over a scrambled
+    zipfian (constant 0.99) choice of records."""
+    gen = np.random.default_rng(seed)
+    width = COMMIT_FIELDS * COMMIT_FIELD_BYTES
+    body = gen.integers(0, 256, (records, width), dtype=np.uint8)
+    body[:, :8] = 0
+    weights = 1.0 / np.arange(1, records + 1, dtype=np.float64) ** COMMIT_ZIPF
+    scramble = gen.permutation(records)
+    picks = scramble[gen.choice(records, size=(clients, ops),
+                                p=weights / weights.sum())]
+    return dict(
+        keys=[b"user%010d" % i for i in range(records)],
+        values=[body[i].tobytes() for i in range(records)],
+        insert_order=gen.permutation(records).tolist(),
+        record=picks.tolist(),
+        is_read=(gen.random((clients, ops)) < 0.5).tolist(),
+        field=gen.integers(1, COMMIT_FIELDS, (clients, ops)).tolist(),
+        new_field=gen.integers(0, 256, (clients, ops, COMMIT_FIELD_BYTES),
+                               dtype=np.uint8))
+
+
+def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
+                      clients: int = COMMIT_CLIENTS, ops: int = COMMIT_OPS,
+                      kernel_cfg=None, device=None, seed: int = 15) -> dict:
+    """The port's commit path end to end: three port children
+    (`cluster/multiprocess.spawn_role`: a "cuda" resolver on the card
+    with `commit_config()` through RESOLVER_KERNEL, and a tlog and a
+    storage on data dirs of their own, the memory engine) and the port's
+    ProxyPipeline in this process (max_batch 4,096, batch_interval 1 ms,
+    as scripts/bench_mp_pipeline.py runs it), through the entry points a
+    client calls (get_read_version, read, commit). YCSB's load (one
+    insert a transaction), then workload A from 256 clients.
+
+    The resolver and tlog connections are thin recording subclasses of
+    the transport's connection. It fails unless every resolver reply is
+    the copied ConflictOracle's on the same requests replayed in version
+    order, the storage snapshot at the last committed version is the
+    replay of the committed mutations, each record's counter is its
+    committed updates, every tlog push is its batch's committed
+    mutations and the tlog's entries are the pushes past its last pop,
+    and no batch failed. The launches are checked by the caller
+    (`check_commit_launches`). Every child is stopped on the way out."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+    from foundationdb_tpu_torch.testing.oracle import (
+        ConflictOracle,
+        OracleTxn,
+    )
+    from foundationdb_tpu_torch.utils import packing
+    from foundationdb_tpu_torch.wire import transport
+    from foundationdb_tpu_torch.wire.codec import Mutation
+
+    cfg = kernel_cfg or commit_config()
+    log(f"  cut: {records} records of {COMMIT_FIELDS} x "
+        f"{COMMIT_FIELD_BYTES} bytes (YCSB's own loads hold millions: the "
+        f"load runs through one Python proxy inside the phase's time); "
+        f"{clients} clients x {ops} operations of workload A; resolver "
+        f"RESOLVER_KERNEL={cfg!r}")
+
+    class Recording(transport.RpcConnection):
+        """The transport's connection, keeping (token, request, reply)
+        of every call of `tokens` this script's pipeline makes (the
+        reply None while it has not come, as for a pop the pipeline's
+        stop cancels)."""
+
+        def __init__(self, address, tokens):
+            super().__init__(address, tls=mp._tls_from_env())
+            self.tokens, self.calls = tokens, []
+
+        async def call(self, token, msg, **kw):
+            if token not in self.tokens:
+                return await super().call(token, msg, **kw)
+            entry = [token, msg, None]
+            self.calls.append(entry)
+            entry[2] = await super().call(token, msg, **kw)
+            return entry[2]
+
+    work = tempfile.mkdtemp(prefix="fdbc")
+    rel = os.path.relpath(work)
+    if len(rel) < len(work):
+        work = rel  # a Unix socket path holds at most 107 bytes
+    t_spawn = time.perf_counter()
+    procs = {
+        "resolver": mp.spawn_role("resolver", work, device=device,
+                                  env={"RESOLVER_KERNEL": repr(cfg)}),
+        "tlog": mp.spawn_role("tlog", work,
+                              data_dir=os.path.join(work, "tlog-data")),
+        "storage": mp.spawn_role("storage", work,
+                                 data_dir=os.path.join(work, "storage-data")),
+    }
+    inputs = ycsb_a_inputs(seed, records, clients, ops)
+    keys, values = inputs["keys"], inputs["values"]
+    out: dict = {"records": records, "clients": clients, "ops": ops,
+                 "card": card}
+
+    async def drive():
+        started = {}
+
+        async def up(name):
+            c = await mp.connect(procs[name].address, proc=procs[name])
+            await c.call(mp.TOKEN_PING, mp.Ping(payload=b"up"))
+            started[name] = time.perf_counter() - t_spawn
+            return c
+
+        plain = dict(zip(COMMIT_CHILDREN, await asyncio.gather(
+            *(up(n) for n in COMMIT_CHILDREN))))
+
+        async def status(name):
+            rep = await plain[name].call(mp.TOKEN_STATUS,
+                                         mp.StatusRequest(pad=0))
+            return json.loads(rep.payload)
+
+        st0 = await status("resolver")
+        res = Recording(procs["resolver"].address, {mp.TOKEN_RESOLVE})
+        tlog = Recording(procs["tlog"].address,
+                         {mp.TOKEN_TLOG_PUSH, mp.TOKEN_TLOG_POP})
+        storage = transport.RpcConnection(procs["storage"].address,
+                                          tls=mp._tls_from_env())
+        for c in (res, tlog, storage):
+            await c.connect()
+        pipe = mp.ProxyPipeline([res], tlog, storage, max_batch=cfg.max_txns,
+                                batch_interval=COMMIT_BATCH_INTERVAL)
+        pipe.start()
+        committed = []  # (version, key, value) of every committed txn
+
+        # -- YCSB load: one insert a transaction, all offered at once
+        t0 = time.perf_counter()
+
+        async def insert(i):
+            k = keys[i]
+            v = await pipe.commit(CommitTransaction(
+                write_conflict_ranges=[(k, k + b"\x00")],
+                mutations=[Mutation(0, k, values[i])]))
+            committed.append((v, k, values[i]))
+
+        await asyncio.gather(*(insert(i) for i in inputs["insert_order"]))
+        load_s = time.perf_counter() - t0
+        load_batches = len(res.calls)
+        out["load"] = dict(seconds=load_s, commits_per_s=records / load_s,
+                           batches=load_batches,
+                           mean_batch_txns=records / load_batches)
+        log(f"  load: {records} inserts in {load_s:.3f} s "
+            f"({records / load_s:.1f} commits/s, {load_batches} batches, "
+            f"mean {records / load_batches:.1f} txns) on {card}")
+
+        # -- YCSB workload A
+        grv_s, read_s, commit_s = [], [], []
+        counts = dict(reads=0, updates=0, conflicts=0, gave_up=0)
+        updates = [0] * records
+
+        async def client(c):
+            for j in range(ops):
+                rid = inputs["record"][c][j]
+                key = keys[rid]
+                for _attempt in range(1 + COMMIT_RETRIES):
+                    t0 = time.perf_counter()
+                    rv = await pipe.get_read_version()
+                    t1 = time.perf_counter()
+                    cur = await pipe.read(key, rv)
+                    t2 = time.perf_counter()
+                    grv_s.append(t1 - t0)
+                    read_s.append(t2 - t1)
+                    if cur is None or len(cur) != len(values[rid]):
+                        fail(f"commit path: record {rid} read {cur!r:.40}")
+                    if inputs["is_read"][c][j]:
+                        counts["reads"] += 1
+                        break
+                    f = inputs["field"][c][j] * COMMIT_FIELD_BYTES
+                    new = ((int.from_bytes(cur[:8], "little") + 1)
+                           .to_bytes(8, "little") + cur[8:f]
+                           + inputs["new_field"][c, j].tobytes()
+                           + cur[f + COMMIT_FIELD_BYTES:])
+                    kr = (key, key + b"\x00")
+                    t3 = time.perf_counter()
+                    try:
+                        v = await pipe.commit(CommitTransaction(
+                            read_conflict_ranges=[kr],
+                            write_conflict_ranges=[kr], read_snapshot=rv,
+                            mutations=[Mutation(0, key, new)]))
+                    except mp.NotCommittedError:
+                        counts["conflicts"] += 1
+                        continue
+                    commit_s.append(time.perf_counter() - t3)
+                    committed.append((v, key, new))
+                    updates[rid] += 1
+                    counts["updates"] += 1
+                    break
+                else:
+                    counts["gave_up"] += 1
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(client(c) for c in range(clients)))
+        run_s = time.perf_counter() - t0
+        await pipe.stop()
+        if pipe.failed is not None:
+            fail(f"commit path: the pipeline failed: {pipe.failed!r}")
+        head = pipe.committed_version
+        st1 = {n: await status(n) for n in COMMIT_CHILDREN}
+        snap = await storage.call(mp.TOKEN_STORAGE_SNAPSHOT,
+                                  mp.StorageSnapshotReq(version=head),
+                                  timeout=300.0)
+        peek = await tlog.call(mp.TOKEN_TLOG_PEEK_BATCH,
+                               mp.TLogPeekBatchReq(after_version=-1,
+                                                   max_entries=1 << 31),
+                               timeout=300.0)
+        for c in (res, tlog, storage, *plain.values()):
+            await c.close()
+        batches = len(res.calls) - load_batches
+        attempts = counts["updates"] + counts["conflicts"]
+        p50, p99 = quantiles_ms(commit_s)
+        out["workload"] = dict(
+            seconds=run_s, reads=counts["reads"],
+            committed=counts["updates"], conflicted=counts["conflicts"],
+            gave_up=counts["gave_up"],
+            abort_share=counts["conflicts"] / max(1, attempts),
+            commits_per_s=counts["updates"] / run_s,
+            commit_p50_ms=p50, commit_p99_ms=p99,
+            grv_p50_ms=statistics.median(grv_s) * 1e3,
+            read_p50_ms=statistics.median(read_s) * 1e3,
+            batches=batches,
+            mean_batch_txns=attempts / max(1, batches))
+        out["children"] = {n: dict(spawn_to_first_answer_s=started[n])
+                           for n in COMMIT_CHILDREN}
+        out["resolver_status"] = (st0, st1["resolver"])
+        out["tlog_status"] = st1["tlog"]["qos"]
+        out["storage_status"] = {k: st1["storage"]["qos"][k]
+                                 for k in ("applies", "keys",
+                                           "apply_batch_mutations")}
+        return head, res.calls, tlog.calls, committed, updates, snap, peek
+
+    try:
+        head, resolves, log_calls, committed, updates, snap, peek = (
+            asyncio.run(drive()))
+    finally:
+        for p in procs.values():
+            p.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 1. every resolver reply against the copied oracle, in version order
+    t0 = time.perf_counter()
+    oracle = ConflictOracle(window=ROLE_WINDOW)
+    prev = -1
+    for _tok, req, rep in sorted(resolves, key=lambda r: r[1].version):
+        if req.prev_version != prev:
+            fail(f"commit path: request {req.version} chains to "
+                 f"{req.prev_version}, not {prev}")
+        txns = packing.columnar_to_transactions(req.cols)
+        want = oracle.resolve([OracleTxn(t.read_conflict_ranges,
+                                         t.write_conflict_ranges,
+                                         t.read_snapshot,
+                                         t.report_conflicting_keys)
+                               for t in txns], req.version)
+        if [int(x) for x in rep.committed] != list(want.verdicts):
+            fail(f"commit path: batch {req.version}: verdicts differ from "
+                 "ConflictOracle")
+        if rep.conflicting_key_range_map != want.conflicting_ranges:
+            fail(f"commit path: batch {req.version}: conflict reports differ "
+                 "from ConflictOracle")
+        prev = req.version
+    if prev != head:
+        fail(f"commit path: the last resolved version {prev} is not the "
+             f"committed head {head}")
+    oracle_s = time.perf_counter() - t0
+
+    # 2. the storage snapshot at the head is the replay of the commits
+    want_kv: dict = {}
+    by_version: dict = {}
+    for v, k, val in sorted(committed, key=lambda c: c[0]):
+        want_kv[k] = val
+        by_version.setdefault(v, []).append((0, k, val))
+    if snap.version < head or snap.kvs != sorted(want_kv.items()):
+        fail(f"commit path: the storage snapshot at {head} ({len(snap.kvs)} "
+             f"keys) is not the replay of {len(committed)} commits")
+    # 3. the exact count
+    for rid, n in enumerate(updates):
+        if int.from_bytes(want_kv[keys[rid]][:8], "little") != n:
+            fail(f"commit path: record {rid}'s counter is not its {n} "
+                 "committed updates")
+    # 4. the tlog: a push a batch, of exactly its committed mutations; its
+    # entries the pushes past the last pop
+    pushes = [m for tok, m, _r in log_calls if tok == mp.TOKEN_TLOG_PUSH]
+    pops = [(m.version, r is not None) for tok, m, r in log_calls
+            if tok == mp.TOKEN_TLOG_POP]
+    if [p.version for p in pushes] != sorted(r[1].version for r in resolves):
+        fail("commit path: the tlog pushes are not one a resolved batch")
+    for p in pushes:
+        got = sorted((m.op, m.param1, m.param2) for m in p.mutations)
+        if got != sorted(by_version.get(p.version, [])):
+            fail(f"commit path: the push at {p.version} is not its batch's "
+                 "committed mutations")
+    # the pushes past the last acknowledged pop, less those a pop sent
+    # but not yet answered at the pipeline's stop may have taken
+    acked = max((v for v, ok in pops if ok), default=-1)
+    sent = max((v for v, _ok in pops), default=-1)
+    pushed = [(p.version, [(m.op, m.param1, m.param2) for m in p.mutations])
+              for p in pushes]
+    peeked = [(v, [(m.op, m.param1, m.param2) for m in g])
+              for v, g in zip(peek.versions, peek.groups)]
+    gone = pushed[:len(pushed) - len(peeked)]
+    if (peeked != pushed[len(gone):] or any(v <= acked for v, _ in peeked)
+            or any(v > sent for v, _ in gone)):
+        fail(f"commit path: the tlog holds {len(peeked)} entries, not the "
+             f"pushes past its last pop ({acked} answered, {sent} sent)")
+    out.update(head=head, oracle_replay_s=oracle_s, pops=len(pops),
+               tlog_entries_at_end=len(peeked),
+               snapshot_keys=len(snap.kvs))
+    w = out["workload"]
+    log(f"  workload A: {w['committed']} updates committed, "
+        f"{w['conflicted']} conflicted (abort share "
+        f"{w['abort_share']:.4f}, {w['gave_up']} gave up after "
+        f"{COMMIT_RETRIES} retries), {w['reads']} reads in "
+        f"{w['seconds']:.3f} s: {w['commits_per_s']:.1f} commits/s; "
+        f"commit p50 {w['commit_p50_ms']:.3f} ms, p99 "
+        f"{w['commit_p99_ms']:.3f} ms; GRV p50 {w['grv_p50_ms']:.4f} ms, "
+        f"read p50 {w['read_p50_ms']:.3f} ms; {w['batches']} batches, mean "
+        f"{w['mean_batch_txns']:.1f} txns; on {card}")
+    log("  children up (spawn to first answer, s): "
+        + ", ".join(f"{n} {out['children'][n]['spawn_to_first_answer_s']:.2f}"
+                    for n in COMMIT_CHILDREN) + f"; on {card}")
+    log(f"  checks: {len(resolves)} resolver replies identical to "
+        f"ConflictOracle (replayed in {oracle_s:.1f} s), the storage "
+        f"snapshot at {head} ({len(snap.kvs)} keys) the replay of "
+        f"{len(committed)} commits, every counter its committed updates, "
+        f"{len(pushes)} tlog pushes their batches' mutations, "
+        f"{len(peeked)} entries left past {len(pops)} pops, no failed batch")
+    return out
+
+
+def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
+    """The resolver child launched the card's kernels, and those the
+    tiered path launches a fixed number of times a batch exactly phase
+    3's count a batch (the same tiered path at bench shapes) times the
+    child's resolved batches, merge_maps one more a compaction. Phase
+    8's counts are the classic path's: the tiered one probes its two
+    tiers and merges at each compaction."""
+    st0, st1 = out.pop("resolver_status")
+    a, b = st1["kernel_launches"], st0["kernel_launches"]
+    launches = {k: a[k] - b[k] for k in a if a[k] != b[k]}
+    batches = st1["qos"]["kernel"]["batches"] - st0["qos"]["kernel"]["batches"]
+    compactions = (st1["qos"]["kernel_stages"]["compactions"]
+                   - st0["qos"]["kernel_stages"]["compactions"])
+    if not launches or batches <= 0:
+        fail(f"commit path: the resolver child launched {launches} in "
+             f"{batches} batches")
+    n3 = uniform["batches"]
+    if uniform["launches"]["merge_maps"] != n3 + n3 // COMPACT_INTERVAL:
+        fail(f"phase 3 launched merge_maps {uniform['launches']['merge_maps']}"
+             f" times in {n3} batches")
+    want = {"merge_maps": batches + compactions}
+    for k in TIERED_PER_BATCH:
+        per, rest = divmod(uniform["launches"][k], n3)
+        if rest or not per:
+            fail(f"phase 3 launched {k} {uniform['launches'][k]} times in "
+                 f"{n3} batches")
+        want[k] = per * batches
+    for k, n in want.items():
+        if launches.get(k, 0) != n:
+            fail(f"commit path: the resolver child launched {k} "
+                 f"{launches.get(k, 0)} times in {batches} batches "
+                 f"({compactions} compactions), not {n}")
+    q = st1["qos"]
+    out["resolver"] = dict(
+        batches=batches, compactions=compactions, launches=launches,
+        launches_per_batch={k: n / batches for k, n in launches.items()},
+        compute_p50_ms=q["compute_time_dist"]["p50"] * 1e3,
+        compute_p99_ms=q["compute_time_dist"]["p99"] * 1e3,
+        resolve_path=q["resolve_path"])
+    log(f"  resolver child: {batches} batches ({compactions} compactions), "
+        f"compute p50 {out['resolver']['compute_p50_ms']:.3f} ms, p99 "
+        f"{out['resolver']['compute_p99_ms']:.3f} ms; kernel launches a "
+        f"batch {json.dumps(out['resolver']['launches_per_batch'])}; on "
+        f"{card}")
+
+
 def survey_spans(device, uni) -> tuple:
     """The widest spans of the uniform stream: tiered (each batch against
     the delta tier an exact set holds just before it) and classic
@@ -4812,6 +5253,10 @@ def main(argv=None) -> int:
     resolver = phase_resolver(device, role_results)
     heading("14. the wire resolver (four resolver processes)")
     wire = phase_wire(role, role_results, resolver)
+    heading("15. the commit path (three port processes, YCSB A)")
+    card = devmod.nvidia_smi_name_power(device.index or 0)
+    commit = phase_commit_path(card)
+    check_commit_launches(commit, uniform, card)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -4850,6 +5295,7 @@ def main(argv=None) -> int:
                                  if k not in ("launches", "launch_bytes")}
                            for tag, st in resolver.items()}
     streams["wire"] = wire
+    streams["commit_path"] = commit
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

@@ -20,12 +20,14 @@ path for path.
 The Resolver role (`resolver.Resolver`, on the port's own actor runtime
 `runtime/flow.py`) serves ResolveTransactionBatchRequests through a
 conflict set built by the same factory, or by the resolver_backend knob
-(`utils/knobs.SERVER_KNOBS`). The wire-served resolver
+(`utils/knobs.SERVER_KNOBS`). The wire commit path
 (`cluster/multiprocess.py`: `python -m
-foundationdb_tpu_torch.cluster.multiprocess --role resolver`) serves it
-as an OS process over the JAX package's frames (`wire/`), columnar
-frames straight into the kernel's arrays, with the C++ skip list
-(`native/`) as one of its backends.
+foundationdb_tpu_torch.cluster.multiprocess --role
+{resolver,tlog,storage,sequencer}`) serves the roles as OS processes
+over the JAX package's frames (`wire/`), the resolver's columnar frames
+straight into the kernel's arrays, the tlog and storage on the C++
+DiskQueue and versioned LSM (`native/`), and its `ProxyPipeline`
+commits through them.
 """
 
 from foundationdb_tpu_torch.config import KernelConfig

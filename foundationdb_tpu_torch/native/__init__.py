@@ -1,6 +1,7 @@
-"""ctypes bindings for the C++ CPU conflict sets (the port's own copy of
-`build_shared`, `load`, `load_skiplist`, `NativeConflictSet` and
-`NativeSkipListConflictSet` from foundationdb_tpu.native).
+"""ctypes bindings for the C++ host libraries (the port's own copy of
+`build_shared`, `load`, `load_skiplist`, `NativeConflictSet`,
+`NativeSkipListConflictSet`, `load_diskqueue`, `DiskQueue`, `load_vlsm`,
+`VlsmError` and `VersionedLsm` from foundationdb_tpu.native).
 
 * `skiplist.cpp` is the skip-list baseline: the reference's own
   algorithm class (fdbserver/SkipList.cpp: per-level max-version
@@ -9,8 +10,15 @@
   kernels are measured against.
 * `conflict_set.cpp` is the ordered-map semantic model with the same
   verdict contract, an independent parity oracle.
+* `diskqueue.cpp` is the durable append log (the role of
+  fdbserver/DiskQueue.actor.cpp) behind the TLog role's disk and the
+  Storage role's mutation log.
+* `vlsm.cpp` is the versioned LSM storage engine behind the Storage
+  role's `lsm` engine (data past RAM, MVCC reads at a version).
 
-Each library is built with `g++` through a plain C ABI at first use,
+The sources are byte-identical copies of the JAX package's, so a data
+dir one package writes the other opens. Each library is built with `g++`
+through a plain C ABI at first use,
 never at import, into `native/build/` (git-ignored) under a file name
 that carries a hash of its source and flags, so an edited source is
 never served from a stale library. Two processes building at once race
@@ -213,3 +221,312 @@ class NativeSkipListConflictSet(NativeConflictSet):
     @staticmethod
     def _load() -> ctypes.CDLL:
         return load_skiplist()
+
+
+# ---------------------------------------------------------------------------
+# DiskQueue (diskqueue.cpp): the durable append log of the TLog and the
+# Storage role's mutation log.
+
+_dq_lib = None
+
+
+def load_diskqueue() -> ctypes.CDLL:
+    """Build (if needed) and load the disk queue."""
+    global _dq_lib
+    with _lock:
+        if _dq_lib is not None:
+            return _dq_lib
+        lib = ctypes.CDLL(
+            build_shared(os.path.join(_DIR, "diskqueue.cpp"), "libdiskqueue")
+        )
+        lib.dq_open.restype = ctypes.c_void_p
+        lib.dq_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                ctypes.c_uint64]
+        lib.dq_close.argtypes = [ctypes.c_void_p]
+        lib.dq_push.restype = ctypes.c_uint64
+        lib.dq_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_uint32]
+        lib.dq_pop.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+        lib.dq_commit.restype = ctypes.c_uint64
+        lib.dq_commit.argtypes = [ctypes.c_void_p]
+        lib.dq_ok.restype = ctypes.c_int
+        lib.dq_ok.argtypes = [ctypes.c_void_p]
+        lib.dq_next_seq.restype = ctypes.c_uint64
+        lib.dq_next_seq.argtypes = [ctypes.c_void_p]
+        lib.dq_pop_floor.restype = ctypes.c_uint64
+        lib.dq_pop_floor.argtypes = [ctypes.c_void_p]
+        lib.dq_recovered_count.restype = ctypes.c_int64
+        lib.dq_recovered_count.argtypes = [ctypes.c_void_p]
+        lib.dq_recovered_get.restype = ctypes.c_int64
+        lib.dq_recovered_get.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64),
+        ]
+        _dq_lib = lib
+        return lib
+
+
+class DiskQueue:
+    """Durable append log over a file pair, with a recovery scan.
+
+    The contract (DiskQueue.actor.cpp): push() buffers, commit() makes
+    everything pushed durable (fsync), so callers ack only after commit;
+    pop(seq) lets the queue discard the records below seq; after a
+    crash, `recovered` holds exactly the committed, unpopped records in
+    order. Damage inside the log that is not a torn tail refuses the
+    open with NativeBuildError.
+    """
+
+    def __init__(self, path_prefix: str, *, rotate_bytes: int = 64 << 20):
+        lib = load_diskqueue()
+        self._lib = lib
+        self._q = lib.dq_open(
+            (path_prefix + "-0.dq").encode(), (path_prefix + "-1.dq").encode(),
+            rotate_bytes,
+        )
+        if not self._q:
+            raise NativeBuildError(f"dq_open failed for {path_prefix}")
+
+    def close(self) -> None:
+        if self._q:
+            self._lib.dq_close(self._q)
+            self._q = None
+
+    def __del__(self):
+        self.close()
+
+    def push(self, data: bytes) -> int:
+        return self._lib.dq_push(self._q, data, len(data))
+
+    def pop(self, up_to_seq: int) -> None:
+        self._lib.dq_pop(self._q, up_to_seq)
+
+    def commit(self):
+        """fsync everything pushed. Returns the last durable seq, or
+        None if the disk write or fsync failed: callers must not ack."""
+        r = self._lib.dq_commit(self._q)
+        if not self._lib.dq_ok(self._q):
+            return None
+        return r
+
+    @property
+    def next_seq(self) -> int:
+        return self._lib.dq_next_seq(self._q)
+
+    @property
+    def pop_floor(self) -> int:
+        return self._lib.dq_pop_floor(self._q)
+
+    @property
+    def recovered(self) -> list[tuple[int, bytes]]:
+        n = self._lib.dq_recovered_count(self._q)
+        out = []
+        seq = ctypes.c_uint64()
+        for i in range(n):
+            ln = self._lib.dq_recovered_get(self._q, i, None, 0,
+                                            ctypes.byref(seq))
+            buf = ctypes.create_string_buffer(max(ln, 1))
+            self._lib.dq_recovered_get(self._q, i, buf, ln,
+                                       ctypes.byref(seq))
+            out.append((seq.value, buf.raw[:ln]))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# VersionedLsm (vlsm.cpp): the persistent engine behind the Storage role
+# (the role of the reference's Redwood and sqlite engines: data past
+# RAM, restart cost in proportion to the WAL tail, MVCC at-version reads).
+
+_VLSM_SRC = os.path.join(_DIR, "vlsm.cpp")
+_vlsm_lib = None
+
+
+def load_vlsm() -> ctypes.CDLL:
+    """Build (if needed) and load the versioned LSM."""
+    global _vlsm_lib
+    with _lock:
+        if _vlsm_lib is not None:
+            return _vlsm_lib
+        lib = ctypes.CDLL(build_shared(_VLSM_SRC, "libvlsm"))
+        lib.vlsm_open.restype = ctypes.c_void_p
+        lib.vlsm_open.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+        lib.vlsm_ok.argtypes = [ctypes.c_void_p]
+        lib.vlsm_close.argtypes = [ctypes.c_void_p]
+        for name in ("vlsm_durable_version", "vlsm_applied_version",
+                     "vlsm_mem_bytes", "vlsm_floor"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_void_p]
+        lib.vlsm_num_runs.argtypes = [ctypes.c_void_p]
+        lib.vlsm_last_error.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+        lib.vlsm_apply.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_char_p,
+            ctypes.c_longlong]
+        lib.vlsm_get.restype = ctypes.c_longlong
+        lib.vlsm_get.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+        lib.vlsm_flush.restype = ctypes.c_longlong
+        lib.vlsm_flush.argtypes = [ctypes.c_void_p]
+        lib.vlsm_compact.argtypes = [ctypes.c_void_p]
+        lib.vlsm_set_floor.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.vlsm_range.restype = ctypes.c_longlong
+        lib.vlsm_range.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong)]
+        _vlsm_lib = lib
+        return lib
+
+
+class VlsmError(RuntimeError):
+    pass
+
+
+class VersionedLsm:
+    """Versioned LSM storage engine (vlsm.cpp).
+
+    apply() buffers into the memtable (not durable by itself: pair it
+    with a write-ahead log, as StorageRole does); flush() makes every
+    applied version durable and returns the durable version; reads are
+    at a version within the MVCC window above the GC floor.
+    """
+
+    MUT_SET = 0
+    MUT_CLEAR_RANGE = 1
+
+    def __init__(self, directory: str, window: int = 5_000_000):
+        self._lib = load_vlsm()
+        # vlsm.cpp takes no locks and ctypes calls release the GIL: this
+        # lock serializes every native call, so the role may read from
+        # executor threads while applies stay on the event loop
+        self._tl = threading.Lock()
+        self._h = self._lib.vlsm_open(
+            directory.encode(), ctypes.c_longlong(window))
+        if not self._lib.vlsm_ok(self._h):
+            raise VlsmError(f"vlsm open failed: {self._error()}")
+
+    def _error(self) -> str:
+        buf = ctypes.create_string_buffer(1024)
+        self._lib.vlsm_last_error(self._h, buf, 1024)
+        return buf.value.decode(errors="replace")
+
+    def close(self) -> None:
+        with self._tl:
+            if self._h:
+                self._lib.vlsm_close(self._h)
+                self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    # -- writes ----------------------------------------------------------
+
+    def apply(self, version: int, mutations) -> None:
+        """mutations: [(op, key, value_or_end)] with op in
+        {MUT_SET, MUT_CLEAR_RANGE}."""
+        blob = bytearray(len(mutations).to_bytes(4, "little"))
+        for op, key, second in mutations:
+            blob.append(op)
+            blob += len(key).to_bytes(4, "little")
+            blob += key
+            blob += len(second).to_bytes(4, "little")
+            blob += second
+        b = bytes(blob)
+        with self._tl:
+            rc = self._lib.vlsm_apply(
+                self._h, ctypes.c_longlong(version), b, len(b)
+            )
+        if rc != 0:
+            raise VlsmError("malformed mutation blob")
+
+    def flush(self) -> int:
+        """Flush the memtable into a durable run; returns the durable
+        version (compacts on its own past the run-count trigger)."""
+        with self._tl:
+            v = self._lib.vlsm_flush(self._h)
+        if v < 0:
+            raise VlsmError(f"flush failed: {self._error()}")
+        return v
+
+    def compact(self) -> None:
+        with self._tl:
+            rc = self._lib.vlsm_compact(self._h)
+        if rc != 0:
+            raise VlsmError(f"compact failed: {self._error()}")
+
+    def set_floor(self, floor: int) -> None:
+        with self._tl:
+            self._lib.vlsm_set_floor(self._h, ctypes.c_longlong(floor))
+
+    # -- reads -----------------------------------------------------------
+
+    def get(self, key: bytes, version: int) -> bytes | None:
+        cap = 4096
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            with self._tl:
+                n = self._lib.vlsm_get(
+                    self._h, key, len(key), ctypes.c_longlong(version),
+                    buf, cap)
+            if n == -1:
+                return None
+            if n < -1:
+                cap = -(n + 2) + 1
+                continue
+            return buf.raw[:n]
+
+    def range(
+        self, begin: bytes, end: bytes, version: int,
+        max_items: int = 1 << 62,
+    ) -> list[tuple[bytes, bytes]]:
+        """Merged scan of [begin, end) at `version`; end=b"" scans to
+        the last key."""
+        cap = 1 << 20
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            nbytes = ctypes.c_longlong()
+            with self._tl:
+                n = self._lib.vlsm_range(
+                    self._h, begin, len(begin), end, len(end),
+                    ctypes.c_longlong(version), ctypes.c_longlong(max_items),
+                    buf, cap, ctypes.byref(nbytes))
+            if n == -1:
+                cap = nbytes.value + 1
+                continue
+            out = []
+            raw = memoryview(buf.raw)
+            p = 0
+            for _ in range(n):
+                kl = int.from_bytes(raw[p:p + 4], "little")
+                p += 4
+                k = bytes(raw[p:p + kl])
+                p += kl
+                vl = int.from_bytes(raw[p:p + 4], "little")
+                p += 4
+                v = bytes(raw[p:p + vl])
+                p += vl
+                out.append((k, v))
+            return out
+
+    # -- introspection ---------------------------------------------------
+
+    @property
+    def durable_version(self) -> int:
+        with self._tl:
+            return self._lib.vlsm_durable_version(self._h)
+
+    @property
+    def mem_bytes(self) -> int:
+        with self._tl:
+            return self._lib.vlsm_mem_bytes(self._h)
+
+    @property
+    def num_runs(self) -> int:
+        with self._tl:
+            return self._lib.vlsm_num_runs(self._h)

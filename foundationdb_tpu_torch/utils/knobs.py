@@ -1,6 +1,7 @@
 """Knobs: named, typed runtime constants (the port's own copy of the
-server knobs that the Resolver role, the conflict-set factory and the
-stream router read, from foundationdb_tpu.utils.knobs).
+server knobs that the Resolver role, the conflict-set factory, the
+stream router and the wire commit path read, from
+foundationdb_tpu.utils.knobs).
 
 Behavioral mirror of the reference's knob system (`flow/Knobs.cpp`,
 `fdbclient/ServerKnobs.cpp`): every tunable is a named constant whose
@@ -101,8 +102,8 @@ class Knobs:
 
 
 def make_server_knobs() -> Knobs:
-    """The knobs the Resolver role reads, with the reference's defaults
-    (fdbclient/ServerKnobs.cpp)."""
+    """The knobs the Resolver role and the wire commit path read, with
+    the reference's defaults (fdbclient/ServerKnobs.cpp)."""
     k = Knobs("ServerKnobs")
     # state-transaction bytes a resolver holds before it delays new
     # batches (Resolver.actor.cpp:254-268)
@@ -119,6 +120,31 @@ def make_server_knobs() -> Knobs:
     # resolver-generated private mutations and the resolver-side
     # txnStateStore (ServerKnobs.cpp:549-550); off by default
     k.define("PROXY_USE_RESOLVER_PRIVATE_MUTATIONS", False)
+    # Adaptive commit batching (the reference's dynamic commitBatcher,
+    # fdbserver/CommitProxyServer.actor.cpp:361 + ServerKnobs
+    # COMMIT_TRANSACTION_BATCH_*): the ProxyPipeline's interval shrinks
+    # while batches fill early and relaxes when they go out underfull;
+    # the count and bytes targets follow the measured resolve + log
+    # stage latency. These bound every movement.
+    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_MIN", 0.001)
+    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_MAX", 0.020)
+    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_SMOOTHER_ALPHA", 0.1)
+    # the interval tracks this fraction of the smoothed resolve + log
+    # stage latency: a slow stage earns a longer window (bigger batches
+    # amortize a fixed cost a dispatch), a fast one shrinks toward MIN
+    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_LATENCY_FRACTION", 0.1)
+    k.define("COMMIT_TRANSACTION_BATCH_COUNT_MAX", 32768)
+    k.define("COMMIT_TRANSACTION_BATCH_BYTES_MAX", 8 << 20)
+    # the resolve + log seconds a batch may take while its count and
+    # bytes targets still grow
+    k.define("COMMIT_BATCH_STAGE_LATENCY_BUDGET", 0.100)
+    # the bounded GRV front-door queue (START_TRANSACTION_MAX_QUEUE_SIZE):
+    # read-version requests past this depth are shed with the retryable
+    # GrvThrottledError instead of queueing without bound
+    k.define("GRV_PROXY_MAX_QUEUE", 8192)
+    # commit batches in flight at once through resolve -> tlog push ->
+    # reply, ordered only at the version-chain hand-offs
+    k.define("MAX_PIPELINED_COMMIT_BATCHES", 16)
     return k
 
 

@@ -102,6 +102,11 @@ def _txns(p):
     return [_txn(p, i, full=i != 1) for i in range(4)]
 
 
+def _muts(p):
+    M = p.codec.Mutation
+    return [M(0, b"k", b"v" * 40), M(1, b"a", b"b\x00"), M(0, b"", b"")]
+
+
 def _columnar(p, epoch):
     return p.codec.ResolveBatchColumnar(
         prev_version=7, version=11, last_received_version=3,
@@ -138,7 +143,88 @@ CASES = {
     "status request": (0x0240, lambda p: p.mp.StatusRequest(pad=0)),
     "status reply": (0x0241, lambda p: p.mp.StatusReply(
         payload=json.dumps({"role": "resolver", "ü": [1, 2.5]}))),
+    # the commit path's messages (the tlog, storage and sequencer roles)
+    "tlog push": (0x0210, lambda p: p.mp.TLogPush(
+        version=7, prev_version=3, mutations=_muts(p), epoch=2)),
+    "tlog push unfenced": (0x0210, lambda p: p.mp.TLogPush(
+        version=7, prev_version=-1, mutations=[])),
+    "tlog push reply": (0x0211,
+                        lambda p: p.mp.TLogPushReply(durable_version=-1)),
+    "tlog peek": (0x0212, lambda p: p.mp.TLogPeek(after_version=2**40)),
+    "tlog peek reply": (0x0213, lambda p: p.mp.TLogPeekReply(
+        version=5, mutations=_muts(p))),
+    "tlog peek batch": (0x0214, lambda p: p.mp.TLogPeekBatchReq(
+        after_version=-1, max_entries=2**32 - 1)),
+    "tlog peek batch reply": (0x0215, lambda p: p.mp.TLogPeekBatchReply(
+        versions=[1, -2, 2**62], groups=[_muts(p), [], _muts(p)[:1]])),
+    "storage apply": (0x0220, lambda p: p.mp.StorageApply(
+        version=11, mutations=_muts(p))),
+    "storage apply reply": (0x0221, lambda p: p.mp.StorageApplyReply(
+        durable_version=11, durable=1)),
+    "storage apply reply volatile": (0x0221, lambda p: p.mp.StorageApplyReply(
+        durable_version=0)),
+    "storage get": (0x0222, lambda p: p.mp.StorageGet(key=b"\x00k\xff",
+                                                      version=9)),
+    "storage get reply": (0x0223, lambda p: p.mp.StorageGetReply(
+        value=b"v" * 300)),
+    "storage get reply absent": (0x0223,
+                                 lambda p: p.mp.StorageGetReply(value=None)),
+    "storage snapshot": (0x0224,
+                         lambda p: p.mp.StorageSnapshotReq(version=12)),
+    "storage snapshot reply": (0x0225, lambda p: p.mp.StorageSnapshotReply(
+        version=12, kvs=[(b"", b""), (b"a", b"1" * 70), (b"\xff", b"z")])),
+    "storage get batch": (0x0226, lambda p: p.mp.StorageGetBatch(
+        versions=[3, 4, 3], keys=[b"a", b"", b"a"])),
+    "storage get batch reply": (0x0227, lambda p: p.mp.StorageGetBatchReply(
+        values=[None, b"", b"x"])),
+    "storage apply batch": (0x0228, lambda p: p.mp.StorageApplyBatch(
+        versions=[20, 30], groups=[_muts(p), []], prev_versions=[10, 20])),
+    "storage apply batch unchained": (0x0228,
+                                      lambda p: p.mp.StorageApplyBatch(
+                                          versions=[5], groups=[[]])),
+    "rate info request": (0x0242, lambda p: p.mp.GetRateInfoRequest(pad=0)),
+    "rate info reply": (0x0243, lambda p: p.mp.GetRateInfoReply(
+        payload=json.dumps({"transactions_per_second_limit": 1e6}))),
+    "tlog lock": (0x0256, lambda p: p.mp.TLogLock(
+        epoch=4, recovery_version=2_000_000, partitioned=1)),
+    "tlog lock phase one": (0x0256, lambda p: p.mp.TLogLock(epoch=4)),
+    "tlog lock reply": (0x0257, lambda p: p.mp.TLogLockReply(
+        epoch=4, durable_version=77)),
+    "storage catch up": (0x025E, lambda p: p.mp.StorageCatchUp(
+        tlog_address="/s/tlog0.sock", tlog_addresses=["/s/tlog1.sock", "t2"],
+        recovery_version=5)),
+    "storage catch up one": (0x025E, lambda p: p.mp.StorageCatchUp(
+        tlog_address="/s/tlog0.sock")),
+    "storage catch up reply": (0x025F,
+                               lambda p: p.mp.StorageCatchUpReply(version=6)),
+    "tlog pop": (0x0260, lambda p: p.mp.TLogPop(version=50, epoch=3)),
+    "tlog pop unfenced": (0x0260, lambda p: p.mp.TLogPop(version=50)),
+    "tlog pop reply": (0x0261,
+                       lambda p: p.mp.TLogPopReply(durable_version=60)),
+    "get commit version": (0x0266, lambda p: p.mp.GetCommitVersionRequest(
+        proxy_id="proxy1", request_num=9, most_recent_processed=8, epoch=2,
+        tags=[0, 3])),
+    "get commit version untagged": (0x0266,
+                                    lambda p: p.mp.GetCommitVersionRequest(
+                                        proxy_id="p", request_num=1,
+                                        most_recent_processed=0, epoch=0)),
+    "get commit version reply": (0x0267, lambda p: p.mp.GetCommitVersionReply(
+        version=2000, prev_version=1000, request_num=9,
+        tag_prevs=[1000, 0])),
+    "report committed": (0x0268,
+                         lambda p: p.mp.ReportRawCommittedVersionRequest(
+                             version=-1, epoch=1)),
+    "report committed reply": (0x0269,
+                               lambda p: p.mp.ReportRawCommittedVersionReply(
+                                   live_version=2000)),
 }
+
+
+def test_tokens_match_jax():
+    tokens = {n: v for n, v in vars(PMP).items() if n.startswith("TOKEN_")}
+    assert len(tokens) == 21
+    for name, value in tokens.items():
+        assert getattr(JMP, name) == value, name
 
 
 def test_every_registered_message_is_compared():
@@ -563,6 +649,7 @@ def test_clip_and_ranges_match_jax():
 
 
 def test_unported_roles_raise(tmp_path):
+    assert PMP.UNPORTED_ROLES == ("ratekeeper", "worker", "controller")
     for role in PMP.UNPORTED_ROLES:
         with pytest.raises(ValueError, match="not ported yet"):
             run(PMP._serve_role(role, str(tmp_path / "x.sock"), "native"))

@@ -194,10 +194,38 @@ any fault:
    GRV and read p50, batches and their mean size, the resolver's
    compute p50, its launches a batch and each child's seconds from
    spawn to first answer, each beside the card's name and power limit.
+16. the simulated cluster: `open_cluster` (two commit proxies, two
+   resolvers, four storage servers in teams of two, two log replicas;
+   the resolver boundary at the middle of the records' keys, the storage
+   boundaries at their quartiles) with `commit_config()` and both
+   resolvers' tiers on the card, driven on its Scheduler(sim=True)
+   through `Database` transactions. (a) One short seed (5,000 records,
+   64 clients x 10 ops) twice in this process, the resolvers "cuda" on
+   the card and "cpu" (the host oracle): identical transaction
+   outcomes, reads, storage snapshots, log replicas' durable records
+   and final virtual time. (b) Phase 15's traffic (YCSB's load from
+   4,096 loader tasks through `Database.run`, then workload A, 256
+   clients x 40 ops) at as many of its 100,000 records as (a)'s load
+   rate does in 0.4 of the phase's 150 s budget (the cut is printed):
+   it fails unless both resolvers are TorchConflictSets on the card,
+   each resolver's replies are the copied ConflictOracle's on its
+   requests replayed in version order, `check_cluster` passes, every
+   record on both replicas of its team is the replay of the committed
+   mutations and each counter its committed updates, A's counts and
+   probe, L and N launched phase 3's count a batch over both resolvers'
+   batches (an empty batch, the clipped txns of the other resolver's
+   keys or an idle proxy's, is dispatched like any other) and D one
+   more a compaction, and after `cluster.stop()` no actor error is
+   unhandled and the live-task count is back to its value before boot.
+   It prints the load's and the workload's wall and virtual seconds,
+   commits a second on the wall and in virtual time, the abort share,
+   the resolvers' compute p50 / p99 a batch (each conflict set's
+   resolve() call), the share of the wall inside those calls, and
+   batches and their mean size, beside the card's name and power limit.
 
-The last lines are the streams' numbers (JSON; phases 12, 13, 14 and 15
-under `pipelined_uniform`, `pipelined_classic`, `staging`, `resolver`,
-`wire` and `commit_path`),
+The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15
+and 16 under `pipelined_uniform`, `pipelined_classic`, `staging`,
+`resolver`, `wire`, `commit_path` and `sim_cluster`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -2215,7 +2243,7 @@ def phase_stream(device, batches) -> dict:
     log(f"  tier occupancy (live rows) after each batch, (main, delta): "
         f"{occupancy} of ({cfg.history_capacity}, {cfg.delta_capacity}); "
         f"peak device memory {peak / 2**20:.1f} MiB")
-    log(f"  compactions {cs.metrics.counters['compactions']}")
+    log(f"  compactions {cs.metrics.counters.get('compactions')}")
     extra = uniform_stream(cfg, 2, seed=1, start=N_BATCHES)
 
     def run():
@@ -2224,7 +2252,7 @@ def phase_stream(device, batches) -> dict:
 
     # K21 runs on each overflow check, K10 on each rebase
     checks, rebases = (cs.metrics.main_occupancy.count,
-                       cs.metrics.counters["rebases"])
+                       cs.metrics.counters.get("rebases"))
     prof = profile_run(run, ms, len(extra))
     return dict(launches=launches, launch_bytes=launch_bytes,
                 batches=N_BATCHES, ms_per_batch=ms,
@@ -2294,7 +2322,7 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     require_launched("hot-key", launches,
                      ("sweep_ranks", *CLASSIC_ONLY, *SHARDED_ONLY,
                       *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
-    counters = dict(cs.metrics.counters)
+    counters = cs.metrics.counters.as_dict()
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"U = {dedup_u} (max distinct reads/batch {max_uniq}); launches: "
         f"{launches}")
@@ -2334,7 +2362,7 @@ def phase_hot_key(device, batches, dedup_u: int, max_uniq: int) -> dict:
     # a dedup cap under the distinct count: every group trips
     tr = make_conflict_set(cfg.scaled(dedup_reads=TRIP_U), "cuda")
     _, tr_outs, tr_first = run_groups(tr, groups[:1])
-    tc = tr.metrics.counters
+    tc = tr.metrics.counters.as_dict()
     if not tc["latchTrips"] == tc["exactFallbacks"] > 0:
         fail(f"U={TRIP_U}: expected every group to trip, counters {tc}")
     same_fields(f"U={TRIP_U} group 0 vs the latched run", tr_outs[0],
@@ -2390,7 +2418,7 @@ def phase_range_scan(device, batches) -> dict:
     require_launched("range-scan", launches,
                      ("read_dedup", *CLASSIC_ONLY, *SHARDED_ONLY,
                       *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
-    counters = dict(cs.metrics.counters)
+    counters = cs.metrics.counters.as_dict()
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"launches: {launches}")
     log(f"  counters {counters}; sweep rows per group "
@@ -2555,7 +2583,7 @@ def phase_classic_hot(device, batches) -> dict:
     require_launched("classic hot-key", launches,
                      ("sweep_ranks", "read_dedup", *SHARDED_ONLY,
                       *SHORT_SPAN_ONLY, *CROSS_SPAN_ONLY, *OFF_PATH))
-    counters = dict(cs.metrics.counters)
+    counters = cs.metrics.counters.as_dict()
     log(f"  {len(batches)} batches x {B} txns in groups of {GROUP}; "
         f"counters {counters}; launches: {launches}")
     ms = statistics.mean(t / GROUP * 1e3 for t in times)
@@ -2574,7 +2602,7 @@ def phase_classic_hot(device, batches) -> dict:
         f"ms/batch; depth max {efx.max_applications} applications/batch)")
     tr = make_conflict_set(cfg.scaled(fixpoint_unroll=1), "cuda")
     tr_times, tr_outs, _ = run_groups(tr, groups)
-    tc = tr.metrics.counters
+    tc = tr.metrics.counters.as_dict()
     if not tc["latchTrips"] == tc["exactFallbacks"] >= 1:
         fail(f"classic forced trip: expected a fallback, counters {tc}")
     for i, (g, w) in enumerate(zip(tr_outs, ex_outs)):
@@ -2821,7 +2849,7 @@ def phase_pipeline(device, uni, uniform: dict, classic: dict) -> dict:
                             {f: getattr(res[gi], f)[j].cpu() for f in want},
                             want)
         require_launched(f"pipelined {tag}", launches, unused)
-        c = cs.metrics.counters
+        c = cs.metrics.counters.as_dict()
         if not c["stagedChunks"] == len(res) > 0:
             fail(f"pipelined {tag}: {c['stagedChunks']} staged chunks for "
                  f"{len(res)} groups")
@@ -3701,10 +3729,6 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
 
     from foundationdb_tpu_torch.cluster import multiprocess as mp
     from foundationdb_tpu_torch.models.types import CommitTransaction
-    from foundationdb_tpu_torch.testing.oracle import (
-        ConflictOracle,
-        OracleTxn,
-    )
     from foundationdb_tpu_torch.utils import packing
     from foundationdb_tpu_torch.wire import transport
     from foundationdb_tpu_torch.wire.codec import Mutation
@@ -3897,25 +3921,9 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
 
     # 1. every resolver reply against the copied oracle, in version order
     t0 = time.perf_counter()
-    oracle = ConflictOracle(window=ROLE_WINDOW)
-    prev = -1
-    for _tok, req, rep in sorted(resolves, key=lambda r: r[1].version):
-        if req.prev_version != prev:
-            fail(f"commit path: request {req.version} chains to "
-                 f"{req.prev_version}, not {prev}")
-        txns = packing.columnar_to_transactions(req.cols)
-        want = oracle.resolve([OracleTxn(t.read_conflict_ranges,
-                                         t.write_conflict_ranges,
-                                         t.read_snapshot,
-                                         t.report_conflicting_keys)
-                               for t in txns], req.version)
-        if [int(x) for x in rep.committed] != list(want.verdicts):
-            fail(f"commit path: batch {req.version}: verdicts differ from "
-                 "ConflictOracle")
-        if rep.conflicting_key_range_map != want.conflicting_ranges:
-            fail(f"commit path: batch {req.version}: conflict reports differ "
-                 "from ConflictOracle")
-        prev = req.version
+    prev = replay_against_oracle(
+        [(req, packing.columnar_to_transactions(req.cols), rep)
+         for _tok, req, rep in resolves], ROLE_WINDOW, "commit path")
     if prev != head:
         fail(f"commit path: the last resolved version {prev} is not the "
              f"committed head {head}")
@@ -3985,22 +3993,44 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     return out
 
 
-def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
-    """The resolver child launched the card's kernels, and those the
-    tiered path launches a fixed number of times a batch exactly phase
-    3's count a batch (the same tiered path at bench shapes) times the
-    child's resolved batches, merge_maps one more a compaction. Phase
-    8's counts are the classic path's: the tiered one probes its two
-    tiers and merges at each compaction."""
-    st0, st1 = out.pop("resolver_status")
-    a, b = st1["kernel_launches"], st0["kernel_launches"]
-    launches = {k: a[k] - b[k] for k in a if a[k] != b[k]}
-    batches = st1["qos"]["kernel"]["batches"] - st0["qos"]["kernel"]["batches"]
-    compactions = (st1["qos"]["kernel_stages"]["compactions"]
-                   - st0["qos"]["kernel_stages"]["compactions"])
-    if not launches or batches <= 0:
-        fail(f"commit path: the resolver child launched {launches} in "
-             f"{batches} batches")
+def replay_against_oracle(resolves, window: int, label: str) -> int:
+    """Replay one resolver's (request, transactions, reply) triples on a
+    fresh copied ConflictOracle in version order from the chain's start
+    (prev_version -1): fail unless each request chains to the one before
+    it and each reply's verdicts and conflict reports are the oracle's.
+    Returns the last replayed version (-1 for none)."""
+    from foundationdb_tpu_torch.testing.oracle import (
+        ConflictOracle,
+        OracleTxn,
+    )
+
+    oracle = ConflictOracle(window=window)
+    prev = -1
+    for req, txns, rep in sorted(resolves, key=lambda r: r[0].version):
+        if req.prev_version != prev:
+            fail(f"{label}: request {req.version} chains to "
+                 f"{req.prev_version}, not {prev}")
+        want = oracle.resolve([OracleTxn(t.read_conflict_ranges,
+                                         t.write_conflict_ranges,
+                                         t.read_snapshot,
+                                         t.report_conflicting_keys)
+                               for t in txns], req.version)
+        if [int(x) for x in rep.committed] != list(want.verdicts):
+            fail(f"{label}: batch {req.version}: verdicts differ from "
+                 "ConflictOracle")
+        if rep.conflicting_key_range_map != want.conflicting_ranges:
+            fail(f"{label}: batch {req.version}: conflict reports differ "
+                 "from ConflictOracle")
+        prev = req.version
+    return prev
+
+
+def tiered_launch_want(uniform: dict, batches: int, compactions: int) -> dict:
+    """The launches the tiered path makes in `batches` resolved batches
+    with `compactions` compactions: each kernel of TIERED_PER_BATCH phase
+    3's count a batch (the same tiered path at bench shapes), merge_maps
+    one a batch and one more a compaction, held first against phase 3's
+    own merge_maps count."""
     n3 = uniform["batches"]
     if uniform["launches"]["merge_maps"] != n3 + n3 // COMPACT_INTERVAL:
         fail(f"phase 3 launched merge_maps {uniform['launches']['merge_maps']}"
@@ -4012,7 +4042,24 @@ def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
             fail(f"phase 3 launched {k} {uniform['launches'][k]} times in "
                  f"{n3} batches")
         want[k] = per * batches
-    for k, n in want.items():
+    return want
+
+
+def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
+    """The resolver child launched the card's kernels, each the count
+    tiered_launch_want gives for the child's resolved batches and
+    compactions. Phase 8's counts are the classic path's: the tiered one
+    probes its two tiers and merges at each compaction."""
+    st0, st1 = out.pop("resolver_status")
+    a, b = st1["kernel_launches"], st0["kernel_launches"]
+    launches = {k: a[k] - b[k] for k in a if a[k] != b[k]}
+    batches = st1["qos"]["kernel"]["batches"] - st0["qos"]["kernel"]["batches"]
+    compactions = (st1["qos"]["kernel_stages"]["compactions"]
+                   - st0["qos"]["kernel_stages"]["compactions"])
+    if not launches or batches <= 0:
+        fail(f"commit path: the resolver child launched {launches} in "
+             f"{batches} batches")
+    for k, n in tiered_launch_want(uniform, batches, compactions).items():
         if launches.get(k, 0) != n:
             fail(f"commit path: the resolver child launched {k} "
                  f"{launches.get(k, 0)} times in {batches} batches "
@@ -4029,6 +4076,405 @@ def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
         f"{out['resolver']['compute_p99_ms']:.3f} ms; kernel launches a "
         f"batch {json.dumps(out['resolver']['launches_per_batch'])}; on "
         f"{card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the simulated cluster
+
+#: the phase's wall budget (load and workload of the full run)
+SIM_BUDGET_S = 150.0
+#: the share of the budget the load may take: the records are cut to what
+#: part (a)'s measured load rate does in it
+SIM_LOAD_SHARE = 0.4
+#: part (a): one short seed, on the card and on the host oracle
+SIM_TWIN = dict(records=5_000, clients=64, ops=10)
+#: YCSB loader threads: each inserts its share of the records in turn. The
+#: GRV front door sheds past GRV_PROXY_MAX_QUEUE = 8,192 waiting requests,
+#: so the load is not offered all at once as phase 15 does. A loader has
+#: at most one GRV request waiting, so 4,096 loaders, half that limit,
+#: stay well under it
+SIM_LOADERS = 4_096
+#: virtual seconds a storage server may take to apply the last commit
+SIM_CATCH_UP = 5.0
+
+
+def sim_cluster_config(records: int, backend: str, device, cfg):
+    """bench_pipeline --mode cluster's deployment in FoundationDB's
+    `double` redundancy: two commit proxies, two resolvers, four storage
+    servers in teams of two, two log replicas. The resolver boundary sits
+    at the middle of the records' keys and the storage boundaries at
+    their quartiles (the even one-byte split would put every b"user..."
+    key on one resolver and one team), as the resolution balancer and
+    data distribution would move them."""
+    from foundationdb_tpu_torch.cluster.database import ClusterConfig
+
+    return ClusterConfig(
+        n_commit_proxies=2, n_resolvers=2, n_storage=4, replication_factor=2,
+        n_tlogs=2, resolver_backend=backend, device=device, kernel_config=cfg,
+        resolver_boundaries=[b"user%010d" % (records // 2)],
+        storage_boundaries=[b"user%010d" % (records * q // 4)
+                            for q in (1, 2, 3)])
+
+
+def sim_cluster_run(inputs: dict, *, records: int, clients: int, ops: int,
+                    backend: str, device, cfg) -> dict:
+    """One run of the simulated cluster: `open_cluster`'s Cluster on a
+    Scheduler(sim=True), YCSB's load (one insert a `Database`
+    transaction through `Database.run`, from SIM_LOADERS loader tasks)
+    and workload A (a task a client; a read is a transaction's get, an
+    update a read-modify-write of the counter field committed with its
+    read, retried on NotCommitted up to COMMIT_RETRIES times), until
+    every storage server has applied the last commit. Returns the outcomes, the cluster, its scheduler and the
+    resolvers' recorded (request, reply) pairs, with the walls; the
+    caller stops the cluster."""
+    from foundationdb_tpu_torch.cluster.commit_proxy import NotCommitted
+    from foundationdb_tpu_torch.cluster.database import Cluster
+    from foundationdb_tpu_torch.runtime import census
+    from foundationdb_tpu_torch.runtime.flow import Scheduler, all_of
+
+    keys, values = inputs["keys"], inputs["values"]
+    sched = Scheduler(sim=True)
+    census0 = census.snapshot(sched)
+    t0 = time.perf_counter()
+    # open_cluster's steps, with the resolvers recorded before the start
+    # runs the bootstrap batch, so every batch a resolver takes is replayed
+    cluster = Cluster(sched, sim_cluster_config(records, backend, device,
+                                                cfg))
+    calls = {r.resolver_id: [] for r in cluster.resolvers}
+    #: wall seconds of each conflict-set resolve() call, per resolver
+    computes = {r.resolver_id: [] for r in cluster.resolvers}
+    inside = {"s": 0.0}
+    for r in cluster.resolvers:
+        async def recorded(req, _resolve=r.resolve, _log=calls[r.resolver_id]):
+            rep = await _resolve(req)
+            _log.append((req, rep))
+            return rep
+
+        def timed(txns, version, _resolve=r.conflict_set.resolve,
+                  _times=computes[r.resolver_id]):
+            t = time.perf_counter()
+            try:
+                return _resolve(txns, version)
+            finally:
+                _times.append(time.perf_counter() - t)
+                inside["s"] += _times[-1]
+
+        r.resolve = recorded
+        r.conflict_set.resolve = timed
+    cluster.start()
+    db = cluster.database()
+    boot_s = time.perf_counter() - t0
+    outcomes, reads, committed = [], [], []
+    updates = [0] * records
+
+    async def loader(share):
+        # a YCSB loader thread: its share of the inserts one after the
+        # other, each through the client's retry loop
+        for i in share:
+            attempts = []
+
+            async def write(txn, i=i):
+                attempts.append(txn)
+                txn.set(keys[i], values[i])
+
+            await db.run(write)
+            committed.append((attempts[-1].committed_version, keys[i],
+                              values[i]))
+
+    def phase(coros):
+        tasks = [sched.spawn(c, name=f"ycsb{n}") for n, c in enumerate(coros)]
+        w0, v0, in0 = time.perf_counter(), sched.now(), inside["s"]
+        sched.run_until(all_of([t.done for t in tasks]))
+        return (time.perf_counter() - w0, sched.now() - v0,
+                inside["s"] - in0)
+
+    order = inputs["insert_order"]
+    load = phase(loader(order[n::SIM_LOADERS]) for n in range(SIM_LOADERS))
+    counts = dict(reads=0, updates=0, conflicts=0, gave_up=0)
+
+    async def client(c):
+        for j in range(ops):
+            rid = inputs["record"][c][j]
+            key = keys[rid]
+            for _attempt in range(1 + COMMIT_RETRIES):
+                txn = db.create_transaction()
+                cur = await txn.get(key)
+                reads.append(cur)
+                if cur is None or len(cur) != len(values[rid]):
+                    fail(f"sim cluster: record {rid} read {cur!r:.40}")
+                if inputs["is_read"][c][j]:
+                    counts["reads"] += 1
+                    outcomes.append((c, j, "read"))
+                    break
+                f = inputs["field"][c][j] * COMMIT_FIELD_BYTES
+                new = ((int.from_bytes(cur[:8], "little") + 1)
+                       .to_bytes(8, "little") + cur[8:f]
+                       + inputs["new_field"][c, j].tobytes()
+                       + cur[f + COMMIT_FIELD_BYTES:])
+                txn.set(key, new)
+                try:
+                    await txn.commit()
+                except NotCommitted as e:
+                    counts["conflicts"] += 1
+                    outcomes.append((c, j, type(e).__name__))
+                    continue
+                outcomes.append((c, j, txn.committed_version))
+                committed.append((txn.committed_version, key, new))
+                updates[rid] += 1
+                counts["updates"] += 1
+                break
+            else:
+                counts["gave_up"] += 1
+
+    work = phase(client(c) for c in range(clients))
+    head = max(v for v, _k, _val in committed)
+
+    async def caught_up():
+        t_end = sched.now() + SIM_CATCH_UP
+        while any(ss.version.get() < head for ss in cluster.storage_servers):
+            if sched.now() > t_end:
+                fail(f"sim cluster: storage versions "
+                     f"{[ss.version.get() for ss in cluster.storage_servers]}"
+                     f" short of the last commit {head}")
+            await sched.delay(0.01)
+
+    sched.run_until(sched.spawn(caught_up(), name="catch-up").done)
+    return dict(sched=sched, cluster=cluster, census0=census0, calls=calls,
+                computes=computes,
+                outcomes=outcomes, reads=reads, committed=committed,
+                updates=updates, counts=counts, head=head, boot_s=boot_s,
+                load=load, work=work)
+
+
+def sim_cluster_stop(run: dict) -> None:
+    """Stop the cluster and drain the cancellations: no actor error left
+    unhandled, and the census (live tasks, connections, servers) back to
+    its reading before boot; the process's file descriptors are left out
+    (the card's runtime opens its own as it goes)."""
+    from foundationdb_tpu_torch.runtime import census
+
+    sched = run["sched"]
+    run["cluster"].stop()
+    sched.run_for(1.0)
+    bad = [(n, repr(e)) for n, e in sched.unhandled_errors()]
+    if bad:
+        fail(f"sim cluster: after stop, unhandled actor errors {bad[:5]}")
+    leaks = census.growth(run["census0"], census.snapshot(sched),
+                          ignore={"fds"})
+    if leaks:
+        fail(f"sim cluster: after stop, {'; '.join(leaks)}")
+
+
+def sim_digest(run: dict) -> dict:
+    """What part (a) compares: each transaction's outcome, every read,
+    each storage server's snapshot, each log replica's durable records
+    and the final virtual time."""
+    cluster = run["cluster"]
+    return dict(
+        outcomes=run["outcomes"], reads=run["reads"],
+        committed=sorted(run["committed"]),
+        storage=[ss.snapshot() for ss in cluster.storage_servers],
+        logs=[[(r.seq, r.is_pop, r.pop_to, r.data) for r in t.dq._disk]
+              for t in cluster.tlog.tlogs],
+        now=run["sched"].now())
+
+
+def sim_cluster_checks(run: dict, window: int) -> dict:
+    """Part (b)'s checks on a finished run (before its stop): every
+    resolver's replies, the bootstrap's included, against the copied
+    ConflictOracle on its own requests replayed in version order from
+    the chain's start to its last resolved version, check_cluster, every record on
+    both replicas of its team equal to the replay of the committed
+    mutations, each counter its committed updates."""
+    from foundationdb_tpu_torch.cluster.consistency import check_cluster
+
+    cluster = run["cluster"]
+    t0 = time.perf_counter()
+    replies = 0
+    for r in cluster.resolvers:
+        log_ = run["calls"][r.resolver_id]
+        last = replay_against_oracle(
+            [(req, req.transactions, rep) for req, rep in log_], window,
+            f"sim cluster: resolver {r.resolver_id}")
+        if last != r.version.get():
+            fail(f"sim cluster: resolver {r.resolver_id}'s last replayed "
+                 f"version {last} is not its last resolved "
+                 f"{r.version.get()}")
+        replies += len(log_)
+    oracle_s = time.perf_counter() - t0
+    stats = check_cluster(cluster)
+    want_kv: dict = {}
+    for _v, k, val in sorted(run["committed"], key=lambda c: c[0]):
+        want_kv[k] = val
+    if not all(cluster.storage_live):
+        fail(f"sim cluster: storage liveness {cluster.storage_live}")
+    copies = 0
+    # `_data` materializes a server's latest values: once a server
+    data = [ss._data for ss in cluster.storage_servers]
+    for k, val in want_kv.items():
+        for s in cluster.key_servers.team_of(k):
+            if data[s].get(k) != val:
+                fail(f"sim cluster: storage{s} does not hold the committed "
+                     f"value of {k!r}")
+            copies += 1
+    for rid, n in enumerate(run["updates"]):
+        k = b"user%010d" % rid
+        if int.from_bytes(want_kv[k][:8], "little") != n:
+            fail(f"sim cluster: record {rid}'s counter is not its {n} "
+                 "committed updates")
+    return dict(replies=replies, oracle_replay_s=oracle_s,
+                replica_copies=copies, keys=len(want_kv), **stats)
+
+
+def sim_numbers(run: dict, card: str) -> dict:
+    """The walls, rates, abort share, resolver compute and batch sizes of
+    a run, printed beside the card's name and power limit."""
+    c = run["counts"]
+    attempts = c["updates"] + c["conflicts"]
+    resolvers = run["cluster"].resolvers
+    batches = sum(r.conflict_set.metrics.counters.get("resolveBatches")
+                  for r in resolvers)
+    txns = sum(r.counters.get("resolvedTransactions") for r in resolvers)
+    out = dict(
+        load=dict(records=len(run["committed"]) - c["updates"],
+                  wall_s=run["load"][0], virtual_s=run["load"][1],
+                  commits_per_wall_s=(len(run["committed"]) - c["updates"])
+                  / run["load"][0],
+                  commits_per_virtual_s=(len(run["committed"]) - c["updates"])
+                  / run["load"][1]),
+        workload=dict(wall_s=run["work"][0], virtual_s=run["work"][1],
+                      committed=c["updates"], conflicted=c["conflicts"],
+                      gave_up=c["gave_up"], reads=c["reads"],
+                      abort_share=c["conflicts"] / max(1, attempts),
+                      commits_per_wall_s=c["updates"] / run["work"][0],
+                      commits_per_virtual_s=c["updates"] / run["work"][1]),
+        boot_s=run["boot_s"],
+        resolve_share_of_wall=(run["load"][2] + run["work"][2])
+        / (run["load"][0] + run["work"][0]),
+        resolve_share=dict(load=run["load"][2] / run["load"][0],
+                           workload=run["work"][2] / run["work"][0]),
+        batches=batches, mean_batch_txns=txns / max(1, batches),
+        compute_p50_ms=[quantiles_ms(t)[0]
+                        for _r, t in sorted(run["computes"].items())],
+        compute_p99_ms=[quantiles_ms(t)[1]
+                        for _r, t in sorted(run["computes"].items())],
+        kernel_stage_p50_ms={
+            f"resolver{r.resolver_id}": {
+                st: getattr(r.conflict_set.metrics, st).as_dict()["p50"] * 1e3
+                for st in ("pack", "kernel", "fence")}
+            for r in resolvers})
+    ld, wk = out["load"], out["workload"]
+    log(f"  load: {ld['records']} inserts in {ld['wall_s']:.3f} s wall, "
+        f"{ld['virtual_s']:.4f} s virtual ({ld['commits_per_wall_s']:.1f} "
+        f"commits/s wall, {ld['commits_per_virtual_s']:.1f} virtual) on "
+        f"{card}")
+    log(f"  workload A: {wk['committed']} updates committed, "
+        f"{wk['conflicted']} conflicted (abort share "
+        f"{wk['abort_share']:.4f}, {wk['gave_up']} gave up), {wk['reads']} "
+        f"reads in {wk['wall_s']:.3f} s wall, {wk['virtual_s']:.4f} s "
+        f"virtual: {wk['commits_per_wall_s']:.1f} commits/s wall, "
+        f"{wk['commits_per_virtual_s']:.1f} virtual; on {card}")
+    log(f"  resolvers: {batches} batches (both), mean "
+        f"{out['mean_batch_txns']:.1f} txns; compute p50 "
+        f"{[round(x, 3) for x in out['compute_p50_ms']]} ms, p99 "
+        f"{[round(x, 3) for x in out['compute_p99_ms']]} ms; inside the "
+        f"conflict sets' resolve() {out['resolve_share_of_wall']:.4f} of "
+        f"the wall (load {out['resolve_share']['load']:.4f}, workload "
+        f"{out['resolve_share']['workload']:.4f}); on {card}")
+    return out
+
+
+def phase_sim_cluster(card: str, uniform: dict, *, cfg=None, device=None,
+                      seed: int = 16) -> dict:
+    """The port's simulated cluster on the card (cell SC): part (a), one
+    short seed run twice in this process, resolvers "cuda" on the card
+    and "cpu" (the host oracle), identical outcomes, reads, storage
+    snapshots, log records and virtual time; part (b), phase 15's
+    traffic through `open_cluster` with both resolvers' tiers on the
+    card, every check of `sim_cluster_checks`, the launch rule and a
+    clean stop. The records are cut to what part (a)'s load rate does in
+    SIM_LOAD_SHARE of SIM_BUDGET_S."""
+    from foundationdb_tpu_torch import kernels
+
+    cfg = cfg or commit_config()
+    tw = SIM_TWIN
+    inputs = ycsb_a_inputs(seed, tw["records"], tw["clients"], tw["ops"])
+    twins = {}
+    for backend in ("cuda", "cpu"):
+        run = sim_cluster_run(inputs, **tw, backend=backend, device=device,
+                              cfg=cfg)
+        twins[backend] = (sim_digest(run), run["load"][0]
+                          / tw["records"])
+        sim_cluster_stop(run)
+    (dig_c, per_insert), (dig_h, _) = twins["cuda"], twins["cpu"]
+    for k in dig_c:
+        if dig_c[k] != dig_h[k]:
+            fail(f"sim cluster twin: the card's and the host oracle's runs "
+                 f"differ in {k}")
+    log(f"  (a) twin: {tw['records']} records, {tw['clients']} clients x "
+        f"{tw['ops']} ops: the card's and the host oracle's runs identical "
+        f"({len(dig_c['outcomes'])} outcomes, {len(dig_c['reads'])} reads, "
+        f"{len(dig_c['storage'])} storage snapshots, "
+        f"{sum(map(len, dig_c['logs']))} log records, virtual time "
+        f"{dig_c['now']:.6f} s); the card's load {per_insert * 1e3:.3f} ms "
+        f"an insert on {card}")
+    records = min(COMMIT_RECORDS, max(
+        tw["records"],
+        int(SIM_LOAD_SHARE * SIM_BUDGET_S / per_insert) // 1000 * 1000))
+    log(f"  (b) cut: {records} records of {COMMIT_FIELDS} x "
+        f"{COMMIT_FIELD_BYTES} bytes (phase 15 loads {COMMIT_RECORDS}; "
+        f"SIM_LOAD_SHARE {SIM_LOAD_SHARE} of the {SIM_BUDGET_S:.0f} s budget"
+        f" at (a)'s rate); {COMMIT_CLIENTS} clients x {COMMIT_OPS} "
+        f"operations of workload A; kernel_config={cfg!r}")
+    inputs = ycsb_a_inputs(seed, records, COMMIT_CLIENTS, COMMIT_OPS)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    run = sim_cluster_run(inputs, records=records, clients=COMMIT_CLIENTS,
+                          ops=COMMIT_OPS, backend="cuda", device=device,
+                          cfg=cfg)
+    wall_s = time.perf_counter() - t0
+    launches = kernels.counts()
+    resolvers = run["cluster"].resolvers
+    on = "cuda" if device is None else str(device)
+    for r in resolvers:
+        cs = r.conflict_set
+        if type(cs).__name__ != "TorchConflictSet" or cs.device.type != on:
+            fail(f"sim cluster: resolver {r.resolver_id} resolves on "
+                 f"{type(cs).__name__} ({getattr(cs, 'device', None)})")
+    out = dict(records=records, clients=COMMIT_CLIENTS, ops=COMMIT_OPS,
+               card=card, phase_wall_s=wall_s,
+               checks=sim_cluster_checks(run, cfg.window_versions))
+    out.update(sim_numbers(run, card))
+    batches = sum(r.conflict_set.metrics.counters.get("resolveBatches")
+                  for r in resolvers)
+    compactions = sum(r.conflict_set.metrics.counters.get("compactions")
+                      for r in resolvers)
+    empty = sum(1 for calls in run["calls"].values() for req, _ in calls
+                if not req.transactions)
+    sim_cluster_stop(run)
+    for k, n in tiered_launch_want(uniform, batches, compactions).items():
+        if launches.get(k, 0) != n:
+            fail(f"sim cluster: {k} launched {launches.get(k, 0)} times in "
+                 f"{batches} batches ({compactions} compactions, {empty} "
+                 f"empty), not {n}")
+    out["resolver"] = dict(
+        batches=batches, compactions=compactions, empty_batches=empty,
+        launches={k: n for k, n in launches.items() if n},
+        launches_per_batch={k: n / batches for k, n in launches.items()
+                            if n})
+    c = out["checks"]
+    log(f"  checks: both resolvers TorchConflictSets on the card, "
+        f"{c['replies']} replies identical to ConflictOracle (replayed in "
+        f"{c['oracle_replay_s']:.1f} s), check_cluster "
+        f"({c['replica_compares']} replica compares), {c['keys']} keys on "
+        f"both replicas ({c['replica_copies']} copies) the replay of the "
+        f"commits, every counter its committed updates; {batches} batches "
+        f"({empty} empty, dispatched like any other: phase 3's launches a "
+        f"batch; {compactions} compactions) launched "
+        f"{json.dumps(out['resolver']['launches_per_batch'])} a batch; no "
+        f"actor error or live task left; phase wall {wall_s:.1f} s of the "
+        f"{SIM_BUDGET_S:.0f} s budget; on {card}")
+    return out
 
 
 def survey_spans(device, uni) -> tuple:
@@ -4535,7 +4981,7 @@ def phase_sharded(device, uni, ycsb) -> dict:
                p_first)
     same_state("sharded range-scan stream vs the probe path", state_of(sw),
                state_of(pr))
-    yc = dict(sw.metrics.counters)
+    yc = sw.metrics.counters.as_dict()
     y_ms = statistics.mean(t / GROUP * 1e3 for t in y_times)
     p_ms = statistics.mean(t / GROUP * 1e3 for t in p_times)
     log(f"  YCSB-E on {SHARDS} shards ({cross} of {n_reads} reads straddle "
@@ -4548,7 +4994,7 @@ def phase_sharded(device, uni, ycsb) -> dict:
                            "cuda", shard_boundaries=bounds)
     tr.prewarm_exact(groups[0])
     _, tr_outs, tr_first = run_groups(tr, groups[:1])
-    tc = tr.metrics.counters
+    tc = tr.metrics.counters.as_dict()
     if not tc["latchTrips"] == tc["exactFallbacks"] == 1:
         fail(f"sharded forced trip: expected one fallback, counters {tc}")
     same_fields("sharded forced-trip group 0 vs the exact run", tr_outs[0],
@@ -4561,7 +5007,7 @@ def phase_sharded(device, uni, ycsb) -> dict:
 
     extra = groups_of(uniform_stream(cfg, GROUP, seed=1, start=len(uni)))
     prof = profile_run(lambda: cs.resolve_group_args(extra[0]), ms, GROUP)
-    c = cs.metrics.counters
+    c = cs.metrics.counters.as_dict()
     col = cs.metrics.collective
     log(f"  compactions {c['compactions']}; collective (kernel J alone, "
         f"fenced) {col.total / max(col.count, 1) * 1e6:.1f} us over "
@@ -4649,7 +5095,7 @@ def phase_oracle(device) -> None:
             if got.conflicting_key_ranges != want.conflicting_key_ranges:
                 fail(f"oracle batch {i} ({name}): conflicting key ranges "
                      "differ")
-        c = cs.metrics.counters
+        c = cs.metrics.counters.as_dict()
         log(f"  {name}: 8 batches x {n} txns identical to ConflictOracle "
             f"({n_conflict} conflicts; latchTrips {c['latchTrips']}, "
             f"spills {c['spills']}, sweepGroups {c['sweepGroups']})")
@@ -5257,6 +5703,8 @@ def main(argv=None) -> int:
     card = devmod.nvidia_smi_name_power(device.index or 0)
     commit = phase_commit_path(card)
     check_commit_launches(commit, uniform, card)
+    heading("16. the simulated cluster (open_cluster, YCSB A)")
+    sim = phase_sim_cluster(card, uniform)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -5296,6 +5744,7 @@ def main(argv=None) -> int:
                            for tag, st in resolver.items()}
     streams["wire"] = wire
     streams["commit_path"] = commit
+    streams["sim_cluster"] = sim
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

@@ -28,6 +28,25 @@ over the JAX package's frames (`wire/`), the resolver's columnar frames
 straight into the kernel's arrays, the tlog and storage on the C++
 DiskQueue and versioned LSM (`native/`), and its `ProxyPipeline`
 commits through them.
+
+The simulated cluster (`open_cluster`, `cluster/database.py`) runs every
+role in one process on the deterministic actor runtime: sequencer, GRV
+and commit proxies, resolvers, a replicated log system, sharded and
+replicated storage servers, coordinators, ratekeeper, balancer, failure
+monitor, cluster controller and data distributor, with the client stack
+on top:
+
+    from foundationdb_tpu_torch import open_cluster
+    from foundationdb_tpu_torch.cluster.database import ClusterConfig
+    sched, cluster, db = open_cluster()            # resolvers on the card
+    sched, cluster, db = open_cluster(
+        ClusterConfig(device="cpu"))               # plain versions
+    sched, cluster, db = open_cluster(
+        ClusterConfig(resolver_backend="cpu"))     # the host oracle
+
+The cluster never reads the RESOLVER_BACKEND knob: it resolves on the
+card unless the caller asks for the CPU, and raises on a host without a
+card.
 """
 
 from foundationdb_tpu_torch.config import KernelConfig
@@ -37,5 +56,15 @@ from foundationdb_tpu_torch.models.conflict_set import (
     make_conflict_set,
 )
 
+
+
+def open_cluster(config=None, *, sched=None):
+    """Boot an in-process simulated cluster; returns (scheduler, cluster,
+    database). Where its resolvers run: cluster/database.open_cluster."""
+    from foundationdb_tpu_torch.cluster.database import open_cluster as _open
+
+    return _open(config, sched=sched)
+
+
 __all__ = ["KernelConfig", "HistoryOverflowError", "TorchConflictSet",
-           "make_conflict_set"]
+           "make_conflict_set", "open_cluster"]

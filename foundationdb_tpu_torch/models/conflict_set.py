@@ -105,7 +105,7 @@ from foundationdb_tpu_torch.ops import rangemax
 from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.utils import packing
 from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
-from foundationdb_tpu_torch.utils.metrics import LatencySample
+from foundationdb_tpu_torch.utils.metrics import CounterCollection, LatencySample
 from foundationdb_tpu_torch.utils.trace import SEV_WARN, TraceEvent
 
 # Rebase when offsets pass 2**30 (the window is ~5e6; huge margin).
@@ -154,7 +154,8 @@ class KernelStageMetrics:
                 "warmCompiles")
 
     def __init__(self):
-        self.counters = {name: 0 for name in self.COUNTERS}
+        self.counters = CounterCollection("ResolverKernelMetrics",
+                                          list(self.COUNTERS))
         self.compile = LatencySample("compileSeconds")
         self.pack = LatencySample("packSeconds")
         self.transfer = LatencySample("transferSeconds")
@@ -169,7 +170,7 @@ class KernelStageMetrics:
         self.device_peak_bytes = 0
 
     def add(self, name: str, n: int = 1) -> None:
-        self.counters[name] += n
+        self.counters.add(name, n)
 
     def sample_device_memory(self, device: torch.device) -> None:
         """Allocator gauges of the device holding the state (the CUDA
@@ -183,7 +184,7 @@ class KernelStageMetrics:
         )
 
     def as_dict(self) -> dict:
-        out: dict = dict(self.counters)
+        out: dict = self.counters.as_dict()
         for s in (self.compile, self.pack, self.transfer, self.kernel,
                   self.fence, self.delta_occupancy, self.main_occupancy,
                   self.collective):
@@ -200,7 +201,7 @@ class KernelStageMetrics:
         cache (`kernels.build_stats()`, process-wide), device memory,
         tier fill and the fallback, spill and sweep counts; the keys of
         the JAX package's `KernelStageMetrics.qos()`."""
-        batches = self.counters["resolveBatches"]
+        batches = self.counters.get("resolveBatches")
         stage_total = (
             self.pack.total + self.transfer.total + self.kernel.total
             + self.fence.total
@@ -228,11 +229,12 @@ class KernelStageMetrics:
             "device_peak_bytes": self.device_peak_bytes,
             "delta_occupancy": d_occ,
             "main_occupancy": m_occ,
-            "compactions": self.counters["compactions"],
-            "spills": self.counters["spills"],
-            "sweep_groups": self.counters["sweepGroups"],
+            "compactions": self.counters.get("compactions"),
+            "spills": self.counters.get("spills"),
+            "sweep_groups": self.counters.get("sweepGroups"),
             "fallbacks": (
-                self.counters["latchTrips"] + self.counters["exactFallbacks"]
+                self.counters.get("latchTrips")
+                + self.counters.get("exactFallbacks")
             ),
             # a sharded set samples its worst shard's counts into the
             # occupancy samples above: one value, two names

@@ -1,5 +1,6 @@
-"""The commit-path Location strings the Resolver role and the wire commit
-path emit (the port's own copy of the constants and `version_id` of
+"""The commit-path Location strings the Resolver role, the wire commit
+path, the simulated cluster's roles and its client emit (the port's own
+copy of the constants and `version_id` of
 foundationdb_tpu.utils.commit_debug).
 
 The reference debugs its commit path with `g_traceBatch` micro-events
@@ -10,9 +11,13 @@ them from here and never spell them inline. The timeline reconstructor
 of the JAX module reads the port's trace files as they are.
 """
 
+GRV_BEFORE = "NativeAPI.getConsistentReadVersion.Before"
+GRV_AFTER = "NativeAPI.getConsistentReadVersion.After"
+GRV_REPLY = "GrvProxyServer.transactionStarter.ReplyToStartedTransactions"
 COMMIT_BEFORE = "NativeAPI.commit.Before"
 COMMIT_AFTER = "NativeAPI.commit.After"
 BATCH_BEFORE = "CommitProxy.commitBatch.Before"
+BATCH_GETTING_VERSION = "CommitProxy.commitBatch.GettingCommitVersion"
 BATCH_GOT_VERSION = "CommitProxy.commitBatch.GotCommitVersion"
 BATCH_AFTER_RESOLUTION = "CommitProxy.commitBatch.AfterResolution"
 BATCH_AFTER_LOG_PUSH = "CommitProxy.commitBatch.AfterLogPush"
@@ -27,6 +32,7 @@ RESOLVER_AFTER_ORDERER = "Resolver.resolveBatch.AfterOrderer"
 #: AfterOrderer as the opening mark it brackets exactly the decode
 RESOLVER_COLUMNAR_DECODE = "Resolver.resolveBatch.ColumnarDecode"
 RESOLVER_AFTER = "Resolver.resolveBatch.After"
+TLOG_BEFORE_WAIT = "TLog.tLogCommit.BeforeWaitForVersion"
 TLOG_AFTER_COMMIT = "TLog.tLogCommit.AfterTLogCommit"
 STORAGE_APPLIED = "StorageServer.update.Applied"
 

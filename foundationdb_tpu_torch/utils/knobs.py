@@ -1,6 +1,6 @@
 """Knobs: named, typed runtime constants (the port's own copy of the
 server knobs that the Resolver role, the conflict-set factory, the
-stream router and the wire commit path read, from
+stream router, the wire commit path and the simulated cluster read, from
 foundationdb_tpu.utils.knobs).
 
 Behavioral mirror of the reference's knob system (`flow/Knobs.cpp`,
@@ -102,7 +102,8 @@ class Knobs:
 
 
 def make_server_knobs() -> Knobs:
-    """The knobs the Resolver role and the wire commit path read, with
+    """The knobs the Resolver role, the wire commit path and the simulated
+    cluster's roles read, with
     the reference's defaults (fdbclient/ServerKnobs.cpp)."""
     k = Knobs("ServerKnobs")
     # state-transaction bytes a resolver holds before it delays new
@@ -145,6 +146,18 @@ def make_server_knobs() -> Knobs:
     # commit batches in flight at once through resolve -> tlog push ->
     # reply, ordered only at the version-chain hand-offs
     k.define("MAX_PIPELINED_COMMIT_BATCHES", 16)
+    # GRV batching follows the same controller (GrvProxyServer's
+    # START_TRANSACTION_BATCH_* discipline)
+    k.define("START_TRANSACTION_BATCH_INTERVAL_MIN", 0.0005)
+    k.define("START_TRANSACTION_BATCH_INTERVAL_MAX", 0.010)
+    k.define("START_TRANSACTION_BATCH_INTERVAL_SMOOTHER_ALPHA", 0.1)
+    k.define("START_TRANSACTION_BATCH_COUNT_MAX", 65536)
+    # retained in-memory tlog bytes past which a log spills its oldest
+    # entries to its simulated disk (TLogServer's spill discipline)
+    k.define("TLOG_SPILL_THRESHOLD", 1_000_000)
+    # a commit proxy replays a recent resolve request as a duplicate
+    # (the resolver must answer it from its reply cache)
+    k.define("BUGGIFY_DUPLICATE_RESOLVE", False)
     return k
 
 

@@ -9,6 +9,7 @@ Behavioral mirror of `flow/Trace.cpp`:
 * `TraceBatch` (`g_traceBatch`, flow/Trace.h:576): low-overhead
   commit-path micro-events with Location strings
   ("Resolver.resolveBatch.Before", ...; utils/commit_debug.py).
+* `trace_counters` (fdbrpc/Stats.h:93): a periodic counter snapshot.
 
 The process-wide sinks (`g_trace`, `g_trace_batch`) are swapped per run
 with `install()`, which returns the previous pair.
@@ -19,6 +20,10 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Callable, Optional
+
+from foundationdb_tpu_torch.utils.probes import code_probe, declare
+
+declare("metrics.counters_flushed")
 
 SEV_DEBUG = 5
 SEV_INFO = 10
@@ -150,6 +155,15 @@ class TraceBatch:
     def dump(self) -> list[tuple[float, str, str, str]]:
         out, self.events = self.events, []
         return out
+
+
+def trace_counters(logger: TraceLog, name: str, ident: str, counters) -> None:
+    """Periodic counter snapshot (CounterCollection::traceCounters)."""
+    code_probe(True, "metrics.counters_flushed")
+    ev = TraceEvent(name, logger=logger).detail("ID", ident)
+    for k, v in counters.as_dict().items():
+        ev.detail(k, v)
+    ev.log()
 
 
 #: process-wide default sinks (swapped per run with install())

@@ -259,10 +259,10 @@ def test_resolve_columnar_matches_jax_and_object_path(name):
         n_conflicts += sum(int(v) == 0 for v in got.verdicts)
         n_reports += len(got.conflicting_key_ranges)
     assert n_conflicts and n_reports, "the stream checks no conflict"
-    c = port.metrics.counters
+    c = port.metrics.counters.as_dict()
     assert c["columnarBatches"] == N_BATCHES
     assert c["resolveBatches"] == N_BATCHES
-    assert port_obj.metrics.counters["columnarBatches"] == 0
+    assert port_obj.metrics.counters.get("columnarBatches") == 0
     assert (jcs.metrics.counters.as_dict()["columnarBatches"]
             == N_BATCHES)
 

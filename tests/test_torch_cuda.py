@@ -522,7 +522,7 @@ def test_variant_stream_matches_cpu_plain_path(cuda_device, profile):
         want = cpu.resolve_group_args(stacked)
         for f in want._fields:
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
-    assert gpu.metrics.counters == cpu.metrics.counters
+    assert gpu.metrics.counters.as_dict() == cpu.metrics.counters.as_dict()
     name = "read_dedup" if profile == "hot_key" else "sweep_ranks"
     assert kernels.COUNTS[name] > 0
 
@@ -824,9 +824,9 @@ def test_sharded_stream_matches_cpu_plain_path(cuda_device, latched):
         for a, b in zip(gpu.store_state()[0], cpu.store_state()[0]):
             for x, y in zip(a, b):
                 assert np.array_equal(x, y)
-    assert gpu.metrics.counters == cpu.metrics.counters
+    assert gpu.metrics.counters.as_dict() == cpu.metrics.counters.as_dict()
     if latched:
-        assert gpu.metrics.counters["exactFallbacks"] > 0
+        assert gpu.metrics.counters.get("exactFallbacks") > 0
     for name in SHARDED_ONLY:
         assert kernels.COUNTS[name] > 0, name
 
@@ -1374,7 +1374,7 @@ def test_pipelined_stream_equals_per_group_dispatch(cuda_device, classic):
                 assert torch.equal(getattr(g, f), getattr(w, f)), (api, f)
         for a, b in zip(flat_state(cs), flat_state(ref)):
             assert np.array_equal(a, b)
-        assert cs.metrics.counters["stagedChunks"] == 3
+        assert cs.metrics.counters.get("stagedChunks") == 3
 
 
 def test_staged_source_buffers_are_pinned(cuda_device):
@@ -1497,7 +1497,7 @@ def test_prewarm_records_the_compile_stage(cuda_device):
                            device=cuda_device)
     cs.prewarm_exact(None)
     assert cs.metrics.compile.count == 1
-    assert cs.metrics.counters["warmCompiles"] == 1
+    assert cs.metrics.counters.get("warmCompiles") == 1
     q = cs.metrics.qos()
     assert q["compile_seconds"] > 0.0
     stats = kernels.build_stats()
@@ -1534,8 +1534,8 @@ def test_resolve_columnar_equals_resolve_on_the_card(cuda_device):
             assert got.conflicting_key_ranges == want.conflicting_key_ranges
             conflicts += sum(int(v) == 0 for v in got.verdicts)
         assert conflicts
-        assert a.metrics.counters["columnarBatches"] == 6
-        assert b.metrics.counters["columnarBatches"] == 0
+        assert a.metrics.counters.get("columnarBatches") == 6
+        assert b.metrics.counters.get("columnarBatches") == 0
 
 
 def test_wire_resolver_child_on_the_card(cuda_device, tmp_path):

@@ -142,7 +142,7 @@ def assert_history(port, jax_cs):
 
 def assert_counters(port, jax_cs, names):
     for name in names:
-        assert port.metrics.counters[name] == jax_cs.metrics.counters.get(
+        assert port.metrics.counters.get(name) == jax_cs.metrics.counters.get(
             name), name
 
 
@@ -170,13 +170,13 @@ def test_pipeline_matches_jax(name, api):
     for g, w in zip(got, want):
         assert_fields(g, w)
     assert_history(port, jax_cs)
-    assert port.metrics.counters["stagedChunks"] == 3
+    assert port.metrics.counters.get("stagedChunks") == 3
     assert_counters(port, jax_cs, ("stagedChunks",) if name == "classic"
                     else TIERED_COUNTERS)
     assert port.metrics.pack.count == port.metrics.transfer.count == 3
     if latched:
         # the stream reaches the latch: a fallback on both sides
-        assert port.metrics.counters["latchTrips"] > 0
+        assert port.metrics.counters.get("latchTrips") > 0
     assert sum(int(np_of(g.conflict_count).sum()) for g in got) > 0
 
 
@@ -194,7 +194,7 @@ def test_refused_chunks_come_back_unconverged():
         assert np.asarray(w.unconverged).all()
         assert_fields(g, w, skip_verdicts=True)
     assert_history(port, jax_cs)
-    assert port.metrics.counters["latchTrips"] == 0
+    assert port.metrics.counters.get("latchTrips") == 0
     exact = {**kw, "fixpoint_latch": False, "dedup_reads": 0}
     jax_ex, port_ex = sets(exact)
     for g, w in zip(port_ex.resolve_stream_pipelined(ports, chunk=3),
@@ -241,7 +241,7 @@ def test_overflow_mid_stream_joins_the_staging_thread():
     with pytest.raises(HistoryOverflowError):
         port.resolve_stream_pipelined(pb, chunk=1, check_latch=False)
     assert not staging_threads()
-    assert (port.metrics.counters["overflowRaised"]
+    assert (port.metrics.counters.get("overflowRaised")
             == jax_cs.metrics.counters.get("overflowRaised") == 1)
 
 
@@ -256,7 +256,7 @@ def test_staging_failure_surfaces_on_the_caller():
     with pytest.raises(ValueError, match="ascend"):
         port.resolve_stream_pipelined(bad, chunk=3)
     assert not staging_threads()
-    assert port.metrics.counters["groupDispatches"] == 1
+    assert port.metrics.counters.get("groupDispatches") == 1
 
 
 def test_empty_stream():
@@ -399,7 +399,7 @@ def test_prewarm_on_the_cpu_records_nothing():
     _, port = sets({**BASE_KW, "fixpoint_latch": True})
     port.prewarm_exact(None)
     assert port.metrics.compile.count == 0
-    assert port.metrics.counters["warmCompiles"] == 0
+    assert port.metrics.counters.get("warmCompiles") == 0
 
 
 SAMPLE_SETS = {

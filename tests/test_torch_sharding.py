@@ -364,7 +364,7 @@ def test_sharded_tiered_matches_jax(n_shards, config):
               for i in range(0, 9, 3)]
     port, jcs = port_set(kw, boundaries), jax_set(kw, boundaries)
     oracle = MultiResolverOracle(boundaries, window=kw["window_versions"])
-    carried = dict.fromkeys(port.metrics.counters, 0)
+    carried = dict.fromkeys(port.metrics.counters.as_dict(), 0)
 
     if latched:
         # the raw group: the trip on shard 0 refuses it on every shard
@@ -393,10 +393,10 @@ def test_sharded_tiered_matches_jax(n_shards, config):
                 jcs.base_version, jcs._batches_since_compact,
                 jcs._spill_bound_rows)
             assert_sharded_state(fresh, jcs)
-            carried, port = dict(port.metrics.counters), fresh
+            carried, port = port.metrics.counters.as_dict(), fresh
     port.check_overflow()
     jcs.check_overflow()
-    c = {k: n + carried[k] for k, n in port.metrics.counters.items()}
+    c = {k: n + carried[k] for k, n in port.metrics.counters.as_dict().items()}
     for name in ("spills", "latchTrips", "exactFallbacks", "sweepGroups"):
         assert c[name] == jcs.metrics.counters.get(name), name
     if latched:
@@ -426,7 +426,7 @@ def test_sharded_resolve_matches_oracle_with_reports_of_one_shard():
             assert [int(v) for v in got.verdicts] == want.verdicts
             n_conflict += want.verdicts.count(0)
         assert n_conflict > 0
-        assert cs.metrics.counters["compactions"] == 3
+        assert cs.metrics.counters.get("compactions") == 3
 
 
 def test_degenerate_partition_matches_single_device():
@@ -506,7 +506,7 @@ def test_sharded_rebase_matches_oracle():
     for txns, version in stream:
         assert [int(v) for v in cs.resolve(txns, version).verdicts] == \
             oracle.resolve(to_oracle(txns), version).verdicts
-    assert cs.metrics.counters["rebases"] == 1
+    assert cs.metrics.counters.get("rebases") == 1
     assert cs.base_version > 0
 
 

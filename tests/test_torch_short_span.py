@@ -543,10 +543,10 @@ def test_conflict_set_short_span_matches_jax(path):
     port.check_overflow()
     jcs.check_overflow()
     for name in COUNTERS:
-        assert port.metrics.counters[name] == jcs.metrics.counters.get(
+        assert port.metrics.counters.get(name) == jcs.metrics.counters.get(
             name), name
     if path in PROFILES:
-        assert port.metrics.counters["latchTrips"] > 0
+        assert port.metrics.counters.get("latchTrips") > 0
 
 
 @pytest.mark.parametrize("path", ["classic", "tiered", "2 shards"])
@@ -624,7 +624,7 @@ def test_fixpoint_and_span_latches_trip_together_as_in_jax(path):
     assert np_of(got.overflow).all()
     assert_set_state(port, jcs)
     for name in ("latchTrips", "exactFallbacks"):
-        assert port.metrics.counters[name] == 1, name
+        assert port.metrics.counters.get(name) == 1, name
         if path == "tiered":   # JAX's classic dispatch counts no trip
             assert jcs.metrics.counters.get(name) == 1, name
     with pytest.raises(HistoryOverflowError):

@@ -254,7 +254,7 @@ def test_rebase():
     rng = np.random.default_rng(70)
     stream = gen_stream(rng, 6, base=(1 << 30) - 250)
     drive(trio, stream)
-    assert trio.port.metrics.counters["rebases"] == 1
+    assert trio.port.metrics.counters.get("rebases") == 1
     assert trio.port.base_version == trio.jax.base_version
 
 

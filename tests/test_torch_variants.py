@@ -312,7 +312,7 @@ def test_latch_raw_trip_and_fallback_match_jax_and_exact():
         assert_fields(got, exact.resolve_group_args(stacked))
         assert not np_of(got.unconverged).any()
         assert_state_equal(port.state, jax_cs.state)
-    c = port.metrics.counters
+    c = port.metrics.counters.as_dict()
     assert c["latchTrips"] == c["exactFallbacks"] == 2
     assert jax_cs.metrics.counters.get("latchTrips") == 2
 
@@ -324,7 +324,7 @@ def test_shallow_group_never_trips():
     got = port.resolve_group_args(stacked, check_latch=False)
     assert_fields(got, jax_cs.resolve_group_args(stacked, check_latch=False))
     assert not np_of(got.unconverged).any()
-    assert port.metrics.counters["latchTrips"] == 0
+    assert port.metrics.counters.get("latchTrips") == 0
     assert_state_equal(port.state, jax_cs.state)
 
 
@@ -398,7 +398,7 @@ def drive_groups(kw, batches, group):
         outs.append(got)
     port.check_overflow()
     for name in COUNTERS:
-        assert port.metrics.counters[name] == jax_cs.metrics.counters.get(
+        assert port.metrics.counters.get(name) == jax_cs.metrics.counters.get(
             name), name
     return port, outs
 
@@ -409,7 +409,7 @@ def test_zipf_stream_latch_dedup_matches_jax_and_oracle(dedup, group):
           "dedup_reads": dedup}
     batches = make_stream("zipf", KernelConfig(**kw), 6, seed=11)
     port, outs = drive_groups(kw, batches, group)
-    c = port.metrics.counters
+    c = port.metrics.counters.as_dict()
     if dedup == 8:   # far under the ~25 distinct ranges per batch
         assert c["latchTrips"] == c["exactFallbacks"] == 6 // group
     assert sum(int(np_of(o.conflict_count).sum()) for o in outs) > 0
@@ -422,7 +422,7 @@ def test_ycsb_e_stream_sweep_spill_matches_jax_and_oracle(seed):
           "delta_capacity": 256, "compact_interval": 0}
     batches = make_stream("ycsb_e", KernelConfig(**kw), 9, seed=seed)
     port, outs = drive_groups(kw, batches, 3)
-    c = port.metrics.counters
+    c = port.metrics.counters.as_dict()
     assert c["spills"] > 0 and c["sweepGroups"] == 3
     # the same stream on the probe path: the same decisions
     probe = make_conflict_set(
@@ -445,7 +445,7 @@ def test_single_group_past_capacity_still_raises():
         jax_cs.resolve(txns, 100)
     with pytest.raises(HistoryOverflowError):
         port.resolve(txns, 100)
-    assert port.metrics.counters["spills"] == 1
+    assert port.metrics.counters.get("spills") == 1
 
 
 def test_spill_bound_re_anchors_on_the_overflow_check():
@@ -460,7 +460,7 @@ def test_spill_bound_re_anchors_on_the_overflow_check():
         port.check_overflow()
         jax_cs.check_overflow()
         assert port._spill_bound_rows == jax_cs._spill_bound_rows
-    assert port.metrics.counters["spillBoundAnchors"] > 0
+    assert port.metrics.counters.get("spillBoundAnchors") > 0
     assert_state_equal(port.state, jax_cs.state)
 
 
@@ -557,5 +557,5 @@ def test_prewarm_exact_leaves_the_state_alone():
     for a, b in zip(before, after):
         for x, y in zip(a, b):
             assert np.array_equal(x, y)
-    assert port.metrics.counters["groupDispatches"] == 0
+    assert port.metrics.counters.get("groupDispatches") == 0
     assert dataclasses.asdict(port.metrics.fixpoint)["batches"] == 0

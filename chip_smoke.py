@@ -222,10 +222,44 @@ any fault:
    the resolvers' compute p50 / p99 a batch (each conflict set's
    resolve() call), the share of the wall inside those calls, and
    batches and their mean size, beside the card's name and power limit.
+17. the wire cluster under its controller (cell LC): first, in this
+   process, a ResolverRole(backend="cuda", epoch=2) on the card at
+   tests/test_lifecycle.py's small RESOLVER_KERNEL decides that test's
+   in-flight set after the conservative recovery batch as the port's
+   sim recovery does. Then `python -m foundationdb_tpu_torch.cluster.
+   monitor` starts the controller and 10 workers; the controller
+   recruits 2 tlogs, 1 storage, the sequencer, 2 resolvers (on the card
+   at `commit_config()`), a ratekeeper and 2 proxies onto them, and
+   phase 15's traffic runs from ClusterClients in this process (YCSB's
+   load, every insert offered at once, then workload A, 256 clients x
+   40 ops). At half of workload
+   A's operations acknowledged, the worker hosting resolver1 is
+   SIGKILLed: the monitor restarts it and the controller recovers into
+   a newer generation with both resolvers recruited anew on the card.
+   It fails unless each recruited resolver, before and after the kill,
+   is a TorchConflictSet on the card whose own launches are phase 3's
+   count a dispatched batch; the generation advances and its recovery
+   version is above the last commit acknowledged before the kill; no
+   committed transaction (each recorded at the client) read a key
+   another wrote at a version in (its read snapshot, its commit
+   version]; every abort has a cause (a write to its key at a version
+   in (its read snapshot, a read version taken after the reply], or a
+   recovery in that interval; for TOO_OLD a snapshot past the window);
+   every acknowledged insert is in the storage role's
+   snapshot at a fresh version (a sample also through the front door)
+   with each counter between its acknowledged increments and those plus
+   its unknown outcomes; a read at a snapshot from before the kill
+   aborts; no process but the killed worker exits, none is left after
+   the monitor stops, and the whole takes at most 240 s. It prints the
+   time to the first commit, the load's and the workload's wall and
+   commits a second, the abort share, commit p50 / p99 at the client,
+   the kill to the new generation's first commit (detection, the
+   recovery walk, the new resolvers' warm-up), and each resolver's
+   batches, mean batch size and compute p50 / p99.
 
-The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15
-and 16 under `pipelined_uniform`, `pipelined_classic`, `staging`,
-`resolver`, `wire`, `commit_path` and `sim_cluster`),
+The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15,
+16 and 17 under `pipelined_uniform`, `pipelined_classic`, `staging`,
+`resolver`, `wire`, `commit_path`, `sim_cluster` and `wire_cluster`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -4477,6 +4511,785 @@ def phase_sim_cluster(card: str, uniform: dict, *, cfg=None, device=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the wire cluster under its controller
+
+#: the phase's wall budget, from the monitor's start to its teardown
+LC_BUDGET_S = 240.0
+#: the workers the monitor starts: the topology's nine roles and a spare
+LC_WORKERS = 10
+LC_ROLES = 9
+#: seconds a ClusterClient waits for a recovered generation (each
+#: recruit builds a resolver on the card, one after the other)
+LC_RECOVERY_TIMEOUT = 180.0
+#: the storage engine: the versioned LSM (native/vlsm.cpp), whose
+#: checkpoint flushes the memtable; the memory engine's serializes the
+#: whole store every 8 applied versions, and two proxies' small batches
+#: make that thousands of 100 MB checkpoints
+LC_STORAGE_ENGINE = "lsm"
+#: records read back through the front door at the end (the storage
+#: role's snapshot holds every one)
+LC_READ_BACK = 1_000
+#: a key no transaction of the workload writes: a read of it at a
+#: snapshot from before the kill aborts only through the recovery's
+#: conservative write
+LC_STALE_KEY = b"lc/stale-snapshot-probe"
+#: the in-flight set of tests/test_lifecycle.py:218-283 and the
+#: decisions the sim recovery makes on it
+LC_INFLIGHT_DECISIONS = ["abort", "commit", "abort", "commit", "commit",
+                         "abort"]
+LC_PARITY_KERNEL = ("KernelConfig(max_key_bytes=16, max_txns=64, "
+                    "max_reads=256, max_writes=256, history_capacity=65536, "
+                    "window_versions=5000000)")
+
+
+def lc_conf(work: str, cfg, device) -> str:
+    """The deployment: the controller's declarative topology at
+    scripts/bench_pipeline.py's two proxies and two resolvers (2 tlogs, 1
+    storage, the sequencer, 2 resolvers on the card at `cfg`, a
+    ratekeeper, 2 proxies: 9 roles) in cluster.json, and the monitor's
+    conf starting the controller and LC_WORKERS workers, as fdbmonitor
+    would. The proxies batch as phase 15's pipeline does (max_batch the
+    kernel's batch, 1 ms). Returns the monitor conf's path."""
+    conf = {"tlogs": 2, "resolvers": 2, "proxies": 2, "ratekeeper": True,
+            "backend": "cuda", "resolver_kernel": repr(cfg),
+            "tlog_data_dir": os.path.join(work, "tlog-data"),
+            "storage_data_dir": os.path.join(work, "storage-data"),
+            "storage_engine": LC_STORAGE_ENGINE,
+            "max_batch": cfg.max_txns,
+            "batch_interval": COMMIT_BATCH_INTERVAL}
+    if device is not None:
+        conf["device"] = str(device)
+    with open(os.path.join(work, "cluster.json"), "w") as f:
+        json.dump(conf, f)
+    ctrl = os.path.join(work, "controller0.sock")
+    lines = ["[role.controller]", "kind = controller",
+             f"socket_dir = {work}",
+             f"cluster_conf = {os.path.join(work, 'cluster.json')}",
+             f"state_file = {os.path.join(work, 'controller-state.json')}",
+             ""]
+    for i in range(LC_WORKERS):
+        lines += [f"[role.w{i}]", "kind = worker", f"socket_dir = {work}",
+                  f"index = {i}", f"controller = {ctrl}"]
+        if device is not None:
+            lines.append(f"device = {device}")
+        lines.append("")
+    path = os.path.join(work, "monitor.conf")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return path
+
+
+def launched_pids(lines: list) -> list:
+    """The pid of every process the monitor started, from its log's
+    "[monitor] launched <name> (<kind>) pid=N" lines."""
+    return [int(ln.rsplit("pid=", 1)[1]) for ln in lines
+            if ln.startswith("[monitor] launched ") and "pid=" in ln]
+
+
+def running(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except OSError:  # gone, or the pid is another user's by now
+        return False
+    return True
+
+
+def missed_conflicts(txns: list) -> list:
+    """The committed transactions that read a key another committed
+    transaction wrote at a version in (their read snapshot, their commit
+    version]. `txns` holds (read snapshot, commit version, read keys,
+    written keys) of every committed transaction."""
+    import bisect
+
+    writes: dict = {}
+    for _rs, cv, _r, ws in txns:
+        for k in ws:
+            writes.setdefault(k, []).append(cv)
+    for vs in writes.values():
+        vs.sort()
+    bad = []
+    for rs, cv, reads, ws in txns:
+        for k in reads:
+            vs = writes.get(k, [])
+            n = bisect.bisect_right(vs, cv) - bisect.bisect_right(vs, rs)
+            if n - (k in ws) > 0:
+                bad.append((rs, cv, k))
+    return bad
+
+
+def unexplained_aborts(aborts: list, txns: list, unknowns: list,
+                       recoveries: list, window: int) -> list:
+    """The aborted transactions that nothing explains. `aborts` holds
+    (key, read snapshot, reason, a read version taken after the reply)
+    of every NotCommittedError. The reply fires only after its batch's
+    version is reported committed, so that read version bounds the
+    batch's. A CONFLICT needs, in (its snapshot, that bound], a write to
+    its key by a committed transaction (`txns`, as missed_conflicts
+    takes them), a write whose outcome is unknown (`unknowns`: (key, its
+    read snapshot); if it committed, its version lies above that
+    snapshot) or a generation's recovery version at or above the
+    snapshot (its conservative transaction writes every key at a version
+    above it). A TOO_OLD needs its
+    snapshot more than `window` versions below the bound."""
+    import bisect
+
+    writes: dict = {}
+    for _rs, cv, _r, ws in txns:
+        for k in ws:
+            writes.setdefault(k, []).append(cv)
+    for vs in writes.values():
+        vs.sort()
+    maybe: dict = {}
+    for k, rs in unknowns:
+        maybe[k] = min(rs, maybe.get(k, rs))
+    bad = []
+    for k, rs, reason, bound in aborts:
+        if reason == "TOO_OLD":
+            ok = rs < bound - window
+        else:
+            vs = writes.get(k, [])
+            ok = (bisect.bisect_right(vs, bound) > bisect.bisect_right(vs, rs)
+                  or maybe.get(k, bound) < bound
+                  or any(rs <= r < bound for r in recoveries))
+        if not ok:
+            bad.append((k, rs, reason, bound))
+    return bad
+
+
+def sim_recovery_decisions() -> list:
+    """The port's own sim recovery (cluster/recovery.py through
+    open_cluster, the host oracle) on the in-flight set of
+    tests/test_lifecycle.py: a commit, a snapshot, the proxy failed, the
+    new generation's decisions on the set."""
+    from foundationdb_tpu_torch.cluster.commit_proxy import NotCommitted
+    from foundationdb_tpu_torch.cluster.database import (
+        ClusterConfig,
+        open_cluster,
+    )
+
+    sched, cluster, db = open_cluster(ClusterConfig(
+        n_commit_proxies=1, n_resolvers=1, n_storage=1,
+        resolver_backend="cpu"))
+    out = {}
+    try:
+        async def body():
+            txn = db.create_transaction()
+            txn.set(b"seed", b"s")
+            await txn.commit()
+            stale = await db.create_transaction().get_read_version()
+            p = cluster.commit_proxies[0]
+            p.failed = RuntimeError("chaos")
+            p.stop()
+            await sched.delay(1.0)
+            if cluster.controller.epoch != 2:
+                fail(f"sim recovery: epoch {cluster.controller.epoch}")
+            fresh = await db.create_transaction().get_read_version()
+            decisions = []
+            for t in inflight_set(stale, fresh):
+                try:
+                    await cluster.commit_proxies[0].commit(t).future
+                    decisions.append("commit")
+                except NotCommitted:
+                    decisions.append("abort")
+            out["decisions"] = decisions
+
+        sched.run_until(sched.spawn(body()).done)
+    finally:
+        cluster.stop()
+    return out["decisions"]
+
+
+def inflight_set(stale_rv: int, fresh_rv: int) -> list:
+    """tests/test_lifecycle.py's in-flight mix around a recovery: stale
+    readers (abort), stale blind writes (commit), fresh readers
+    (commit)."""
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+
+    def kr(k):
+        return [(k, k + b"\x00")]
+
+    def mk(rs, ws, snap):
+        return CommitTransaction(read_conflict_ranges=rs,
+                                 write_conflict_ranges=ws, read_snapshot=snap)
+
+    return [mk(kr(b"a"), kr(b"a"), stale_rv), mk([], kr(b"b"), stale_rv),
+            mk(kr(b"c"), [], stale_rv), mk(kr(b"d"), kr(b"d"), fresh_rv),
+            mk([], kr(b"e"), fresh_rv),
+            mk(kr(b"\xfe"), kr(b"\xfe"), stale_rv)]
+
+
+def recovery_parity_on_card(device) -> dict:
+    """Check 5: a ResolverRole(backend="cuda", epoch=2) in this process
+    at tests/test_lifecycle.py's small RESOLVER_KERNEL, fresh as a
+    recruit is, takes the controller's boot batch, the conservative
+    recovery transaction and then the in-flight set, and decides it as
+    the sim recovery does."""
+    import asyncio
+
+    from foundationdb_tpu_torch.cluster import generation as gen
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.models.types import (
+        ResolveTransactionBatchRequest,
+        TransactionResult,
+    )
+
+    sim = sim_recovery_decisions()
+    old = os.environ.get("RESOLVER_KERNEL")
+    os.environ["RESOLVER_KERNEL"] = LC_PARITY_KERNEL
+    try:
+        role = mp.ResolverRole(backend="cuda", epoch=2, device=device)
+    finally:
+        if old is None:
+            os.environ.pop("RESOLVER_KERNEL")
+        else:
+            os.environ["RESOLVER_KERNEL"] = old
+    cs = role._cs
+    on = "cuda" if device is None else str(device).split(":")[0]
+    if type(cs).__name__ != "TorchConflictSet" or cs.device.type != on:
+        fail(f"recovery parity: the role resolves on {type(cs).__name__}")
+    rv = 2_000_000
+    stale, fresh = 1_000, rv + 1_000
+
+    async def wire():
+        await role.resolve(ResolveTransactionBatchRequest(
+            prev_version=-1, version=rv, last_received_version=-1, epoch=2))
+        rep = await role.resolve(ResolveTransactionBatchRequest(
+            prev_version=rv, version=rv + 1_000, last_received_version=rv,
+            epoch=2,
+            transactions=[gen.conservative_recovery_transaction(rv)]))
+        if rep.committed[0] != TransactionResult.COMMITTED:
+            fail("recovery parity: the recovery transaction did not commit")
+        rep = await role.resolve(ResolveTransactionBatchRequest(
+            prev_version=rv + 1_000, version=rv + 2_000,
+            last_received_version=rv + 1_000, epoch=2,
+            transactions=inflight_set(stale, fresh)))
+        return ["commit" if v == TransactionResult.COMMITTED else "abort"
+                for v in rep.committed]
+
+    got = asyncio.run(wire())
+    if not got == sim == LC_INFLIGHT_DECISIONS:
+        fail(f"recovery parity: the card's role decided {got}, the sim "
+             f"recovery {sim}, tests/test_lifecycle.py "
+             f"{LC_INFLIGHT_DECISIONS}")
+    return dict(decisions=got, sim=sim)
+
+
+def lc_launch_check(tag: str, st: dict, uniform: dict, on: str) -> dict:
+    """One recruited resolver's status: a TorchConflictSet on `on`, and
+    its own launches (role_kernel_launches: those of its own resolves)
+    phase 3's count a dispatched batch (tiered_launch_want), each kernel
+    of the path at least once."""
+    cs = st.get("conflict_set") or {}
+    if cs.get("class") != "TorchConflictSet" or not str(
+            cs.get("device", "")).startswith(on):
+        fail(f"wire cluster: {tag} resolves on {cs}")
+    launches = st["role_kernel_launches"]
+    batches = st["qos"]["kernel"]["batches"]
+    compactions = st["qos"]["kernel_stages"]["compactions"]
+    want = tiered_launch_want(uniform, batches, compactions)
+    for k, n in want.items():
+        if launches.get(k, 0) != n or n <= 0:
+            fail(f"wire cluster: {tag} launched {k} {launches.get(k, 0)} "
+                 f"times in {batches} batches ({compactions} compactions), "
+                 f"not {n}")
+    q = st["qos"]
+    return dict(batches=batches, compactions=compactions, launches=launches,
+                txns=st["qos"]["resolve_path"]["txns"],
+                compute_p50_ms=q["compute_time_dist"]["p50"] * 1e3,
+                compute_p99_ms=q["compute_time_dist"]["p99"] * 1e3,
+                warm_compile_s=st["qos"]["kernel_stages"]["compileSeconds"]["max"])
+
+
+def phase_wire_cluster(card: str, uniform: dict, *,
+                       records: int = COMMIT_RECORDS,
+                       clients: int = COMMIT_CLIENTS, ops: int = COMMIT_OPS,
+                       kernel_cfg=None, device=None, seed: int = 17) -> dict:
+    """Cell LC: the wire cluster under its controller on the card.
+    `python -m foundationdb_tpu_torch.cluster.monitor` starts the
+    controller and LC_WORKERS workers (lc_conf); the controller recruits
+    the nine roles onto them, both resolvers TorchConflictSets on the
+    card. Phase 15's traffic from ClusterClients in this process: YCSB's
+    load, every insert offered at once, then workload A, and at half of
+    its operations acknowledged
+    a SIGKILL of the worker hosting resolver1: the monitor restarts it,
+    the controller recovers into a newer generation with both resolvers
+    recruited anew, and the clients ride through with their retries.
+
+    It fails unless: each recruited resolver is a TorchConflictSet on
+    the card before and after the kill, with phase 3's launches a batch
+    (lc_launch_check); the generation advances and its recovery version
+    is above the last commit acknowledged before the kill; no committed
+    transaction missed a conflict (missed_conflicts, over every
+    transaction recorded at the client); every abort has a cause
+    (unexplained_aborts); every acknowledged insert is in
+    the storage role's snapshot at a fresh version, and a sample reads
+    back through the front door; each counter lies between its
+    acknowledged increments and those plus its unknown outcomes; a read
+    at a snapshot from before the kill aborts after the recovery; no
+    process but the killed worker exits, and none the monitor's log
+    names is left after the monitor stops; the whole inside
+    LC_BUDGET_S."""
+    import asyncio
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    from foundationdb_tpu_torch.cluster import generation as gen
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.cluster.grv_proxy import GrvThrottledError
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+    from foundationdb_tpu_torch.wire.codec import Mutation
+
+    cfg = kernel_cfg or commit_config()
+    on = "cuda" if device is None else str(device).split(":")[0]
+    work = tempfile.mkdtemp(prefix="fdbl")
+    rel = os.path.relpath(work)
+    if len(rel) < len(work):
+        work = rel  # a Unix socket path holds at most 107 bytes
+    conf_path = lc_conf(work, cfg, device)
+    ctrl = os.path.join(work, "controller0.sock")
+    inputs = ycsb_a_inputs(seed, records, clients, ops)
+    keys, values = inputs["keys"], inputs["values"]
+    log(f"  deployment: the monitor, the controller and {LC_WORKERS} "
+        f"workers ({LC_ROLES} roles and a spare); 2 tlogs, 1 storage, the "
+        f"sequencer, 2 resolvers on {on} at RESOLVER_KERNEL={cfg!r}, a "
+        f"ratekeeper, 2 proxies (max_batch {cfg.max_txns}, "
+        f"{COMMIT_BATCH_INTERVAL * 1e3:g} ms); {records} records of "
+        f"{COMMIT_FIELDS} x {COMMIT_FIELD_BYTES} bytes, {clients} clients x "
+        f"{ops} operations of workload A")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    mon_log_path = os.path.join(work, "monitor.log")
+    mon_log = open(mon_log_path, "w")
+    t_start, t_start_wall = time.perf_counter(), time.time()
+    monitor = subprocess.Popen(
+        [sys.executable, "-u", "-m", "foundationdb_tpu_torch.cluster.monitor",
+         conf_path], env=env, stdout=mon_log, stderr=subprocess.STDOUT)
+    out: dict = dict(records=records, clients=clients, ops=ops, card=card,
+                     workers=LC_WORKERS, roles=LC_ROLES)
+
+    def since() -> float:
+        return time.perf_counter() - t_start
+
+    async def status_of(address: str) -> dict:
+        conn = await mp.connect(address, retries=50)
+        try:
+            rep = await conn.call(mp.TOKEN_STATUS, mp.StatusRequest(pad=0),
+                                  timeout=30.0)
+            return json.loads(rep.payload)
+        finally:
+            await conn.close()
+
+    async def resolvers_of(topo: dict) -> dict:
+        return {n: await status_of(e["address"])
+                for n, e in sorted(topo["roles"].items())
+                if e["kind"] == "resolver"}
+
+    async def drive():
+        # -- the first recruitment
+        first = mp.ClusterClient(ctrl, recovery_timeout=LC_BUDGET_S)
+        await first.connect()
+        topo0 = await first.topology()
+        kinds = sorted(e["kind"] for e in topo0["roles"].values())
+        if len(kinds) != LC_ROLES:
+            fail(f"wire cluster: recruited {kinds}")
+        recruited_s = since()
+        cls = [mp.ClusterClient(ctrl, recovery_timeout=LC_RECOVERY_TIMEOUT)
+               for _ in range(clients)]
+        await asyncio.gather(*(c.connect() for c in cls))
+        txns: list = []      # (read snapshot, version, reads, writes)
+        acked: list = []     # (time.time(), version) of each ack
+        aborts: list = []    # (key, read snapshot, reason, a later GRV)
+        unknowns: list = []  # (key, read snapshot) of each unknown outcome
+        counts = dict(reads=0, updates=0, conflicts=0, gave_up=0,
+                      unknown=0, recovering=0, throttled=0)
+        unknown = [0] * records
+        updates = [0] * records
+        commit_s, grv_s, read_s = [], [], []
+
+        async def read_version(cl):
+            while True:
+                try:
+                    return await cl.get_read_version()
+                except GrvThrottledError:
+                    counts["throttled"] += 1
+                    await asyncio.sleep(0.01)
+
+        # -- YCSB load: one insert a transaction, every one offered at
+        # once as phase 15 offers them (a blind insert takes no read
+        # version, so the GRV front door's queue limit does not bound it)
+        async def insert(cl, i):
+            k = keys[i]
+            while True:
+                try:
+                    v = await cl.commit(CommitTransaction(
+                        write_conflict_ranges=[(k, k + b"\x00")],
+                        mutations=[Mutation(0, k, values[i])]))
+                except mp.CommitUnknownError:
+                    unknowns.append((k, 0))
+                    continue  # a blind write of the same value: again
+                except mp.ClusterRecoveringError:
+                    continue
+                txns.append((0, v, (), (k,)))
+                acked.append((time.time(), v))
+                return
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(insert(cls[n % clients], i)
+                               for n, i in enumerate(inputs["insert_order"])))
+        load_s = time.perf_counter() - t0
+        first_commit_s = min(t for t, _v in acked) - t_start_wall
+        log(f"  first recruitment: {LC_ROLES} roles in {recruited_s:.3f} s "
+            f"from the monitor's start, the first commit at "
+            f"{first_commit_s:.3f} s; on {card}")
+        log(f"  load: {records} inserts in {load_s:.3f} s "
+            f"({records / load_s:.1f} commits/s) on {card}")
+
+        # -- YCSB workload A, the kill at half of its operations
+        half = clients * ops // 2
+        done = {"ops": 0}
+        kill_now = asyncio.Event()
+        gen1_st = {}
+
+        async def client(c):
+            cl = cls[c]
+            for j in range(ops):
+                rid = inputs["record"][c][j]
+                key = keys[rid]
+                conflicts = 0
+                aborted = None  # the last abort, waiting for a later GRV
+                while True:
+                    try:
+                        t1 = time.perf_counter()
+                        rv = await cl.get_read_version()
+                        t2 = time.perf_counter()
+                        if aborted is not None:
+                            aborts.append((*aborted, rv))
+                            aborted = None
+                        cur = await cl.read(key, rv)
+                        grv_s.append(t2 - t1)
+                        read_s.append(time.perf_counter() - t2)
+                    except GrvThrottledError:
+                        counts["throttled"] += 1
+                        await asyncio.sleep(0.01)
+                        continue
+                    if cur is None or len(cur) != len(values[rid]):
+                        fail(f"wire cluster: record {rid} read {cur!r:.40}")
+                    if inputs["is_read"][c][j]:
+                        counts["reads"] += 1
+                        break
+                    f = inputs["field"][c][j] * COMMIT_FIELD_BYTES
+                    new = ((int.from_bytes(cur[:8], "little") + 1)
+                           .to_bytes(8, "little") + cur[8:f]
+                           + inputs["new_field"][c, j].tobytes()
+                           + cur[f + COMMIT_FIELD_BYTES:])
+                    kr = (key, key + b"\x00")
+                    t3 = time.perf_counter()
+                    try:
+                        v = await cl.commit(CommitTransaction(
+                            read_conflict_ranges=[kr],
+                            write_conflict_ranges=[kr], read_snapshot=rv,
+                            mutations=[Mutation(0, key, new)]))
+                    except mp.NotCommittedError as e:
+                        aborted = (key, rv, "TOO_OLD" if "TOO_OLD" in str(e)
+                                   else "CONFLICT")
+                        counts["conflicts"] += 1
+                        conflicts += 1
+                        if conflicts > COMMIT_RETRIES:
+                            counts["gave_up"] += 1
+                            aborts.append((*aborted, await read_version(cl)))
+                            break
+                        continue
+                    except mp.CommitUnknownError:
+                        counts["unknown"] += 1
+                        unknown[rid] += 1
+                        unknowns.append((key, rv))
+                        continue
+                    except mp.ClusterRecoveringError:
+                        counts["recovering"] += 1
+                        continue
+                    except GrvThrottledError:
+                        counts["throttled"] += 1
+                        await asyncio.sleep(0.01)
+                        continue
+                    commit_s.append(time.perf_counter() - t3)
+                    txns.append((rv, v, (key,), (key,)))
+                    acked.append((time.time(), v))
+                    updates[rid] += 1
+                    counts["updates"] += 1
+                    break
+                done["ops"] += 1
+                if done["ops"] >= half:
+                    kill_now.set()
+
+        async def killer():
+            await kill_now.wait()
+            topo = await first.topology()
+            epoch0, recovery0 = topo["epoch"], topo["recovery_version"]
+            stale_rv = await first.get_read_version()
+            gen1_st.update(await resolvers_of(topo))
+            victim = topo["roles"]["resolver1"]
+            t_kill = time.time()
+            os.kill(victim["pid"], signal.SIGKILL)
+            k_s = since()
+            while True:
+                try:
+                    topo = await first.topology()
+                    if (topo["epoch"] > epoch0
+                            and topo["state"] == gen.FULLY_RECOVERED):
+                        break
+                except Exception:  # noqa: BLE001 - polled again
+                    pass
+                if since() > LC_BUDGET_S:
+                    fail(f"wire cluster: no recovery by {since():.1f} s: "
+                         f"{topo}")
+                await asyncio.sleep(0.05)
+            return dict(epoch0=epoch0, recovery0=recovery0, topo=topo,
+                        stale_rv=stale_rv,
+                        victim=victim, t_kill=t_kill, kill_at_s=k_s,
+                        recovered_at_s=since())
+
+        t0 = time.perf_counter()
+        kill_task = asyncio.ensure_future(killer())
+        await asyncio.gather(*(client(c) for c in range(clients)))
+        run_s = time.perf_counter() - t0
+        kill = await kill_task
+        kill["last_acked"] = max(v for t, v in acked if t <= kill["t_kill"])
+        topo1 = kill["topo"]
+        rv1 = topo1["recovery_version"]
+        gen2_st = await resolvers_of(topo1)
+        after = sorted((t, v) for t, v in acked if v > rv1)
+        if not after:
+            fail("wire cluster: no commit acknowledged in the new "
+                 "generation")
+
+        # -- check 4: a read at a snapshot from before the kill aborts
+        stale_txn = CommitTransaction(
+            read_conflict_ranges=[(LC_STALE_KEY, LC_STALE_KEY + b"\x00")],
+            write_conflict_ranges=[(LC_STALE_KEY, LC_STALE_KEY + b"\x00")],
+            read_snapshot=kill["stale_rv"],
+            mutations=[Mutation(0, LC_STALE_KEY, b"stale")])
+        for _ in range(100):
+            try:
+                v = await first.commit(stale_txn)
+                fail(f"wire cluster: a read at the pre-kill snapshot "
+                     f"{kill['stale_rv']} committed at {v}")
+            except mp.NotCommittedError:
+                break
+            except (mp.CommitUnknownError, mp.ClusterRecoveringError):
+                await asyncio.sleep(0.05)
+        else:
+            fail("wire cluster: the pre-kill snapshot's read never "
+                 "resolved")
+
+        # -- the read-back at a fresh version
+        head = await first.get_read_version()
+        snap_conn = await mp.connect(topo1["roles"]["storage0"]["address"])
+        snap = await snap_conn.call(mp.TOKEN_STORAGE_SNAPSHOT,
+                                    mp.StorageSnapshotReq(version=head),
+                                    timeout=300.0)
+        await snap_conn.close()
+        sample = np.random.default_rng(seed).choice(
+            records, size=min(LC_READ_BACK, records), replace=False)
+        front = await asyncio.gather(*(
+            cls[n % clients].read(keys[int(r)], head)
+            for n, r in enumerate(sample)))
+        ctrl_st = await status_of(ctrl)
+        for cl in (first, *cls):
+            await cl.close()
+        return dict(txns=txns, acked=acked, counts=counts, unknown=unknown,
+                    aborts=aborts, unknowns=unknowns,
+                    updates=updates, commit_s=commit_s, run_s=run_s,
+                    load_s=load_s,
+                    kill=kill, gen1=gen1_st, gen2=gen2_st, after=after,
+                    snap=snap, head=head, sample=sample, front=front,
+                    ctrl=ctrl_st, topo0=topo0, first_commit_s=first_commit_s,
+                    recruited_s=recruited_s, grv_s=grv_s, read_s=read_s)
+
+    try:
+        r = asyncio.run(drive())
+    except BaseException:
+        # the monitor's log (its children's output too) says what died
+        mon_log.flush()
+        with open(mon_log_path) as f:
+            tail = f.read().splitlines()[-60:]
+        print("\n".join(["  monitor log, last lines:", *tail]),
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        # teardown: the monitor stops (and reaps) its children on SIGTERM
+        monitor.send_signal(signal.SIGTERM)
+        try:
+            monitor.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            monitor.kill()
+            monitor.wait()
+        mon_log.close()
+        with open(mon_log_path) as f:
+            mon_lines = f.read().splitlines()
+        leftover = [p for p in launched_pids(mon_lines) if running(p)]
+        for p in leftover:
+            os.kill(p, signal.SIGKILL)
+    wall_s = time.perf_counter() - t_start
+    shutil.rmtree(work, ignore_errors=True)
+    if leftover:
+        fail(f"wire cluster: {leftover} still ran after the monitor stopped")
+    kill, counts = r["kill"], r["counts"]
+    victim_worker = kill["victim"]["worker"]
+    died = [ln for ln in mon_lines if " died rc=" in ln]
+    if len(died) != 1 or not died[0].startswith(
+            f"[monitor] {victim_worker} died rc=-9"):
+        fail(f"wire cluster: processes that exited: {died}")
+    relaunched = [ln for ln in mon_lines
+                  if ln.startswith(f"[monitor] launched {victim_worker} ")]
+    if len(relaunched) != 2:
+        fail(f"wire cluster: the monitor launched {victim_worker} "
+             f"{len(relaunched)} times")
+    if monitor.returncode not in (0, -signal.SIGTERM):
+        fail(f"wire cluster: the monitor exited with {monitor.returncode}")
+
+    # 1. the generations, the resolvers on the card, their launches
+    topo0, topo1 = r["topo0"], kill["topo"]
+    if not topo1["epoch"] > kill["epoch0"] >= topo0["epoch"]:
+        fail(f"wire cluster: epochs {topo0['epoch']}, {kill['epoch0']}, "
+             f"{topo1['epoch']}")
+    if not topo1["recovery_version"] > kill["last_acked"]:
+        fail(f"wire cluster: recovery version {topo1['recovery_version']} "
+             f"not above the last acknowledged commit {kill['last_acked']}")
+    gens = {}
+    for tag, sts in (("generation 1", r["gen1"]),
+                     ("generation 2", r["gen2"])):
+        if sorted(sts) != ["resolver0", "resolver1"]:
+            fail(f"wire cluster: {tag}'s resolvers {sorted(sts)}")
+        gens[tag] = {n: lc_launch_check(f"{tag} {n}", st, uniform, on)
+                     for n, st in sts.items()}
+    if (topo1["roles"]["resolver1"]["pid"] == kill["victim"]["pid"]
+            or any(st["epoch"] != topo1["epoch"]
+                   for st in r["gen2"].values())):
+        fail("wire cluster: generation 2's resolvers are not new recruits")
+    # 2. no missed conflict
+    bad = missed_conflicts(r["txns"])
+    if bad:
+        fail(f"wire cluster: {len(bad)} committed transactions missed a "
+             f"conflict, the first {bad[:3]}")
+    if len(r["aborts"]) != counts["conflicts"]:
+        fail(f"wire cluster: {len(r['aborts'])} aborts recorded of "
+             f"{counts['conflicts']}")
+    bad = unexplained_aborts(
+        r["aborts"], r["txns"], r["unknowns"],
+        [topo0["recovery_version"], kill["recovery0"],
+         topo1["recovery_version"]], cfg.window_versions)
+    if bad:
+        fail(f"wire cluster: {len(bad)} of {len(r['aborts'])} aborts have no "
+             f"cause, the first {bad[:3]}")
+    # 3. every acknowledged insert, and the counters' bounds
+    kv = dict(r["snap"].kvs)
+    for rid in range(records):
+        val = kv.get(keys[rid])
+        if val is None:
+            fail(f"wire cluster: record {rid} is not in the snapshot")
+        n = int.from_bytes(val[:8], "little")
+        lo, hi = r["updates"][rid], r["updates"][rid] + r["unknown"][rid]
+        if not lo <= n <= hi:
+            fail(f"wire cluster: record {rid}'s counter {n} is outside "
+                 f"[{lo}, {hi}]")
+        if hi == 0 and val != values[rid]:
+            fail(f"wire cluster: record {rid} is not its insert")
+    for rid, got in zip(r["sample"], r["front"]):
+        if got != kv[keys[int(rid)]]:
+            fail(f"wire cluster: record {int(rid)} reads back otherwise "
+                 "through the front door")
+
+    # the numbers
+    ctrl_q = r["ctrl"]["qos"]
+    at = {row["status"]: row["time"] for row in ctrl_q["recovery_timeline"]
+          if row["epoch"] == topo1["epoch"]}
+    first_after = r["after"][0][0]
+    attempts = counts["updates"] + counts["conflicts"]
+    p50, p99 = quantiles_ms(r["commit_s"])
+    grv50, grv99 = quantiles_ms(r["grv_s"])
+    read50, read99 = quantiles_ms(r["read_s"])
+    recovery = dict(
+        kill_to_first_commit_s=first_after - kill["t_kill"],
+        detection_s=at[gen.READING_TRANSACTION_SYSTEM_STATE]
+        - kill["t_kill"],
+        walk_s=at[gen.FULLY_RECOVERED]
+        - at[gen.READING_TRANSACTION_SYSTEM_STATE],
+        recruiting_s=at[gen.RECOVERY_TRANSACTION]
+        - at[gen.RECRUITING_TRANSACTION_SERVERS],
+        resolver_warm_up_s=[g["warm_compile_s"]
+                            for _n, g in sorted(gens["generation 2"].items())],
+        recovered_to_first_commit_s=first_after - at[gen.FULLY_RECOVERED],
+        reason=ctrl_q["last_recovery_reason"],
+        death_notifications=ctrl_q["death_notifications"],
+        epochs=[topo0["epoch"], topo1["epoch"]],
+        recovery_version=topo1["recovery_version"],
+        last_acked_before_kill=kill["last_acked"],
+        kill_at_s=kill["kill_at_s"], recovered_at_s=kill["recovered_at_s"])
+    out.update(
+        phase_wall_s=wall_s, recruited_s=r["recruited_s"],
+        first_commit_s=r["first_commit_s"],
+        load=dict(seconds=r["load_s"], commits_per_s=records / r["load_s"]),
+        workload=dict(
+            seconds=r["run_s"], reads=counts["reads"],
+            committed=counts["updates"], conflicted=counts["conflicts"],
+            unknown=counts["unknown"], recovering=counts["recovering"],
+            throttled=counts["throttled"], gave_up=counts["gave_up"],
+            abort_share=counts["conflicts"] / max(1, attempts),
+            commits_per_s=counts["updates"] / r["run_s"],
+            commit_p50_ms=p50, commit_p99_ms=p99, grv_p50_ms=grv50,
+            grv_p99_ms=grv99, read_p50_ms=read50, read_p99_ms=read99),
+        recovery=recovery, resolvers=gens,
+        checks=dict(transactions=len(r["txns"]), aborts=len(r["aborts"]),
+                    snapshot_keys=len(kv),
+                    read_back=len(r["sample"]),
+                    stale_snapshot=kill["stale_rv"]))
+    w, rc = out["workload"], recovery
+    log(f"  workload A: {w['committed']} updates committed, "
+        f"{w['conflicted']} conflicted (abort share {w['abort_share']:.4f}, "
+        f"{w['gave_up']} gave up), {w['unknown']} unknown outcomes, "
+        f"{w['recovering']} refused while recovering, {w['throttled']} GRVs "
+        f"throttled, {w['reads']} reads in {w['seconds']:.3f} s: "
+        f"{w['commits_per_s']:.1f} commits/s; commit p50 "
+        f"{w['commit_p50_ms']:.3f} ms, p99 {w['commit_p99_ms']:.3f} ms, GRV "
+        f"p50 {grv50:.3f} ms, p99 {grv99:.3f} ms, read p50 {read50:.3f} "
+        f"ms, p99 {read99:.3f} ms at the client; on {card}")
+    log(f"  kill -9 of {victim_worker} (resolver1) at {rc['kill_at_s']:.3f} "
+        f"s: the first commit of generation {topo1['epoch']} "
+        f"{rc['kill_to_first_commit_s']:.3f} s later: detection "
+        f"{rc['detection_s']:.3f} s ({rc['reason']}), the recovery walk "
+        f"{rc['walk_s']:.3f} s (recruiting {rc['recruiting_s']:.3f} s, the "
+        f"new resolvers' warm-up "
+        f"{[round(x, 3) for x in rc['resolver_warm_up_s']]} s), then "
+        f"{rc['recovered_to_first_commit_s']:.3f} s to the first commit; "
+        f"recovery version {rc['recovery_version']} above the last "
+        f"acknowledged {rc['last_acked_before_kill']}; on {card}")
+    for tag, g in gens.items():
+        for n, st in sorted(g.items()):
+            log(f"  {tag} {n}: {st['batches']} batches, mean "
+                f"{st['txns'] / max(1, st['batches']):.1f} txns, "
+                f"{st['compactions']} compactions; compute p50 "
+                f"{st['compute_p50_ms']:.3f} ms, p99 "
+                f"{st['compute_p99_ms']:.3f} ms a batch; warm-up "
+                f"{st['warm_compile_s']:.3f} s; on {card}")
+    log(f"  checks: {LC_ROLES} roles recruited, generation "
+        f"{topo0['epoch']} -> {topo1['epoch']}, every resolver a "
+        f"TorchConflictSet on {on} with phase 3's launches a batch, no "
+        f"missed conflict in {len(r['txns'])} committed transactions, "
+        f"a cause for each of {len(r['aborts'])} aborts, "
+        f"{len(kv)} records in the storage snapshot at {r['head']} with "
+        f"their counters in bounds, {len(r['sample'])} read back through "
+        f"the front door, the pre-kill snapshot's read aborted, one "
+        f"process exited (the killed worker, relaunched), none left; phase "
+        f"wall {wall_s:.1f} s of the {LC_BUDGET_S:.0f} s budget; on {card}")
+    if wall_s > LC_BUDGET_S:
+        fail(f"wire cluster: the phase took {wall_s:.1f} s, over its "
+             f"{LC_BUDGET_S:.0f} s budget")
+    return out
+
+
 def survey_spans(device, uni) -> tuple:
     """The widest spans of the uniform stream: tiered (each batch against
     the delta tier an exact set holds just before it) and classic
@@ -5705,6 +6518,12 @@ def main(argv=None) -> int:
     check_commit_launches(commit, uniform, card)
     heading("16. the simulated cluster (open_cluster, YCSB A)")
     sim = phase_sim_cluster(card, uniform)
+    heading("17. the wire cluster under its controller (monitor, kill -9)")
+    parity = recovery_parity_on_card(device)
+    log(f"  recovery parity: the card's ResolverRole decided the in-flight "
+        f"set {parity['decisions']}, as the sim recovery does")
+    wire_cluster = phase_wire_cluster(card, uniform)
+    wire_cluster["recovery_parity"] = parity
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -5745,6 +6564,7 @@ def main(argv=None) -> int:
     streams["wire"] = wire
     streams["commit_path"] = commit
     streams["sim_cluster"] = sim
+    streams["wire_cluster"] = wire_cluster
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

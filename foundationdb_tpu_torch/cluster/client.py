@@ -15,9 +15,9 @@ Behavioral mirror of the reference client stack:
   point write conflicts; clears add range write conflicts — matching
   CommitTransactionRef's contract (fdbclient/CommitTransaction.h).
 
-The port's own copy of foundationdb_tpu.cluster.client. Two branches raise
-NotImplementedError until their modules are ported: a DR
-destination's commit lock and \\xff\\xff/status/json.
+The port's own copy of foundationdb_tpu.cluster.client. One branch raises
+NotImplementedError until its module is ported: a DR destination's
+commit lock.
 """
 
 from __future__ import annotations
@@ -38,14 +38,9 @@ from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.utils import commit_debug as _cd
 from foundationdb_tpu_torch.utils import trace as _trace
 
-#: the two client branches whose modules are not ported yet: a DR
-#: destination's commit lock (cluster/dr.py sets `dr_locked`) and the
-#: status document behind \xff\xff/status/json (cluster/status.py's
-#: `cluster_status`)
+#: the client branch whose module is not ported yet: a DR destination's
+#: commit lock (cluster/dr.py sets `dr_locked`)
 DR_NOT_PORTED = "the DR destination lock (cluster/dr.py) is not ported yet"
-STATUS_NOT_PORTED = (
-    "the status document (cluster/status.cluster_status) is not ported yet"
-)
 
 
 def key_after(k: bytes) -> bytes:
@@ -833,7 +828,9 @@ class Database:
         import json
 
         if key == b"\xff\xff/status/json":
-            raise NotImplementedError(STATUS_NOT_PORTED)
+            from foundationdb_tpu_torch.cluster.status import cluster_status
+
+            return json.dumps(cluster_status(self.cluster)).encode()
         if key == b"\xff\xff/cluster/epoch":
             return str(self.cluster.controller.epoch).encode()
         if key == b"\xff\xff/cluster/live_committed_version":

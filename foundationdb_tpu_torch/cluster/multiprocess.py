@@ -7,9 +7,12 @@ by FlowTransport (fdbserver/worker.actor.cpp:2305-2811 spawns the role
 actors). Here
 
     python -m foundationdb_tpu_torch.cluster.multiprocess \\
-        --role {resolver,tlog,storage,sequencer} --address /path/x.sock \\
-        [--backend cuda] [--data-dir DIR] [--storage-engine lsm] \\
-        [--tlog-address /path/tlog0.sock] [--trace-file x.jsonl]
+        --role {resolver,tlog,storage,sequencer,ratekeeper,worker,controller} \\
+        --address /path/x.sock [--backend cuda] [--device cpu] \\
+        [--data-dir DIR] [--storage-engine lsm] \\
+        [--tlog-address /path/tlog0.sock] [--trace-file x.jsonl] \\
+        [--controller /path/controller0.sock] [--worker-id w0] \\
+        [--cluster-conf conf.json] [--state-file state.json]
 
 serves one role over wire.transport on a Unix socket, `spawn_role` /
 `connect` launch and reach it from a parent, and `ProxyPipeline` in the
@@ -51,12 +54,26 @@ role without a card fails there, before it binds, and exits non-zero.
 `connect(address, proc=...)` fails as soon as the child has exited
 instead of spending its retries.
 
-Not ported yet: the ratekeeper, worker and controller roles
-(`UNPORTED_ROLES`, which raise ValueError), the proxy as a worker role,
-the cluster client and the status assembly; and encryption at rest:
-`encrypt=True`, `--encrypt` and an `encryption` object raise ValueError
-before anything is opened, and a store written encrypted is refused by
-its ENCRYPTION_MODE marker with RuntimeError, as in the JAX package.
+The wire cluster under a controller: a `WorkerRole` process hosts
+whatever role the `ClusterControllerRole` recruits onto it (resolver,
+tlog, storage, sequencer, ratekeeper, or the commit and GRV proxy as a
+`ProxyRole` behind the client front door), the controller heartbeats
+them and recovers the transaction system into a newer generation when
+one dies, and a `ClusterClient` finds the proxies of the live
+generation through the controller's topology. `cluster/monitor.py`
+starts and restarts the processes, as fdbmonitor does. Against the JAX
+module: the controller's conf `backend` defaults to "cuda" (JAX:
+"native") and takes the port's names, a conf `device` and a worker's
+`device` reach the resolvers it builds (None: the card, where a host
+without one fails the recruit), and the status of a process serving a
+resolver (alone or in a worker) adds the port's own keys
+(`ResolverRole.process_status`): the conflict set's class and device,
+the process's kernel launches and those of the role's own resolves.
+
+Not ported yet: encryption at rest. `encrypt=True`, `--encrypt` and an
+`encryption` object raise ValueError before anything is opened, and a
+store written encrypted is refused by its ENCRYPTION_MODE marker with
+RuntimeError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,7 +99,11 @@ from foundationdb_tpu_torch.models.types import (
     ResolveTransactionBatchRequest,
     TransactionResult,
 )
+from foundationdb_tpu_torch.utils.probes import code_probe, declare
 from foundationdb_tpu_torch.wire import codec, transport
+
+declare("controller.elastic_recruit")
+declare("controller.elastic_scale_down")
 
 # ---------------------------------------------------------------------------
 # Well-known endpoint tokens (the WellKnownEndpoints.h analog).
@@ -105,13 +126,20 @@ TOKEN_STORAGE_CATCHUP = 0x0307
 TOKEN_PING = 0x0401
 TOKEN_STATUS = 0x0501
 TOKEN_GET_RATE_INFO = 0x0502
+# the lifecycle control plane
+TOKEN_REGISTER_WORKER = 0x0601
+TOKEN_INIT_ROLE = 0x0602
+TOKEN_TOPOLOGY = 0x0603
+TOKEN_WORKER_DEATH = 0x0604
+TOKEN_RATE_UPDATE = 0x0605
+# the client front door (a worker hosting the proxy)
+TOKEN_CLIENT_GRV = 0x0701
+TOKEN_CLIENT_COMMIT = 0x0702
+TOKEN_CLIENT_READ = 0x0703
 # the sequencer role (version-batch allotment)
 TOKEN_GET_COMMIT_VERSION = 0x0801
 TOKEN_REPORT_COMMITTED = 0x0802
 TOKEN_SEQUENCER_VERSION = 0x0803
-
-#: the JAX module's other roles, not ported yet
-UNPORTED_ROLES = ("ratekeeper", "worker", "controller")
 
 ENCRYPTION_NOT_PORTED = "at-rest encryption is not ported yet"
 
@@ -447,6 +475,64 @@ ReportRawCommittedVersionReply = _message(
     0x0269, "ReportRawCommittedVersionReply", [("live_version", "i64")]
 )
 
+# The lifecycle frames (the worker / cluster-controller shape:
+# fdbserver/worker.actor.cpp's RegisterWorkerRequest and the
+# Initialize*Request streams). Their payloads are JSON documents, as
+# StatusReply's is: topology and recruitment descriptors are status-schema
+# slices, not hot-path messages.
+
+_WRITERS["txn"] = codec.w_commit_transaction
+_READERS["txn"] = codec.r_commit_transaction
+
+# worker -> controller: "I exist, here is my socket", sent again on a
+# cadence (the worker's liveness beacon)
+RegisterWorker = _message(
+    0x0250, "RegisterWorker", [("payload", "str")]
+)
+RegisterWorkerReply = _message(
+    0x0251, "RegisterWorkerReply", [("payload", "str")]
+)
+# controller -> worker: host this role at this generation (the
+# Initialize*Request analog; kind, epoch and config in the payload)
+InitializeRole = _message(0x0252, "InitializeRole", [("payload", "str")])
+InitializeRoleReply = _message(
+    0x0253, "InitializeRoleReply", [("payload", "str")]
+)
+# anyone -> controller: the current generation's topology (epoch,
+# recovery state, role -> worker socket map)
+TopologyRequest = _message(0x0254, "TopologyRequest", [("pad", "u8")])
+TopologyReply = _message(0x0255, "TopologyReply", [("payload", "str")])
+# client -> proxy worker (the NativeAPI front door over the wire): GRV,
+# a versioned point read and a commit, so the proxies are killable
+# processes like every other role
+ClientGrvRequest = _message(0x0258, "ClientGrvRequest", [("pad", "u8")])
+ClientGrvReply = _message(0x0259, "ClientGrvReply", [("version", "i64")])
+ClientCommitRequest = _message(
+    0x025A, "ClientCommitRequest", [("txn", "txn")]
+)
+ClientCommitReply = _message(
+    0x025B, "ClientCommitReply", [("version", "i64")]
+)
+ClientReadRequest = _message(
+    0x025C, "ClientReadRequest", [("key", "bytes"), ("version", "i64")]
+)
+ClientReadReply = _message(
+    0x025D, "ClientReadReply", [("value", "optbytes")]
+)
+# monitor -> controller: push-on-death. The monitor reaps a dead worker
+# and tells the controller at once, so detecting the death costs one
+# supervision pass, not HEARTBEAT_MISSES status polls; heartbeats stay
+# the backstop for deaths the monitor cannot see
+WorkerDeath = _message(0x0262, "WorkerDeath", [("payload", "str")])
+WorkerDeathReply = _message(
+    0x0263, "WorkerDeathReply", [("payload", "str")]
+)
+# ratekeeper -> proxy: a push of the fresh GetRateInfo payload when a
+# control cycle moves the budget past the push hysteresis (or flips the
+# binding limiter); the proxies' polling stays the backstop
+RateUpdate = _message(0x0264, "RateUpdate", [("payload", "str")])
+RateUpdateReply = _message(0x0265, "RateUpdateReply", [("payload", "str")])
+
 
 # ---------------------------------------------------------------------------
 # The resolver role.
@@ -558,7 +644,8 @@ class ResolverRole:
     """
 
     def __init__(self, backend: Optional[str] = "cuda",
-                 window: int = 5_000_000, epoch: int = 0, device=None):
+                 window: int = 5_000_000, epoch: int = 0,
+                 compute_cost_per_txn: float = 0.0, device=None):
         from foundationdb_tpu_torch.models.conflict_set import (
             KernelStageMetrics,
             make_conflict_set,
@@ -570,6 +657,12 @@ class ResolverRole:
 
         self.version = -1
         self.window = window
+        #: modelled compute seconds a transaction (the wire twin of the
+        #: sim Resolver.sim_compute_cost_per_txn): awaited a batch after
+        #: the real resolve, times the transactions with local conflict
+        #: work, so under the multi-resolver split each resolver pays for
+        #: its own partition's rows. 0.0 (the default) is a strict no-op.
+        self.compute_cost_per_txn = float(compute_cost_per_txn or 0.0)
         #: generation fencing: a batch carrying any other epoch is
         #: rejected retryably; 0 = unfenced
         self.epoch = epoch
@@ -618,6 +711,10 @@ class ResolverRole:
             self._warm_compile(kcfg, backend, device)
         else:
             raise ValueError(f"unknown resolver backend {backend!r}")
+        #: the kernel launches of this role's own resolves: a worker
+        #: builds a new role on each recruit, and a replaced role may
+        #: still finish a batch of its generation after that
+        self.role_launches: dict[str, int] = {}
 
     def _warm_compile(self, kcfg, backend, device) -> None:
         """Warm the resolve path at start-up, not in the first request:
@@ -733,7 +830,15 @@ class ResolverRole:
                     "CommitDebug", req.debug_id, _cdbg.RESOLVER_AFTER_ORDERER
                 )
             t_compute = time.perf_counter()
-            reply = self._resolve_now(req)
+            reply = self._resolve_counted(req)
+            if self.compute_cost_per_txn > 0.0:
+                # modelled compute rides the version chain as real
+                # compute does (successors wait on the condition), but as
+                # an await, so the process keeps answering status polls;
+                # occupancy and compute_time take it in below
+                await asyncio.sleep(
+                    self.compute_cost_per_txn * self._local_txns(req)
+                )
             dt_compute = time.perf_counter() - t_compute
             self.compute_time.sample(dt_compute)
             self.occupancy.add_delta(dt_compute)
@@ -747,6 +852,37 @@ class ResolverRole:
             self.version = req.version
             cond.notify_all()
             return reply
+
+    def _resolve_counted(self, req) -> ResolveTransactionBatchReply:
+        """_resolve_now, with the kernel launches it makes (it runs on
+        the event loop without a break, so they are all this role's)
+        added to role_launches."""
+        from foundationdb_tpu_torch import kernels
+
+        before = kernels.counts()
+        try:
+            return self._resolve_now(req)
+        finally:
+            for k, n in kernels.counts().items():
+                if n != before.get(k, 0):
+                    self.role_launches[k] = (self.role_launches.get(k, 0)
+                                             + n - before.get(k, 0))
+
+    def _local_txns(self, req) -> int:
+        """The transactions of this batch with local conflict work, the
+        modelled compute's multiplier. Under the proxy's multi-resolver
+        split a foreign partition's transactions arrive with no ranges
+        (slot-aligned blind writes) and cost nothing."""
+        if isinstance(req, codec.ResolveBatchColumnar):
+            cols = req.cols
+            return sum(
+                1 for i in range(cols.n_txns)
+                if int(cols.read_counts[i]) + int(cols.write_counts[i]) > 0
+            )
+        return sum(
+            1 for t in req.transactions
+            if t.read_conflict_ranges or t.write_conflict_ranges
+        )
 
     def _trace_columnar_decode(self, req) -> None:
         """The Resolver.resolveBatch.ColumnarDecode mark: the columnar
@@ -885,6 +1021,23 @@ class ResolverRole:
             "backend": self._backend,
             "epoch": self.epoch,
             "qos": qos,
+        }
+
+    def process_status(self) -> dict:
+        """The port's own keys of the status of a process serving this
+        role: what resolves (the conflict set's class, and its device
+        where it has one), the process's kernel launches and those of
+        this role's own resolves."""
+        from foundationdb_tpu_torch import kernels
+
+        cs_device = getattr(self._cs, "device", None)
+        return {
+            "conflict_set": {
+                "class": type(self._cs).__name__,
+                "device": None if cs_device is None else str(cs_device),
+            },
+            "kernel_launches": kernels.counts(),
+            "role_kernel_launches": dict(self.role_launches),
         }
 
 
@@ -1938,6 +2091,297 @@ class StorageRole:
         return StorageSnapshotReply(version=self.version, kvs=kvs)
 
 
+# ---------------------------------------------------------------------------
+# Wire-cluster lifecycle: the worker / cluster-controller shape.
+#
+# The reference runs ONE binary (`fdbserver`) whose worker dispatch loop
+# (fdbserver/worker.actor.cpp:2305-2811) can host any role in response
+# to the cluster controller's Initialize*Request streams, and the
+# ClusterController rebuilds the transaction system as a unit in a new
+# generation on any failure (ClusterRecovery.actor.cpp). The classes
+# below are that deployment shape for this framework: WorkerRole hosts
+# any role behind a token dispatch, ClusterControllerRole recruits a
+# declarative topology onto registered workers, heartbeats them, and
+# runs the cluster/generation.py recovery walk on any transaction-path
+# death — the same state machine the sim ClusterController
+# (cluster/recovery.py) walks, so sim and wire cannot drift.
+
+
+class RatekeeperRole:
+    """Wire-mode Ratekeeper: `fdbserver/Ratekeeper.actor.cpp` as an OS
+    process. Polls every peer role's StatusRequest for its saturation
+    sensors (the same qos blocks fdbtop renders), drives the SAME
+    `AdmissionController` law the sim Ratekeeper runs, and serves the
+    live budget over GetRateInfo. Robustness contract: a peer that
+    stops answering simply contributes no sensors this interval; when
+    NO peer answers, the law's fail-safe decay engages (budget decays
+    toward the conservative floor) — and a consumer that cannot reach
+    THIS process applies its own decay (ProxyPipeline._rate_fetcher),
+    so a dead ratekeeper never freezes the cluster at full speed."""
+
+    def __init__(self, peers: list[str], *, interval: float = 0.25,
+                 controller: str | None = None):
+        import time as _time
+
+        from foundationdb_tpu_torch.cluster.ratekeeper import AdmissionController
+
+        self.peers = [p for p in peers if p]
+        self.interval = interval
+        self.law = AdmissionController(clock=_time.monotonic)
+        self._conns: dict[str, transport.RpcConnection] = {}
+        self._task: asyncio.Task | None = None
+        self.polls = 0
+        self.poll_failures = 0
+        # -- live peer discovery (the frozen-peer-list bugfix): with a
+        # cluster controller configured, the peer set RE-RESOLVES from
+        # the controller's live topology every control cycle, so a
+        # re-recruited resolver's occupancy feed rejoins the admission
+        # law the cycle after recovery instead of never. The static
+        # `peers` list remains the controller-less fallback (and the
+        # bootstrap set while the controller is still recruiting).
+        self._controller_addr = controller
+        self._controller_conns: dict = {}  # _cached_call cache
+        self.peer_refreshes = 0
+        self.topology_epoch = 0
+        # -- push-based rate updates: when a control cycle
+        # moves the budget past the hysteresis threshold (or flips the
+        # binding limiter / staleness), the fresh GetRateInfo payload
+        # is PUSHED to every proxy in the topology instead of waiting
+        # out the proxies' poll cadence. Threshold semantics mirror the
+        # law's own hysteresis discipline: small drift never floods the
+        # wire, overload onset lands in one control cycle.
+        self.push_threshold = 0.15
+        self.rate_pushes = 0
+        self.rate_push_failures = 0
+        self._proxy_addrs: list[str] = []
+        self._last_pushed: dict | None = None
+        #: last cycle's observed GRV admission rate (the law's
+        #: actualTps input) — surfaced in status so the wire feedback
+        #: path is testable end to end
+        self.observed_grv_per_s = 0.0
+
+    async def start(self) -> None:
+        self._task = asyncio.ensure_future(self._poll_loop())
+
+    async def stop(self) -> None:
+        """Cancel the poll loop and close every cached peer/controller
+        connection — a worker re-recruiting over this role must not
+        leak one socket per polled peer per recovery."""
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._task = None
+        await _close_all(self._conns)
+        await _close_all(self._controller_conns)
+
+    async def _poll_one(self, path: str) -> dict:
+        import json as _json
+
+        conn = self._conns.get(path)
+        if conn is None:
+            conn = transport.RpcConnection(path, tls=_tls_from_env())
+            await conn.connect(retries=1)
+            self._conns[path] = conn
+        # classification boundary is _poll_loop's gather with
+        # return_exceptions=True: a failed poll counts poll_failures
+        # and invalidates the cached connection there
+        reply = await conn.call(  # flowcheck: ignore[wire.unclassified-error]
+            TOKEN_STATUS, StatusRequest(pad=0), timeout=2.0
+        )
+        return _json.loads(reply.payload)
+
+    async def _refresh_peers(self) -> None:
+        """Re-resolve the peer list from the controller topology (one
+        TopologyRequest per control cycle). Failures keep the last
+        known peer set — a dead controller degrades to static peers,
+        and the law's own staleness decay covers dead sensors."""
+        import json as _json
+
+        if self._controller_addr is None:
+            return
+        try:
+            reply = await _cached_call(
+                self._controller_conns, self._controller_addr,
+                TOKEN_TOPOLOGY, TopologyRequest(pad=0),
+                timeout=2.0, retries=1,
+            )
+            topo = _json.loads(reply.payload)
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            return
+        peers = sorted(
+            {
+                entry["address"]
+                for entry in topo.get("roles", {}).values()
+                if entry.get("kind") != "ratekeeper"
+            }
+        )
+        self._proxy_addrs = sorted(
+            {
+                entry["address"]
+                for entry in topo.get("roles", {}).values()
+                if entry.get("kind") == "proxy"
+            }
+        )
+        if peers and peers != self.peers:
+            # drop cached connections to peers that left the topology
+            for gone in set(self._conns) - set(peers):
+                conn = self._conns.pop(gone)
+                try:
+                    await conn.close()
+                except Exception:
+                    pass
+            self.peers = peers
+            self.peer_refreshes += 1
+        self.topology_epoch = int(topo.get("epoch", 0))
+
+    async def _poll_loop(self) -> None:
+        from foundationdb_tpu_torch.cluster.status import _QOS_SLOT
+
+        while True:
+            await self._refresh_peers()
+            slots: dict = {
+                "tlogs": {}, "storages": {}, "resolvers": {},
+                "proxies": {},
+            }
+            answered = 0
+            current_tps = 0.0
+            # polls are independent I/O and go out CONCURRENTLY: one
+            # hung peer (2s call timeout) bounds the cycle at the
+            # slowest single peer, not the sum — a serial loop would
+            # stretch the control cadence ~Nx while the served budget
+            # sat frozen at its last (possibly full-speed) value
+            results = await asyncio.gather(
+                *(self._poll_one(p) for p in self.peers),
+                return_exceptions=True,
+            )
+            for path, block in zip(self.peers, results):
+                if isinstance(block, BaseException):
+                    self.poll_failures += 1
+                    conn = self._conns.pop(path, None)
+                    if conn is not None:
+                        try:
+                            await conn.close()
+                        except Exception:
+                            pass
+                    continue
+                name = os.path.basename(path)
+                if name.endswith(".sock"):
+                    name = name[: -len(".sock")]
+                answered += 1
+                slot = _QOS_SLOT.get(block.get("role", ""))
+                if slot in slots:
+                    slots[slot][name] = block.get("qos", {})
+                # the parent pipeline's status socket embeds its GRV
+                # block (a process block: role + qos): its served-GRV
+                # rate is the law's actualTps
+                grv = block.get("grv_proxy")
+                if grv:
+                    current_tps = max(
+                        current_tps,
+                        float(grv.get("qos", {}).get("grv_per_s", 0.0)),
+                    )
+            self.polls += 1
+            self.observed_grv_per_s = current_tps
+            if answered == 0:
+                # total sensor dropout: fail safe, never full speed
+                self.law.decay()
+            else:
+                self.law.update(slots, current_tps=current_tps)
+            await self._maybe_push_rate()
+            await asyncio.sleep(self.interval)
+
+    def _push_due(self) -> bool:
+        """Hysteresis: push only when the budget moved by more than
+        push_threshold relative to the last delivered value, or the
+        binding limiter / staleness flipped — overload ONSET is exactly
+        a limiter flip plus a large budget drop, so it always pushes."""
+        info = self.law.rate_info()
+        last = self._last_pushed
+        if last is None:
+            return True
+        budget = info["transactions_per_second_limit"]
+        moved = abs(budget - last["budget"]) > (
+            self.push_threshold * max(last["budget"], self.law.min_tps)
+        )
+        return (
+            moved
+            or info["budget_limited_by"]["name"] != last["limiter"]
+            or bool(info["budget_stale"]) != last["stale"]
+        )
+
+    async def _maybe_push_rate(self) -> None:
+        import json as _json
+
+        if not self._proxy_addrs or not self._push_due():
+            return
+        info = self.law.rate_info()
+        # fence stamp: the generation this pusher believes is live
+        # (ProxyRole.rate_update rejects a mismatch — a superseded
+        # ratekeeper cannot override the new generation's budget)
+        info["epoch"] = self.topology_epoch
+        payload = _json.dumps(info)
+        # pushes go out CONCURRENTLY, like the sensor polls above: one
+        # dead/hung proxy (2s call timeout) bounds this step at the
+        # slowest single push, not the sum — a serial loop would stall
+        # the control cadence on exactly the overload-onset cycles the
+        # push exists to speed up
+        results = await asyncio.gather(
+            *(
+                _cached_call(
+                    self._conns, addr, TOKEN_RATE_UPDATE,
+                    RateUpdate(payload=payload), timeout=2.0, retries=1,
+                )
+                for addr in self._proxy_addrs
+            ),
+            return_exceptions=True,
+        )
+        delivered = False
+        for res in results:
+            if isinstance(res, asyncio.CancelledError):
+                raise res
+            if isinstance(res, BaseException):
+                # a proxy that can't be pushed still has its poll loop
+                # (the backstop) — count and continue
+                self.rate_push_failures += 1
+            else:
+                self.rate_pushes += 1
+                delivered = True
+        if delivered:
+            self._last_pushed = {
+                "budget": info["transactions_per_second_limit"],
+                "limiter": info["budget_limited_by"]["name"],
+                "stale": bool(info["budget_stale"]),
+            }
+
+    async def get_rate_info(
+        self, _req: GetRateInfoRequest
+    ) -> GetRateInfoReply:
+        import json as _json
+
+        return GetRateInfoReply(payload=_json.dumps(self.law.rate_info()))
+
+    def status(self) -> dict:
+        return {
+            "role": "ratekeeper",
+            "qos": {
+                **self.law.rate_info(),
+                "peer_polls": self.polls,
+                "peer_poll_failures": self.poll_failures,
+                "peers": len(self.peers),
+                "peer_refreshes": self.peer_refreshes,
+                "topology_epoch": self.topology_epoch,
+                "observed_grv_per_s": self.observed_grv_per_s,
+                "rate_pushes": self.rate_pushes,
+                "rate_push_failures": self.rate_push_failures,
+            },
+        }
+
+
 async def _cached_call(conns: dict, address, token: int, msg, *,
                        timeout: float = 30.0, retries: int = 2,
                        delay: float = 0.05, on_fail=None):
@@ -1973,6 +2417,1705 @@ async def _close_all(conns: dict) -> None:
     conns.clear()
 
 
+class ProxyRole:
+    """The commit+GRV proxy as a recruitable, killable worker role.
+
+    Wraps ProxyPipeline behind the client front-door RPCs
+    (ClientGrv/ClientCommit/ClientRead), so clients reach the commit
+    path over the wire like every other hop and a kill -9 of the proxy
+    is survivable: the controller recruits a replacement in the next
+    generation and the NEW proxy's first batch carries the conservative
+    whole-keyspace blind write (cluster/generation.py), aborting every
+    in-flight transaction whose snapshot predates recovery."""
+
+    def __init__(self, spec: dict):
+        self.spec = spec
+        self.epoch = int(spec.get("epoch", 0))
+        self.start_version = int(spec.get("start_version", 0))
+        self.recovered = False
+        self.pipeline: ProxyPipeline | None = None
+        self._conns: list[transport.RpcConnection] = []
+        #: rate pushes rejected by the epoch fence (a superseded
+        #: ratekeeper still pushing) — surfaced in status
+        self.stale_rate_pushes = 0
+
+    async def start(self) -> None:
+        topo = self.spec["topology"]
+        # partial-recruit cleanup: a failed later connect must not leak
+        # the connections already opened (a recruit raced a kill here
+        # leaks one socket per retry otherwise)
+        opened: list[transport.RpcConnection] = []
+        try:
+            resolvers = []
+            for a in topo["resolvers"]:
+                c = await connect(a)
+                opened.append(c)
+                resolvers.append(c)
+            # tag-partitioned log system: "tlogs" lists every
+            # tlog address; "tlog" stays as the first for back-compat
+            tlogs = []
+            for a in topo.get("tlogs") or [topo["tlog"]]:
+                c = await connect(a)
+                opened.append(c)
+                tlogs.append(c)
+            storage = await connect(topo["storage"])
+            opened.append(storage)
+            sequencer = None
+            if topo.get("sequencer"):
+                sequencer = await connect(topo["sequencer"])
+                opened.append(sequencer)
+            rk = None
+            if topo.get("ratekeeper"):
+                rk = await connect(topo["ratekeeper"])
+                opened.append(rk)
+        except BaseException:
+            for c in opened:
+                try:
+                    await c.close()
+                except Exception:
+                    pass
+            raise
+        self._conns = opened
+        # resolver partition boundaries (hex-encoded in the topology
+        # JSON; the controller re-derives them on every resolver-count
+        # change — the elastic-recruit path's multi-resolver split)
+        boundaries = [
+            bytes.fromhex(h)
+            for h in topo.get("resolver_boundaries") or []
+        ]
+        tlog_boundaries = [
+            bytes.fromhex(h)
+            for h in topo.get("tlog_boundaries") or []
+        ]
+        self.pipeline = ProxyPipeline(
+            resolvers,
+            tlogs[0],
+            storage,
+            batch_interval=float(self.spec.get("batch_interval", 0.002)),
+            max_batch=int(self.spec.get("max_batch", 512)),
+            start_version=self.start_version,
+            epoch=self.epoch,
+            ratekeeper=rk,
+            trace=bool(self.spec.get("trace", False)),
+            resolver_boundaries=boundaries or None,
+            sequencer=sequencer,
+            proxy_id=str(self.spec.get("proxy_id", "proxy0")),
+            tlogs=tlogs,
+            tlog_boundaries=tlog_boundaries or None,
+        )
+        self.pipeline.start()
+        if self.spec.get("recover", True):
+            # the recovery transaction: the new generation's FIRST
+            # batch is the conservative whole-keyspace blind write —
+            # it pushes the log (and storage) past the recovery
+            # version so reads don't stall, and registers the write
+            # that aborts every pre-recovery snapshot
+            from foundationdb_tpu_torch.cluster.generation import (
+                conservative_recovery_transaction,
+            )
+
+            await self.pipeline.commit(
+                conservative_recovery_transaction(self.start_version)
+            )
+        self.recovered = True
+
+    async def stop(self) -> None:
+        if self.pipeline is not None:
+            await self.pipeline.stop()
+        for c in self._conns:
+            try:
+                await c.close()
+            except Exception:
+                pass
+        self._conns = []
+
+    async def client_grv(self, _req: "ClientGrvRequest") -> "ClientGrvReply":
+        try:
+            v = await self.pipeline.get_read_version()
+        except GrvThrottledError:
+            # marker-carrying RemoteError: ClusterClient re-raises the
+            # typed retryable error client-side
+            raise transport.RemoteError("grv_throttled")
+        return ClientGrvReply(version=v)
+
+    async def client_commit(
+        self, req: "ClientCommitRequest"
+    ) -> "ClientCommitReply":
+        try:
+            v = await self.pipeline.commit(req.txn)
+        except NotCommittedError as e:
+            raise transport.RemoteError(f"not_committed: {e}")
+        return ClientCommitReply(version=v)
+
+    async def client_read(self, req: "ClientReadRequest") -> "ClientReadReply":
+        v = await self.pipeline.read(req.key, req.version)
+        return ClientReadReply(value=v)
+
+    async def rate_update(self, req: "RateUpdate") -> "RateUpdateReply":
+        """Push-based budget delivery: the ratekeeper calls
+        this the cycle the budget moves past its push hysteresis; the
+        pipeline applies it exactly like a poll result. The poll loop
+        keeps running as the backstop.
+
+        EPOCH-FENCED like every other control frame: the pusher stamps
+        its topology epoch, and a mismatch is rejected retryably — a
+        superseded-but-alive ratekeeper (re-recruited away after a
+        clog) must not keep overriding the live generation's budget
+        (its pushes would even clear the fail-safe staleness a dead
+        feed is supposed to engage). Epoch 0 == unfenced standalone
+        deployment, matching the resolve/tlog fencing convention."""
+        import json as _json
+
+        info = _json.loads(req.payload)
+        push_epoch = int(info.get("epoch", 0))
+        if push_epoch != self.epoch:
+            from foundationdb_tpu_torch.cluster.generation import (
+                stale_epoch_message,
+            )
+
+            self.stale_rate_pushes += 1
+            raise transport.RemoteError(
+                stale_epoch_message(push_epoch, self.epoch)
+            )
+        self.pipeline.apply_rate_info(info)
+        self.pipeline.rate_pushes_applied += 1
+        return RateUpdateReply(payload=_json.dumps({"ok": True}))
+
+    def status(self) -> dict:
+        block = _pipeline_status_blocks(self.pipeline)
+        payload = block["proxy0"]
+        payload["grv_proxy"] = block["grv_proxy0"]
+        payload["epoch"] = self.epoch
+        payload["recovered"] = self.recovered
+        payload["stale_rate_pushes"] = self.stale_rate_pushes
+        payload["proxy_id"] = str(self.spec.get("proxy_id", "proxy0"))
+        return payload
+
+
+class WorkerRole:
+    """One process that can host any role behind a dispatch loop — the
+    fdbserver worker. Every role token is registered up front against a
+    dispatcher that routes to the currently hosted role object;
+    InitializeRole (the Initialize*Request analog) installs or REPLACES
+    a role at a given generation, which is exactly what recovery needs:
+    re-initializing a resolver builds a brand-new ResolverRole with
+    EMPTY conflict state. A background beacon registers this worker
+    with the cluster controller (RegisterWorker) on a cadence — it
+    doubles as the liveness signal and re-announces after a monitor
+    restart."""
+
+    BEACON_INTERVAL = 0.5
+
+    def __init__(self, worker_id: str, address: str,
+                 controller: str | None = None, device=None):
+        self.worker_id = worker_id
+        self.address = address
+        self.controller = controller
+        #: the device of the resolvers this worker builds when their
+        #: spec names none: None is the card, "cpu" the plain versions
+        self.device = device
+        self.roles: dict[str, object] = {}  # kind -> hosted role object
+        self.role_epochs: dict[str, int] = {}
+        self.initializations = 0
+        self._reg_task: asyncio.Task | None = None
+        self._reg_conn: transport.RpcConnection | None = None
+
+    async def start(self) -> None:
+        if self.controller:
+            self._reg_task = asyncio.ensure_future(self._register_loop())
+
+    async def stop(self) -> None:
+        """Release everything the worker owns: the registration beacon
+        task, its controller connection, and every hosted role — the
+        ownership hook the res.* pass (and the per-process census)
+        require of any store-on-self acquire."""
+        task = self._reg_task
+        self._reg_task = None
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        conn = self._reg_conn
+        self._reg_conn = None
+        if conn is not None:
+            try:
+                await conn.close()
+            except Exception:
+                pass
+        for kind in list(self.roles):
+            old = self.roles.pop(kind)
+            self.role_epochs.pop(kind, None)
+            if isinstance(old, (ProxyRole, RatekeeperRole)):
+                await old.stop()
+            elif isinstance(old, StorageRole):
+                await old.aclose_disk()
+            elif hasattr(old, "close_disk"):
+                old.close_disk()
+
+    async def _register_loop(self) -> None:
+        import json as _json
+
+        while True:
+            try:
+                conn = self._reg_conn
+                if conn is None:
+                    conn = transport.RpcConnection(
+                        self.controller, tls=_tls_from_env()
+                    )
+                    await conn.connect(retries=1)
+                    self._reg_conn = conn
+                await conn.call(
+                    TOKEN_REGISTER_WORKER,
+                    RegisterWorker(payload=_json.dumps({
+                        "worker_id": self.worker_id,
+                        "address": self.address,
+                        "pid": os.getpid(),
+                        "roles": dict(self.role_epochs),
+                    })),
+                    timeout=2.0,
+                )
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                conn = self._reg_conn
+                self._reg_conn = None
+                if conn is not None:
+                    try:
+                        await conn.close()
+                    except Exception:
+                        pass
+            await asyncio.sleep(self.BEACON_INTERVAL)
+
+    def role(self, kind: str):
+        r = self.roles.get(kind)
+        if r is None:
+            # retryable: the controller hasn't recruited this role here
+            # (or a monitor-restarted worker lost it — the controller's
+            # heartbeat sees the mismatch and recovers)
+            raise transport.RemoteError(
+                f"worker_not_initialized: no {kind} hosted on "
+                f"{self.worker_id}"
+            )
+        return r
+
+    async def init_role(self, req: "InitializeRole") -> "InitializeRoleReply":
+        import json as _json
+
+        spec = _json.loads(req.payload)
+        kind = spec["kind"]
+        epoch = int(spec.get("epoch", 0))
+        old = self.roles.pop(kind, None)
+        self.role_epochs.pop(kind, None)
+        if isinstance(old, (ProxyRole, RatekeeperRole)):
+            await old.stop()
+        elif isinstance(old, StorageRole):
+            # storage WAL writes run on executor threads: close under
+            # the log lock (use-after-free in the native queue
+            # otherwise) — and BEFORE the successor (possibly on this
+            # same worker) re-opens the data dir
+            await old.aclose_disk()
+        elif old is not None and hasattr(old, "close_disk"):
+            # the tlog's disk ops all run on the event loop; a plain
+            # close cannot interleave with a push
+            old.close_disk()
+        role, info = await self._build_role(kind, epoch, spec)
+        self.roles[kind] = role
+        self.role_epochs[kind] = epoch
+        self.initializations += 1
+        from foundationdb_tpu_torch.utils.trace import SEV_INFO, TraceEvent
+
+        TraceEvent("WorkerRoleInitialized", severity=SEV_INFO).detail(
+            "WorkerId", self.worker_id
+        ).detail("Kind", kind).detail("Epoch", epoch).log()
+        return InitializeRoleReply(payload=_json.dumps({
+            "ok": True, "kind": kind, "epoch": epoch,
+            "worker_id": self.worker_id, **info,
+        }))
+
+    async def _build_role(self, kind: str, epoch: int, spec: dict):
+        if kind == "resolver":
+            if spec.get("resolver_kernel"):
+                os.environ["RESOLVER_KERNEL"] = spec["resolver_kernel"]
+            # the device: the spec's (the controller's conf "device"),
+            # else this worker's own; None is the card, and a "cuda"
+            # resolver on a host without one fails here, a failed
+            # recruit the controller retries (never a CPU fallback)
+            role = ResolverRole(
+                backend=spec.get("backend", "cuda"), epoch=epoch,
+                compute_cost_per_txn=float(
+                    spec.get("compute_cost_per_txn") or 0.0
+                ),
+                device=spec.get("device") or self.device,
+            )
+            return role, {}
+        if kind == "tlog":
+            role = TLogRole(
+                data_dir=spec.get("data_dir"), epoch=epoch,
+                partitioned=bool(spec.get("partitioned", False)),
+            )
+            return role, {"durable_version": role.version}
+        if kind == "sequencer":
+            role = SequencerRole(
+                epoch=epoch,
+                recovery_version=int(spec.get("recovery_version", 0)),
+                n_tags=int(spec.get("n_tags", 1)),
+            )
+            return role, {"version": role._seq.version}
+        if kind == "storage":
+            role = StorageRole(
+                data_dir=spec.get("data_dir"),
+                engine=spec.get("storage_engine", "memory"),
+            )
+            if spec.get("tlog_address"):
+                addrs = [spec["tlog_address"]] + list(
+                    spec.get("tlog_addresses") or ()
+                )
+                if len(addrs) > 1:
+                    await role.catch_up_from_tlogs(addrs)
+                else:
+                    await role.catch_up_from_tlog(spec["tlog_address"])
+            rv = int(spec.get("recovery_version", -1))
+            if rv >= 0:
+                await role.advance_floor(rv)
+            return role, {"durable_version": role.version}
+        if kind == "ratekeeper":
+            role = RatekeeperRole(
+                spec.get("peers") or [],
+                controller=spec.get("controller") or self.controller,
+            )
+            await role.start()
+            return role, {}
+        if kind == "proxy":
+            role = ProxyRole(spec)
+            await role.start()
+            return role, {"recovered": role.recovered}
+        raise transport.RemoteError(f"unknown role kind {kind!r}")
+
+    def status(self) -> dict:
+        base = {
+            "worker_id": self.worker_id,
+            "hosted": sorted(self.roles),
+            "role_epochs": dict(self.role_epochs),
+            "initializations": self.initializations,
+        }
+        if len(self.roles) == 1:
+            # the common one-role-per-worker shape: report AS the
+            # hosted role so fdbtop / the ratekeeper / the controller
+            # heartbeat read the role's sensors straight off the
+            # worker's socket
+            (kind, role), = self.roles.items()
+            block = role.status()
+            block.update(base)
+            return block
+        return {"role": "worker", "idle": not self.roles, **base,
+                "qos": {"hosted": sorted(self.roles),
+                        **{k: r.status().get("qos", {})
+                           for k, r in self.roles.items()}}}
+
+    def register_tokens(self, server: transport.RpcServer) -> None:
+        """The dispatch loop: every role token routes through the
+        hosted-role map, so one worker binary serves whatever it is
+        recruited as (the fdbserver shape)."""
+
+        def route(kind: str, method: str):
+            async def handler(req, _kind=kind, _method=method):
+                return await getattr(self.role(_kind), _method)(req)
+
+            return handler
+
+        server.register(TOKEN_INIT_ROLE, self.init_role)
+        server.register(TOKEN_RESOLVE, route("resolver", "resolve"))
+
+        async def resolver_version(_req: RoleVersionReq) -> RoleVersionReply:
+            return RoleVersionReply(version=self.role("resolver").version)
+
+        server.register(TOKEN_RESOLVER_VERSION, resolver_version)
+        server.register(TOKEN_TLOG_PUSH, route("tlog", "push"))
+        server.register(TOKEN_TLOG_PEEK, route("tlog", "peek"))
+        server.register(TOKEN_TLOG_PEEK_BATCH, route("tlog", "peek_batch"))
+        server.register(TOKEN_TLOG_VERSION, route("tlog", "get_version"))
+        server.register(TOKEN_TLOG_LOCK, route("tlog", "lock"))
+        server.register(TOKEN_TLOG_POP, route("tlog", "pop"))
+        server.register(TOKEN_STORAGE_APPLY, route("storage", "apply"))
+        server.register(
+            TOKEN_STORAGE_APPLY_BATCH, route("storage", "apply_batch")
+        )
+        server.register(TOKEN_STORAGE_GET, route("storage", "get"))
+        server.register(TOKEN_STORAGE_GET_BATCH, route("storage", "get_batch"))
+        server.register(TOKEN_STORAGE_SNAPSHOT, route("storage", "snapshot"))
+        server.register(TOKEN_STORAGE_VERSION, route("storage", "get_version"))
+        server.register(TOKEN_STORAGE_CATCHUP, route("storage", "catch_up"))
+        server.register(
+            TOKEN_GET_RATE_INFO, route("ratekeeper", "get_rate_info")
+        )
+        server.register(TOKEN_CLIENT_GRV, route("proxy", "client_grv"))
+        server.register(TOKEN_CLIENT_COMMIT, route("proxy", "client_commit"))
+        server.register(TOKEN_CLIENT_READ, route("proxy", "client_read"))
+        server.register(TOKEN_RATE_UPDATE, route("proxy", "rate_update"))
+        server.register(
+            TOKEN_GET_COMMIT_VERSION, route("sequencer", "get_commit_version")
+        )
+        server.register(
+            TOKEN_REPORT_COMMITTED, route("sequencer", "report_committed")
+        )
+        server.register(
+            TOKEN_SEQUENCER_VERSION, route("sequencer", "get_version")
+        )
+
+
+class ClusterControllerRole:
+    """The cluster state owner: recruits a declarative topology onto
+    registered workers, heartbeats them over the StatusRequest
+    plumbing, and on any transaction-path death runs the reference
+    recovery walk (cluster/generation.py GenerationState — the SAME
+    state machine the sim ClusterController drives): bump the
+    generation, lock the durable tlog and take the recovery version
+    from it, recruit NEW resolvers with EMPTY conflict state, recruit
+    the new proxy generation whose first batch is the conservative
+    whole-keyspace blind write, and re-open for business. Storage and
+    the tlog's durable state survive recovery untouched; a dead
+    controller is itself survivable — the monitor restarts it, it
+    re-learns workers from their beacons and (epoch persisted in the
+    state file) always recovers into a strictly newer generation."""
+
+    #: consecutive heartbeat misses before a role is declared dead — a
+    #: kill -9'd worker fails its poll in milliseconds (connection
+    #: refused), so detection stays fast; the margin is for a LIVE
+    #: worker whose event loop stalls a poll under load
+    HEARTBEAT_MISSES = 3
+    #: a worker whose beacon is older than this is not live
+    WORKER_TTL = 3.0
+
+    def __init__(self, conf: dict, *, state_file: str | None = None,
+                 check_interval: float = 0.25):
+        import time as _time
+
+        from foundationdb_tpu_torch.cluster.generation import GenerationState
+
+        self.conf = conf
+        self.check_interval = check_interval
+        self.state_file = state_file
+        self.gen = GenerationState(
+            epoch=self._load_epoch(), clock=_time.time
+        )
+        self.workers: dict[str, dict] = {}  # id -> beacon info
+        self.assignments: dict[str, dict] = {}  # role name -> placement
+        self.recoveries_completed = 0
+        self.last_recovery_s: float | None = None
+        self.last_recovery_reason: str | None = None
+        #: monitor push-on-death notifications received —
+        #: the chaos smoke pins that the push path, not the heartbeat
+        #: backstop, is what detects a SIGKILL'd worker
+        self.death_notifications = 0
+        self._needs_recovery = True  # initial recruitment IS a recovery
+        self._recovery_reason = "initial_recruitment"
+        self._miss_counts: dict[str, int] = {}
+        self._conns: dict[str, transport.RpcConnection] = {}
+        self._task: asyncio.Task | None = None
+        # -- elastic topology: when the Ratekeeper's binding
+        # limiter names resolver occupancy/queueing for `elastic_streak`
+        # consecutive control intervals (the law's own binding_streak
+        # counter, read off the ratekeeper's heartbeat status), the
+        # controller plans a topology with ONE MORE resolver and drives
+        # the normal generation-bumped recovery walk to recruit it live
+        # — the reference's configuration-change-causes-recovery
+        # discipline, with Ratekeeper turned from a brake into a
+        # scaling signal. Capped at elastic_max_resolvers; OFF by
+        # default (conf "elastic": true arms it).
+        self.elastic_enabled = bool(conf.get("elastic", False))
+        self.elastic_max_resolvers = int(
+            conf.get("elastic_max_resolvers", 2)
+        )
+        #: commit-path scale-out: the SAME trigger machinery
+        #: drives proxy recruitment off the proxy-queue limiter — the
+        #: _plan + clip machinery generalizes verbatim
+        self.elastic_max_proxies = int(conf.get("elastic_max_proxies", 2))
+        self.elastic_streak = int(conf.get("elastic_streak", 4))
+        #: limiter names that mean "another resolver would help"
+        self.ELASTIC_RESOLVER_REASONS = ("resolver_busy", "resolver_queue")
+        #: limiter names that mean "another commit proxy would help"
+        self.ELASTIC_PROXY_REASONS = ("commit_proxy_queue", "proxy_queue")
+        self.elastic_recruits = 0
+        self.elastic_last_streak = 0
+        self.elastic_last_limiter = None
+        # -- elastic scale-down: when the binding
+        # limiter has been "workload" (= nothing structural binds; the
+        # offered load itself is the ceiling) for elastic_scale_down_
+        # streak consecutive control intervals, ONE above-baseline
+        # elastic role is retired through the same recovery walk. The
+        # baseline is the conf as DECLARED (captured before any
+        # persisted elastic override), so scale-down never cuts below
+        # what the operator asked for.
+        self.elastic_scale_down_streak = int(
+            conf.get("elastic_scale_down_streak",
+                     max(4, 2 * self.elastic_streak))
+        )
+        self._elastic_baseline = {
+            "resolvers": int(conf.get("resolvers", 1)),
+            "proxies": int(conf.get("proxies", 1)),
+        }
+        self.elastic_scale_downs = 0
+        self._workload_streak_observed = 0
+        self._workload_gate = self.elastic_scale_down_streak
+        # -- persisted elastic topology: a
+        # controller kill -9 must not forget fleet size — the planned
+        # counts ride the state file next to the epoch and are re-
+        # applied over the conf here, before the first _plan()
+        for kind_key, count in (self._load_state().get(
+                "topology") or {}).items():
+            if kind_key in ("resolvers", "proxies", "tlogs"):
+                try:
+                    self.conf[kind_key] = max(
+                        int(self.conf.get(kind_key, 1)), int(count)
+                    )
+                except (TypeError, ValueError):
+                    pass
+        self._rk_qos: dict = {}
+        #: the streak value a trigger must reach. Normally
+        #: elastic_streak; after a recruit it is raised to
+        #: (streak-at-recruit + elastic_streak) because the surviving
+        #: ratekeeper's law carries its streak ACROSS the recovery — a
+        #: still-binding limiter must hold for elastic_streak FRESH
+        #: post-recruit intervals (proof the previous recruit didn't
+        #: help) before the next one, never chain off the old streak.
+        #: A streak reset observed in between restores the normal gate.
+        self._elastic_gate = self.elastic_streak
+        self._elastic_last_observed = 0
+        #: set by worker_death to cut the supervision loop's sleep short
+        #: — a pushed death starts the recovery walk on the next loop
+        #: iteration, not up to check_interval later
+        self._wake = asyncio.Event()
+
+    # -- epoch persistence (the coordinated-state analog) ---------------
+
+    def _load_state(self) -> dict:
+        import json as _json
+
+        if self.state_file and os.path.exists(self.state_file):
+            try:
+                with open(self.state_file) as f:
+                    doc = _json.load(f)
+                    return doc if isinstance(doc, dict) else {}
+            except Exception:
+                return {}
+        return {}
+
+    def _load_epoch(self) -> int:
+        try:
+            return int(self._load_state().get("epoch", 0))
+        except (TypeError, ValueError):
+            return 0
+
+    def _persist_epoch(self, epoch: int) -> None:
+        import json as _json
+
+        if not self.state_file:
+            return
+        tmp = self.state_file + ".tmp"
+        with open(tmp, "w") as f:
+            # the planned elastic topology persists NEXT TO the epoch
+            #: a restarted controller re-applies
+            # these counts over its conf, so a kill -9 between an
+            # elastic recruit and the next one never forgets fleet size
+            _json.dump({
+                "epoch": epoch,
+                "topology": {
+                    "resolvers": int(self.conf.get("resolvers", 1)),
+                    "proxies": int(self.conf.get("proxies", 1)),
+                    "tlogs": int(self.conf.get("tlogs", 1)),
+                },
+            }, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.state_file)
+
+    # -- RPC surface -----------------------------------------------------
+
+    async def register_worker(
+        self, req: "RegisterWorker"
+    ) -> "RegisterWorkerReply":
+        import json as _json
+        import time as _time
+
+        info = _json.loads(req.payload)
+        self.workers[info["worker_id"]] = {
+            **info, "last_seen": _time.monotonic(),
+        }
+        return RegisterWorkerReply(payload=_json.dumps(
+            {"ok": True, "epoch": self.gen.epoch}
+        ))
+
+    async def worker_death(self, req: "WorkerDeath") -> "WorkerDeathReply":
+        """Monitor push-on-death: the monitor reaped this
+        worker's process, so every role it hosted is dead NOW — no need
+        to wait out HEARTBEAT_MISSES failed polls. Transaction-path
+        roles flag the recovery walk immediately (reason "push:<roles>"
+        — the chaos smoke pins the prefix); singletons get their miss
+        count pre-loaded so the next supervision pass re-recruits on
+        its FIRST failed poll. The wake event cuts the loop's sleep."""
+        import json as _json
+
+        from foundationdb_tpu_torch.utils.trace import SEV_WARN_ALWAYS, TraceEvent
+
+        info = _json.loads(req.payload)
+        wid = info.get("worker_id")
+        self.death_notifications += 1
+        self.workers.pop(wid, None)
+        dead = sorted(
+            n for n, a in self.assignments.items()
+            if a["worker_id"] == wid
+        )
+        txn_dead = [
+            n for n in dead
+            if self.assignments[n]["kind"]
+            in ("proxy", "resolver", "tlog", "sequencer")
+        ]
+        TraceEvent(
+            "WorkerDeathPushed", severity=SEV_WARN_ALWAYS
+        ).detail("Worker", wid).detail(
+            "Roles", ",".join(dead) or "none"
+        ).detail("Epoch", self.gen.epoch).log()
+        if txn_dead and not self._needs_recovery:
+            self._needs_recovery = True
+            self._recovery_reason = "push:" + ",".join(txn_dead)
+        for n in dead:
+            # singletons (and txn roles, harmlessly): one more failed
+            # poll — not three — declares them dead in the heartbeat
+            self._miss_counts[n] = self.HEARTBEAT_MISSES
+        self._wake.set()
+        return WorkerDeathReply(payload=_json.dumps(
+            {"ok": True, "roles": dead}
+        ))
+
+    def topology_doc(self) -> dict:
+        return {
+            "epoch": self.gen.epoch,
+            "state": self.gen.status,
+            "recovery_version": self.gen.recovery_version,
+            "recoveries_completed": self.recoveries_completed,
+            "roles": {
+                name: {
+                    "kind": a["kind"],
+                    "address": a["address"],
+                    "worker": a["worker_id"],
+                    "epoch": a["epoch"],
+                    "pid": self.workers.get(a["worker_id"], {}).get("pid"),
+                }
+                for name, a in self.assignments.items()
+            },
+        }
+
+    async def topology(self, _req: "TopologyRequest") -> "TopologyReply":
+        import json as _json
+
+        return TopologyReply(payload=_json.dumps(self.topology_doc()))
+
+    def status(self) -> dict:
+        import time as _time
+
+        now = _time.monotonic()
+        return {
+            "role": "cluster_controller",
+            "epoch": self.gen.epoch,
+            "qos": {
+                "epoch": self.gen.epoch,
+                "recovery_state": self.gen.status,
+                "recovery_version": self.gen.recovery_version,
+                "recoveries_completed": self.recoveries_completed,
+                "last_recovery_s": self.last_recovery_s,
+                "last_recovery_reason": self.last_recovery_reason,
+                "death_notifications": self.death_notifications,
+                # elastic topology — the fdbtop panel's and
+                # the drill's observability surface
+                "elastic_enabled": self.elastic_enabled,
+                "elastic_recruits": self.elastic_recruits,
+                "elastic_streak_needed": self.elastic_streak,
+                "elastic_last_streak": self.elastic_last_streak,
+                "elastic_last_limiter": self.elastic_last_limiter,
+                "elastic_scale_downs": self.elastic_scale_downs,
+                "resolvers_planned": int(self.conf.get("resolvers", 1)),
+                "proxies_planned": int(self.conf.get("proxies", 1)),
+                "tlogs_planned": int(self.conf.get("tlogs", 1)),
+                "partitioned": self._partitioned(),
+                # the last recovery's phase-one lock width: a one-of-N
+                # tlog kill shows survivors < total (per-tag quorum)
+                "last_tlog_lock": getattr(self, "last_tlog_lock", None),
+                "workers_registered": len(self.workers),
+                "workers_live": len(self._live_workers()),
+                "roles_recruited": len(self.assignments),
+                "recovery_timeline": self.gen.timeline_dicts(),
+                "workers": {
+                    wid: {
+                        "pid": w.get("pid"),
+                        "age_s": round(now - w["last_seen"], 3),
+                        "roles": w.get("roles", {}),
+                    }
+                    for wid, w in self.workers.items()
+                },
+            },
+        }
+
+    # -- recruitment planning --------------------------------------------
+
+    def _partitioned(self) -> bool:
+        """True when the commit path runs in scale-out mode:
+        a sequencer role owns version allotment, pushes carry the
+        chained prev_versions, and the tlogs run their per-tag chain
+        wait. Any of N>1 proxies, N>1 tlogs, or an explicit conf
+        "sequencer": true turns it on; the default single-proxy
+        topology keeps the legacy local-allocation path byte-
+        identical."""
+        return (
+            int(self.conf.get("proxies", 1)) > 1
+            or int(self.conf.get("tlogs", 1)) > 1
+            or bool(self.conf.get("sequencer", False))
+        )
+
+    def _role_names(self) -> list[tuple[str, str]]:
+        """(role name, kind) pairs of the declarative topology, in
+        recruitment order: durable logs first (the recovery version
+        source), then storage, the sequencer (scale-out mode), the
+        resolvers, ratekeeper, proxies last (proxy0's init commits the
+        recovery transaction)."""
+        names: list[tuple[str, str]] = []
+        for i in range(int(self.conf.get("tlogs", 1))):
+            names.append((f"tlog{i}", "tlog"))
+        names.append(("storage0", "storage"))
+        if self._partitioned():
+            names.append(("sequencer0", "sequencer"))
+        for i in range(int(self.conf.get("resolvers", 1))):
+            names.append((f"resolver{i}", "resolver"))
+        if self.conf.get("ratekeeper", True):
+            names.append(("ratekeeper0", "ratekeeper"))
+        for i in range(int(self.conf.get("proxies", 1))):
+            names.append((f"proxy{i}", "proxy"))
+        return names
+
+    def _live_workers(self) -> dict[str, dict]:
+        import time as _time
+
+        now = _time.monotonic()
+        return {
+            wid: w for wid, w in self.workers.items()
+            if now - w["last_seen"] <= self.WORKER_TTL
+        }
+
+    def _plan(self) -> dict[str, dict]:
+        """Assign each role a live worker (one role per worker, so a
+        kill -9 takes out exactly one role). Placement preference:
+        (1) the current assignment when its worker is still live;
+        (2) a live worker whose BEACON already reports hosting the
+        kind — the re-adoption path: a restarted controller has no
+        assignment memory, and recruiting a durable role away from the
+        worker that still holds its disk queue open would double-open
+        the data dir (found by the controller-kill chaos scenario);
+        (3) an idle live worker; (4) any live worker. Raises if the
+        live worker set cannot host the topology — the caller retries
+        after the monitor has restarted the dead workers."""
+        live = self._live_workers()
+        taken: set[str] = set()
+        plan: dict[str, dict] = {}
+        for name, kind in self._role_names():
+            cur = self.assignments.get(name)
+            wid = None
+            if cur and cur["worker_id"] in live \
+                    and cur["worker_id"] not in taken:
+                wid = cur["worker_id"]
+            if wid is None:
+                for cand in sorted(live):
+                    if cand not in taken \
+                            and kind in (live[cand].get("roles") or {}):
+                        wid = cand
+                        break
+            if wid is None:
+                for cand in sorted(live):
+                    if cand not in taken \
+                            and not (live[cand].get("roles") or {}):
+                        wid = cand
+                        break
+            if wid is None:
+                for cand in sorted(live):
+                    if cand not in taken:
+                        wid = cand
+                        break
+            if wid is None:
+                raise RuntimeError(
+                    f"not enough live workers: need "
+                    f"{len(self._role_names())}, have {len(live)}"
+                )
+            taken.add(wid)
+            plan[name] = {
+                "kind": kind,
+                "worker_id": wid,
+                "address": live[wid]["address"],
+                "epoch": self.gen.epoch,
+            }
+        return plan
+
+    def _hosted_epoch(self, worker_id: str, kind: str) -> int:
+        """The epoch a surviving role was initialized at, from its
+        worker's beacon — what heartbeats will compare against."""
+        w = self._live_workers().get(worker_id) or {}
+        return int((w.get("roles") or {}).get(kind, 0))
+
+    def _suspect_worker(self, address: str) -> None:
+        """Drop a worker we failed to reach from the registry: its
+        beacon ages in every ~0.5s, so a LIVE worker re-appears almost
+        immediately, while a kill -9 corpse stops poisoning the
+        recruitment plan NOW instead of after the beacon TTL (found by
+        the first chaos run: recovery retried into the dead worker for
+        a full TTL before re-planning)."""
+        for wid, w in list(self.workers.items()):
+            if w.get("address") == address:
+                self.workers.pop(wid, None)
+
+    async def _worker_call(self, address: str, token: int, msg,
+                           *, timeout: float = 30.0):
+        return await _cached_call(
+            self._conns, address, token, msg,
+            timeout=timeout, on_fail=self._suspect_worker,
+        )
+
+    async def _init_role(self, placement: dict, spec: dict, *,
+                         timeout: float = 120.0) -> dict:
+        import json as _json
+
+        reply = await self._worker_call(
+            placement["address"], TOKEN_INIT_ROLE,
+            InitializeRole(payload=_json.dumps({
+                "kind": placement["kind"],
+                "epoch": placement["epoch"],
+                **spec,
+            })),
+            timeout=timeout,
+        )
+        return _json.loads(reply.payload)
+
+    # -- the recovery walk ----------------------------------------------
+
+    async def _recover(self) -> None:
+        import time as _time
+
+        from foundationdb_tpu_torch.cluster import generation as gen
+
+        t0 = _time.monotonic()
+        reason = self._recovery_reason
+        epoch = self.gen.begin_recovery(floor=self._load_epoch())
+        self._persist_epoch(epoch)
+        # wait until the monitor has restarted enough workers to host
+        # the topology (the beacons re-announce them)
+        while True:
+            try:
+                plan = self._plan()
+                break
+            except RuntimeError:
+                await asyncio.sleep(self.check_interval)
+        conf = self.conf
+        self.gen.transition(gen.LOCKING_OLD_TRANSACTION_SERVERS,
+                            Reason=reason)
+        # 1. The durable logs: keep each where it lives (or re-host it
+        #    from its per-index data dir), then LOCK at the new epoch —
+        #    old-generation pushes are fenced from here on, and the
+        #    lock replies carry the durable versions recovery derives
+        #    from. Scale-out mode runs the TWO-PHASE per-tag
+        #    quorum walk: phase one locks the LIVE tlogs immediately
+        #    (killing one of N stalls only its tags for the re-host
+        #    window — the survivors' lock is the quorum), phase two
+        #    re-locks everything with the computed recovery version so
+        #    every per-tag version floor advances past the old
+        #    generation as a unit.
+        n_tlogs = int(conf.get("tlogs", 1))
+        partitioned = self._partitioned()
+        tlog_places = [plan[f"tlog{i}"] for i in range(n_tlogs)]
+        base_tlog_dir = conf.get("tlog_data_dir")
+
+        def _tlog_dir(i: int):
+            if not base_tlog_dir:
+                return None
+            return base_tlog_dir if i == 0 else f"{base_tlog_dir}-{i}"
+
+        part_flag = 1 if partitioned else 0
+        survivor_idx: set[int] = set()
+        for i, place in enumerate(tlog_places):
+            if self._worker_hosts(place["worker_id"], "tlog"):
+                # survivor (current assignment OR a restarted
+                # controller's beacon re-adoption): keep the epoch it
+                # was INITIALIZED at — the worker's role_epochs is what
+                # heartbeats compare, and the fencing epoch advances
+                # via the lock below (a re-stamped assignment here made
+                # every later heartbeat a mismatch and cascaded
+                # spurious recoveries)
+                place["epoch"] = self._hosted_epoch(
+                    place["worker_id"], "tlog"
+                )
+                survivor_idx.add(i)
+        # phase one: fence the survivors NOW (concurrently)
+        locks = await asyncio.gather(*(
+            self._worker_call(
+                tlog_places[i]["address"], TOKEN_TLOG_LOCK,
+                TLogLock(epoch=epoch, partitioned=part_flag),
+            )
+            for i in sorted(survivor_idx)
+        ))
+        durables = [lk.durable_version for lk in locks]
+        # the quorum surface (chaos drill pin): how many tlogs the
+        # phase-one lock needed vs the topology width — a one-of-N
+        # kill must show survivors < total with recovery proceeding
+        self.last_tlog_lock = {
+            "survivors": len(survivor_idx), "total": n_tlogs,
+        }
+        if partitioned:
+            # the OLD sequencer's head (best effort): versions it
+            # GRANTED but no tlog ever saw must stay below the new
+            # floor, or the fresh sequencer could re-issue them
+            old_seq = self.assignments.get("sequencer0")
+            if old_seq is not None and self._worker_hosts(
+                    old_seq["worker_id"], "sequencer"):
+                try:
+                    r = await self._worker_call(
+                        old_seq["address"], TOKEN_SEQUENCER_VERSION,
+                        RoleVersionReq(pad=0), timeout=2.0,
+                    )
+                    durables.append(r.version)
+                except Exception:
+                    pass
+        # re-host dead tlogs from their data dirs (the WAL replay
+        # restores each tag's durable state) and lock them on arrival
+        for i, place in enumerate(tlog_places):
+            if i in survivor_idx:
+                continue
+            await self._init_role(place, {
+                "data_dir": _tlog_dir(i),
+                "partitioned": partitioned,
+            })
+            lk = await self._worker_call(
+                place["address"], TOKEN_TLOG_LOCK,
+                TLogLock(epoch=epoch, partitioned=part_flag),
+            )
+            durables.append(lk.durable_version)
+        recovery_version = gen.recovery_version_for(*durables)
+        self.gen.recovery_version = recovery_version
+        self.gen.transition(gen.RECRUITING_TRANSACTION_SERVERS,
+                            RecoveryVersion=recovery_version)
+        if partitioned:
+            # phase two: advance every per-tag version floor to the
+            # recovery version — the new generation's first push per
+            # tag (prev = recovery version) finds its predecessor, and
+            # parked chain waiters drain as stale instead of wedging
+            # across the generation bump
+            await asyncio.gather(*(
+                self._worker_call(
+                    p["address"], TOKEN_TLOG_LOCK,
+                    TLogLock(epoch=epoch,
+                             recovery_version=recovery_version,
+                             partitioned=part_flag),
+                )
+                for p in tlog_places
+            ))
+        tlog = tlog_places[0]
+        tlog_addresses = [p["address"] for p in tlog_places]
+        # 2. Storage's durable state survives recovery, but its APPLY
+        #    FEED died with the old proxy: it must replay the locked
+        #    tlog's tail BEFORE the new generation's first apply can
+        #    advance its version past the gap. A dead storage is
+        #    re-hosted from its durable dir (the init catch-up does the
+        #    same replay).
+        storage = plan["storage0"]
+        # scale-out mode also hands storage the recovery version: its
+        # apply chain's floor must advance past the old generation so
+        # the first new-generation chained apply (prev = a version the
+        # old generation owned) finds its predecessor
+        storage_rv = recovery_version if partitioned else -1
+        if self._worker_hosts(storage["worker_id"], "storage"):
+            storage["epoch"] = self._hosted_epoch(
+                storage["worker_id"], "storage"
+            )
+            await self._worker_call(
+                storage["address"], TOKEN_STORAGE_CATCHUP,
+                StorageCatchUp(
+                    tlog_address=tlog_addresses[0],
+                    tlog_addresses=tlog_addresses[1:],
+                    recovery_version=storage_rv,
+                ),
+            )
+        else:
+            await self._init_role(storage, {
+                "data_dir": conf.get("storage_data_dir"),
+                "storage_engine": conf.get("storage_engine", "memory"),
+                "tlog_address": tlog_addresses[0],
+                "tlog_addresses": tlog_addresses[1:],
+                "recovery_version": storage_rv,
+            })
+        # 3. NEW resolvers, EMPTY conflict state — always rebuilt, even
+        #    on surviving workers (resolvers are stateless across
+        #    recoveries; correctness comes from the conservative abort).
+        #    Each boots with the empty batch at the recovery version so
+        #    the new proxy's version chain finds them ready.
+        resolver_places = [
+            p for n, p in sorted(plan.items()) if p["kind"] == "resolver"
+        ]
+        for place in resolver_places:
+            await self._init_role(place, {
+                "backend": conf.get("backend", "cuda"),
+                "resolver_kernel": conf.get("resolver_kernel"),
+                "compute_cost_per_txn": conf.get("resolver_compute_cost"),
+                # the port's own key, sent only when the conf names a
+                # device (None: the card)
+                **({"device": conf["device"]} if conf.get("device")
+                   else {}),
+            })
+            await self._worker_call(
+                place["address"], TOKEN_RESOLVE,
+                ResolveTransactionBatchRequest(
+                    prev_version=-1,
+                    version=recovery_version,
+                    last_received_version=-1,
+                    epoch=epoch,
+                ),
+            )
+        # 4. Ratekeeper: a singleton, re-recruited only if dead (it
+        #    re-resolves peers from our topology each control cycle).
+        #    The resolver-count change (elastic recruit or conf edit)
+        #    RE-DERIVES the keyspace split here: N resolvers get the
+        #    even byte-prefix boundaries (the ResolutionBalancer's
+        #    key-sample feed is the remaining headroom), and the new
+        #    proxy clips every batch to them — so a recruit genuinely
+        #    divides conflict work instead of broadcasting it N times.
+        # 3b. The sequencer (scale-out mode): ALWAYS rebuilt fresh at
+        #     the recovery version — a surviving old instance carries
+        #     the fenced generation's grant state, and the per-tag
+        #     chains must restart at the new floor. n_tags = the tlog
+        #     count (the tag partition IS the tlog partition).
+        seq_place = None
+        if partitioned:
+            seq_place = plan["sequencer0"]
+            await self._init_role(seq_place, {
+                "recovery_version": recovery_version,
+                "n_tags": n_tlogs,
+            })
+        topo_addrs = {
+            "resolvers": [p["address"] for p in resolver_places],
+            "resolver_boundaries": [
+                b.hex()
+                for b in default_resolver_boundaries(len(resolver_places))
+            ],
+            "tlog": tlog["address"],
+            "storage": storage["address"],
+        }
+        if partitioned:
+            topo_addrs["tlogs"] = tlog_addresses
+            topo_addrs["tlog_boundaries"] = [
+                b.hex() for b in default_resolver_boundaries(n_tlogs)
+            ]
+            topo_addrs["sequencer"] = seq_place["address"]
+        if "ratekeeper0" in plan:
+            rk = plan["ratekeeper0"]
+            if self._worker_hosts(rk["worker_id"], "ratekeeper"):
+                # survivor keeps its init epoch
+                rk["epoch"] = self._hosted_epoch(
+                    rk["worker_id"], "ratekeeper"
+                )
+            else:
+                await self._init_role(rk, {
+                    "peers": [*tlog_addresses, storage["address"],
+                              *topo_addrs["resolvers"]],
+                })
+            topo_addrs["ratekeeper"] = rk["address"]
+        # 5. The new proxy generation: proxy0's start() commits the
+        #    conservative recovery transaction as the FIRST batch (the
+        #    sequencer grants it the first version of the generation),
+        #    then the remaining proxies join the shared version chain
+        #    concurrently — they never recover, only commit.
+        self.gen.transition(gen.RECOVERY_TRANSACTION)
+        proxy_places = [
+            (n, p) for n, p in sorted(plan.items())
+            if p["kind"] == "proxy"
+        ]
+
+        def _proxy_spec(name: str, recover: bool) -> dict:
+            return {
+                "topology": topo_addrs,
+                "start_version": recovery_version,
+                "recover": recover,
+                "proxy_id": name,
+                "batch_interval": conf.get("batch_interval", 0.002),
+                "max_batch": conf.get("max_batch", 512),
+                "trace": bool(conf.get("trace", False)),
+            }
+
+        name0, proxy = proxy_places[0]
+        info = await self._init_role(proxy, _proxy_spec(name0, True))
+        if not info.get("recovered"):
+            raise RuntimeError(f"proxy recruitment did not recover: {info}")
+        if len(proxy_places) > 1:
+            await asyncio.gather(*(
+                self._init_role(p, _proxy_spec(n, False))
+                for n, p in proxy_places[1:]
+            ))
+        self.gen.transition(gen.ACCEPTING_COMMITS)
+        self.assignments = plan
+        self._miss_counts.clear()
+        self.recoveries_completed += 1
+        self.last_recovery_s = round(_time.monotonic() - t0, 3)
+        self.last_recovery_reason = reason
+        self.gen.transition(
+            gen.FULLY_RECOVERED,
+            RecoverySeconds=self.last_recovery_s,
+            Reason=reason,
+        )
+
+    def _worker_hosts(self, worker_id: str, kind: str) -> bool:
+        """True if the worker's latest beacon reports hosting `kind` —
+        a monitor-restarted worker re-registers with an EMPTY role map,
+        which is how the controller learns a kill -9 took the role with
+        it even though the socket answers again."""
+        w = self._live_workers().get(worker_id)
+        return bool(w) and kind in (w.get("roles") or {})
+
+    # -- heartbeat + supervision loop ------------------------------------
+
+    async def _heartbeat(self) -> list[str]:
+        """One heartbeat pass over the recruited topology (concurrent
+        StatusRequest polls; reusing the StatusRequest plumbing means
+        heartbeats double as sensor reads). A role is dead after
+        HEARTBEAT_MISSES consecutive misses, where a miss is a failed
+        poll OR a worker that answers but no longer hosts the role at
+        the recruited epoch (restarted corpse)."""
+        import json as _json
+
+        async def poll(name: str, a: dict):
+            try:
+                reply = await self._worker_call(
+                    a["address"], TOKEN_STATUS, StatusRequest(pad=0),
+                    timeout=2.0,
+                )
+                block = _json.loads(reply.payload)
+            except Exception:
+                return name, False
+            if a["kind"] == "ratekeeper":
+                # heartbeats double as sensor reads: the ratekeeper's
+                # qos carries the law's budget + binding_streak — the
+                # elasticity trigger's input (stale entries age out via
+                # the budget_stale flag the law itself sets)
+                self._rk_qos = block.get("qos") or {}
+            hosted = block.get("role_epochs") or {}
+            return name, hosted.get(a["kind"]) == a["epoch"]
+
+        results = await asyncio.gather(
+            *(poll(n, a) for n, a in self.assignments.items())
+        )
+        dead = []
+        for name, ok in results:
+            if ok:
+                self._miss_counts[name] = 0
+                continue
+            self._miss_counts[name] = self._miss_counts.get(name, 0) + 1
+            if self._miss_counts[name] >= self.HEARTBEAT_MISSES:
+                dead.append(name)
+        return dead
+
+    async def run(self) -> None:
+        from foundationdb_tpu_torch.utils.trace import (
+            SEV_WARN_ALWAYS,
+            TraceEvent,
+        )
+
+        while True:
+            try:
+                if self._needs_recovery:
+                    await self._recover()
+                    self._needs_recovery = False
+                else:
+                    dead = await self._heartbeat()
+                    txn_dead = [
+                        n for n in dead
+                        if self.assignments[n]["kind"]
+                        in ("proxy", "resolver", "tlog", "sequencer")
+                    ]
+                    for name in dead:
+                        TraceEvent(
+                            "ControllerRoleDead", severity=SEV_WARN_ALWAYS
+                        ).detail("Role", name).detail(
+                            "Kind", self.assignments[name]["kind"]
+                        ).detail("Epoch", self.gen.epoch).log()
+                        # the dead role's worker is suspect until its
+                        # beacon re-announces it (a kill -9 corpse must
+                        # not be re-planned into the next generation)
+                        self.workers.pop(
+                            self.assignments[name]["worker_id"], None
+                        )
+                    if txn_dead and not self._needs_recovery:
+                        # the transaction system recovers AS A UNIT —
+                        # never patched (the reference's key recovery
+                        # property). Guarded like worker_death's flag:
+                        # a push that landed while this heartbeat pass
+                        # was in flight already set the reason, and the
+                        # in-flight results must not overwrite its
+                        # "push:" attribution (the chaos gate pins it)
+                        self._needs_recovery = True
+                        self._recovery_reason = ",".join(sorted(txn_dead))
+                    else:
+                        for name in dead:
+                            await self._rerecruit_singleton(name)
+                        if not dead:
+                            # only a HEALTHY pass may scale: a dying
+                            # role's missing occupancy feed can read as
+                            # a saturated survivor for a cycle
+                            self._elastic_check()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                TraceEvent(
+                    "ControllerLoopError", severity=SEV_WARN_ALWAYS
+                ).detail("Error", repr(e)).log()
+            # interruptible sleep: a pushed worker death (worker_death)
+            # wakes the loop immediately instead of up to a full
+            # check_interval later
+            try:
+                await asyncio.wait_for(
+                    self._wake.wait(), self.check_interval
+                )
+            except asyncio.TimeoutError:
+                pass
+            self._wake.clear()
+
+    def _elastic_check(self) -> None:
+        """The elasticity trigger: read the admission law's
+        binding_streak off the ratekeeper's last heartbeat status; when
+        a resolver-shaped limiter has been binding for elastic_streak
+        consecutive control intervals (and the budget is not running on
+        stale sensors), plan a topology with ONE MORE resolver and flag
+        the generation-bumped recovery walk — the recruit happens
+        through the exact code path any configuration change takes, so
+        epoch fencing, the conservative abort and the boundary
+        re-derivation all apply unchanged."""
+        from foundationdb_tpu_torch.cluster.generation import elastic_reason
+
+        if not self.elastic_enabled or self._needs_recovery:
+            return
+        qos = self._rk_qos or {}
+        streak = qos.get("binding_streak") or {}
+        limiter = streak.get("name")
+        self.elastic_last_limiter = limiter
+        # the limiter name routes the SAME trigger machinery to the
+        # role kind that would relieve it (the proxy-queue
+        # limiter recruits commit proxies exactly like resolvers)
+        if limiter in self.ELASTIC_RESOLVER_REASONS:
+            kind, conf_key, cap = (
+                "resolver", "resolvers", self.elastic_max_resolvers
+            )
+        elif limiter in self.ELASTIC_PROXY_REASONS:
+            kind, conf_key, cap = (
+                "proxy", "proxies", self.elastic_max_proxies
+            )
+        else:
+            if limiter == "workload" and not qos.get("budget_stale"):
+                # nothing structural binds: the workload itself is the
+                # ceiling: feed the scale-down streak while the
+                # recruit gate resets below
+                self._scale_down_check(streak)
+            else:
+                self._workload_streak_observed = 0
+                self._workload_gate = self.elastic_scale_down_streak
+            self.elastic_last_streak = 0
+            self._elastic_last_observed = 0
+            self._elastic_gate = self.elastic_streak
+            return
+        self._workload_streak_observed = 0
+        self._workload_gate = self.elastic_scale_down_streak
+        if qos.get("budget_stale"):
+            self.elastic_last_streak = 0
+            self._elastic_last_observed = 0
+            self._elastic_gate = self.elastic_streak
+            return
+        self.elastic_last_streak = int(streak.get("intervals", 0))
+        if self.elastic_last_streak < self._elastic_last_observed:
+            # the law's streak restarted since the last look (the
+            # limiter released and re-engaged): the post-recruit gate
+            # no longer applies — this is a fresh signal
+            self._elastic_gate = self.elastic_streak
+        self._elastic_last_observed = self.elastic_last_streak
+        if self.elastic_last_streak < self._elastic_gate:
+            return
+        current = int(self.conf.get(conf_key, 1))
+        if current >= cap:
+            return
+        from foundationdb_tpu_torch.utils.trace import SEV_WARN_ALWAYS, TraceEvent
+
+        self.conf[conf_key] = current + 1
+        self.elastic_recruits += 1
+        # the snapshot that fired this trigger must not fire the next
+        # one: drop it, AND raise the gate past the law's surviving
+        # streak — the ratekeeper outlives the recovery walk with its
+        # counter intact, so the next recruit needs elastic_streak
+        # FRESH intervals on top (or a reset, handled above)
+        self._rk_qos = {}
+        self._elastic_gate = self.elastic_last_streak + self.elastic_streak
+        self._needs_recovery = True
+        self._recovery_reason = elastic_reason(kind, current + 1)
+        # cut the supervision sleep short, like a pushed worker death:
+        # the recovery walk (loop top) starts next iteration, not up
+        # to check_interval later
+        self._wake.set()
+        code_probe(True, "controller.elastic_recruit")
+        TraceEvent(
+            "ElasticRecruitPlanned", severity=SEV_WARN_ALWAYS
+        ).detail("Kind", kind).detail(
+            "From", current
+        ).detail("To", current + 1).detail(
+            "Limiter", limiter
+        ).detail("StreakIntervals", self.elastic_last_streak).detail(
+            "Epoch", self.gen.epoch
+        ).log()
+
+    def _scale_down_check(self, streak: dict) -> None:
+        """The OFF direction of elasticity: when
+        the admission law reports "workload" as the binding limiter —
+        the offered load is the ceiling, nothing structural binds —
+        for elastic_scale_down_streak consecutive control intervals,
+        retire ONE above-baseline elastic role through the same
+        generation-bumped recovery walk the recruit took. The baseline
+        is the conf as declared by the operator (captured before the
+        persisted elastic override), so scale-down never cuts below
+        the configured topology; a gate mirrors the recruit gate so a
+        ratekeeper streak surviving the walk cannot chain-retire the
+        whole fleet in consecutive passes."""
+        from foundationdb_tpu_torch.cluster.generation import elastic_reason
+        from foundationdb_tpu_torch.utils.trace import SEV_WARN_ALWAYS, TraceEvent
+
+        intervals = int(streak.get("intervals", 0))
+        if intervals < self._workload_streak_observed:
+            # the cold streak restarted: fresh signal, normal gate
+            self._workload_gate = self.elastic_scale_down_streak
+        self._workload_streak_observed = intervals
+        if intervals < self._workload_gate:
+            return
+        for kind, conf_key in (
+            ("proxy", "proxies"), ("resolver", "resolvers")
+        ):
+            current = int(self.conf.get(conf_key, 1))
+            if current <= self._elastic_baseline[conf_key]:
+                continue
+            self.conf[conf_key] = current - 1
+            self.elastic_scale_downs += 1
+            self._rk_qos = {}
+            self._workload_gate = (
+                intervals + self.elastic_scale_down_streak
+            )
+            self._needs_recovery = True
+            self._recovery_reason = elastic_reason(kind, current - 1)
+            self._wake.set()
+            code_probe(True, "controller.elastic_scale_down")
+            TraceEvent(
+                "ElasticScaleDownPlanned", severity=SEV_WARN_ALWAYS
+            ).detail("Kind", kind).detail(
+                "From", current
+            ).detail("To", current - 1).detail(
+                "StreakIntervals", intervals
+            ).detail("Epoch", self.gen.epoch).log()
+            return
+
+    async def _rerecruit_singleton(self, name: str) -> None:
+        """Non-transaction-path roles (storage, ratekeeper) re-recruit
+        alone, no generation bump — the reference re-replicates /
+        re-recruits singletons without a recovery."""
+        kind = self.assignments[name]["kind"]
+        live = self._live_workers()
+        used = {
+            a["worker_id"] for n, a in self.assignments.items() if n != name
+        }
+        # RE-ADOPT first: a live worker whose beacon still reports
+        # hosting the kind is a slow-but-alive instance that missed
+        # its polls, not a corpse — recruiting a durable role onto a
+        # DIFFERENT worker while it still holds the data dir open
+        # would double-open the WAL. The beacon
+        # re-announces within ~0.5s, so by the time the miss threshold
+        # trips, a live instance is visible here.
+        for wid in sorted(live):
+            if wid not in used and kind in (live[wid].get("roles") or {}):
+                self.assignments[name] = {
+                    "kind": kind, "worker_id": wid,
+                    "address": live[wid]["address"],
+                    "epoch": self._hosted_epoch(wid, kind),
+                }
+                self._miss_counts[name] = 0
+                return
+        wid = next(
+            (w for w in sorted(live) if w not in used), None
+        )
+        if wid is None:
+            return  # monitor hasn't restarted a worker yet; next pass
+        place = {
+            "kind": kind, "worker_id": wid,
+            "address": live[wid]["address"], "epoch": self.gen.epoch,
+        }
+        conf = self.conf
+        if kind == "storage":
+            tlog = self.assignments.get("tlog0")
+            await self._init_role(place, {
+                "data_dir": conf.get("storage_data_dir"),
+                "storage_engine": conf.get("storage_engine", "memory"),
+                "tlog_address": tlog["address"] if tlog else None,
+            })
+        elif kind == "ratekeeper":
+            await self._init_role(place, {"peers": []})
+        else:
+            return
+        self.assignments[name] = place
+        self._miss_counts[name] = 0
+
+
+class ClusterRecoveringError(Exception):
+    """The cluster is between generations; retry after recovery."""
+
+
+class CommitUnknownError(Exception):
+    """The commit's fate is unknown (connection/generation lost mid-
+    flight) — the commit_unknown_result contract: the transaction may
+    or may not have committed; only an idempotent replay or a readback
+    can tell."""
+
+
+class ClusterClient:
+    """Client-side lifecycle handle: discovers the proxy generation
+    through the controller topology and survives recoveries. GRV and
+    reads retry transparently across generations (they are stateless);
+    commit is ONE attempt — a connection lost mid-commit surfaces
+    CommitUnknownError (the reference's commit_unknown_result) because
+    the batch may have logged before the crash."""
+
+    #: process-wide client counter: successive clients start their
+    #: front-door rotation at successive proxies, so a fleet of
+    #: clients spreads across an N-proxy generation
+    _rr_seq = 0
+
+    def __init__(self, controller_address: str, *,
+                 recovery_timeout: float = 60.0):
+        self.controller_address = controller_address
+        self.recovery_timeout = recovery_timeout
+        self._rr = ClusterClient._rr_seq
+        ClusterClient._rr_seq += 1
+        self._ctrl_conns: dict = {}  # _cached_call cache (controller)
+        self._proxy: transport.RpcConnection | None = None
+        #: strong refs to detached close() tasks (the loop only keeps
+        #: weak task refs — without this a close could be GC'd unrun)
+        self._closing: set = set()
+        #: serializes _refresh: N coroutines losing the generation at
+        #: once must produce ONE probe connection, not N (the census
+        #: gate caught the stampede leaking every non-winner's conn)
+        self._refresh_lock = asyncio.Lock()
+        self.epoch = 0
+        self.proxy_address: str | None = None
+        self.refreshes = 0
+
+    async def connect(self) -> None:
+        # drop any current proxy first: connect() means "re-resolve the
+        # generation", never "reuse whatever is cached"
+        self._drop_proxy()
+        await self._refresh()
+
+    async def close(self) -> None:
+        await _close_all(self._ctrl_conns)
+        if self._proxy is not None:
+            try:
+                await self._proxy.close()
+            except Exception:
+                pass
+        self._proxy = None
+        if self._closing:
+            await asyncio.gather(
+                *list(self._closing), return_exceptions=True
+            )
+
+    def _drop_proxy(self) -> None:
+        """Forget the current proxy connection, CLOSING it — error
+        paths must not leak one transport per generation change."""
+        conn = self._proxy
+        self._proxy = None
+        if conn is not None:
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                return
+            t = loop.create_task(conn.close())
+            # detached close: the loop holds only weak task refs —
+            # anchor it until done or it can be GC'd before running
+            self._closing.add(t)
+            t.add_done_callback(self._closing.discard)
+
+    async def topology(self) -> dict:
+        import json as _json
+
+        reply = await _cached_call(
+            self._ctrl_conns, self.controller_address,
+            TOKEN_TOPOLOGY, TopologyRequest(pad=0), timeout=2.0,
+        )
+        return _json.loads(reply.payload)
+
+    async def _refresh(self) -> dict:
+        """Poll the controller until the cluster is fully recovered and
+        the proxy front door answers; reconnect to it. Bounded by
+        recovery_timeout."""
+        import time as _time
+
+        from foundationdb_tpu_torch.cluster import generation as gen
+
+        deadline = _time.monotonic() + self.recovery_timeout
+        async with self._refresh_lock:
+            if self._proxy is not None:
+                # a concurrent refresher won while we waited on the
+                # lock: its liveness probe just passed, so reuse its
+                # connection — N callers must not stampede N probes
+                return {"state": gen.FULLY_RECOVERED,
+                        "epoch": self.epoch}
+            while True:
+                topo = None
+                try:
+                    topo = await self.topology()
+                except Exception:
+                    pass
+                if topo and topo.get("state") == gen.FULLY_RECOVERED:
+                    proxies = [
+                        e for _n, e in sorted(
+                            (topo.get("roles") or {}).items()
+                        )
+                        if e["kind"] == "proxy"
+                    ]
+                    proxy = (
+                        proxies[self._rr % len(proxies)]
+                        if proxies else None
+                    )
+                    if proxy is not None:
+                        conn = None
+                        try:
+                            conn = transport.RpcConnection(
+                                proxy["address"], tls=_tls_from_env()
+                            )
+                            await conn.connect(retries=2, delay=0.05)
+                            # liveness probe: the socket may be a
+                            # corpse the controller hasn't noticed yet
+                            await conn.call(
+                                TOKEN_CLIENT_GRV,
+                                ClientGrvRequest(pad=0),
+                                timeout=5.0,
+                            )
+                            alive = True
+                        except transport.RemoteError as e:
+                            # a throttled front door IS alive
+                            alive = "grv_throttled" in str(e)
+                        except Exception:
+                            alive = False
+                        if alive:
+                            self._proxy = conn
+                            self.proxy_address = proxy["address"]
+                            self.epoch = int(topo["epoch"])
+                            self.refreshes += 1
+                            return topo
+                        # rotate: the next attempt probes a different
+                        # proxy of the generation, not the same corpse
+                        self._rr += 1
+                        if conn is not None:
+                            try:
+                                await conn.close()
+                            except Exception:
+                                pass
+                if _time.monotonic() > deadline:
+                    raise ClusterRecoveringError(
+                        f"no recovered generation within "
+                        f"{self.recovery_timeout}s (topology: "
+                        f"{topo and topo.get('state')})"
+                    )
+                await asyncio.sleep(0.1)
+
+    async def _retryable_call(self, token: int, msg, *,
+                              timeout: float = 30.0):
+        """GRV/read path: retry through generation changes until the
+        recovery timeout. Typed retryable errors (grv_throttled) pass
+        through to the caller's backoff."""
+        import time as _time
+
+        deadline = _time.monotonic() + self.recovery_timeout
+        while True:
+            conn = self._proxy
+            try:
+                if conn is None:
+                    await self._refresh()
+                    conn = self._proxy
+                return await conn.call(token, msg, timeout=timeout)
+            except transport.RemoteError as e:
+                s = str(e)
+                if "grv_throttled" in s:
+                    raise GrvThrottledError()
+                if "not_committed" in s:
+                    raise NotCommittedError(s)
+                # stale epoch / failed pipeline / uninitialized worker:
+                # the generation is changing under us
+                self._drop_proxy()
+            except (transport.TransportError, ConnectionError,
+                    asyncio.TimeoutError):
+                self._drop_proxy()
+            if _time.monotonic() > deadline:
+                raise ClusterRecoveringError(
+                    f"rpc {token:#x} found no live generation within "
+                    f"{self.recovery_timeout}s"
+                )
+            await asyncio.sleep(0.05)
+
+    async def get_read_version(self) -> int:
+        reply = await self._retryable_call(
+            TOKEN_CLIENT_GRV, ClientGrvRequest(pad=0)
+        )
+        return reply.version
+
+    async def read(self, key: bytes, version: int) -> Optional[bytes]:
+        reply = await self._retryable_call(
+            TOKEN_CLIENT_READ, ClientReadRequest(key=key, version=version)
+        )
+        return reply.value
+
+    async def commit(self, txn: CommitTransaction, *,
+                     timeout: float = 30.0) -> int:
+        """ONE commit attempt. NotCommittedError = definitely aborted
+        (safe to retry at a fresh snapshot); CommitUnknownError = the
+        request was SENT and the generation/connection died mid-flight
+        (only a readback can tell); ClusterRecoveringError = the
+        request was never sent (no recovered generation reachable) —
+        definitely not committed, safe to retry outright."""
+        conn = self._proxy
+        if conn is None:
+            # connection setup failures happen BEFORE anything is
+            # sent: surface the retryable recovering error, never
+            # "unknown" — callers must not pay readback cost for a
+            # commit that provably never left this process
+            await self._refresh()
+            conn = self._proxy
+        try:
+            reply = await conn.call(
+                TOKEN_CLIENT_COMMIT, ClientCommitRequest(txn=txn),
+                timeout=timeout,
+            )
+            return reply.version
+        except transport.RemoteError as e:
+            s = str(e)
+            if "not_committed" in s:
+                raise NotCommittedError(s)
+            if "grv_throttled" in s:
+                raise GrvThrottledError()
+            self._drop_proxy()
+            from foundationdb_tpu_torch.cluster.generation import is_stale_epoch
+
+            if is_stale_epoch(s):
+                # a generation-fence rejection happens BEFORE anything
+                # is appended (resolver and tlog both fence ahead of
+                # the log), so this commit provably did not land —
+                # retryable, no readback needed
+                raise ClusterRecoveringError(s)
+            raise CommitUnknownError(s)
+        except (transport.TransportError, ConnectionError,
+                asyncio.TimeoutError) as e:
+            self._drop_proxy()
+            raise CommitUnknownError(repr(e))
+
+
 # ---------------------------------------------------------------------------
 # The role process.
 
@@ -1986,15 +4129,25 @@ async def _serve_role(
     storage_engine: str = "memory",
     encrypt: bool = False,
     trace_file: str | None = None,
+    peers: list[str] | None = None,
+    controller: str | None = None,
+    worker_id: str | None = None,
+    cluster_conf: str | None = None,
+    state_file: str | None = None,
     device=None,
 ) -> None:
     """Serve one role on `address` until cancelled. The role (a
     resolver's warm-up, a storage's catch-up from `tlog_address`) is
-    built before the socket binds: a role that cannot serve never binds."""
-    if role_name in UNPORTED_ROLES:
-        raise ValueError(f"role {role_name!r} is not ported yet")
+    built before the socket binds: a role that cannot serve never binds.
+    A worker builds its roles later, when the controller recruits them;
+    `device` is then the device of the resolvers it builds."""
     if encrypt:
         raise ValueError(ENCRYPTION_NOT_PORTED)
+    if role_name == "controller" and not trace_file:
+        # a controller the monitor starts has no trace flag of its own:
+        # the environment names its trace file (the recovery timeline's
+        # MasterRecoveryState events)
+        trace_file = os.environ.get("FDBTPU_CONTROLLER_TRACE")
     if trace_file:
         # a trace sink of this process (the reference's one trace file a
         # fdbserver): micro-events and spans land in a JSONL file that
@@ -2049,6 +4202,27 @@ async def _serve_role(
             TOKEN_REPORT_COMMITTED: role.report_committed,
             TOKEN_SEQUENCER_VERSION: role.get_version,
         })
+    elif role_name == "ratekeeper":
+        role = RatekeeperRole(peers or [], controller=controller)
+        tokens[TOKEN_GET_RATE_INFO] = role.get_rate_info
+    elif role_name == "worker":
+        role = WorkerRole(
+            worker_id or os.path.basename(str(address)),
+            str(address),
+            controller=controller,
+            device=device,
+        )
+    elif role_name == "controller":
+        conf: dict = {}
+        if cluster_conf:
+            with open(cluster_conf) as f:
+                conf = json.load(f)
+        role = ClusterControllerRole(conf, state_file=state_file)
+        tokens.update({
+            TOKEN_REGISTER_WORKER: role.register_worker,
+            TOKEN_TOPOLOGY: role.topology,
+            TOKEN_WORKER_DEATH: role.worker_death,
+        })
     else:
         raise ValueError(f"unknown role {role_name!r}")
     server = transport.RpcServer(address, tls=_tls_from_env())
@@ -2066,21 +4240,36 @@ async def _serve_role(
             **_census.snapshot(),
             "tasks": len(asyncio.all_tasks()),
         }
-        if role_name == "resolver":
-            from foundationdb_tpu_torch import kernels
-
-            # the kernel launches of this process so far (kernels.COUNTS)
-            blk["kernel_launches"] = kernels.counts()
+        resolver = (role if role_name == "resolver" else
+                    role.roles.get("resolver") if role_name == "worker"
+                    else None)
+        if resolver is not None:
+            # the port's own: the conflict set, and this process's kernel
+            # launches (kernels.COUNTS) now and when the role was ready
+            blk.update(resolver.process_status())
         return StatusReply(payload=json.dumps(blk))
 
     server.register(TOKEN_PING, ping)
     server.register(TOKEN_STATUS, status)
     for token, handler in tokens.items():
         server.register(token, handler)
+    if role_name == "worker":
+        role.register_tokens(server)
     await server.start()
+    # the roles with a loop of their own start once the socket serves
+    if role_name in ("ratekeeper", "worker"):
+        await role.start()
+    elif role_name == "controller":
+        role._task = asyncio.ensure_future(role.run())
     try:
         await asyncio.Event().wait()  # until killed
     finally:
+        if role_name in ("ratekeeper", "worker"):
+            await role.stop()
+        elif role_name == "controller":
+            role._task.cancel()
+            await asyncio.gather(role._task, return_exceptions=True)
+            await _close_all(role._conns)
         await server.close()
 
 
@@ -2135,10 +4324,12 @@ def spawn_role(
     `socket_dir`. The child sees the parent's environment (`env` adds to
     it) with PYTHONPATH set to the repository root, and nothing else
     changed: a "cuda" resolver uses the card the parent would, and exits
-    non-zero before it binds when there is none. `backend` and `device`
-    only matter to a resolver; `peers`, `controller`, `worker_id`,
-    `cluster_conf` and `state_file` to the unported roles, which the
-    child refuses. `encrypt` raises ValueError before anything starts."""
+    non-zero before it binds when there is none. `backend` only matters
+    to a resolver, `device` to a resolver and a worker (the device of the
+    resolvers it builds); `peers` to a ratekeeper, `controller` to a
+    worker and a ratekeeper, `worker_id` to a worker, `cluster_conf` and
+    `state_file` to a controller. `encrypt` raises ValueError before
+    anything starts."""
     if encrypt:
         raise ValueError(ENCRYPTION_NOT_PORTED)
     address = os.path.join(socket_dir, f"{name}{index}.sock")
@@ -3372,6 +5563,59 @@ def _pipeline_status_blocks(pipeline: "ProxyPipeline") -> dict[str, dict]:
     }
 
 
+async def wire_cluster_status(
+    roles: dict[str, transport.RpcConnection],
+    pipeline: "ProxyPipeline" = None,
+    *,
+    lag_target: float = 2_000_000.0,
+) -> dict:
+    """The reference-shaped status document of a wire cluster: one
+    StatusRequest a role process, plus the parent pipeline's own proxy
+    blocks, assembled through the same qos math as the sim
+    `cluster_status()` (cluster/status.py assemble_status)."""
+    from foundationdb_tpu_torch.cluster.status import assemble_status
+
+    procs: dict[str, dict] = {}
+    for name, conn in roles.items():
+        try:
+            reply = await conn.call(
+                TOKEN_STATUS, StatusRequest(pad=0), timeout=30.0
+            )
+        except (transport.TransportError, ConnectionError,
+                asyncio.TimeoutError) as e:
+            # a status poll of one dead role names the role instead of
+            # raising a bare socket error
+            raise transport.RemoteError(
+                f"status poll of role {name!r} failed: {e!r}"
+            ) from e
+        procs[name] = json.loads(reply.payload)
+    if pipeline is not None:
+        procs.update(_pipeline_status_blocks(pipeline))
+    return assemble_status(procs, lag_target=lag_target)
+
+
+def serve_status(
+    socket_dir: str, pipeline: "ProxyPipeline"
+) -> transport.RpcServer:
+    """The parent's status endpoint: an RpcServer on proxy0.sock in the
+    role socket dir, answering StatusRequest with the pipeline's own
+    proxy blocks, so a poller of the socket dir sees the commit and GRV
+    proxy sensors beside the role processes'. The caller starts it
+    (`await server.start()`) and closes it at teardown."""
+    address = os.path.join(socket_dir, "proxy0.sock")
+    server = transport.RpcServer(address, tls=_tls_from_env())
+
+    async def status(_req: StatusRequest) -> StatusReply:
+        blocks = _pipeline_status_blocks(pipeline)
+        payload = blocks["proxy0"]
+        # the GRV block rides along (one socket, both proxy roles)
+        payload["grv_proxy"] = blocks["grv_proxy0"]
+        return StatusReply(payload=json.dumps(payload))
+
+    server.register(TOKEN_STATUS, status)
+    return server
+
+
 def main() -> None:
     from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
 
@@ -3389,7 +5633,7 @@ def main() -> None:
                          "by RESOLVER_CUDA_MIN_BATCH; cpu: the host "
                          "oracle; native: the C++ skip list")
     ap.add_argument("--device", default=None,
-                    help="resolver: the TorchConflictSet's device "
+                    help="resolver, worker: the TorchConflictSet's device "
                          "(default: the card)")
     ap.add_argument("--data-dir", default=None,
                     help="tlog / storage: the directory they persist in "
@@ -3403,16 +5647,21 @@ def main() -> None:
     ap.add_argument("--trace-file", default=None,
                     help="a JSONL trace sink for this process")
     ap.add_argument("--peers", default=None,
-                    help="ratekeeper (not ported): the peer role sockets")
+                    help="ratekeeper: comma list of the peer role sockets "
+                         "whose StatusRequest sensors it polls")
     ap.add_argument("--controller", default=None,
-                    help="worker / ratekeeper (not ported): the "
-                         "controller's socket")
+                    help="worker / ratekeeper: the cluster controller's "
+                         "socket (workers register, the ratekeeper takes "
+                         "its peers from the topology)")
     ap.add_argument("--worker-id", default=None,
-                    help="worker (not ported): its identity")
+                    help="worker: its identity in RegisterWorker")
     ap.add_argument("--cluster-conf", default=None,
-                    help="controller (not ported): the topology file")
+                    help="controller: a JSON file with the declarative "
+                         "topology (resolvers, backend, data dirs)")
     ap.add_argument("--state-file", default=None,
-                    help="controller (not ported): the persisted epoch")
+                    help="controller: the persisted epoch (the "
+                         "coordinated-state analog), so a restarted "
+                         "controller recovers into a newer generation")
     args = ap.parse_args()
     asyncio.run(
         _serve_role(
@@ -3424,6 +5673,11 @@ def main() -> None:
             storage_engine=args.storage_engine,
             encrypt=args.encrypt,
             trace_file=args.trace_file,
+            peers=args.peers.split(",") if args.peers else None,
+            controller=args.controller,
+            worker_id=args.worker_id,
+            cluster_conf=args.cluster_conf,
+            state_file=args.state_file,
             device=args.device,
         )
     )

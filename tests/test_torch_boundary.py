@@ -31,6 +31,10 @@ from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.parallel import sharding as SH
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "foundationdb_tpu_torch"

@@ -32,7 +32,11 @@ from foundationdb_tpu.utils import packing as jax_packing
 from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.models import conflict_set as PCS
 from foundationdb_tpu_torch.models.types import CommitTransaction
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 COL_FIELDS = ("snapshots", "read_counts", "write_counts", "flags",
               "key_lens")

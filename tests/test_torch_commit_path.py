@@ -62,8 +62,12 @@ from foundationdb_tpu_torch.testing.oracle import (
     ConflictOracle,
     OracleTxn,
 )
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.wire import codec as PC
 from foundationdb_tpu_torch.wire import transport as PTR
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 PKG = {
     "port": types.SimpleNamespace(types=PT, codec=PC, transport=PTR, mp=PMP),

@@ -23,7 +23,11 @@ from foundationdb_tpu.runtime import flow as JF
 from foundationdb_tpu.utils import trace as JT
 from foundationdb_tpu_torch.runtime import census as PC
 from foundationdb_tpu_torch.runtime import flow as PF
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import trace as PT
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 BOTH = [(JF, JT), (PF, PT)]
 

@@ -43,9 +43,13 @@ from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from test_torch_group import assert_same_out, canonical_map
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 #: the bytes either side of the signed boundaries of a byte and a word
 WIDE = np.array([0x00, 0x01, 0x7F, 0x80, 0xFF], np.uint8)

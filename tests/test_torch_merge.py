@@ -45,10 +45,14 @@ from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.ops import delta as D
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.testing import merge_cases as MC
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from test_torch_group import assert_same_out
 from test_torch_lex_order import history_maps, wide_key
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 NEG = H.VERSION_NEG
 

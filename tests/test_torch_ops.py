@@ -31,9 +31,13 @@ from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from conftest import random_range
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 KEY_BYTES = 8
 W = KEY_BYTES // 4 + 1

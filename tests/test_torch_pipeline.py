@@ -42,8 +42,12 @@ from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.models import conflict_set as PCS
 from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.testing import benchgen
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import metrics as PM
 from foundationdb_tpu_torch.utils import packing
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 KEY_BYTES = 8
 KEYSPACE = 2000

@@ -40,6 +40,10 @@ from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.testing import probe_cases as PC
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 WIDTHS = (3, 5)
 _JAX_PROBE = jax.jit(JH.query_reads_vmax)

@@ -40,9 +40,13 @@ from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.testing import benchgen
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from test_torch_group import assert_same_out, assert_same_state
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 
 def t(a) -> torch.Tensor:

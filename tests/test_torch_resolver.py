@@ -44,8 +44,12 @@ from foundationdb_tpu_torch.config import TEST_CONFIG, KernelConfig
 from foundationdb_tpu_torch.models import conflict_set as PCS
 from foundationdb_tpu_torch.models import types as PT
 from foundationdb_tpu_torch.runtime import flow as PF
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing, probes
 from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS as PORT_KNOBS
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 TEST_KW = dataclasses.asdict(TEST_CONFIG)
 TIERED_KW = {**TEST_KW, "delta_capacity": 512, "compact_interval": 3}

@@ -48,7 +48,11 @@ from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import keys as K
 from foundationdb_tpu_torch.testing import search_cases as SC
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 _JAX_SWEEP = jax.jit(JD.sweep_read_ranks)
 WINDOW = SC.WINDOW

@@ -67,10 +67,14 @@ from foundationdb_tpu_torch.testing.oracle import (
     MultiResolverOracle,
     OracleTxn,
 )
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from test_torch_group import assert_same_out, assert_same_state
 from test_torch_variants import txns_of
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 KW = dict(max_key_bytes=8, max_txns=16, max_reads=32, max_writes=32,
           history_capacity=512, window_versions=1000)

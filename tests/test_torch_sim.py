@@ -27,6 +27,10 @@ from foundationdb_tpu_torch.cluster import tlog as PTL
 from foundationdb_tpu_torch.runtime import flow as PF
 from foundationdb_tpu_torch.sim import diskqueue as PD
 from foundationdb_tpu_torch.sim import network as PN
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 
 def _disk(q):

@@ -15,8 +15,9 @@ own tests; each names its source.
 
 Also here: the construction rules of the port's ClusterConfig (a "cuda"
 backend on the card raises without one; the default knob route logs
-ResolverBackendAutoRouted and resolves on the host oracle), and the two
-client branches whose modules are not ported yet.
+ResolverBackendAutoRouted and resolves on the host oracle), the client
+branch whose module is not ported yet (a DR destination's commit lock),
+and the status document the client serves.
 """
 
 from __future__ import annotations
@@ -24,12 +25,18 @@ from __future__ import annotations
 import dataclasses
 import enum
 import importlib
+import json
 import random
 import types
 
 import numpy as np
 import pytest
 import torch
+
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 JAX = "foundationdb_tpu"
 PORT = "foundationdb_tpu_torch"
@@ -991,8 +998,9 @@ def test_default_config_resolves_on_the_card():
 
 
 def test_unported_branches_raise():
-    """A DR destination's commit lock and \\xff\\xff/status/json wait for
-    their modules: both raise NotImplementedError."""
+    """A DR destination's commit lock waits for its module and raises
+    NotImplementedError; \\xff\\xff/status/json serves the status
+    document (cluster/status.cluster_status)."""
     P = ns(PORT)
     sched, cluster, db = P.database.open_cluster(
         P.database.ClusterConfig(device="cpu", resolver_backend="cpu"))
@@ -1003,8 +1011,10 @@ def test_unported_branches_raise():
         with pytest.raises(NotImplementedError, match="not ported yet"):
             run(sched, txn.commit())
         db.dr_locked = False
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            db.special_key(b"\xff\xff/status/json")
+        doc = json.loads(db.special_key(b"\xff\xff/status/json"))
+        conf = doc["cluster"]["configuration"]
+        assert (conf["resolver_backend"], conf["resolvers"]) == ("cpu", 1)
+        assert doc["cluster"]["qos"]["performance_limited_by"]["name"]
         assert db.special_key(b"\xff\xff/cluster/epoch") == b"1"
     finally:
         cluster.stop()

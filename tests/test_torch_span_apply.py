@@ -32,10 +32,14 @@ from foundationdb_tpu.ops import rangemax as JR
 from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.ops import group as G
 from foundationdb_tpu_torch.testing import span_cases as SC
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from test_torch_group import assert_same_out, assert_same_state
 from test_torch_short_span import TCFG, run_both, run_port
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 SPANS = (1, 2, 4, 8)
 

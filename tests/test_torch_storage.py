@@ -37,9 +37,13 @@ from foundationdb_tpu.wire import codec as JC
 from foundationdb_tpu_torch import native
 from foundationdb_tpu_torch.cluster import multiprocess as mp
 from foundationdb_tpu_torch.models.types import CommitTransaction
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.wire import codec as PC
 from foundationdb_tpu_torch.wire import transport
 from foundationdb_tpu_torch.wire.codec import Mutation
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 S = native.VersionedLsm.MUT_SET

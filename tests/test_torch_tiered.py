@@ -36,9 +36,13 @@ from foundationdb_tpu_torch.config import KernelConfig
 from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.testing import benchgen
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing
 
 from conftest import random_range
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 BASE_KW = dict(max_key_bytes=8, max_txns=16, max_reads=32, max_writes=32,
                history_capacity=512, window_versions=1000,

@@ -34,9 +34,13 @@ from foundationdb_tpu_torch.models.types import (CommitTransaction,
                                                  TransactionResult)
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 
 from test_torch_lex_order import wide_key, wide_range
 from test_torch_tiered import assert_state_equal
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 #: kernel B's and C's tiles on the card (rangemax_build.cu, min_cover.cu)
 B_TILE = 4096

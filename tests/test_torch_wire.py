@@ -25,7 +25,8 @@ the C++ skip list, held against the JAX package on the CPU.
   on sockets from this process (min-combine, a conflict that is not
   committed, the read back); a
   "cuda" child without a card exits non-zero before it binds, and
-  `connect(proc=...)` fails at once; the unported roles raise.
+  `connect(proc=...)` fails at once; the ratekeeper, worker and
+  controller roles are served.
 * The port's NativeSkipListConflictSet and NativeConflictSet give the
   JAX ones' verdicts on seeded streams; a failed build raises.
 
@@ -58,9 +59,13 @@ from foundationdb_tpu_torch.testing.oracle import (
     MultiResolverOracle,
     OracleTxn,
 )
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
 from foundationdb_tpu_torch.utils import packing as PPK
 from foundationdb_tpu_torch.wire import codec as PC
 from foundationdb_tpu_torch.wire import transport as PTR
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 PKG = {
     "port": types.SimpleNamespace(types=PT, codec=PC, transport=PTR,
@@ -221,14 +226,19 @@ CASES = {
 
 
 def test_tokens_match_jax():
+    # the commit path's 21 and the lifecycle control plane's 8
     tokens = {n: v for n, v in vars(PMP).items() if n.startswith("TOKEN_")}
-    assert len(tokens) == 21
+    assert len(tokens) == 29
     for name, value in tokens.items():
         assert getattr(JMP, name) == value, name
 
 
 def test_every_registered_message_is_compared():
-    assert set(PC._REGISTRY) == {tid for tid, _ in CASES.values()}
+    # the lifecycle messages are compared in test_torch_wire_cluster.py
+    from test_torch_wire_cluster import LIFECYCLE_CASES
+
+    assert set(PC._REGISTRY) == {tid for tid, _ in CASES.values()} | {
+        tid for tid, _tok, _m in LIFECYCLE_CASES.values()}
     assert PC.PROTOCOL_VERSION == JC.PROTOCOL_VERSION
 
 
@@ -649,10 +659,29 @@ def test_clip_and_ranges_match_jax():
 
 
 def test_unported_roles_raise(tmp_path):
-    assert PMP.UNPORTED_ROLES == ("ratekeeper", "worker", "controller")
-    for role in PMP.UNPORTED_ROLES:
-        with pytest.raises(ValueError, match="not ported yet"):
-            run(PMP._serve_role(role, str(tmp_path / "x.sock"), "native"))
+    """The ratekeeper, worker and controller roles, once refused, are
+    served: each answers StatusRequest as its role; an unknown role and
+    an unknown resolver backend still raise."""
+    assert not hasattr(PMP, "UNPORTED_ROLES")
+
+    async def serve(role, **kw):
+        address = str(tmp_path / f"{role}.sock")
+        task = asyncio.ensure_future(
+            PMP._serve_role(role, address, "cuda", **kw))
+        try:
+            conn = await PMP.connect(address)
+            st = json.loads((await conn.call(
+                PMP.TOKEN_STATUS, PMP.StatusRequest(pad=0))).payload)
+            await conn.close()
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        return st
+
+    assert run(serve("ratekeeper"))["role"] == "ratekeeper"
+    st = run(serve("worker", worker_id="w7", device="cpu"))
+    assert (st["role"], st["worker_id"], st["idle"]) == ("worker", "w7", True)
+    assert run(serve("controller"))["role"] == "cluster_controller"
     with pytest.raises(ValueError, match="unknown role"):
         run(PMP._serve_role("oracle", str(tmp_path / "x.sock"), "native"))
     with pytest.raises(ValueError, match="unknown resolver backend"):

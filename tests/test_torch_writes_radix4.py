@@ -50,6 +50,10 @@ from foundationdb_tpu_torch.ops import history as H
 from foundationdb_tpu_torch.ops import rangemax as R
 from foundationdb_tpu_torch.ops import segtree as S
 from foundationdb_tpu_torch.testing import writes_cases as WC
+from foundationdb_tpu_torch.testing.threads import cap_intra_op_threads
+
+# this process's share of the host's cores (testing/threads.py)
+cap_intra_op_threads()
 
 NEG = H.VERSION_NEG
 POS = WC.INT32_POS

@@ -256,10 +256,32 @@ any fault:
    the kill to the new generation's first commit (detection, the
    recovery walk, the new resolvers' warm-up), and each resolver's
    batches, mean batch size and compute p50 / p99.
+18. the simulation ensemble on the card (cell EN): the soak seeds that
+   draw the device backend (EN_SEEDS: the classic, tiered + read dedup,
+   2-shard and sweep + spill kernels, with backup_restore and
+   knob_quorum among their faults) each through
+   `testing/soak.run_seed` on the card at its spec's own shape, every
+   gate of the seed passing; EN_RERUN again and EN_TRACED with the
+   span-chain, census and status-probe gates; the saturation ramp
+   (quick, admission on) and the hotspot gate's sim legs (zipf,
+   uniform), in EN_CARD_WORKERS spawned processes that share the card.
+   Meanwhile EN_WORKERS more run each of them with device="cpu" (the
+   plain versions). It fails unless every
+   signature and report equals its plain-version twin, the rerun is
+   identical, every resolver of every epoch is a TorchConflictSet on the
+   card, every kernel of each resolver's path (`en_kernels`: the K15
+   chain, F with read dedup, E with the sweep, I and J on 2 shards)
+   launched in each run, no card process's allocated memory after its
+   repeated runs is above its level after its first pass, and the phase
+   takes at most EN_BUDGET_S (240 s). It prints each run's wall (and its
+   twin's), commits, aborts, epoch, batches, launches by kernel and
+   allocated memory, and the phase's wall, beside the card's name and
+   power limit.
 
 The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15,
-16 and 17 under `pipelined_uniform`, `pipelined_classic`, `staging`,
-`resolver`, `wire`, `commit_path`, `sim_cluster` and `wire_cluster`),
+16, 17 and 18 under `pipelined_uniform`, `pipelined_classic`, `staging`,
+`resolver`, `wire`, `commit_path`, `sim_cluster`, `wire_cluster` and
+`ensemble`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -5290,6 +5312,296 @@ def phase_wire_cluster(card: str, uniform: dict, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the spec-driven simulation ensemble on the card (cell EN)
+
+#: the phase's wall budget, from its first run to its last comparison
+EN_BUDGET_S = 240.0
+#: the seeds that draw the device backend, each at its spec's own shape
+#: (testing/specs/*.toml: 64-txn batches of 256 reads and writes, 16-byte
+#: keys, a 1M or 5M-version window): api_correctness 1 classic, 6 tiered
+#: with read dedup and backup_restore, 8 on 2 shards with knob_quorum, 13
+#: classic; range_heavy 1 and 8 the sweep with spill (8 on 2 shards);
+#: ycsb_d 6 tiered, 11 classic
+EN_SEEDS = (("api_correctness", 1), ("api_correctness", 6),
+            ("api_correctness", 8), ("api_correctness", 13),
+            ("range_heavy", 1), ("range_heavy", 8),
+            ("ycsb_d", 6), ("ycsb_d", 11))
+#: run again on the card, in the same process: the rerun-identical check
+EN_RERUN = ("api_correctness", 8)
+#: run on the card with the span-chain gate, the census gate and the
+#: status probe armed; its trace digest must equal the plain versions'
+EN_TRACED = ("api_correctness", 6, {"trace": True, "census": True,
+                                    "status_probe": True})
+#: spawned processes that run the card's runs (each with its own CUDA
+#: context: a run is the host's Python and launches, so two share the
+#: card), and those that run the plain-version twins on the host's cores,
+#: one torch thread each
+EN_CARD_WORKERS = 2
+EN_WORKERS = 4
+#: what every device seed's path launches: the K15 chain of PERF.md § 6
+#: (A's counts, probe and query, B, C, D, L, N)
+EN_CHAIN = ("keysearch.counts", "keysearch.probe", "keysearch.query",
+            "rangemax_build", "min_cover", "merge_maps", "sort_ranks",
+            "lex_order")
+
+
+def en_kernels(cfg) -> tuple:
+    """The kernels a resolver on `cfg` launches in a soak seed: the chain
+    always; F where the seed's tiered config dedups reads (even seeds,
+    testing/soak.py), E where range_heavy arms the sweep, I and J where
+    the seed shards the keyspace (seed % 4 == 0)."""
+    want = list(EN_CHAIN)
+    if cfg.dedup_reads:
+        want.append("read_dedup")
+    if cfg.range_sweep:
+        want.append("sweep_ranks")
+    if cfg.n_shards > 1:
+        want += ["shard_clip", "shard_combine"]
+    return tuple(want)
+
+
+def en_call(job: tuple, device):
+    """One run of the phase on `device`: a soak seed's signature, the
+    saturation ramp's report or a hotspot sim leg's report."""
+    kind, args, kw = job
+    if kind == "seed":
+        from foundationdb_tpu_torch.testing.soak import run_seed
+
+        return run_seed(*args, device=device, **kw)
+    if kind == "saturation":
+        from foundationdb_tpu_torch.testing.saturation import run_saturation
+
+        return run_saturation(device=device, **kw)
+    from foundationdb_tpu_torch.testing.hotspot import run_hotspot_sim
+
+    return run_hotspot_sim(device=device, **kw)
+
+
+def en_twin(job: tuple):
+    """One plain-version twin in a worker process (one torch thread, no
+    CUDA): `en_call` with device="cpu", and its wall."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = en_call(job, "cpu")
+    return out, time.perf_counter() - t0
+
+
+def en_resolvers_kernels(tag: str, built: list, on: str) -> set:
+    """Fail unless `built` holds resolvers and each is a TorchConflictSet
+    on the device type `on`; the kernels their configs' paths launch."""
+    if not built:
+        fail(f"{tag}: no resolver was built")
+    want = set()
+    for r in built:
+        cs = r.conflict_set
+        if type(cs).__name__ != "TorchConflictSet" or cs.device.type != on:
+            fail(f"{tag}: resolver {r.resolver_id} resolves on "
+                 f"{type(cs).__name__} ({getattr(cs, 'device', None)})")
+        want.update(en_kernels(cs.config))
+    return want
+
+
+def en_on_card(tag: str, job: tuple, device) -> dict:
+    """Run one job on `device` with the launch counts from 0 and every
+    port Resolver it builds recorded; fail unless each is a
+    TorchConflictSet on `device` (the card when None) and every kernel
+    its config's path launches (`en_kernels`) launched. Returns the
+    result, wall, launches, batches and device memory after it."""
+    import gc
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.resolver import Resolver
+
+    built = []
+    init = Resolver.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        built.append(self)
+
+    Resolver.__init__ = record
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        result = en_call(job, device)
+    finally:
+        Resolver.__init__ = init
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.counts().items() if n}
+    on = "cuda" if device is None else str(device)
+    want = en_resolvers_kernels(tag, built, on)
+    missing = sorted(k for k in want if not launches.get(k))
+    if missing:
+        fail(f"{tag}: {missing} never launched on the card (launched "
+             f"{launches})")
+    out = dict(result=result, wall_s=wall, launches=launches,
+               resolvers=len(built),
+               batches=sum(r.conflict_set.metrics.counters.get(
+                   "resolveBatches") for r in built))
+    # the run's clusters are stopped: once these references go, nothing
+    # of theirs may stay on the card
+    built.clear()
+    gc.collect()
+    if on == "cuda":
+        torch.cuda.synchronize()
+    out["memory_allocated"] = (torch.cuda.memory_allocated()
+                               if on == "cuda" else 0)
+    return out
+
+
+def en_card_worker(jobs: list, device) -> dict:
+    """In a spawned process with its own CUDA context: each (tag, job) of
+    `jobs` in order through `en_on_card`; fails unless the allocated
+    memory after the worker's repeated runs (those not in EN_SEEDS) is
+    at most its level after its runs of EN_SEEDS."""
+    runs = {tag: en_on_card(tag, job, device) for tag, job in jobs}
+    first_pass = {f"{s} {n}" for s, n in EN_SEEDS}
+    mem_first = max((r["memory_allocated"] for tag, r in runs.items()
+                     if tag in first_pass), default=0)
+    mem_later = max((r["memory_allocated"] for tag, r in runs.items()
+                     if tag not in first_pass), default=0)
+    if mem_later > mem_first:
+        fail(f"ensemble: the card's allocated memory grew from {mem_first} "
+             f"to {mem_later} bytes over the repeated runs ({list(runs)})")
+    return runs
+
+
+def phase_ensemble(card: str, device=None) -> dict:
+    """The spec-driven simulation ensemble on the card (cell EN): each of
+    EN_SEEDS through `testing/soak.run_seed` on the card, inside its
+    whole fault mix, with every gate of run_seed (no unhandled actor
+    error, no auditor conflict, the model checks, the ApiCorrectness
+    cross-check, the consistency check, the backup/restore comparison);
+    its signature equal to the same seed's with device="cpu" (the plain
+    versions); EN_RERUN again on the card in the same process,
+    identical; EN_TRACED on the card with the span-chain, census and
+    status-probe gates, its digest the plain versions'; the saturation
+    ramp (quick, admission on) and the hotspot gate's sim legs (zipf,
+    uniform) on the card, each report the plain versions'. The card's
+    runs go to EN_CARD_WORKERS spawned processes, the twins meanwhile to
+    EN_WORKERS more. Every resolver of every epoch is a TorchConflictSet
+    on the card and every kernel of its config's path launches in each
+    run; no worker's allocated memory grows over its repeated runs; the
+    whole inside EN_BUDGET_S."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from foundationdb_tpu_torch.testing import soak
+
+    t_phase = time.perf_counter()
+    jobs = {}
+    for spec, seed in EN_SEEDS:
+        plan = soak.plan_for_seed(seed, spec)
+        if plan.resolver_backend != "cuda":
+            fail(f"ensemble: {spec} {seed} draws {plan.resolver_backend!r}")
+        jobs[f"{spec} {seed}"] = ("seed", (seed, spec), {})
+    spec, seed, kw = EN_TRACED
+    jobs[f"{spec} {seed} traced"] = ("seed", (seed, spec), kw)
+    jobs["saturation"] = ("saturation", (), {"admission": True,
+                                            "quick": True})
+    for skewed in (True, False):
+        jobs[f"hotspot {'zipf' if skewed else 'uniform'}"] = (
+            "hotspot", (), {"skewed": skewed, "quick": True})
+    base = "{} {}".format(*EN_RERUN)
+    rerun = base + " rerun"
+
+    def weight(tag):
+        # a 2-shard seed (seed % 4 == 0) takes about four times another
+        # run, on the card and as a twin
+        job = jobs[tag]
+        return 4 if job[0] == "seed" and job[1][0] % 4 == 0 else 1
+
+    longest = sorted(jobs, key=weight, reverse=True)
+    # the card's runs go to its workers longest first, each to the least
+    # loaded; the rerun rides with its seed, in the same process
+    card_jobs = [[] for _ in range(EN_CARD_WORKERS)]
+    load = [0] * EN_CARD_WORKERS
+    for tag in longest:
+        i = load.index(min(load))
+        card_jobs[i].append((tag, jobs[tag]))
+        load[i] += weight(tag)
+        if tag == base:
+            card_jobs[i].append((rerun, jobs[base]))
+            load[i] += weight(tag)
+    ctx = multiprocessing.get_context("spawn")
+    twin_pool = ProcessPoolExecutor(max_workers=EN_WORKERS, mp_context=ctx)
+    card_pool = ProcessPoolExecutor(max_workers=EN_CARD_WORKERS,
+                                    mp_context=ctx)
+    try:
+        twins = {tag: twin_pool.submit(en_twin, jobs[tag])
+                 for tag in longest}
+        on_card = [card_pool.submit(en_card_worker, lst, device)
+                   for lst in card_jobs]
+        card_runs = {}
+        for f in on_card:
+            card_runs.update(f.result())
+        t_twins = time.perf_counter()
+        twin = {tag: f.result() for tag, f in twins.items()}
+        twin_wait = time.perf_counter() - t_twins
+    finally:
+        card_pool.shutdown(wait=True, cancel_futures=True)
+        twin_pool.shutdown(wait=True, cancel_futures=True)
+    if card_runs[rerun]["result"] != card_runs[base]["result"]:
+        fail(f"ensemble: {base} on the card is not rerun-identical")
+    for tag, run in card_runs.items():
+        want = twin[tag.removesuffix(" rerun")][0]
+        if run["result"] != want:
+            fail(f"ensemble: {tag} on the card differs from its plain "
+                 f"versions: {run['result']!r} against {want!r}")
+    if not card_runs["saturation"]["result"]["slo"]["passed"]:
+        fail("ensemble: the saturation ramp violated its SLO gate")
+    for tag in ("hotspot zipf", "hotspot uniform"):
+        if not card_runs[tag]["result"]["ok"]:
+            fail(f"ensemble: {tag}: {card_runs[tag]['result']['why']}")
+    wall_s = time.perf_counter() - t_phase
+    out = dict(card=card, phase_wall_s=wall_s, twin_wait_s=twin_wait,
+               card_workers=[[tag for tag, _ in lst] for lst in card_jobs],
+               runs={})
+    for tag, run in card_runs.items():
+        res = run["result"]
+        row = dict(wall_s=run["wall_s"], resolvers=run["resolvers"],
+                   batches=run["batches"], launches=run["launches"],
+                   launches_per_batch={
+                       k: n / max(run["batches"], 1)
+                       for k, n in run["launches"].items()},
+                   memory_allocated=run["memory_allocated"],
+                   plain_wall_s=twin[tag.removesuffix(" rerun")][1])
+        if isinstance(res, tuple):
+            m = soak.signature_metrics(res)
+            row.update(committed=m["committed"], aborted=m["aborted"],
+                       epoch=m["epoch"], virtual_s=m["virtual_seconds"],
+                       api=list(m["api"]) if m["api"] else None,
+                       trace_digest=m.get("trace_digest"))
+            log(f"  {tag}: {run['wall_s']:.2f} s on the card (plain "
+                f"versions {row['plain_wall_s']:.2f} s), committed "
+                f"{m['committed']}, aborted {m['aborted']}, epoch "
+                f"{m['epoch']}, {run['resolvers']} resolvers, "
+                f"{run['batches']} batches; launched {run['launches']}; "
+                f"memory_allocated {run['memory_allocated']}")
+        else:
+            log(f"  {tag}: {run['wall_s']:.2f} s on the card (plain "
+                f"versions {row['plain_wall_s']:.2f} s), the report equal; "
+                f"{run['batches']} batches; launched {run['launches']}; "
+                f"memory_allocated {run['memory_allocated']}")
+        out["runs"][tag] = row
+    log(f"  every signature and report equal to the plain versions', "
+        f"{base} rerun-identical, every resolver of every epoch a "
+        f"TorchConflictSet on the card, every path kernel launched, no "
+        f"memory growth; the card's runs in {EN_CARD_WORKERS} processes "
+        f"{out['card_workers']}; waited {twin_wait:.2f} s for the twins; "
+        f"phase wall {wall_s:.1f} s of the {EN_BUDGET_S:.0f} s budget; on "
+        f"{card}")
+    if wall_s > EN_BUDGET_S:
+        fail(f"ensemble: the phase took {wall_s:.1f} s, over its "
+             f"{EN_BUDGET_S:.0f} s budget")
+    return out
+
+
 def survey_spans(device, uni) -> tuple:
     """The widest spans of the uniform stream: tiered (each batch against
     the delta tier an exact set holds just before it) and classic
@@ -6524,6 +6836,8 @@ def main(argv=None) -> int:
         f"set {parity['decisions']}, as the sim recovery does")
     wire_cluster = phase_wire_cluster(card, uniform)
     wire_cluster["recovery_parity"] = parity
+    heading("18. the simulation ensemble on the card (device seeds, faults)")
+    ensemble = phase_ensemble(card)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -6565,6 +6879,7 @@ def main(argv=None) -> int:
     streams["commit_path"] = commit
     streams["sim_cluster"] = sim
     streams["wire_cluster"] = wire_cluster
+    streams["ensemble"] = ensemble
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

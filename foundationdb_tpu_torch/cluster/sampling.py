@@ -2,7 +2,8 @@
 port's own copy of foundationdb_tpu.cluster.sampling: the byteSample
 `ByteSample` with its treap, the busiest-tag tracker `TagCounter`,
 `tag_of_key`, the reference knobs, `KEY_SAMPLE_LIMIT`,
-`decay_key_sample`, `printable` and `key_sample_qos`).
+`decay_key_sample`, `printable`, `key_sample_qos` and
+`attribute_hotspot`).
 
 * ByteSample is StorageMetrics' byteSample
   (fdbserver/StorageMetrics.actor.cpp `isKeyValueInSample`): a written
@@ -17,9 +18,9 @@ port's own copy of foundationdb_tpu.cluster.sampling: the byteSample
 * Tags come from key prefixes (`tenant/...`) at the sensor, so no wire
   frame carries a tag.
 
-The Storage role and the ProxyPipeline report these sensors; the
-hotspot verdict over an assembled status (`attribute_hotspot`) waits
-for the hotspot drill.
+The Storage role and the ProxyPipeline report these sensors;
+`attribute_hotspot` is the hotspot drill's verdict over an assembled
+status document (testing/hotspot.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from foundationdb_tpu_torch.utils.probes import code_probe, declare
 
 declare(
     "sampling.byte_sample_gc",
+    "sampling.hot_range_attributed",
     "sampling.tag_counter_rollover",
 )
 
@@ -447,4 +449,49 @@ def key_sample_qos(sample: dict, top_n: int = 4) -> dict:
     return {
         "keys": len(sample),
         "top": [{"key": printable(k), "count": c} for k, c in top],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Attribution: the skew-drill gate's verdict from an assembled status.
+
+
+def attribute_hotspot(status: dict, *,
+                      threshold: float = DOMINANCE_FRAC) -> dict:
+    """Name the dominant tag/range from a status document's cluster
+    rollup, or nothing: a top-1 owning >= `threshold` of its traffic
+    is attributed, anything flatter is not. Both the zipf drill (must
+    attribute the injected tenant) and the uniform drill (must NOT)
+    gate on this one rule."""
+    cluster = status.get("cluster", status) or {}
+    tags = cluster.get("busiest_tags") or []
+    ranges = cluster.get("hot_ranges") or []
+    hot_tag = (
+        tags[0] if tags and tags[0].get("frac", 0.0) >= threshold
+        else None
+    )
+    hot_range = (
+        ranges[0]
+        if ranges
+        and ranges[0].get("frac", 0.0) >= threshold
+        # support floor: a near-empty byte sample puts large fractions
+        # behind single keys — no verdict without HOT_RANGE_MIN_KEYS
+        and ranges[0].get("keys", HOT_RANGE_MIN_KEYS) >= HOT_RANGE_MIN_KEYS
+        else None
+    )
+    attributed = hot_tag is not None or hot_range is not None
+    code_probe(attributed, "sampling.hot_range_attributed")
+    if attributed:
+        from foundationdb_tpu_torch.utils.trace import TraceEvent
+
+        TraceEvent("HotRangeAttributed").detail(
+            "Tag", hot_tag["tag"] if hot_tag else None
+        ).detail(
+            "Range", hot_range["range"] if hot_range else None
+        ).log()
+    return {
+        "attributed": attributed,
+        "hot_tag": hot_tag,
+        "hot_range": hot_range,
+        "threshold": threshold,
     }

@@ -106,7 +106,11 @@ from foundationdb_tpu_torch.parallel import sharding as SH
 from foundationdb_tpu_torch.utils import packing
 from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
 from foundationdb_tpu_torch.utils.metrics import CounterCollection, LatencySample
+from foundationdb_tpu_torch.utils.probes import code_probe, declare
 from foundationdb_tpu_torch.utils.trace import SEV_WARN, TraceEvent
+
+# the soak's range_heavy spec expects both (testing/specs/range_heavy.toml)
+declare("resolver.range_sweep", "resolver.delta_spill")
 
 # Rebase when offsets pass 2**30 (the window is ~5e6; huge margin).
 REBASE_THRESHOLD = 1 << 30
@@ -712,9 +716,11 @@ class TorchConflictSet:
             if self._spill_bound_rows + add > cfg.delta_capacity:
                 self.compact_history()
                 self.metrics.add("spills")
+                code_probe(True, "resolver.delta_spill")
             self._spill_bound_rows += add
         if cfg.range_sweep:
             self.metrics.add("sweepGroups")
+            code_probe(True, "resolver.range_sweep")
         latched = bool(cfg.fixpoint_latch or cfg.dedup_reads)
         t0 = time.perf_counter()
         state2, outs = self._run_tiered(g, cfg.fixpoint_latch,

@@ -39,21 +39,30 @@ def widen(words: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int64) & 0xFFFFFFFF
 
 
+#: (W, device) -> [W] int64 3^(W-1) .. 3^0, the word weights of _lex_sign
+_POW3: dict = {}
+
+
+def _lex_sign(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[...] int64 whose sign is the order of widened rows a and b.
+
+    Each word's sign s_i in {-1, 0, 1} is weighted by 3^(W-1-i): a word
+    outweighs every word after it together ((3^k - 1) / 2 < 3^k), so the
+    sum's sign is the first unequal word's (exact for W <= 39)."""
+    key = (a.shape[-1], a.device)
+    pow3 = _POW3.get(key)
+    if pow3 is None:
+        pow3 = _POW3[key] = 3 ** torch.arange(
+            key[0] - 1, -1, -1, dtype=torch.int64, device=a.device)
+    return (torch.sign(a - b) * pow3).sum(-1)
+
+
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise a < b for packed keys; compares the trailing axis W.
 
     a, b: [..., W] int32 words (broadcastable). Returns [...] bool.
     """
-    a, b = widen(a), widen(b)
-    w = a.shape[-1]
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    res = torch.zeros(shape, dtype=torch.bool, device=a.device)
-    # from the least-significant word up: a more-significant unequal word
-    # overrides the verdict of the words after it
-    for i in range(w - 1, -1, -1):
-        ai, bi = a[..., i], b[..., i]
-        res = torch.where(ai < bi, True, torch.where(ai > bi, False, res))
-    return res
+    return _lex_sign(widen(a), widen(b)) < 0
 
 
 def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,16 +88,15 @@ def searchsorted_plain(keys: torch.Tensor, queries: torch.Tensor, *,
                 searchsorted_plain(keys, queries, side="right"))
     m = keys.shape[0]
     q = queries.shape[0]
+    wide_keys, wide_q = widen(keys), widen(queries)
     lo = torch.zeros((q,), dtype=torch.int64, device=queries.device)
     hi = torch.full((q,), m, dtype=torch.int64, device=queries.device)
     for _ in range(m.bit_length()):
         active = lo < hi
         mid = (lo + hi) >> 1
-        mid_keys = keys[mid.clamp(0, m - 1)]
-        if side == "left":
-            go_right = lex_less(mid_keys, queries)     # keys[mid] < q
-        else:
-            go_right = ~lex_less(queries, mid_keys)    # keys[mid] <= q
+        order = _lex_sign(wide_keys[mid.clamp(0, m - 1)], wide_q)
+        # left: keys[mid] < q; right: keys[mid] <= q
+        go_right = order < 0 if side == "left" else order <= 0
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo.to(torch.int32)

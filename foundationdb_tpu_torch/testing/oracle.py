@@ -1,6 +1,6 @@
 """Pure-Python semantic oracle for MVCC conflict resolution (the port's own
 copy of foundationdb_tpu.testing.oracle: OracleTxn, VersionMap,
-ConflictOracle and MultiResolverOracle).
+ConflictOracle, SequentialModel and MultiResolverOracle).
 
 A deliberately simple, obviously-correct model of the reference semantics
 (fdbserver/SkipList.cpp ConflictBatch + SkipList, fdbserver/Resolver.actor.cpp
@@ -205,6 +205,84 @@ class ConflictOracle:
             self.history.gc(self.oldest)
 
         return OracleBatchResult(verdict, conflicting, combined)
+
+
+class SequentialModel:
+    """In-memory sequential KV model for the full-client API workload
+    (testing/api_workload.py) — the MemoryStore role the reference's
+    ApiCorrectness workload checks against
+    (fdbserver/workloads/ApiCorrectness.actor.cpp / MemoryKeyValueStore).
+
+    Committed transactions are inserted keyed by their 10-byte
+    versionstamp (8B big-endian commit version + 2B intra-batch order —
+    cluster/commit_proxy._stamp), which totally orders commits exactly
+    as the storage servers apply them: version order, then batch order.
+    `state_at(version)` replays every commit visible at a read version,
+    so a read the real client performed at snapshot `rv` has ONE correct
+    answer the model can produce after the fact, even though commits
+    were acknowledged to concurrent actors out of order.
+
+    Mutations are the client's own tuples (cluster/client.py
+    Transaction.mutations): set / clear / atomic / vs_key / vs_value;
+    versionstamped mutations materialize here with the commit's stamp,
+    mirroring the proxy's resolution of the placeholder.
+    """
+
+    def __init__(self):
+        # ascending [(stamp, mutations)] — stamps are unique
+        self._commits: list[tuple[bytes, list]] = []
+
+    def apply(self, stamp: bytes, mutations: list) -> None:
+        if len(stamp) != 10:
+            raise ValueError(f"versionstamp must be 10 bytes, got {stamp!r}")
+        i = bisect.bisect_left(self._commits, (stamp,))
+        if i < len(self._commits) and self._commits[i][0] == stamp:
+            raise ValueError(f"duplicate commit stamp {stamp!r}")
+        self._commits.insert(i, (stamp, list(mutations)))
+
+    @staticmethod
+    def apply_mutation(state: dict, m: tuple, stamp: bytes) -> None:
+        """One client mutation tuple applied to a plain dict state."""
+        from foundationdb_tpu_torch.utils.atomic import apply_atomic
+
+        kind = m[0]
+        if kind == "set":
+            state[m[1]] = m[2]
+        elif kind == "clear":
+            for k in [k for k in state if m[1] <= k < m[2]]:
+                del state[k]
+        elif kind == "atomic":
+            _, op, key, param = m
+            new = apply_atomic(op, state.get(key), param)
+            if new is None:
+                state.pop(key, None)
+            else:
+                state[key] = new
+        elif kind == "vs_key":
+            _, prefix, suffix, value = m
+            state[prefix + stamp + suffix] = value
+        elif kind == "vs_value":
+            _, key, value_prefix = m
+            state[key] = value_prefix + stamp
+        else:
+            raise ValueError(f"unknown mutation {m!r}")
+
+    def state_at(self, version: int) -> dict:
+        """The full model state visible to a read at `version` (every
+        commit whose version component is <= it)."""
+        state: dict[bytes, bytes] = {}
+        for stamp, mutations in self._commits:
+            if int.from_bytes(stamp[:8], "big") > version:
+                break
+            for m in mutations:
+                self.apply_mutation(state, m, stamp)
+        return state
+
+    def final_state(self) -> dict:
+        return self.state_at(1 << 62)
+
+    def stamps(self) -> list[bytes]:
+        return [s for s, _m in self._commits]
 
 
 class MultiResolverOracle:

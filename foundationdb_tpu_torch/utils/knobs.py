@@ -12,13 +12,22 @@ The port's spelling of the device: `RESOLVER_BACKEND` takes "cuda" (the
 card, gated by `RESOLVER_CUDA_MIN_BATCH`) or "cpu" (the host oracle);
 `RESOLVER_CUDA_MIN_BATCH` is the JAX package's `RESOLVER_TPU_MIN_BATCH`,
 with the same default. Every other default is the JAX package's.
+
+Under simulation a seeded share of the knobs take random values
+(`randomize_under_test`, the reference's `randomize && BUGGIFY`). The
+knobs that randomize, their choices and their order are the JAX
+package's, so a seed draws the same values in both packages; the two
+transaction-life knobs are defined only for that (the sequencer keeps
+its own constant, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any
+from typing import Any, Callable, Optional
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -26,6 +35,7 @@ class _KnobDef:
     name: str
     default: Any
     ktype: type
+    randomize: Optional[Callable[[np.random.Generator], Any]] = None
 
 
 class Knobs:
@@ -36,8 +46,8 @@ class Knobs:
         object.__setattr__(self, "_defs", {})
         object.__setattr__(self, "_values", {})
 
-    def define(self, name: str, default) -> None:
-        self._defs[name] = _KnobDef(name, default, type(default))
+    def define(self, name: str, default, *, randomize=None) -> None:
+        self._defs[name] = _KnobDef(name, default, type(default), randomize)
         self._values[name] = default
 
     def __getattr__(self, name: str):
@@ -61,6 +71,17 @@ class Knobs:
     def reset(self) -> None:
         for n, d in self._defs.items():
             self._values[n] = d.default
+
+    def randomize_under_test(self, rng: np.random.Generator,
+                             prob: float = 0.5) -> dict:
+        """Seeded knob randomization: each knob with a randomizer, in
+        definition order, takes a random value with probability `prob`.
+        Returns {name: value} of what was chosen."""
+        chosen = {}
+        for n, d in self._defs.items():
+            if d.randomize is not None and rng.random() < prob:
+                self._values[n] = chosen[n] = d.randomize(rng)
+        return chosen
 
     def as_dict(self) -> dict:
         return dict(self._values)
@@ -106,6 +127,17 @@ def make_server_knobs() -> Knobs:
     cluster's roles read, with
     the reference's defaults (fdbclient/ServerKnobs.cpp)."""
     k = Knobs("ServerKnobs")
+    # the MVCC window's versions (ServerKnobs.cpp:43-44); read by nothing
+    # here, defined so that randomize_under_test draws as the JAX
+    # package's does
+    k.define(
+        "MAX_READ_TRANSACTION_LIFE_VERSIONS", 5_000_000,
+        randomize=lambda r: int(r.choice([1_000_000, 2_000_000, 5_000_000])),
+    )
+    k.define(
+        "MAX_WRITE_TRANSACTION_LIFE_VERSIONS", 5_000_000,
+        randomize=lambda r: int(r.choice([1_000_000, 2_000_000, 5_000_000])),
+    )
     # state-transaction bytes a resolver holds before it delays new
     # batches (Resolver.actor.cpp:254-268)
     k.define("RESOLVER_STATE_MEMORY_LIMIT", 1_000_000)
@@ -118,17 +150,20 @@ def make_server_knobs() -> Knobs:
     # version-vector unicast: replies carry tpcvMap + writtenTags
     # (ResolverInterface.h:140-151); off, as in the reference
     k.define("ENABLE_VERSION_VECTOR_TLOG_UNICAST", False)
-    # resolver-generated private mutations and the resolver-side
-    # txnStateStore (ServerKnobs.cpp:549-550); off by default
-    k.define("PROXY_USE_RESOLVER_PRIVATE_MUTATIONS", False)
     # Adaptive commit batching (the reference's dynamic commitBatcher,
     # fdbserver/CommitProxyServer.actor.cpp:361 + ServerKnobs
     # COMMIT_TRANSACTION_BATCH_*): the ProxyPipeline's interval shrinks
     # while batches fill early and relaxes when they go out underfull;
     # the count and bytes targets follow the measured resolve + log
     # stage latency. These bound every movement.
-    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_MIN", 0.001)
-    k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_MAX", 0.020)
+    k.define(
+        "COMMIT_TRANSACTION_BATCH_INTERVAL_MIN", 0.001,
+        randomize=lambda r: float(r.choice([0.001, 0.005, 0.01])),
+    )
+    k.define(
+        "COMMIT_TRANSACTION_BATCH_INTERVAL_MAX", 0.020,
+        randomize=lambda r: float(r.choice([0.010, 0.020, 0.050])),
+    )
     k.define("COMMIT_TRANSACTION_BATCH_INTERVAL_SMOOTHER_ALPHA", 0.1)
     # the interval tracks this fraction of the smoothed resolve + log
     # stage latency: a slow stage earns a longer window (bigger batches
@@ -149,15 +184,28 @@ def make_server_knobs() -> Knobs:
     # GRV batching follows the same controller (GrvProxyServer's
     # START_TRANSACTION_BATCH_* discipline)
     k.define("START_TRANSACTION_BATCH_INTERVAL_MIN", 0.0005)
-    k.define("START_TRANSACTION_BATCH_INTERVAL_MAX", 0.010)
+    k.define(
+        "START_TRANSACTION_BATCH_INTERVAL_MAX", 0.010,
+        randomize=lambda r: float(r.choice([0.005, 0.010, 0.020])),
+    )
     k.define("START_TRANSACTION_BATCH_INTERVAL_SMOOTHER_ALPHA", 0.1)
     k.define("START_TRANSACTION_BATCH_COUNT_MAX", 65536)
     # retained in-memory tlog bytes past which a log spills its oldest
     # entries to its simulated disk (TLogServer's spill discipline)
-    k.define("TLOG_SPILL_THRESHOLD", 1_000_000)
+    k.define(
+        "TLOG_SPILL_THRESHOLD", 1_000_000,
+        randomize=lambda r: int(r.choice([20, 100, 1_000, 1_000_000])),
+    )
     # a commit proxy replays a recent resolve request as a duplicate
     # (the resolver must answer it from its reply cache)
     k.define("BUGGIFY_DUPLICATE_RESOLVE", False)
+    # resolver-generated private mutations and the resolver-side
+    # txnStateStore (ServerKnobs.cpp:549-550); off by default, randomized
+    # under test there too
+    k.define(
+        "PROXY_USE_RESOLVER_PRIVATE_MUTATIONS", False,
+        randomize=lambda r: bool(r.integers(0, 2)),
+    )
     return k
 
 

@@ -9,7 +9,10 @@ ensemble asserts that every probe fires somewhere. Same contract here:
   probe whose code never runs still shows up as a miss.
 * `code_probe(cond, name)` marks a hit when cond is truthy (and
   registers an undeclared name).
-* `snapshot()` reads the counts.
+* `snapshot()` reads the counts, `missed()` names the declared probes
+  that never fired, `reset()` zeroes every count (the soak resets per
+  seed) and `merge(counts)` folds a worker's snapshot in (the soak
+  drill's process pool).
 
 The registry is this package's: the JAX package keeps its own, and
 neither reads the other.
@@ -43,3 +46,21 @@ def code_probe(cond, name: str) -> bool:
 def snapshot() -> dict[str, int]:
     with _lock:
         return dict(_hits)
+
+
+def missed() -> list[str]:
+    with _lock:
+        return sorted(n for n, c in _hits.items() if not c)
+
+
+def reset() -> None:
+    with _lock:
+        for n in _hits:
+            _hits[n] = 0
+
+
+def merge(other: dict[str, int]) -> None:
+    """Fold a child run's snapshot into this process's counts."""
+    with _lock:
+        for n, c in other.items():
+            _hits[n] = _hits.get(n, 0) + c

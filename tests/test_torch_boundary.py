@@ -1,8 +1,10 @@
 """The port's boundaries: what it imports, where it runs, what it launches.
 
-* no module of foundationdb_tpu_torch, and not chip_smoke.py, imports
-  jax or foundationdb_tpu (an AST scan, and an import in a subprocess
-  where importing jax fails);
+* no module of foundationdb_tpu_torch (its drills too), and not
+  chip_smoke.py, imports jax or foundationdb_tpu (an AST scan, and an
+  import in a subprocess where importing jax fails); no data file of the
+  port (the soak specs, the probe manifest) names the JAX package, JAX or
+  its "tpu-force" backend;
 * `make_conflict_set(cfg)` without a card and without device="cpu"
   raises instead of running on the CPU; every variant knob builds;
 * a kernel wrapper given CPU tensors takes its plain version and leaves
@@ -14,6 +16,7 @@
 from __future__ import annotations
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -66,6 +69,25 @@ def _forbidden(module: str) -> bool:
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_covers_the_drills():
+    scanned = {p.relative_to(PORT).parts[0] for p in _port_files()[:-1]}
+    assert {"drills", "testing", "cluster"} <= scanned
+
+
+def _port_data_files():
+    return sorted(p for p in PORT.rglob("*")
+                  if p.suffix in (".json", ".toml")
+                  and "build" not in p.relative_to(PORT).parts)
+
+
+@pytest.mark.parametrize("path", _port_data_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_data_files_name_only_the_port(path):
+    text = path.read_text()
+    assert not re.search(r"foundationdb_tpu(?!_torch)", text)
+    assert "tpu-force" not in text and "jax" not in text.lower()
 
 
 def test_package_imports_with_jax_blocked():

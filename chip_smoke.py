@@ -277,11 +277,38 @@ any fault:
    twin's), commits, aborts, epoch, batches, launches by kernel and
    allocated memory, and the phase's wall, beside the card's name and
    power limit.
+19. the features beside the commit path (cell FX): five legs, each on
+   `open_cluster` clusters whose resolvers are TorchConflictSets on the
+   card at `commit_config()`: DR (a DrAgent replicating a source under
+   YCSB's load of 100,000 records and workload A into a locked
+   destination, a plain write there refused, the switchover's
+   destination equal to the source at the takeover version, every
+   acknowledged write read back from it); multi-region (satellite logs,
+   a RemoteDC fed by the log router under 20,000 inserts, the router cut
+   off, the primary DC killed, `failover()` at RPO 0); the metacluster
+   (24 tenants over two data clusters by capacity, each with 1,000
+   records and workload A through its Tenant handle, isolation checked,
+   a non-empty delete refused); backup into a BlobStoreContainer served
+   on 127.0.0.1, ParallelRestore at 4 appliers into a fresh cluster
+   (6,000 records: an applier commits its shard in one transaction) and
+   blob granules read equal to the storage at two versions; the HCA
+   under 32 clients, 1,000 TaskBucket tasks each run once, and
+   CliSession's status, set/get, tenant, backup and restore. Each leg
+   runs at its twin size (FX_TWIN, `fx_twin_config()`) and at full size
+   in FX_CARD_WORKERS spawned processes on the card while FX_WORKERS
+   more run the twins with device="cpu". It fails on any leg's check,
+   unless every twin's digest (results, storage snapshots, virtual time,
+   unhandled errors, probes hit) equals its plain versions', unless every
+   run's launches are phase 3's chain a batch, and unless the phase takes
+   at most FX_BUDGET_S (180 s). It prints each run's wall, commits a
+   second, the DR apply rate, lag at the switchover and switchover wall,
+   the failover's wall, batches, launches a batch and device memory
+   peak, beside the card's name and power limit.
 
 The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15,
-16, 17 and 18 under `pipelined_uniform`, `pipelined_classic`, `staging`,
-`resolver`, `wire`, `commit_path`, `sim_cluster`, `wire_cluster` and
-`ensemble`),
+16, 17, 18 and 19 under `pipelined_uniform`, `pipelined_classic`,
+`staging`, `resolver`, `wire`, `commit_path`, `sim_cluster`,
+`wire_cluster`, `ensemble` and `features`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -5050,7 +5077,8 @@ def phase_wire_cluster(card: str, uniform: dict, *,
             await kill_now.wait()
             topo = await first.topology()
             epoch0, recovery0 = topo["epoch"], topo["recovery_version"]
-            stale_rv = await first.get_read_version()
+            # a throttled GRV is retried, as every client's is
+            stale_rv = await read_version(first)
             gen1_st.update(await resolvers_of(topo))
             victim = topo["roles"]["resolver1"]
             t_kill = time.time()
@@ -5599,6 +5627,934 @@ def phase_ensemble(card: str, device=None) -> dict:
     if wall_s > EN_BUDGET_S:
         fail(f"ensemble: the phase took {wall_s:.1f} s, over its "
              f"{EN_BUDGET_S:.0f} s budget")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the features beside the commit path on the card (cell FX)
+
+#: the phase's wall budget, from its first run to its last comparison
+FX_BUDGET_S = 180.0
+#: each leg at full size (PERF.md § 4 lists the cuts): DR at phase 16's
+#: traffic (YCSB's load of 100,000 1 KB records, workload A from 256
+#: clients x 40 ops); multi-region 20,000 records, then `updates` more
+#: acknowledged while the router is cut off; the metacluster's 24
+#: tenants of 1,000 records, each with 8 clients x 10 workload-A ops;
+#: backup and restore at 6,000 records (ParallelRestore commits one
+#: transaction an applier, and a batch holds at most max_writes = 4,096
+#: write ranges a resolver: two appliers' halves land on one), the
+#: granules over the first 1,000; the layers' HCA under 32 clients and
+#: 1,000 TaskBucket tasks
+FX_FULL = {
+    "dr": dict(records=COMMIT_RECORDS, clients=COMMIT_CLIENTS,
+               ops=COMMIT_OPS),
+    "multiregion": dict(records=20_000, updates=2_000),
+    "metacluster": dict(tenants=24, keys=1_000, clients=8, ops=10),
+    "backup": dict(records=6_000, clients=64, ops=10, granule_records=1_000),
+    "layers": dict(hca_clients=32, hca_each=8, tasks=1_000, executors=4),
+}
+#: each leg's twin: run on the card and with device="cpu" (the plain
+#: versions) in spawned processes at FX_TWIN_CONFIG, digests equal
+FX_TWIN = {
+    "dr": dict(records=1_000, clients=16, ops=5),
+    "multiregion": dict(records=1_000, updates=200),
+    "metacluster": dict(tenants=4, keys=50, clients=2, ops=5),
+    "backup": dict(records=400, clients=8, ops=5, granule_records=200),
+    "layers": dict(hca_clients=8, hca_each=4, tasks=60, executors=3),
+}
+#: the spawned processes that run the card's legs (DR, the long pole, in
+#: one; the other four in the other) and those that run the twins'
+#: plain versions, one torch thread each
+FX_CARD_WORKERS = (("dr",), ("multiregion", "metacluster", "backup",
+                             "layers"))
+FX_WORKERS = 4
+#: a leg's loader tasks at most (phase 16's, under the GRV queue limit)
+FX_LOADERS = SIM_LOADERS
+
+
+def fx_twin_config():
+    """The twins' conflict-set config: the tiered path at 256 txns and
+    reads and writes a batch, 16-byte keys, a 16,384-row main and a
+    4,096-row delta tier, the 5,000,000-version window (the plain
+    versions pay the padded shape each batch: commit_config() would
+    take minutes a twin on the host)."""
+    return bench_config(256, max_key_bytes=16, history_capacity=1 << 14,
+                        delta_capacity=1 << 12, window_versions=ROLE_WINDOW)
+
+
+def fx_norm(x):
+    """A process-independent form of a result: dataclasses by class name
+    and fields, errors by class name, sets sorted."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__, tuple(
+            (f.name, fx_norm(getattr(x, f.name)))
+            for f in dataclasses.fields(x)))
+    if isinstance(x, BaseException):
+        return ("error", type(x).__name__)
+    if isinstance(x, dict):
+        return {fx_norm(k): fx_norm(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [fx_norm(v) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted((fx_norm(v) for v in x), key=repr)
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def fx_digest(parts: dict) -> dict:
+    """Each part's sha256 over its normalized repr: what a twin compares
+    (the results, every storage snapshot, the virtual time, the probes
+    hit)."""
+    import hashlib
+
+    return {k: hashlib.sha256(repr(fx_norm(v)).encode()).hexdigest()
+            for k, v in parts.items()}
+
+
+def fx_run(sched, coro):
+    t = sched.spawn(coro, name="fx")
+    sched.run_until(t.done)
+    return t.done.get()
+
+
+async def fx_outcome(coro):
+    try:
+        return ("ok", await coro)
+    except Exception as e:  # noqa: BLE001 - the class is the result
+        return ("err", type(e).__name__)
+
+
+def fx_open(cfg, device, sched=None, **kw):
+    from foundationdb_tpu_torch.cluster.database import (ClusterConfig,
+                                                         open_cluster)
+
+    return open_cluster(ClusterConfig(resolver_backend="cuda", device=device,
+                                      kernel_config=cfg, **kw), sched=sched)
+
+
+def fx_stop(sched, clusters: list) -> list:
+    """Stop the clusters, drain the cancellations; the unhandled actor
+    errors left (a leg fails on any)."""
+    for c in clusters:
+        c.stop()
+    sched.run_for(1.0)
+    return sorted((n, type(e).__name__) for n, e in sched.unhandled_errors())
+
+
+def fx_snapshots(clusters: list) -> list:
+    return [[ss.snapshot() for ss in c.storage_servers] for c in clusters]
+
+
+def fx_user_rows(db, sched, begin=b"", end=b"\xff") -> dict:
+    """Every row in [begin, end) at a fresh read version, through the
+    client."""
+    async def read():
+        return dict(await db.create_transaction().get_range(begin, end))
+    return fx_run(sched, read())
+
+
+async def fx_load(sched, run_insert, order, loaders: int):
+    """YCSB's loader threads: each inserts its share of `order` in turn
+    through `run_insert(i)`."""
+    from foundationdb_tpu_torch.runtime.flow import all_of
+
+    async def loader(share):
+        for i in share:
+            await run_insert(i)
+
+    n = max(1, min(loaders, len(order)))
+    tasks = [sched.spawn(loader(order[k::n]), name=f"fx-load{k}")
+             for k in range(n)]
+    await all_of([t.done for t in tasks])
+
+
+def fx_inserter(db, keys: list, values: list, committed: list,
+                tenant: bool = False):
+    """YCSB's insert of record i through `db.run` (a Database's or a
+    Tenant's, whose set is awaited), recorded in `committed` with its
+    commit version."""
+    async def insert(i):
+        attempts = []
+
+        async def write(txn):
+            attempts.append(txn)
+            if tenant:
+                await txn.set(keys[i], values[i])
+            else:
+                txn.set(keys[i], values[i])
+
+        await db.run(write)
+        committed.append((attempts[-1].committed_version, keys[i],
+                          values[i]))
+    return insert
+
+
+def fx_rmw(cur: bytes, inputs: dict, c: int, j: int) -> bytes:
+    """Workload A's read-modify-write: the counter + 1 and one field
+    replaced (phase 16's update)."""
+    f = inputs["field"][c][j] * COMMIT_FIELD_BYTES
+    return ((int.from_bytes(cur[:8], "little") + 1).to_bytes(8, "little")
+            + cur[8:f] + inputs["new_field"][c, j].tobytes()
+            + cur[f + COMMIT_FIELD_BYTES:])
+
+
+async def fx_workload(sched, create, inputs: dict, clients: int, ops: int,
+                      keys: list, committed: list, counts: dict,
+                      tenant: bool = False):
+    """Workload A from `clients` tasks of `ops` operations: a read is a
+    transaction's get, an update a read-modify-write committed with its
+    read and retried on NotCommitted up to COMMIT_RETRIES times.
+    `create()` opens a transaction (a Database's, or a Tenant's, whose
+    set is awaited)."""
+    from foundationdb_tpu_torch.cluster.commit_proxy import NotCommitted
+    from foundationdb_tpu_torch.runtime.flow import all_of
+
+    async def client(c):
+        for j in range(ops):
+            key = keys[inputs["record"][c][j]]
+            for _attempt in range(1 + COMMIT_RETRIES):
+                txn = create()
+                cur = await txn.get(key)
+                if cur is None:
+                    fail(f"features: record {key!r} missing before its "
+                         "update")
+                if inputs["is_read"][c][j]:
+                    counts["reads"] += 1
+                    break
+                new = fx_rmw(cur, inputs, c, j)
+                if tenant:
+                    await txn.set(key, new)
+                else:
+                    txn.set(key, new)
+                try:
+                    await txn.commit()
+                except NotCommitted:
+                    counts["conflicts"] += 1
+                    continue
+                committed.append((txn.committed_version, key, new))
+                counts["updates"] += 1
+                break
+            else:
+                counts["gave_up"] += 1
+
+    tasks = [sched.spawn(client(c), name=f"fx-client{c}")
+             for c in range(clients)]
+    await all_of([t.done for t in tasks])
+
+
+def fx_replay(committed: list) -> dict:
+    want = {}
+    for _v, k, val in sorted(committed, key=lambda c: c[0]):
+        want[k] = val
+    return want
+
+
+def fx_leg_dr(size: dict, device, cfg, seed: int = 19) -> dict:
+    """DR (cluster/dr.py) between two `sim_cluster_config` clusters on
+    one scheduler: a DrAgent locks the empty destination and tails the
+    source's full stream while YCSB's load and workload A run on the
+    source; a plain write to the destination raises
+    DestinationLockedError; `switchover()` locks the source, drains and
+    unlocks the destination. Then the destination's rows equal the
+    source's at the takeover version, and every acknowledged insert and
+    update reads back from the destination as the replay of the
+    committed mutations."""
+    from foundationdb_tpu_torch.cluster.database import open_cluster
+    from foundationdb_tpu_torch.cluster.dr import DrAgent
+    from foundationdb_tpu_torch.runtime.flow import Scheduler
+
+    records, clients, ops = size["records"], size["clients"], size["ops"]
+    inputs = ycsb_a_inputs(seed, records, clients, ops)
+    keys, values = inputs["keys"], inputs["values"]
+    sched = Scheduler(sim=True)
+    _s, src, src_db, _s, dst, dst_db = (
+        *open_cluster(sim_cluster_config(records, "cuda", device, cfg),
+                      sched=sched),
+        *open_cluster(sim_cluster_config(records, "cuda", device, cfg),
+                      sched=sched))
+    agent = DrAgent(src, src_db, dst_db)
+    applies = [0, 0]
+    apply_one = agent._apply_one
+
+    async def counted(version, mutations):
+        await apply_one(version, mutations)
+        applies[0] += 1
+        applies[1] += len(mutations)
+
+    agent._apply_one = counted
+    fx_run(sched, agent.start())
+
+    async def rogue():
+        t = dst_db.create_transaction()
+        t.set(b"rogue", b"write")
+        return await fx_outcome(t.commit())
+
+    locked = fx_run(sched, rogue())
+    if locked != ("err", "DestinationLockedError"):
+        fail(f"features DR: a plain write to the destination gave {locked}")
+    committed, counts = [], dict(reads=0, updates=0, conflicts=0, gave_up=0)
+
+    insert = fx_inserter(src_db, keys, values, committed)
+    w0, v0 = time.perf_counter(), sched.now()
+    fx_run(sched, fx_load(sched, insert, inputs["insert_order"], FX_LOADERS))
+    load = (time.perf_counter() - w0, sched.now() - v0, applies[0])
+    w1, v1 = time.perf_counter(), sched.now()
+    fx_run(sched, fx_workload(sched, src_db.create_transaction, inputs,
+                              clients, ops, keys, committed, counts))
+    work = (time.perf_counter() - w1, sched.now() - v1)
+    lag = src.tlog.version.get() - agent.caught_up_version
+    w2, v2 = time.perf_counter(), sched.now()
+    final = fx_run(sched, agent.switchover())
+    switch = (time.perf_counter() - w2, sched.now() - v2)
+    apply_wall = time.perf_counter() - w0
+    if final < max(v for v, _k, _val in committed):
+        fail(f"features DR: takeover version {final} below the last "
+             "acknowledged commit")
+    src_rows = fx_user_rows(src_db, sched)
+    dst_rows = fx_user_rows(dst_db, sched)
+    if dst_rows != src_rows:
+        diff = sorted(set(src_rows) ^ set(dst_rows))[:3]
+        fail(f"features DR: the destination's {len(dst_rows)} rows differ "
+             f"from the source's {len(src_rows)} at the takeover version "
+             f"(keys {diff})")
+    want = fx_replay(committed)
+    if {k: dst_rows.get(k) for k in want} != want:
+        fail("features DR: an acknowledged write does not read back from "
+             "the destination")
+
+    async def late():
+        t = dst_db.create_transaction()
+        t.set(b"after", b"switch")
+        return await fx_outcome(t.commit())
+
+    after = fx_run(sched, late())
+    if after[0] != "ok":
+        fail(f"features DR: the destination refused a write after the "
+             f"switchover: {after}")
+    snaps = fx_snapshots([src, dst])
+    unhandled = fx_stop(sched, [src, dst])
+    inserts = records
+    return dict(
+        parts=dict(results=[locked, final, lag, applies, counts,
+                            sorted(committed), after[0]],
+                   snapshots=snaps, now=sched.now(), unhandled=unhandled),
+        numbers=dict(
+            records=records, clients=clients, ops=ops,
+            load_wall_s=load[0], load_virtual_s=load[1],
+            load_commits_per_s=inserts / load[0],
+            applied_in_load=load[2],
+            workload_wall_s=work[0], workload_virtual_s=work[1],
+            updates=counts["updates"], conflicts=counts["conflicts"],
+            workload_commits_per_s=counts["updates"] / work[0],
+            apply_txns=applies[0], apply_mutations=applies[1],
+            apply_commits_per_s=applies[0] / apply_wall,
+            apply_mutations_per_s=applies[1] / apply_wall,
+            lag_at_switchover_versions=lag,
+            switchover_wall_s=switch[0], switchover_virtual_s=switch[1],
+            takeover_version=final, rows=len(dst_rows)),
+        clusters=2)
+
+
+def fx_leg_multiregion(size: dict, device, cfg, seed: int = 19) -> dict:
+    """Multi-region failover (cluster/multiregion.py): the primary with
+    2 log replicas and 2 satellite logs, a RemoteDC (its own log and 2
+    storage servers) fed by the LogRouter while YCSB's load runs, its lag
+    sampled every virtual ms; caught up, then the router cut off (a
+    partition between the regions) while `updates` more commits are
+    acknowledged; the whole primary DC killed; `failover()` replays the
+    satellites' suffix. Every acknowledged commit reads back at the
+    remote at the takeover version (RPO 0)."""
+    from foundationdb_tpu_torch.cluster.multiregion import RemoteDC
+
+    records, updates = size["records"], size["updates"]
+    inputs = ycsb_a_inputs(seed, records, 1, 1)
+    keys, values = inputs["keys"], inputs["values"]
+    sched, cluster, db = fx_open(cfg, device, n_storage=2, n_tlogs=2,
+                                 n_satellite_logs=2)
+    remote = RemoteDC(sched, cluster.tlog, n_tlogs=1, n_storage=2,
+                      storage_boundaries=[b"user%010d" % (records // 2)])
+    remote.start()
+    committed, lags, loading = [], [], [True]
+
+    async def monitor():
+        while loading[0]:
+            lags.append(remote.lag())
+            await sched.delay(0.001)
+
+    insert = fx_inserter(db, keys, values, committed)
+    mon = sched.spawn(monitor(), name="fx-lag")
+    w0, v0 = time.perf_counter(), sched.now()
+    fx_run(sched, fx_load(sched, insert, inputs["insert_order"], FX_LOADERS))
+    load = (time.perf_counter() - w0, sched.now() - v0)
+    loading[0] = False
+    fx_run(sched, remote.wait_caught_up())
+    caught = remote.lag()
+    sched.run_until(mon.done)
+    if caught or max(lags) > ROLE_WINDOW:
+        fail(f"features multi-region: lag {caught} after catching up, "
+             f"{max(lags)} at most during the load")
+    remote.router._task.cancel()
+    remote.router._task = None
+
+    async def more():
+        gen = np.random.default_rng(seed + 1)
+        for n in gen.integers(0, records, updates).tolist():
+            txn = db.create_transaction()
+            new = b"upd%08d" % len(committed) + values[n][11:]
+            txn.set(keys[n], new)
+            await txn.commit()
+            committed.append((txn.committed_version, keys[n], new))
+
+    fx_run(sched, more())
+    last_acked = max(v for v, _k, _val in committed)
+    behind = remote.logs.version.get()
+    if behind >= last_acked:
+        fail("features multi-region: the remote was not behind when the "
+             "primary DC died")
+    cluster.tlog.kill_dc()
+    w1, v1 = time.perf_counter(), sched.now()
+    takeover = fx_run(sched, remote.failover())
+    fail_wall = (time.perf_counter() - w1, sched.now() - v1)
+    if takeover < last_acked:
+        fail(f"features multi-region: takeover {takeover} below the last "
+             f"acknowledged commit {last_acked}: RPO > 0")
+    want = fx_replay(committed)
+
+    async def read_back():
+        return {k: await remote.read_at(k, takeover) for k in want}
+
+    got = fx_run(sched, read_back())
+    lost = [k for k, v in want.items() if got[k] != v]
+    if lost:
+        fail(f"features multi-region: {len(lost)} acknowledged writes not "
+             f"at the remote at the takeover version (RPO > 0): {lost[:3]}")
+    remote_snaps = [s.snapshot() for s in remote.storages]
+    snaps = fx_snapshots([cluster])
+    remote.stop()
+    unhandled = fx_stop(sched, [cluster])
+    return dict(
+        parts=dict(results=[caught, max(lags), behind, last_acked, takeover,
+                            sorted(committed)],
+                   snapshots=[snaps, remote_snaps], now=sched.now(),
+                   unhandled=unhandled),
+        numbers=dict(records=records, updates=updates,
+                     load_wall_s=load[0], load_virtual_s=load[1],
+                     load_commits_per_s=records / load[0],
+                     max_lag_versions=max(lags),
+                     behind_versions=last_acked - behind,
+                     failover_wall_s=fail_wall[0],
+                     failover_virtual_s=fail_wall[1],
+                     takeover_version=takeover, read_back=len(got)),
+        clusters=1)
+
+
+def fx_leg_metacluster(size: dict, device, cfg, seed: int = 19) -> dict:
+    """The metacluster (cluster/metacluster.py) over a management
+    cluster and two data clusters on one scheduler: `tenants` tenants
+    created through it, spread by capacity (half each); each tenant's
+    `keys` YCSB records loaded and a workload-A mix run through its
+    Tenant handle (the conflict ranges reach each data cluster's
+    resolver tenant-prefixed). Every tenant reads back exactly its own
+    rows (the replay of its commits), each data cluster holds its
+    tenants' rows under the tenant prefix and nothing else, and a delete
+    of a non-empty tenant is refused."""
+    from foundationdb_tpu_torch.cluster import tenant as T
+    from foundationdb_tpu_torch.cluster.metacluster import Metacluster
+    from foundationdb_tpu_torch.runtime.flow import Scheduler, all_of
+
+    tenants, nkeys = size["tenants"], size["keys"]
+    clients, ops = size["clients"], size["ops"]
+    sched = Scheduler(sim=True)
+    opened = [fx_open(cfg, device, sched, n_commit_proxies=1, n_storage=2)
+              for _ in range(3)]
+    (_s, mgmt, mgmt_db), (_s, c1, d1), (_s, c2, d2) = opened
+    mc = Metacluster(mgmt_db)
+    names = [b"tenant%02d" % t for t in range(tenants)]
+
+    async def setup():
+        await mc.register_cluster(b"dc1", d1, capacity=tenants // 2)
+        await mc.register_cluster(b"dc2", d2, capacity=tenants // 2)
+        placed = [await mc.create_tenant(n) for n in names]
+        over = await fx_outcome(mc.create_tenant(b"overflow"))
+        return placed, over, [await mc.open_tenant(n) for n in names]
+
+    w0 = time.perf_counter()
+    placed, over, handles = fx_run(sched, setup())
+    setup_s = time.perf_counter() - w0
+    if sorted(placed) != [b"dc1"] * (tenants // 2) + [b"dc2"] * (tenants // 2) \
+            or over != ("err", "MetaclusterCapacityExceeded"):
+        fail(f"features metacluster: placed {placed}, overflow {over}")
+    inputs = [ycsb_a_inputs(seed + t, nkeys, clients, ops)
+              for t in range(tenants)]
+    committed = [[] for _ in range(tenants)]
+    counts = dict(reads=0, updates=0, conflicts=0, gave_up=0)
+
+    async def load():
+        tasks = [sched.spawn(fx_load(sched, fx_inserter(
+            handles[t], inputs[t]["keys"], inputs[t]["values"], committed[t],
+            tenant=True),
+                                     inputs[t]["insert_order"],
+                                     FX_LOADERS // tenants),
+                             name=f"fx-tload{t}") for t in range(tenants)]
+        await all_of([t.done for t in tasks])
+
+    w1, v1 = time.perf_counter(), sched.now()
+    fx_run(sched, load())
+    load_s = (time.perf_counter() - w1, sched.now() - v1)
+
+    async def work():
+        tasks = [sched.spawn(fx_workload(
+            sched, handles[t].create_transaction, inputs[t], clients, ops,
+            inputs[t]["keys"], committed[t], counts, tenant=True),
+            name=f"fx-twork{t}") for t in range(tenants)]
+        await all_of([t.done for t in tasks])
+
+    w2, v2 = time.perf_counter(), sched.now()
+    fx_run(sched, work())
+    work_s = (time.perf_counter() - w2, sched.now() - v2)
+
+    async def check():
+        rows = [await h.create_transaction().get_range(b"", b"\xff")
+                for h in handles]
+        raw = [await d.create_transaction().get_range(b"", b"\xff")
+               for d in (d1, d2)]
+        refused = await fx_outcome(mc.delete_tenant(names[0]))
+        return rows, raw, refused, await mc.list_tenants()
+
+    rows, raw, refused, assigned = fx_run(sched, check())
+    for t in range(tenants):
+        if dict(rows[t]) != fx_replay(committed[t]):
+            fail(f"features metacluster: tenant {t} does not read back "
+                 "exactly its own rows")
+    for n, data in enumerate(raw):
+        if len(data) != nkeys * tenants // 2 or not all(
+                k.startswith(T.TENANT_DATA_PREFIX) for k, _ in data):
+            fail(f"features metacluster: data cluster {n + 1} holds "
+                 f"{len(data)} rows, not its tenants' {nkeys * tenants // 2}"
+                 " under the tenant prefix")
+    if refused != ("err", "TenantNotEmpty"):
+        fail(f"features metacluster: deleting a non-empty tenant gave "
+             f"{refused}")
+    clusters = [mgmt, c1, c2]
+    snaps = fx_snapshots(clusters)
+    unhandled = fx_stop(sched, clusters)
+    return dict(
+        parts=dict(results=[placed, over, refused, assigned, counts,
+                            [sorted(c) for c in committed]],
+                   snapshots=snaps, now=sched.now(), unhandled=unhandled),
+        numbers=dict(tenants=tenants, keys=nkeys, clients=clients, ops=ops,
+                     setup_wall_s=setup_s,
+                     load_wall_s=load_s[0], load_virtual_s=load_s[1],
+                     load_commits_per_s=tenants * nkeys / load_s[0],
+                     workload_wall_s=work_s[0], workload_virtual_s=work_s[1],
+                     updates=counts["updates"], conflicts=counts["conflicts"],
+                     workload_commits_per_s=counts["updates"] / work_s[0]),
+        clusters=3)
+
+
+def fx_leg_backup(size: dict, device, cfg, seed: int = 19) -> dict:
+    """Backup, parallel restore and granules: a `sim_cluster_config`
+    source with a BlobWorker and BlobManager tailing its stream over its
+    first `granule_records` records from version 0; YCSB's load, a
+    BackupAgent snapshot into a BlobStoreContainer served by
+    `serve_blob_store` on 127.0.0.1, the log backup through workload A;
+    ParallelRestore at 4 appliers into a fresh cluster, whose rows equal
+    the source's; the granules' reads (`BlobManager.read`) equal the
+    storage's at the loaded version and at the end."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.cluster.backup import (BackupAgent,
+                                                       BackupContainer)
+    from foundationdb_tpu_torch.cluster.blob_granules import (BlobManager,
+                                                              BlobWorker)
+    from foundationdb_tpu_torch.cluster.blob_store import (BlobStoreContainer,
+                                                           serve_blob_store)
+    from foundationdb_tpu_torch.cluster.database import open_cluster
+    from foundationdb_tpu_torch.cluster.restore import ParallelRestore
+    from foundationdb_tpu_torch.runtime.flow import Scheduler
+
+    records, clients, ops = size["records"], size["clients"], size["ops"]
+    inputs = ycsb_a_inputs(seed, records, clients, ops)
+    keys, values = inputs["keys"], inputs["values"]
+    sched = Scheduler(sim=True)
+    _s, src, db = open_cluster(
+        sim_cluster_config(records, "cuda", device, cfg), sched=sched)
+    granules = BackupContainer()
+    worker = BlobWorker(sched, src.tlog, granules, name="blobworker0")
+    worker.start()
+    mgr = BlobManager(db, [worker])
+    gb, ge = keys[0], keys[size["granule_records"]]
+    fx_run(sched, mgr.blobbify(gb, ge, {}, 0))
+    tmp = tempfile.mkdtemp(prefix="fx-blob")
+    srv, port = serve_blob_store(os.path.join(tmp, "objs"))
+    cont = BlobStoreContainer(f"127.0.0.1:{port}")
+    try:
+        agent = BackupAgent(db, cont)
+        committed = []
+        counts = dict(reads=0, updates=0, conflicts=0, gave_up=0)
+
+        insert = fx_inserter(db, keys, values, committed)
+        w0, v0 = time.perf_counter(), sched.now()
+        fx_run(sched, fx_load(sched, insert, inputs["insert_order"],
+                              FX_LOADERS))
+        load = (time.perf_counter() - w0, sched.now() - v0)
+        w1 = time.perf_counter()
+        snap_version = fx_run(sched, agent.snapshot())
+        snap_s = time.perf_counter() - w1
+        agent.start_log_backup(src)
+        fx_run(sched, fx_workload(sched, db.create_transaction, inputs,
+                                  clients, ops, keys, committed, counts))
+        sched.run_for(0.3)
+        agent.stop_log_backup()
+        src_rows = fx_user_rows(db, sched)
+        if src_rows != fx_replay(committed):
+            fail("features backup: the source's rows are not the replay of "
+                 "its commits")
+        _s, dst, dst_db = open_cluster(
+            sim_cluster_config(records, "cuda", device, cfg), sched=sched)
+        w2, v2 = time.perf_counter(), sched.now()
+        stats = fx_run(sched, ParallelRestore(dst_db, cont,
+                                              n_appliers=4).run())
+        restore = (time.perf_counter() - w2, sched.now() - v2)
+        dst_rows = fx_user_rows(dst_db, sched)
+        if dst_rows != src_rows or stats.appliers != 4:
+            fail(f"features backup: the restored {len(dst_rows)} rows "
+                 f"({stats}) differ from the source's {len(src_rows)}")
+        files = cont.list_files("")
+    finally:
+        cont.close()
+        srv.shutdown()
+        srv.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    load_version = snap_version
+    end_version = worker.version
+
+    async def storage_rows(v):
+        return dict(await db.read_range(gb, ge, v))
+
+    reads = []
+    for v in (load_version, end_version):
+        blob = mgr.read(gb, ge, v)
+        stored = fx_run(sched, storage_rows(v))
+        if blob != stored or not stored:
+            fail(f"features granules: the granules' {len(blob)} rows at "
+                 f"version {v} differ from the storage's {len(stored)}")
+        reads.append(sorted(blob.items()))
+    worker.stop()
+    clusters = [src, dst]
+    snaps = fx_snapshots(clusters)
+    unhandled = fx_stop(sched, clusters)
+    return dict(
+        parts=dict(results=[snap_version, stats, counts, sorted(committed),
+                            files, reads,
+                            sorted((g.gid, g.begin, g.end)
+                                   for g in mgr.granules.values())],
+                   snapshots=snaps, now=sched.now(), unhandled=unhandled),
+        numbers=dict(records=records, clients=clients, ops=ops,
+                     load_wall_s=load[0], load_virtual_s=load[1],
+                     load_commits_per_s=records / load[0],
+                     snapshot_wall_s=snap_s, backup_files=len(files),
+                     updates=counts["updates"],
+                     restore_wall_s=restore[0], restore_virtual_s=restore[1],
+                     restored_rows=len(dst_rows),
+                     mutations_applied=stats.mutations_applied,
+                     granules=len(mgr.granules),
+                     granule_records=size["granule_records"]),
+        clusters=2)
+
+
+def fx_leg_layers(size: dict, device, cfg, seed: int = 19) -> dict:
+    """The layers and the cli on one cluster: a HighContentionAllocator
+    under `hca_clients` concurrent clients (each its own seeded rng),
+    every prefix distinct; a TaskBucket of `tasks` tasks drained by
+    `executors` executors, each task run exactly once; then CliSession's
+    status, writemode, set, get, tenant, backup and restore."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.cli import CliSession
+    from foundationdb_tpu_torch.cluster.commit_proxy import NotCommitted
+    from foundationdb_tpu_torch.layers.directory import (
+        HighContentionAllocator)
+    from foundationdb_tpu_torch.layers.taskbucket import TaskBucket
+    from foundationdb_tpu_torch.runtime.flow import all_of
+
+    # one proxy and one resolver: the bucket's claims serialize on its
+    # first available task, so each claim is a batch of its own and a
+    # second proxy would double the (mostly empty) batches a task
+    sched, cluster, db = fx_open(cfg, device, n_storage=2)
+    allocated, conflicts = [], [0]
+
+    async def hca_client(c):
+        hca = HighContentionAllocator(np.random.default_rng(seed * 100 + c))
+        for _ in range(size["hca_each"]):
+            while True:
+                txn = db.create_transaction()
+                n = await hca.allocate(txn)
+                try:
+                    await txn.commit()
+                    allocated.append(n)
+                    break
+                except NotCommitted:
+                    conflicts[0] += 1
+
+    async def hca():
+        tasks = [sched.spawn(hca_client(c), name=f"fx-hca{c}")
+                 for c in range(size["hca_clients"])]
+        await all_of([t.done for t in tasks])
+
+    w0 = time.perf_counter()
+    fx_run(sched, hca())
+    hca_s = time.perf_counter() - w0
+    want = size["hca_clients"] * size["hca_each"]
+    if len(allocated) != want or len(set(allocated)) != want:
+        fail(f"features layers: the HCA handed out {len(set(allocated))} "
+             f"distinct prefixes of {len(allocated)}, not {want}")
+    tb = TaskBucket(db)
+    names = [b"task%05d" % i for i in range(size["tasks"])]
+    ran = []
+
+    async def add(share):
+        for k in share:
+            await tb.add(k, {"n": k.decode()})
+
+    async def executor():
+        while True:
+            t = await tb.get_one()
+            if t is None:
+                return
+            ran.append(t.key)
+            await tb.finish(t)
+
+    async def bucket():
+        adders = [sched.spawn(add(names[a::8]), name=f"fx-add{a}")
+                  for a in range(8)]
+        await all_of([t.done for t in adders])
+        execs = [sched.spawn(executor(), name=f"fx-exec{e}")
+                 for e in range(size["executors"])]
+        await all_of([t.done for t in execs])
+        return await tb.is_empty()
+
+    w1 = time.perf_counter()
+    empty = fx_run(sched, bucket())
+    tb_s = time.perf_counter() - w1
+    if sorted(ran) != names or not empty:
+        fail(f"features layers: the TaskBucket ran {len(ran)} tasks "
+             f"({len(set(ran))} distinct) of {len(names)}, empty {empty}")
+    cli = CliSession(cluster, db)
+    tmp = tempfile.mkdtemp(prefix="fx-cli")
+    cmds = ["status", "writemode on", "set fx/cli alive", "get fx/cli",
+            "tenant create fxcli", "tenant list", f"backup {tmp}/bk",
+            "clear fx/cli", "get fx/cli", f"restore {tmp}/bk", "get fx/cli"]
+
+    async def session():
+        return [await cli.run_command(c) for c in cmds]
+
+    w2 = time.perf_counter()
+    try:
+        out = fx_run(sched, session())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cli_s = time.perf_counter() - w2
+    if ("resolver_backend    - cuda" not in out[0] or out[2] != "Committed"
+            or out[3] != "`fx/cli' is `alive'" or out[5] != "fxcli"
+            or not out[6].startswith("Snapshot complete")
+            or out[8] != "`fx/cli': not found"
+            or not out[9].startswith("Restored") or out[10] != out[3]):
+        fail(f"features cli: {out}")
+    snaps = fx_snapshots([cluster])
+    unhandled = fx_stop(sched, [cluster])
+    return dict(
+        parts=dict(results=[allocated, conflicts[0], ran, out],
+                   snapshots=snaps, now=sched.now(), unhandled=unhandled),
+        numbers=dict(hca_allocations=want, hca_conflicts=conflicts[0],
+                     hca_wall_s=hca_s, tasks=len(names), taskbucket_wall_s=tb_s,
+                     tasks_per_s=len(names) / tb_s, cli_wall_s=cli_s),
+        clusters=1)
+
+
+FX_LEGS = {"dr": fx_leg_dr, "multiregion": fx_leg_multiregion,
+           "metacluster": fx_leg_metacluster, "backup": fx_leg_backup,
+           "layers": fx_leg_layers}
+
+
+def fx_call(leg: str, size: dict, device, cfg) -> dict:
+    """One leg on `device`, its probes hit (the port's registry, counted
+    over the run) with its parts; fails on an unhandled actor error."""
+    from foundationdb_tpu_torch.utils import probes
+
+    before = probes.snapshot()
+    out = FX_LEGS[leg](size, device, cfg)
+    after = probes.snapshot()
+    # the wall clock's watchdog is not the schedule's
+    out["parts"]["probes"] = {
+        n: c - before.get(n, 0) for n, c in sorted(after.items())
+        if c - before.get(n, 0) and n != "runtime.slow_task"}
+    if out["parts"]["unhandled"]:
+        fail(f"features {leg}: unhandled actor errors "
+             f"{out['parts']['unhandled'][:5]}")
+    return out
+
+
+def fx_twin(leg: str):
+    """A leg's twin with the plain versions, in a worker process (one
+    torch thread, no CUDA): its digest and wall."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = fx_call(leg, FX_TWIN[leg], "cpu", fx_twin_config())
+    return fx_digest(out["parts"]), time.perf_counter() - t0
+
+
+def fx_on_card(tag: str, leg: str, size: dict, cfg, device,
+               twin: bool) -> dict:
+    """One leg on `device` (the card when None) with the launch counts
+    from 0 and every port Resolver it builds recorded; fails unless each
+    is a TorchConflictSet on that device. Returns the digest (a twin's
+    only: a full-size run's snapshots are hundreds of MB), the numbers,
+    the wall, the launches, the resolvers' batches and compactions and
+    the device memory's peak."""
+    import gc
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.resolver import Resolver
+
+    built = []
+    init = Resolver.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        built.append(self)
+
+    on = "cuda" if device is None else str(device)
+    Resolver.__init__ = record
+    if on == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = fx_call(leg, size, device, cfg)
+    finally:
+        Resolver.__init__ = init
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in kernels.counts().items() if n}
+    en_resolvers_kernels(f"features {tag}", built, on)
+    res = dict(digest=fx_digest(out["parts"]) if twin else None,
+               numbers=out["numbers"],
+               wall_s=wall, launches=launches, resolvers=len(built),
+               batches=sum(r.conflict_set.metrics.counters.get(
+                   "resolveBatches") for r in built),
+               compactions=sum(r.conflict_set.metrics.counters.get(
+                   "compactions") for r in built),
+               probes=sorted(out["parts"]["probes"]))
+    built.clear()
+    out.clear()
+    gc.collect()
+    res["memory_peak"] = (torch.cuda.max_memory_allocated()
+                          if on == "cuda" else 0)
+    return res
+
+
+def fx_card_worker(legs: tuple, device) -> dict:
+    """In a spawned process with its own CUDA context: each leg's twin,
+    then the leg at full size, through `fx_on_card`."""
+    runs = {}
+    for leg in legs:
+        runs[f"{leg} twin"] = fx_on_card(f"{leg} twin", leg, FX_TWIN[leg],
+                                         fx_twin_config(), device, True)
+        runs[leg] = fx_on_card(leg, leg, FX_FULL[leg], commit_config(),
+                               device, False)
+    return runs
+
+
+def phase_features(card: str, uniform: dict, device=None) -> dict:
+    """The features beside the commit path on the card (cell FX): the
+    five legs of FX_LEGS (DR, multi-region failover, the metacluster and
+    its tenants, backup + parallel restore + granules, the layers and
+    the cli), each at its twin size (FX_TWIN, `fx_twin_config()`) and at
+    full size (FX_FULL, `commit_config()`), every resolver a
+    TorchConflictSet on the card, in the FX_CARD_WORKERS spawned
+    processes; meanwhile FX_WORKERS more run each twin with
+    device="cpu". It fails on any leg's own check, unless each card
+    twin's digest (results, every storage snapshot, the virtual time,
+    the unhandled errors, the probes hit) equals its plain-version
+    twin's, unless each run's launches are phase 3's chain a batch
+    (`tiered_launch_want`: A's counts and probe, L and N phase 3's count
+    a batch over all its resolvers' batches, D one more a compaction),
+    and unless the whole takes at most FX_BUDGET_S."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    twin_pool = ProcessPoolExecutor(max_workers=FX_WORKERS, mp_context=ctx)
+    card_pool = ProcessPoolExecutor(max_workers=len(FX_CARD_WORKERS),
+                                    mp_context=ctx)
+    try:
+        twins = {leg: twin_pool.submit(fx_twin, leg) for leg in FX_LEGS}
+        on_card = [card_pool.submit(fx_card_worker, legs, device)
+                   for legs in FX_CARD_WORKERS]
+        runs = {}
+        for f in on_card:
+            runs.update(f.result())
+        t_twins = time.perf_counter()
+        twin = {leg: f.result() for leg, f in twins.items()}
+        twin_wait = time.perf_counter() - t_twins
+    finally:
+        card_pool.shutdown(wait=True, cancel_futures=True)
+        twin_pool.shutdown(wait=True, cancel_futures=True)
+    for leg in FX_LEGS:
+        got, want = runs[f"{leg} twin"]["digest"], twin[leg][0]
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        if bad or set(got) != set(want):
+            fail(f"features {leg}: the card's twin differs from the plain "
+                 f"versions' in {bad or sorted(set(got) ^ set(want))}")
+    for tag, run in runs.items():
+        for k, n in tiered_launch_want(uniform, run["batches"],
+                                       run["compactions"]).items():
+            if run["launches"].get(k, 0) != n:
+                fail(f"features {tag}: {k} launched "
+                     f"{run['launches'].get(k, 0)} times in {run['batches']}"
+                     f" batches ({run['compactions']} compactions), not {n}")
+    wall_s = time.perf_counter() - t_phase
+    out = dict(card=card, phase_wall_s=wall_s, twin_wait_s=twin_wait,
+               runs={})
+    for tag, run in runs.items():
+        leg = tag.removesuffix(" twin")
+        row = dict(wall_s=run["wall_s"], resolvers=run["resolvers"],
+                   batches=run["batches"], compactions=run["compactions"],
+                   launches=run["launches"],
+                   launches_per_batch={k: n / max(run["batches"], 1)
+                                       for k, n in run["launches"].items()},
+                   memory_peak=run["memory_peak"], probes=run["probes"],
+                   **run["numbers"])
+        if tag != leg:
+            row["plain_wall_s"] = twin[leg][1]
+        out["runs"][tag] = row
+        nums = ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                         else f"{k} {v}" for k, v in run["numbers"].items())
+        log(f"  {tag}: {run['wall_s']:.2f} s on the card"
+            + (f" (plain versions {twin[leg][1]:.2f} s, digest equal)"
+               if tag != leg else "")
+            + f"; {nums}; {run['resolvers']} resolvers, {run['batches']} "
+            f"batches ({run['compactions']} compactions), launches a batch "
+            f"{json.dumps({k: round(v, 3) for k, v in row['launches_per_batch'].items()})}"
+            f"; device memory peak {run['memory_peak']} bytes; on {card}")
+    log(f"  every twin's digest equal to the plain versions' (results, "
+        f"storage snapshots, virtual time, probes hit), every resolver a "
+        f"TorchConflictSet on the card with phase 3's launches a batch; "
+        f"waited {twin_wait:.2f} s for the twins; phase wall {wall_s:.1f} s "
+        f"of the {FX_BUDGET_S:.0f} s budget; on {card}")
+    if wall_s > FX_BUDGET_S:
+        fail(f"features: the phase took {wall_s:.1f} s, over its "
+             f"{FX_BUDGET_S:.0f} s budget")
     return out
 
 
@@ -6838,6 +7794,9 @@ def main(argv=None) -> int:
     wire_cluster["recovery_parity"] = parity
     heading("18. the simulation ensemble on the card (device seeds, faults)")
     ensemble = phase_ensemble(card)
+    heading("19. the features beside the commit path (DR, regions, tenants, "
+            "restore, layers)")
+    features = phase_features(card, uniform)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -6880,6 +7839,7 @@ def main(argv=None) -> int:
     streams["sim_cluster"] = sim
     streams["wire_cluster"] = wire_cluster
     streams["ensemble"] = ensemble
+    streams["features"] = features
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

@@ -15,9 +15,7 @@ Behavioral mirror of the reference client stack:
   point write conflicts; clears add range write conflicts — matching
   CommitTransactionRef's contract (fdbclient/CommitTransaction.h).
 
-The port's own copy of foundationdb_tpu.cluster.client. One branch raises
-NotImplementedError until its module is ported: a DR destination's
-commit lock.
+The port's own copy of foundationdb_tpu.cluster.client.
 """
 
 from __future__ import annotations
@@ -37,10 +35,6 @@ from foundationdb_tpu_torch.cluster.grv_proxy import (
 from foundationdb_tpu_torch.models.types import CommitTransaction
 from foundationdb_tpu_torch.utils import commit_debug as _cd
 from foundationdb_tpu_torch.utils import trace as _trace
-
-#: the client branch whose module is not ported yet: a DR destination's
-#: commit lock (cluster/dr.py sets `dr_locked`)
-DR_NOT_PORTED = "the DR destination lock (cluster/dr.py) is not ported yet"
 
 
 def key_after(k: bytes) -> bytes:
@@ -373,9 +367,12 @@ class Transaction:
             return self.committed_version
         if getattr(self.db, "dr_locked", False) and not self.dr_bypass:
             # databaseLocked: a DR destination refuses ordinary commits
-            # (the reference checks \xff/dbLocked on every commit); only
-            # the DR module sets dr_locked, and it is not ported yet
-            raise NotImplementedError(DR_NOT_PORTED)
+            # (the reference checks \xff/dbLocked on every commit)
+            from foundationdb_tpu_torch.cluster.dr import DestinationLockedError
+
+            raise DestinationLockedError(
+                "database is a DR destination; writes are locked"
+            )
         rv = await self.get_read_version()
         mutations = list(self.mutations)
         if self.idempotency_id is not None:

@@ -48,7 +48,8 @@ BYTE_SAMPLE_CAPACITY = 32768
 #: tag-prefix derivation: `tenant/rest-of-key` -> tag "tenant"
 TAG_SEPARATOR = b"/"
 MAX_TAG_LENGTH = 24
-#: the tenant layer's TENANT_DATA_PREFIX (the tenant layer is not ported)
+#: cluster/tenant.py's TENANT_DATA_PREFIX, redeclared: sampling stays a
+#: leaf module the storage and proxy roles import without the tenant layer
 _TENANT_DATA_PREFIX = b"\x1e"
 
 #: a top-1 tag/range owning at least this fraction of traffic is a

@@ -2,7 +2,8 @@
 
 * no module of foundationdb_tpu_torch (its drills too), and not
   chip_smoke.py, imports jax or foundationdb_tpu (an AST scan, and an
-  import in a subprocess where importing jax fails); no data file of the
+  import in a subprocess where importing jax fails), nor `cryptography`
+  at module top (every module imports without it); no data file of the
   port (the soak specs, the probe manifest) names the JAX package, JAX or
   its "tpu-force" backend;
 * `make_conflict_set(cfg)` without a card and without device="cpu"
@@ -69,6 +70,35 @@ def _forbidden(module: str) -> bool:
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _module_top_imports(path: Path):
+    """The modules `path` imports when it is imported: its top-level
+    statements and those under a top-level if or try, not a function's."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, (ast.If, ast.Try)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo += getattr(node, field, [])
+        elif isinstance(node, ast.ExceptHandler):
+            todo += node.body
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_cryptography_at_module_top(path):
+    """No module of the port imports `cryptography` when it is imported:
+    a check that needs it imports it inside the function that runs, so
+    the port imports on a host without the package."""
+    bad = [m for m in _module_top_imports(path)
+           if m.split(".")[0] == "cryptography"]
+    assert not bad, f"{path.name} imports {bad} at module top"
 
 
 def test_scan_covers_the_drills():

@@ -15,9 +15,9 @@ own tests; each names its source.
 
 Also here: the construction rules of the port's ClusterConfig (a "cuda"
 backend on the card raises without one; the default knob route logs
-ResolverBackendAutoRouted and resolves on the host oracle), the client
-branch whose module is not ported yet (a DR destination's commit lock),
-and the status document the client serves.
+ResolverBackendAutoRouted and resolves on the host oracle), a DR
+destination's commit lock (the port's DestinationLockedError where JAX
+raises its own), and the status document the client serves.
 """
 
 from __future__ import annotations
@@ -998,19 +998,31 @@ def test_default_config_resolves_on_the_card():
 
 
 def test_unported_branches_raise():
-    """A DR destination's commit lock waits for its module and raises
-    NotImplementedError; \\xff\\xff/status/json serves the status
+    """A DR destination's commit lock raises the port's
+    cluster/dr.DestinationLockedError (a DatabaseLockedError), where the
+    JAX client raises its own; \\xff\\xff/status/json serves the status
     document (cluster/status.cluster_status)."""
+    for pkg in (JAX, PORT):
+        P = ns(pkg)
+        dr = importlib.import_module(f"{pkg}.cluster.dr")
+        kw = dict(device="cpu") if pkg == PORT else {}
+        sched, cluster, db = P.database.open_cluster(
+            P.database.ClusterConfig(resolver_backend="cpu", **kw))
+        try:
+            db.dr_locked = True
+            txn = db.create_transaction()
+            txn.set(b"k", b"v")
+            with pytest.raises(dr.DestinationLockedError,
+                               match="writes are locked") as e:
+                run(sched, txn.commit())
+            assert isinstance(e.value, P.commit_proxy.DatabaseLockedError)
+            assert type(e.value).__module__ == f"{pkg}.cluster.dr"
+        finally:
+            cluster.stop()
     P = ns(PORT)
     sched, cluster, db = P.database.open_cluster(
         P.database.ClusterConfig(device="cpu", resolver_backend="cpu"))
     try:
-        db.dr_locked = True
-        txn = db.create_transaction()
-        txn.set(b"k", b"v")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run(sched, txn.commit())
-        db.dr_locked = False
         doc = json.loads(db.special_key(b"\xff\xff/status/json"))
         conf = doc["cluster"]["configuration"]
         assert (conf["resolver_backend"], conf["resolvers"]) == ("cpu", 1)

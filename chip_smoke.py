@@ -305,10 +305,41 @@ any fault:
    the failover's wall, batches, launches a batch and device memory
    peak, beside the card's name and power limit.
 
+20. the sealed commit path over mutual TLS and tenant tokens (cell SE):
+   leg A is phase 15's commit path (`phase_commit_path`, the same
+   resolver child on the card, YCSB's load of 100,000 records and
+   workload A) with the tlog and the storage sealed (`encrypt=True`,
+   their keys from the port's stub REST KMS through FDB_TPU_KMS), every
+   connection of the parent and the children mutual TLS under a PKI from
+   the port's `make_test_tls` (FDB_TPU_TLS_DIR; the parent's
+   environment restored after), and the storage killed with SIGKILL at
+   half of workload A and started again on its data dir. It fails
+   unless phase 15's checks hold (every reply the oracle's, the
+   snapshot the replay, phase 3's chain of launches), the restarted
+   storage's snapshot at the last acknowledged version is the replay
+   and its keys came from the KMS by id, no file of either data dir
+   holds the sentinel or any of SE_SAMPLES loaded values, a role opened
+   there without encryption is refused, a plaintext client is refused,
+   every parent connection was a TLS handshake with the peer's
+   certificate and the stub KMS answered exactly the children's
+   fetches. Leg B opens `open_cluster` (resolvers on the card at
+   `commit_config()`) with a TokenVerifier on `cluster.token_verifier`:
+   8 tenants x 1,000 records each committed under its own signed token,
+   then for every tenant a short-lived token allowed before its expiry
+   and five denials (no token, another tenant's, a forged, the expired
+   one on the scheduler's clock, malformed claims), each raising
+   PermissionDeniedError and committing nothing; the same leg at its
+   twin size runs on the card and on the plain versions, digests equal,
+   the decision counts equal at both sizes. It prints load and workload
+   commits a second, commit p50 / p99, read p50, the seal and open us a
+   record in the storage child, the TLS handshakes and phase 15's
+   numbers beside them, beside the card's name and power limit, and
+   fails past SE_BUDGET_S (150 s).
+
 The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15,
-16, 17, 18 and 19 under `pipelined_uniform`, `pipelined_classic`,
+16, 17, 18, 19 and 20 under `pipelined_uniform`, `pipelined_classic`,
 `staging`, `resolver`, `wire`, `commit_path`, `sim_cluster`,
-`wire_cluster`, `ensemble` and `features`),
+`wire_cluster`, `ensemble`, `features` and `sealed`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -3787,7 +3818,9 @@ def ycsb_a_inputs(seed: int, records: int, clients: int, ops: int) -> dict:
 
 def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
                       clients: int = COMMIT_CLIENTS, ops: int = COMMIT_OPS,
-                      kernel_cfg=None, device=None, seed: int = 15) -> dict:
+                      kernel_cfg=None, device=None, seed: int = 15,
+                      encrypt: bool = False, kill_storage: bool = False,
+                      label: str = "commit path") -> dict:
     """The port's commit path end to end: three port children
     (`cluster/multiprocess.spawn_role`: a "cuda" resolver on the card
     with `commit_config()` through RESOLVER_KERNEL, and a tlog and a
@@ -3805,7 +3838,21 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     committed updates, every tlog push is its batch's committed
     mutations and the tlog's entries are the pushes past its last pop,
     and no batch failed. The launches are checked by the caller
-    (`check_commit_launches`). Every child is stopped on the way out."""
+    (`check_commit_launches`). Every child is stopped on the way out.
+
+    With `encrypt` the tlog and the storage are sealed
+    (`spawn_role(..., encrypt=True)`; their keys from the REST KMS at
+    FDB_TPU_KMS, else the sim KMS), a sentinel value is committed before
+    workload A, and it also fails if the sentinel or any of SE_SAMPLES
+    loaded values is in any file of either data dir after the run, or if
+    a StorageRole or TLogRole on those dirs opens without encryption. With
+    `kill_storage` the storage child is killed with SIGKILL between
+    workload A's halves (its applies drained, nothing in flight) and
+    started again on its data dir (caught up from the tlog): it fails
+    unless that child's snapshot at the last acknowledged version is the
+    replay of the commits so far and, sealed, unless it fetched its keys
+    from the KMS and opened every value it served. The connections use
+    mutual TLS when FDB_TPU_TLS_DIR is set (the caller's)."""
     import asyncio
     import shutil
     import tempfile
@@ -3846,18 +3893,22 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     if len(rel) < len(work):
         work = rel  # a Unix socket path holds at most 107 bytes
     t_spawn = time.perf_counter()
+    data_dirs = {n: os.path.join(work, f"{n}-data")
+                 for n in ("tlog", "storage")}
     procs = {
         "resolver": mp.spawn_role("resolver", work, device=device,
                                   env={"RESOLVER_KERNEL": repr(cfg)}),
-        "tlog": mp.spawn_role("tlog", work,
-                              data_dir=os.path.join(work, "tlog-data")),
+        "tlog": mp.spawn_role("tlog", work, data_dir=data_dirs["tlog"],
+                              encrypt=encrypt),
         "storage": mp.spawn_role("storage", work,
-                                 data_dir=os.path.join(work, "storage-data")),
+                                 data_dir=data_dirs["storage"],
+                                 encrypt=encrypt),
     }
     inputs = ycsb_a_inputs(seed, records, clients, ops)
     keys, values = inputs["keys"], inputs["values"]
     out: dict = {"records": records, "clients": clients, "ops": ops,
-                 "card": card}
+                 "card": card, "encrypt": encrypt,
+                 "kill_storage": kill_storage}
 
     async def drive():
         started = {}
@@ -3884,6 +3935,7 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
                                           tls=mp._tls_from_env())
         for c in (res, tlog, storage):
             await c.connect()
+        conns = {"storage": storage}
         pipe = mp.ProxyPipeline([res], tlog, storage, max_batch=cfg.max_txns,
                                 batch_interval=COMMIT_BATCH_INTERVAL)
         pipe.start()
@@ -3909,13 +3961,55 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
             f"({records / load_s:.1f} commits/s, {load_batches} batches, "
             f"mean {records / load_batches:.1f} txns) on {card}")
 
+        if encrypt:
+            # a value the disk scan looks for after the run
+            v = await pipe.commit(CommitTransaction(
+                write_conflict_ranges=[(SE_SENTINEL_KEY,
+                                        SE_SENTINEL_KEY + b"\x00")],
+                mutations=[Mutation(0, SE_SENTINEL_KEY, SE_SENTINEL)]))
+            committed.append((v, SE_SENTINEL_KEY, SE_SENTINEL))
+
         # -- YCSB workload A
         grv_s, read_s, commit_s = [], [], []
         counts = dict(reads=0, updates=0, conflicts=0, gave_up=0)
         updates = [0] * records
 
-        async def client(c):
-            for j in range(ops):
+        async def kill_restart() -> dict:
+            """SIGKILL the storage child once its applies drained, start
+            it again on its data dir (a catch-up from the tlog first), and
+            point the pipeline at it; its snapshot at the head then."""
+            while pipe.applied_version < pipe.committed_version:
+                await asyncio.sleep(0.001)
+            head_k = pipe.committed_version
+            before = await status("storage")
+            procs["storage"].proc.kill()
+            procs["storage"].proc.wait()
+            for c in (plain["storage"], conns["storage"]):
+                await c.close()
+            if os.path.exists(procs["storage"].address):
+                os.unlink(procs["storage"].address)
+            t0 = time.perf_counter()
+            procs["storage"] = mp.spawn_role(
+                "storage", work, data_dir=data_dirs["storage"],
+                encrypt=encrypt, tlog_address=procs["tlog"].address)
+            plain["storage"] = await mp.connect(procs["storage"].address,
+                                                proc=procs["storage"])
+            up_s = time.perf_counter() - t0
+            conns["storage"] = transport.RpcConnection(
+                procs["storage"].address, tls=mp._tls_from_env())
+            await conns["storage"].connect()
+            pipe.storage = conns["storage"]
+            t1 = time.perf_counter()
+            snap_k = await conns["storage"].call(
+                mp.TOKEN_STORAGE_SNAPSHOT,
+                mp.StorageSnapshotReq(version=head_k), timeout=300.0)
+            return dict(head=head_k, committed=list(committed),
+                        snapshot=snap_k, before=before,
+                        after=await status("storage"), restart_s=up_s,
+                        snapshot_s=time.perf_counter() - t1)
+
+        async def client(c, lo=0, hi=ops):
+            for j in range(lo, hi):
                 rid = inputs["record"][c][j]
                 key = keys[rid]
                 for _attempt in range(1 + COMMIT_RETRIES):
@@ -3927,7 +4021,7 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
                     grv_s.append(t1 - t0)
                     read_s.append(t2 - t1)
                     if cur is None or len(cur) != len(values[rid]):
-                        fail(f"commit path: record {rid} read {cur!r:.40}")
+                        fail(f"{label}: record {rid} read {cur!r:.40}")
                     if inputs["is_read"][c][j]:
                         counts["reads"] += 1
                         break
@@ -3955,13 +4049,37 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
                     counts["gave_up"] += 1
 
         t0 = time.perf_counter()
-        await asyncio.gather(*(client(c) for c in range(clients)))
-        run_s = time.perf_counter() - t0
+        killed = None
+        if kill_storage:
+            half = ops // 2
+            await asyncio.gather(*(client(c, 0, half)
+                                   for c in range(clients)))
+            run_s = time.perf_counter() - t0
+            killed = await kill_restart()
+            t0 = time.perf_counter()
+            await asyncio.gather(*(client(c, half, ops)
+                                   for c in range(clients)))
+            run_s += time.perf_counter() - t0
+        else:
+            await asyncio.gather(*(client(c) for c in range(clients)))
+            run_s = time.perf_counter() - t0
         await pipe.stop()
+        storage = conns["storage"]
         if pipe.failed is not None:
-            fail(f"commit path: the pipeline failed: {pipe.failed!r}")
+            fail(f"{label}: the pipeline failed: {pipe.failed!r}")
         head = pipe.committed_version
         st1 = {n: await status(n) for n in COMMIT_CHILDREN}
+        if mp._tls_from_env() is not None:
+            # every child speaks mutual TLS: a plaintext client is refused
+            bare = transport.RpcConnection(procs["storage"].address)
+            try:
+                await bare.connect(retries=1, delay=0.01)
+            except transport.TransportError:
+                out["tls_plaintext_refused"] = True
+            else:
+                fail(f"{label}: the storage child served a plaintext client")
+            finally:
+                await bare.close()
         snap = await storage.call(mp.TOKEN_STORAGE_SNAPSHOT,
                                   mp.StorageSnapshotReq(version=head),
                                   timeout=300.0)
@@ -3992,11 +4110,25 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
         out["storage_status"] = {k: st1["storage"]["qos"][k]
                                  for k in ("applies", "keys",
                                            "apply_batch_mutations")}
-        return head, res.calls, tlog.calls, committed, updates, snap, peek
+        if encrypt:
+            # the storage's seal and open counts, both of its processes
+            out["sealing"] = dict(
+                tlog=st1["tlog"]["encryption"],
+                storage=[b["encryption"] for b in (
+                    (killed["before"], st1["storage"]) if killed
+                    else (st1["storage"],))])
+        return (head, res.calls, tlog.calls, committed, updates, snap, peek,
+                killed)
 
     try:
-        head, resolves, log_calls, committed, updates, snap, peek = (
-            asyncio.run(drive()))
+        (head, resolves, log_calls, committed, updates, snap, peek,
+         killed) = asyncio.run(drive())
+        if encrypt:
+            for p in procs.values():
+                p.stop()
+            out["at_rest"] = sealed_disk_checks(
+                label, data_dirs, [values[i] for i in np.random.default_rng(
+                    seed).choice(records, SE_SAMPLES, replace=False)])
     finally:
         for p in procs.values():
             p.stop()
@@ -4006,9 +4138,9 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     t0 = time.perf_counter()
     prev = replay_against_oracle(
         [(req, packing.columnar_to_transactions(req.cols), rep)
-         for _tok, req, rep in resolves], ROLE_WINDOW, "commit path")
+         for _tok, req, rep in resolves], ROLE_WINDOW, label)
     if prev != head:
-        fail(f"commit path: the last resolved version {prev} is not the "
+        fail(f"{label}: the last resolved version {prev} is not the "
              f"committed head {head}")
     oracle_s = time.perf_counter() - t0
 
@@ -4019,12 +4151,14 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
         want_kv[k] = val
         by_version.setdefault(v, []).append((0, k, val))
     if snap.version < head or snap.kvs != sorted(want_kv.items()):
-        fail(f"commit path: the storage snapshot at {head} ({len(snap.kvs)} "
+        fail(f"{label}: the storage snapshot at {head} ({len(snap.kvs)} "
              f"keys) is not the replay of {len(committed)} commits")
+    if killed is not None:
+        killed_checks(label, killed, encrypt, out)
     # 3. the exact count
     for rid, n in enumerate(updates):
         if int.from_bytes(want_kv[keys[rid]][:8], "little") != n:
-            fail(f"commit path: record {rid}'s counter is not its {n} "
+            fail(f"{label}: record {rid}'s counter is not its {n} "
                  "committed updates")
     # 4. the tlog: a push a batch, of exactly its committed mutations; its
     # entries the pushes past the last pop
@@ -4032,11 +4166,11 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     pops = [(m.version, r is not None) for tok, m, r in log_calls
             if tok == mp.TOKEN_TLOG_POP]
     if [p.version for p in pushes] != sorted(r[1].version for r in resolves):
-        fail("commit path: the tlog pushes are not one a resolved batch")
+        fail(f"{label}: the tlog pushes are not one a resolved batch")
     for p in pushes:
         got = sorted((m.op, m.param1, m.param2) for m in p.mutations)
         if got != sorted(by_version.get(p.version, [])):
-            fail(f"commit path: the push at {p.version} is not its batch's "
+            fail(f"{label}: the push at {p.version} is not its batch's "
                  "committed mutations")
     # the pushes past the last acknowledged pop, less those a pop sent
     # but not yet answered at the pipeline's stop may have taken
@@ -4049,7 +4183,7 @@ def phase_commit_path(card: str, *, records: int = COMMIT_RECORDS,
     gone = pushed[:len(pushed) - len(peeked)]
     if (peeked != pushed[len(gone):] or any(v <= acked for v, _ in peeked)
             or any(v > sent for v, _ in gone)):
-        fail(f"commit path: the tlog holds {len(peeked)} entries, not the "
+        fail(f"{label}: the tlog holds {len(peeked)} entries, not the "
              f"pushes past its last pop ({acked} answered, {sent} sent)")
     out.update(head=head, oracle_replay_s=oracle_s, pops=len(pops),
                tlog_entries_at_end=len(peeked),
@@ -4128,7 +4262,8 @@ def tiered_launch_want(uniform: dict, batches: int, compactions: int) -> dict:
     return want
 
 
-def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
+def check_commit_launches(out: dict, uniform: dict, card: str,
+                          label: str = "commit path") -> None:
     """The resolver child launched the card's kernels, each the count
     tiered_launch_want gives for the child's resolved batches and
     compactions. Phase 8's counts are the classic path's: the tiered one
@@ -4140,11 +4275,11 @@ def check_commit_launches(out: dict, uniform: dict, card: str) -> None:
     compactions = (st1["qos"]["kernel_stages"]["compactions"]
                    - st0["qos"]["kernel_stages"]["compactions"])
     if not launches or batches <= 0:
-        fail(f"commit path: the resolver child launched {launches} in "
+        fail(f"{label}: the resolver child launched {launches} in "
              f"{batches} batches")
     for k, n in tiered_launch_want(uniform, batches, compactions).items():
         if launches.get(k, 0) != n:
-            fail(f"commit path: the resolver child launched {k} "
+            fail(f"{label}: the resolver child launched {k} "
                  f"{launches.get(k, 0)} times in {batches} batches "
                  f"({compactions} compactions), not {n}")
     q = st1["qos"]
@@ -6388,7 +6523,7 @@ def fx_call(leg: str, size: dict, device, cfg) -> dict:
     from foundationdb_tpu_torch.utils import probes
 
     before = probes.snapshot()
-    out = FX_LEGS[leg](size, device, cfg)
+    out = (FX_LEGS.get(leg) or SE_LEGS[leg])(size, device, cfg)
     after = probes.snapshot()
     # the wall clock's watchdog is not the schedule's
     out["parts"]["probes"] = {
@@ -6556,6 +6691,438 @@ def phase_features(card: str, uniform: dict, device=None) -> dict:
         fail(f"features: the phase took {wall_s:.1f} s, over its "
              f"{FX_BUDGET_S:.0f} s budget")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the sealed commit path over mutual TLS, tenant tokens
+
+#: the phase's wall budget (both legs); it fails past twice that (a hang,
+#: not the host's pace, which varies up to 1.5x between calls)
+SE_BUDGET_S = 150.0
+#: loaded values the disk scan looks for, besides the sentinel
+SE_SAMPLES = 64
+SE_SENTINEL_KEY = b"se/sentinel"
+SE_SENTINEL = b"SE-SENTINEL-PLAINTEXT-VALUE-" + bytes(range(65, 101))
+#: leg B at full size (the card, `commit_config()`) and at its twin size
+#: (FX's metacluster twin's 50 keys a tenant, `fx_twin_config()`) on the
+#: card and on the plain versions; the tenants and the denials are the
+#: same at both sizes, so their decision counts must be too
+SE_AUTHZ_FULL = dict(tenants=8, records=1_000)
+SE_AUTHZ_TWIN = dict(tenants=8, records=50)
+#: the short-lived token's life, virtual seconds
+SE_TOKEN_LIFE = 0.01
+#: the kinds of token leg B's denials present, each to every tenant
+SE_DENIALS = ("missing", "other tenant", "forged", "expired", "malformed")
+
+
+def sealed_disk_checks(label: str, data_dirs: dict, samples: list) -> dict:
+    """The at-rest guarantee on the raw files of stopped sealed roles: no
+    file under either data dir holds the sentinel or a sampled loaded
+    value (tests/test_encrypted_storage.py's scan), each dir has its
+    ENCRYPTION_MODE marker, and a StorageRole and a TLogRole opened there
+    without encryption raise the marker's RuntimeError."""
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+
+    t0 = time.perf_counter()
+    needles = [SE_SENTINEL] + list(samples)
+    files = scanned = 0
+    for name, d in data_dirs.items():
+        if not os.path.exists(os.path.join(d, "ENCRYPTION_MODE")):
+            fail(f"{label}: the {name} data dir has no ENCRYPTION_MODE "
+                 "marker")
+        for root, _dirs, names in os.walk(d):
+            for f in names:
+                with open(os.path.join(root, f), "rb") as fh:
+                    data = fh.read()
+                files += 1
+                scanned += len(data)
+                for i, needle in enumerate(needles):
+                    if needle in data:
+                        fail(f"{label}: {'the sentinel' if i == 0 else 'a loaded value'}"
+                             f" is in plaintext in {name}'s {f}")
+    for name, make in (("storage", mp.StorageRole), ("tlog", mp.TLogRole)):
+        try:
+            make(data_dir=data_dirs[name])
+        except RuntimeError as e:
+            if "encryption" not in str(e):
+                raise
+        else:
+            fail(f"{label}: the sealed {name} dir opened without "
+                 "encryption")
+    return dict(files=files, bytes=scanned, needles=len(needles),
+                scan_s=time.perf_counter() - t0, mode_flip_refused=True)
+
+
+def killed_checks(label: str, killed: dict, encrypt: bool, out: dict) -> None:
+    """The storage child started again after its SIGKILL: its snapshot at
+    the last acknowledged version is the replay of the commits by then,
+    and, sealed, it fetched its keys from the KMS (the two it seals new
+    records under and the two, by id, that the old records name) and
+    opened every value it served."""
+    want = fx_replay(killed["committed"])
+    snap = killed["snapshot"]
+    if snap.version < killed["head"] or snap.kvs != sorted(want.items()):
+        fail(f"{label}: the restarted storage's snapshot at "
+             f"{killed['head']} ({len(snap.kvs)} keys) is not the replay of "
+             f"{len(killed['committed'])} commits")
+    row = dict(head=killed["head"], keys=len(snap.kvs),
+               restart_to_first_answer_s=killed["restart_s"],
+               snapshot_s=killed["snapshot_s"])
+    if encrypt:
+        enc = killed["after"]["encryption"]
+        if enc["kms_fetches"] < 4 or enc["opens"] != len(snap.kvs):
+            fail(f"{label}: the restarted storage fetched {enc['kms_fetches']}"
+                 f" keys and opened {enc['opens']} values for a snapshot of "
+                 f"{len(snap.kvs)}")
+        row.update(kms_fetches=enc["kms_fetches"], opens=enc["opens"],
+                   open_us_per_value=enc["open_seconds"] / enc["opens"] * 1e6)
+    out["kill"] = row
+
+
+def se_sign_raw(private_key, payload: bytes) -> bytes:
+    """A token over an arbitrary payload, validly signed (a faulty
+    identity provider's: the claims are malformed)."""
+    import base64
+
+    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives.asymmetric import ec
+
+    sig = private_key.sign(payload, ec.ECDSA(hashes.SHA256()))
+    return base64.b64encode(payload) + b"." + base64.b64encode(sig)
+
+
+def se_leg_authz(size: dict, device, cfg, seed: int = 21) -> dict:
+    """Tenant tokens on `open_cluster` (cluster/tenant.py with a
+    crypto/token_sign TokenVerifier on `cluster.token_verifier`):
+    `tenants` tenants, each loading `records` YCSB records through its
+    Tenant handle under its own signed token. Then, to each tenant, a
+    short-lived token allowed before its expiry, and the denials of
+    SE_DENIALS (no token, another tenant's, one signed by an untrusted
+    key under the trusted key id, the short-lived one after its expiry on
+    the scheduler's clock, one validly signed over malformed claims),
+    each a write that must raise PermissionDeniedError. Every tenant
+    reads back exactly its own rows under its token (the replay of its
+    loads: no denied write landed), and the tenant data holds tenants x
+    records rows."""
+    import json as _json
+
+    from foundationdb_tpu_torch.cluster import tenant as T
+    from foundationdb_tpu_torch.crypto import token_sign as TS
+    from foundationdb_tpu_torch.runtime.flow import all_of
+
+    tenants, records = size["tenants"], size["records"]
+    sched, cluster, db = fx_open(cfg, device, n_commit_proxies=1,
+                                 n_storage=2)
+    key, pub = TS.generate_keypair()
+    rogue, _ = TS.generate_keypair()
+    cluster.token_verifier = TS.TokenVerifier({"idp": pub})
+    names = [b"tenant%02d" % t for t in range(tenants)]
+
+    async def setup():
+        for n in names:
+            await T.create_tenant(db, n)
+
+    fx_run(sched, setup())
+    tokens = {n: TS.sign_token(key, tenants=[n], expires_at=sched.now()
+                               + 3600.0, key_id="idp") for n in names}
+    handles = [T.Tenant(db, n, token=tokens[n]) for n in names]
+    inputs = [ycsb_a_inputs(seed + t, records, 1, 1) for t in range(tenants)]
+    committed = [[] for _ in range(tenants)]
+
+    async def load():
+        tasks = [sched.spawn(fx_load(sched, fx_inserter(
+            handles[t], inputs[t]["keys"], inputs[t]["values"], committed[t],
+            tenant=True), inputs[t]["insert_order"], FX_LOADERS // tenants),
+                             name=f"se-load{t}") for t in range(tenants)]
+        await all_of([t.done for t in tasks])
+
+    w0, v0 = time.perf_counter(), sched.now()
+    fx_run(sched, load())
+    load_s = (time.perf_counter() - w0, sched.now() - v0)
+
+    async def write_denied(txn):
+        await txn.set(b"se/denied", b"denied")
+
+    async def denials():
+        outcomes = {k: [] for k in ("brief before expiry",) + SE_DENIALS}
+        for t, n in enumerate(names):
+            brief = TS.sign_token(key, tenants=[n], key_id="idp",
+                                  expires_at=sched.now() + SE_TOKEN_LIFE)
+
+            async def read_brief():
+                return await T.Tenant(db, n, token=brief).create_transaction(
+                ).get(inputs[t]["keys"][0])
+
+            outcomes["brief before expiry"].append(
+                await fx_outcome(read_brief()))
+            await sched.delay(2 * SE_TOKEN_LIFE)
+            bad = {
+                "missing": None,
+                "other tenant": tokens[names[(t + 1) % tenants]],
+                "forged": TS.sign_token(rogue, tenants=[n], key_id="idp",
+                                        expires_at=sched.now() + 3600.0),
+                "expired": brief,
+                "malformed": se_sign_raw(key, _json.dumps(
+                    {"kid": "idp", "exp": True,
+                     "tenants": [n.decode()]}).encode()),
+            }
+            for kind in SE_DENIALS:
+                outcomes[kind].append(await fx_outcome(
+                    T.Tenant(db, n, token=bad[kind]).run(write_denied)))
+        rows = [dict(await h.create_transaction().get_range(b"", b"\xff"))
+                for h in handles]
+        raw = await db.create_transaction().get_range(
+            T.TENANT_DATA_PREFIX, T.TENANT_DATA_PREFIX + b"\xff")
+        return outcomes, rows, len(raw)
+
+    w1 = time.perf_counter()
+    outcomes, rows, n_raw = fx_run(sched, denials())
+    deny_s = time.perf_counter() - w1
+    for t in range(tenants):
+        if rows[t] != fx_replay(committed[t]):
+            fail(f"sealed authz: tenant {t} does not read back exactly its "
+                 f"own {records} rows")
+    if n_raw != tenants * records:
+        fail(f"sealed authz: the tenant data holds {n_raw} rows, not "
+             f"{tenants * records}")
+    decisions = {"allowed": 0, "denied": {}}
+    for kind, got in outcomes.items():
+        if kind == "brief before expiry":
+            ok = [o for o in got if o[0] == "ok" and o[1] is not None]
+            if len(ok) != tenants:
+                fail(f"sealed authz: the short-lived tokens before expiry "
+                     f"gave {got[:3]}")
+            decisions["allowed"] += len(ok)
+            continue
+        denied = [o for o in got if o == ("err", "PermissionDeniedError")]
+        if len(denied) != tenants:
+            fail(f"sealed authz: the {kind} tokens gave {got[:3]}, not "
+                 "PermissionDeniedError")
+        decisions["denied"][kind] = len(denied)
+    # own tokens: one grant a tenant for its read-back (its loads ran
+    # under it too); ECDSA verifies: each distinct token once
+    decisions["allowed"] += tenants
+    decisions["verifies"] = cluster.token_verifier.verifies
+    snaps = fx_snapshots([cluster])
+    unhandled = fx_stop(sched, [cluster])
+    return dict(
+        parts=dict(results=[decisions, outcomes,
+                            [sorted(c) for c in committed]],
+                   snapshots=snaps, now=sched.now(), unhandled=unhandled),
+        numbers=dict(tenants=tenants, records=records,
+                     load_wall_s=load_s[0], load_virtual_s=load_s[1],
+                     load_commits_per_s=tenants * records / load_s[0],
+                     denials_wall_s=deny_s, decisions=decisions),
+        clusters=1)
+
+
+#: phase 20's legs run through fx_call and fx_on_card beside FX's
+SE_LEGS = {"authz": se_leg_authz}
+
+
+def se_authz_on_card(device) -> dict:
+    """In a spawned process with its own CUDA context: leg B at its full
+    size and at its twin size on the card (`fx_on_card`)."""
+    return {"full": fx_on_card("sealed authz", "authz", SE_AUTHZ_FULL,
+                               commit_config(), device, False),
+            "twin": fx_on_card("sealed authz twin", "authz", SE_AUTHZ_TWIN,
+                               fx_twin_config(), device, True)}
+
+
+def se_authz_plain() -> tuple:
+    """In a spawned process, one torch thread: leg B at its twin size on
+    the plain versions; its digest, decisions and wall."""
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = fx_call("authz", SE_AUTHZ_TWIN, "cpu", fx_twin_config())
+    return (fx_digest(out["parts"]), out["numbers"]["decisions"],
+            time.perf_counter() - t0)
+
+
+def phase_sealed(card: str, uniform: dict, commit: dict) -> dict:
+    """Cell SE. Leg A: phase 15's commit path (`phase_commit_path`) with
+    the tlog and the storage sealed, their keys from the port's stub REST
+    KMS (`cluster/kms.serve_stub_kms` on 127.0.0.1, named to the children
+    by FDB_TPU_KMS), every connection of the parent and the children
+    mutual TLS under a PKI from the port's `crypto/tls.make_test_tls`
+    (FDB_TPU_TLS_DIR), and the storage killed with SIGKILL at half of
+    workload A and started again. It keeps phase 15's checks (the
+    oracle's replies, the replay, phase 3's chain of launches) and adds
+    the raw disk scan, the restart's replay and by-id key fetches, the
+    refused mode flip, a plaintext client refused, every parent
+    connection a TLS handshake with the peer's certificate, and the stub
+    KMS's requests equal to the children's fetches. Leg B: tenant tokens
+    (`se_leg_authz`) at SE_AUTHZ_FULL on the card, and at SE_AUTHZ_TWIN
+    on the card and on the plain versions: the twins' digests equal, the
+    decision counts at both sizes equal, phase 3's chain a batch. Leg B
+    runs in two spawned processes (the card's and the plain versions')
+    while leg A runs here. The parent's environment is restored on the
+    way out; the phase's wall is held against SE_BUDGET_S, and it fails
+    past twice that."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from foundationdb_tpu_torch.cluster.kms import serve_stub_kms
+    from foundationdb_tpu_torch.crypto.tls import make_test_tls
+    from foundationdb_tpu_torch.wire import transport
+
+    t_phase = time.perf_counter()
+    # leg B first, in spawned processes started before the environment
+    # below is set
+    pool = ProcessPoolExecutor(max_workers=2,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        leg_b = (pool.submit(se_authz_on_card, None),
+                 pool.submit(se_authz_plain))
+        sealed = se_leg_a(card, uniform)
+        authz, (plain_digest, want, plain_s) = (f.result() for f in leg_b)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    w, c = sealed["workload"], commit["workload"]
+    seals, opens = sealed["storage_seals"], sealed["storage_opens"]
+    log(f"  leg A: load {sealed['load']['commits_per_s']:.1f} commits/s "
+        f"(phase 15 {commit['load']['commits_per_s']:.1f}), workload "
+        f"{w['commits_per_s']:.1f} (phase 15 {c['commits_per_s']:.1f}); "
+        f"commit p50 {w['commit_p50_ms']:.3f} / p99 {w['commit_p99_ms']:.3f}"
+        f" ms (phase 15 {c['commit_p50_ms']:.3f} / {c['commit_p99_ms']:.3f})"
+        f", read p50 {w['read_p50_ms']:.3f} ms (phase 15 "
+        f"{c['read_p50_ms']:.3f}); on {card}")
+    log(f"  leg A: the storage child sealed {seals} values at "
+        f"{sealed['seal_us_per_record']['storage']:.2f} us and opened "
+        f"{opens} at {sealed['open_us_per_record']['storage']:.2f} us a "
+        f"record, the tlog sealed {sealed['tlog_seals']} records at "
+        f"{sealed['seal_us_per_record']['tlog']:.2f} us; "
+        f"{sealed['tls']['handshakes']} TLS handshakes in the parent "
+        f"({sealed['tls']['versions']}, {sealed['tls']['ciphers']}), a "
+        f"plaintext client refused; {sealed['kms_requests']} stub KMS "
+        f"requests; on {card}")
+    k, a = sealed["kill"], sealed["at_rest"]
+    log(f"  leg A: SIGKILL of the storage at half of workload A (head "
+        f"{k['head']}): up again in {k['restart_to_first_answer_s']:.2f} s, "
+        f"its snapshot of {k['keys']} keys the replay ({k['snapshot_s']:.2f}"
+        f" s, {k['kms_fetches']} KMS fetches, {k['opens']} values opened at "
+        f"{k['open_us_per_value']:.2f} us); {a['files']} files, "
+        f"{a['bytes']} bytes scanned for {a['needles']} plaintexts, none "
+        f"found ({a['scan_s']:.2f} s); the mode flip refused; on {card}")
+    if authz["twin"]["digest"] != plain_digest:
+        fail("sealed authz: the card's twin differs from the plain versions'")
+    for tag, run in authz.items():
+        if run["numbers"]["decisions"] != want:
+            fail(f"sealed authz {tag}: decisions {run['numbers']['decisions']}"
+                 f" differ from the plain versions' {want}")
+        for kern, n in tiered_launch_want(uniform, run["batches"],
+                                          run["compactions"]).items():
+            if run["launches"].get(kern, 0) != n:
+                fail(f"sealed authz {tag}: {kern} launched "
+                     f"{run['launches'].get(kern, 0)} times in "
+                     f"{run['batches']} batches, not {n}")
+    full = authz["full"]
+    log(f"  leg B: {SE_AUTHZ_FULL['tenants']} tenants x "
+        f"{SE_AUTHZ_FULL['records']} records under their tokens in "
+        f"{full['numbers']['load_wall_s']:.2f} s "
+        f"({full['numbers']['load_commits_per_s']:.1f} commits/s); "
+        f"decisions {json.dumps(want)} on the card and on the plain versions"
+        f" (twin {authz['twin']['wall_s']:.2f} s on the card, {plain_s:.2f} s"
+        f" plain, digests equal); {full['batches']} batches, launches a "
+        f"batch {json.dumps({k: round(n / max(full['batches'], 1), 3) for k, n in full['launches'].items()})}"
+        f"; on {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase wall {wall:.1f} s, "
+        f"{'within' if wall <= SE_BUDGET_S else 'over'} its "
+        f"{SE_BUDGET_S:.0f} s budget; on {card}")
+    if wall > 2 * SE_BUDGET_S:
+        fail(f"sealed: the phase took {wall:.1f} s, over twice its "
+             f"{SE_BUDGET_S:.0f} s budget")
+    return dict(card=card, phase_wall_s=wall,
+                within_budget=wall <= SE_BUDGET_S, commit_path=sealed,
+                phase15=dict(load=commit["load"], workload=commit["workload"]),
+                authz={tag: dict(wall_s=r["wall_s"], batches=r["batches"],
+                                 compactions=r["compactions"],
+                                 launches=r["launches"],
+                                 memory_peak=r["memory_peak"],
+                                 **r["numbers"])
+                       for tag, r in authz.items()},
+                authz_plain_wall_s=plain_s)
+
+
+def se_leg_a(card: str, uniform: dict) -> dict:
+    """Phase 20's leg A (see phase_sealed): the stub KMS and the PKI set
+    up, the environment set for the children and restored after, the
+    parent's TLS handshakes and the KMS's requests counted."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.cluster.kms import serve_stub_kms
+    from foundationdb_tpu_torch.crypto.tls import make_test_tls
+    from foundationdb_tpu_torch.wire import transport
+
+    pki = tempfile.mkdtemp(prefix="fdbpki")
+    make_test_tls(pki, names=("node",))
+    srv, port = serve_stub_kms()
+    handler = srv.RequestHandlerClass
+    post, kms_posts = handler.do_POST, [0]
+
+    def counted_post(self):
+        kms_posts[0] += 1
+        post(self)
+
+    handler.do_POST = counted_post
+    connect, handshakes = transport.RpcConnection.connect, []
+
+    async def counted_connect(self, *a, **k):
+        await connect(self, *a, **k)
+        if self.tls is not None:
+            so = self._writer.get_extra_info("ssl_object")
+            handshakes.append((so.version(), so.cipher()[0],
+                               so.getpeercert(binary_form=True) is not None))
+
+    env = {"FDB_TPU_TLS_DIR": pki, "FDB_TPU_KMS": f"127.0.0.1:{port}"}
+    saved = {k: os.environ.get(k) for k in env}
+    transport.RpcConnection.connect = counted_connect
+    os.environ.update(env)
+    try:
+        sealed = phase_commit_path(card, encrypt=True, kill_storage=True,
+                                   seed=20, label="sealed commit path")
+        check_commit_launches(sealed, uniform, card, "sealed commit path")
+    finally:
+        transport.RpcConnection.connect = connect
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        srv.shutdown()
+        srv.server_close()
+        shutil.rmtree(pki, ignore_errors=True)
+    if not handshakes or not all(h[2] for h in handshakes):
+        fail(f"sealed commit path: {len(handshakes)} TLS handshakes, not all "
+             "with the peer's certificate")
+    seal = sealed.pop("sealing")
+    fetches = (seal["tlog"]["kms_fetches"]
+               + sum(s["kms_fetches"] for s in seal["storage"]))
+    if kms_posts[0] != fetches or fetches < 6:
+        fail(f"sealed commit path: the stub KMS answered {kms_posts[0]} "
+             f"requests for the children's {fetches} fetches")
+    seals = sealed["storage_seals"] = sum(s["seals"] for s in seal["storage"])
+    opens = sealed["storage_opens"] = sum(s["opens"] for s in seal["storage"])
+    sealed["tlog_seals"] = seal["tlog"]["seals"]
+    sealed["tls"] = dict(handshakes=len(handshakes),
+                         versions=sorted({h[0] for h in handshakes}),
+                         ciphers=sorted({h[1] for h in handshakes}))
+    sealed["kms_requests"] = kms_posts[0]
+    sealed["seal_us_per_record"] = dict(
+        storage=sum(s["seal_seconds"] for s in seal["storage"])
+        / max(seals, 1) * 1e6,
+        tlog=seal["tlog"]["seal_seconds"] / max(sealed["tlog_seals"], 1)
+        * 1e6)
+    sealed["open_us_per_record"] = dict(
+        storage=sum(s["open_seconds"] for s in seal["storage"])
+        / max(opens, 1) * 1e6)
+    return sealed
 
 
 def survey_spans(device, uni) -> tuple:
@@ -7797,6 +8364,8 @@ def main(argv=None) -> int:
     heading("19. the features beside the commit path (DR, regions, tenants, "
             "restore, layers)")
     features = phase_features(card, uniform)
+    heading("20. the sealed commit path over mutual TLS, tenant tokens")
+    sealed = phase_sealed(card, uniform, commit)
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -7840,6 +8409,7 @@ def main(argv=None) -> int:
     streams["wire_cluster"] = wire_cluster
     streams["ensemble"] = ensemble
     streams["features"] = features
+    streams["sealed"] = sealed
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

@@ -9,7 +9,7 @@ actors). Here
     python -m foundationdb_tpu_torch.cluster.multiprocess \\
         --role {resolver,tlog,storage,sequencer,ratekeeper,worker,controller} \\
         --address /path/x.sock [--backend cuda] [--device cpu] \\
-        [--data-dir DIR] [--storage-engine lsm] \\
+        [--data-dir DIR] [--storage-engine lsm] [--encrypt] \\
         [--tlog-address /path/tlog0.sock] [--trace-file x.jsonl] \\
         [--controller /path/controller0.sock] [--worker-id w0] \\
         [--cluster-conf conf.json] [--state-file state.json]
@@ -70,10 +70,19 @@ resolver (alone or in a worker) adds the port's own keys
 (`ResolverRole.process_status`): the conflict set's class and device,
 the process's kernel launches and those of the role's own resolves.
 
-Not ported yet: encryption at rest. `encrypt=True`, `--encrypt` and an
-`encryption` object raise ValueError before anything is opened, and a
-store written encrypted is refused by its ENCRYPTION_MODE marker with
-RuntimeError, as in the JAX package.
+Encryption at rest, as in the JAX package: a TLogRole or StorageRole
+given an `encryption` (crypto/at_rest.StorageEncryption) seals what it
+writes under the EncryptKeyProxy's keys (the tlog whole records, the
+storage every SET value once, in the executor, before the WAL, the
+store or a checkpoint sees it) and opens it on recovery and read; the
+data dir's ENCRYPTION_MODE marker refuses a store written sealed when it
+is opened without encryption. `spawn_role(..., encrypt=True)` (or the
+ENABLE_ENCRYPTION knob) starts a role process with `--encrypt`, whose
+keys come from the REST KMS at FDB_TPU_KMS, else the deterministic sim
+KMS. A sealed store never falls back to plaintext: without the
+`cryptography` package, or with a KMS that does not answer, asking for
+encryption raises before the role serves. With FDB_TPU_TLS_DIR set,
+every role and connection speaks mutual TLS (`_tls_from_env`).
 """
 
 from __future__ import annotations
@@ -140,8 +149,6 @@ TOKEN_CLIENT_READ = 0x0703
 TOKEN_GET_COMMIT_VERSION = 0x0801
 TOKEN_REPORT_COMMITTED = 0x0802
 TOKEN_SEQUENCER_VERSION = 0x0803
-
-ENCRYPTION_NOT_PORTED = "at-rest encryption is not ported yet"
 
 # ---------------------------------------------------------------------------
 # Small wire messages, declared field by field (explicit layouts, stable
@@ -1045,32 +1052,49 @@ class ResolverRole:
 # The log, sequencer and storage roles.
 
 
-def _refuse_encryption(encryption) -> None:
-    """Encryption at rest is not ported: asking for it raises before
-    any file is opened, never opens a store without the cipher."""
-    if encryption is not None:
-        raise ValueError(ENCRYPTION_NOT_PORTED)
-
-
 def _looks_sealed(blob: bytes) -> bool:
-    """A record sealed by the JAX package's cipher (the header sniff:
-    defence in depth behind the ENCRYPTION_MODE marker)."""
+    """A sealed record (the header sniff: defence in depth behind the
+    ENCRYPTION_MODE marker)."""
     from foundationdb_tpu_torch.crypto.blob_cipher import is_encrypted
 
     return is_encrypted(blob)
 
 
-def _check_encryption_marker(data_dir: str) -> None:
+def _check_encryption_marker(data_dir: str, encryption) -> None:
     """The persisted encryption mode (the reference persists
     encryptionAtRestMode and refuses mode flips, DatabaseConfiguration.h):
     a store written encrypted is never opened unencrypted, or sealed
-    bytes would be served as data. The marker is deterministic where a
-    record sniff alone could mistake user bytes for a header."""
-    if os.path.exists(os.path.join(data_dir, "ENCRYPTION_MODE")):
+    bytes would be served as data. With encryption the marker is written
+    (and fsynced, file and directory) before any record; without, its
+    presence raises. The marker is deterministic where a record sniff
+    alone could mistake user bytes for a header."""
+    marker = os.path.join(data_dir, "ENCRYPTION_MODE")
+    if encryption is not None:
+        if not os.path.exists(marker):
+            # the records are fsynced, so the marker must be at least as
+            # durable: a power loss that kept sealed records and dropped
+            # the marker would downgrade the store silently
+            with open(marker, "w") as f:
+                f.write("aes-256-ctr\n")
+                f.flush()
+                os.fsync(f.fileno())
+            dfd = os.open(data_dir, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+    elif os.path.exists(marker):
         raise RuntimeError(
             f"{data_dir} was written with encryption-at-rest; "
             "restart the role with --encrypt (and the same KMS)"
         )
+
+
+def _encryption_status(encryption) -> dict:
+    """A sealed store's status block: its seal and open counts and
+    seconds and its KMS fetches (a port addition, only when encryption
+    is on)."""
+    return {} if encryption is None else {"encryption": encryption.stats()}
 
 
 def _decode_tlog_record(blob: bytes):
@@ -1116,7 +1140,6 @@ class TLogRole:
                  epoch: int = 0, partitioned: bool = False):
         from foundationdb_tpu_torch.utils.metrics import TimerSmoother
 
-        _refuse_encryption(encryption)
         self.entries: list[tuple[int, list]] = []  # (version, mutations)
         self.version = -1
         self._dq = None
@@ -1138,17 +1161,28 @@ class TLogRole:
         self._queue_bytes = 0
         self.smoothed_queue_bytes = TimerSmoother(1.0)
         self.smoothed_input_bytes = TimerSmoother(1.0)
+        # the tlog persists the mutation bytes the storage seals: its
+        # disk is sealed too, whole records (tlog frames have no order
+        # constraint, unlike the LSM's keys)
+        self._enc = encryption if data_dir else None
         #: disk-queue seq a pushed version: the pop boundary lookup
         self._seq_by_version: list[tuple[int, int]] = []
         self._data_dir = data_dir
         if data_dir:
             from foundationdb_tpu_torch.native import DiskQueue
 
+            if self._enc is not None:
+                # both cipher identities before anything is written: the
+                # first push must not wait on the KMS, and a KMS that
+                # does not answer fails the role here
+                self._enc.prefetch()
             os.makedirs(data_dir, exist_ok=True)
-            _check_encryption_marker(data_dir)
+            _check_encryption_marker(data_dir, self._enc)
             self._dq = DiskQueue(os.path.join(data_dir, "tlog"))
             for seq, blob in self._dq.recovered:
-                if _looks_sealed(blob):
+                if self._enc is not None:
+                    blob = self._enc.open(blob)
+                elif _looks_sealed(blob):
                     raise RuntimeError(
                         "sealed tlog record but encryption is disabled"
                     )
@@ -1241,7 +1275,10 @@ class TLogRole:
         # Forward version skips are legal: failed batches and recovery
         # consume versions. Only regressions are refused (above).
         if self._dq is not None:
-            seq = self._dq.push(codec.encode(req))
+            blob = codec.encode(req)
+            if self._enc is not None:
+                blob = self._enc.seal(blob)
+            seq = self._dq.push(blob)
             if self._dq.commit() is None:
                 # fsync or pwrite failed: not durable, so no ack
                 raise transport.RemoteError("tlog disk commit failed")
@@ -1279,6 +1316,7 @@ class TLogRole:
                 "partitioned": self.partitioned,
                 "chain_waiters": self._chain_waiters,
             },
+            **_encryption_status(self._enc),
         }
 
     async def pop(self, req: TLogPop) -> TLogPopReply:
@@ -1511,7 +1549,20 @@ class StorageRole:
             TimerSmoother,
         )
 
-        _refuse_encryption(encryption)
+        # encryption at rest (crypto/at_rest.StorageEncryption): every
+        # SET value is sealed once, in the executor, before it reaches
+        # the WAL, the store or a checkpoint, so no cipher runs on the
+        # event loop under the apply lock and nothing is sealed twice.
+        # Keys stay plaintext (run and checkpoint order); reads open
+        # values through the cipher cache (a plaintext record written
+        # before encryption was enabled passes through).
+        self._enc = encryption if data_dir else None
+        if self._enc is not None:
+            # both cipher identities, so the seal path starts warm (a
+            # REST KMS still pays one refresh trip an
+            # ENCRYPT_KEY_REFRESH_INTERVAL, off the hot path), and a KMS
+            # that does not answer fails the role before it opens a file
+            self._enc.prefetch()
         # key -> [(version, value or None)] ascending (memory engine)
         self.history: dict[bytes, list[tuple[int, Optional[bytes]]]] = {}
         # the empty store is readable at version 0 (a GRV before any
@@ -1557,7 +1608,7 @@ class StorageRole:
             from foundationdb_tpu_torch import native
 
             os.makedirs(data_dir, exist_ok=True)
-            _check_encryption_marker(data_dir)
+            _check_encryption_marker(data_dir, self._enc)
             self._dq = native.DiskQueue(os.path.join(data_dir, "mutlog"))
             if engine == "lsm":
                 self._lsm = native.VersionedLsm(
@@ -1615,6 +1666,7 @@ class StorageRole:
         return out.getvalue()
 
     def _write_checkpoint_blob(self, blob: bytes) -> None:
+        # values in the blob are already sealed (sealed once, at apply)
         tmp = self._ckpt_path() + ".tmp"
         with open(tmp, "wb") as f:
             f.write(blob)
@@ -1640,13 +1692,47 @@ class StorageRole:
     # Records are codec-encoded StorageApply messages: the registered wire
     # codec the calls use (the TLog logs its records the same way).
 
+    def _seal_values(self, req):
+        """Seal every SET value of a StorageApply: the one place values
+        are encrypted (the WAL, the store and the checkpoints carry the
+        sealed bytes from here on). Runs in the executor."""
+        return StorageApply(
+            version=req.version,
+            mutations=[
+                codec.Mutation(m.op, m.param1, self._enc.seal(m.param2))
+                if m.op == self.MUT_SET
+                else m
+                for m in req.mutations
+            ],
+        )
+
+    async def _sealed(self, reqs: list) -> list:
+        """`reqs` with their SET values sealed, in the executor (as
+        they are when encryption is off)."""
+        if not reqs or self._enc is None:
+            return reqs
+        return await asyncio.get_event_loop().run_in_executor(
+            None, lambda rs: [self._seal_values(r) for r in rs], reqs
+        )
+
+    def _open(self, value):
+        """A stored value as the client wrote it (sealed values opened;
+        a plain pass-through when encryption is off: the marker check at
+        start-up made sure the store is unencrypted, and a user's value
+        may start with the header's magic)."""
+        if value is None or self._enc is None:
+            return value
+        return self._enc.open(value)
+
     def _replay_local_log(self) -> None:
         """Restart: replay the log tail above the checkpoint, at a cost
-        in proportion to the tail, not the dataset."""
+        in proportion to the tail, not the dataset (the values in the
+        records are sealed: stored as they are, opened on read)."""
         for seq, blob in self._dq.recovered:
-            if _looks_sealed(blob):
+            if self._enc is None and _looks_sealed(blob):
                 # codec records never start with the cipher's magic: a
-                # sealed blob here means a lost marker
+                # sealed blob here means a lost marker (values sealed
+                # inside plain codec records only the marker guards)
                 raise RuntimeError(
                     "sealed storage WAL record but encryption is disabled"
                 )
@@ -1702,6 +1788,8 @@ class StorageRole:
             elif m.op == self.MUT_CLEAR_RANGE:
                 self.byte_sample.erase_range(m.param1, m.param2)
         if self._lsm is not None:
+            # values arrive sealed when encryption is on; keys stay
+            # plaintext for the runs' order (crypto/at_rest.py)
             self._lsm.apply(
                 version, [(m.op, m.param1, m.param2) for m in mutations]
             )
@@ -1741,11 +1829,11 @@ class StorageRole:
                     ) from e
                 if not rep.versions:
                     break
-                reqs = [
+                reqs = await self._sealed([
                     StorageApply(version=v, mutations=muts)
                     for v, muts in zip(rep.versions, rep.groups)
                     if v > self.version
-                ]
+                ])
                 if reqs and self._dq is not None:
                     # one fsync a peek chunk, not a version
                     await self._log_durably(reqs)
@@ -1770,14 +1858,16 @@ class StorageRole:
         # The fsync runs outside the condition's lock, so reads at
         # versions already applied never wait on the disk; a duplicate
         # record a lost race logged is skipped on replay.
-        if req.version > self.version and self._dq is not None:
-            await self._log_durably([req])
+        if req.version > self.version:
+            (req,) = await self._sealed([req])
+            if self._dq is not None:
+                await self._log_durably([req])
         return await self._apply_logged(req)
 
     async def apply_batch(self, req: StorageApplyBatch) -> StorageApplyReply:
         """Version-ordered group apply (the applier's drain): one
-        write-ahead group fsync (when persistent) and one ordered
-        in-memory sweep for the whole chunk.
+        sealing pass, one write-ahead group fsync (when persistent) and
+        one ordered in-memory sweep for the whole chunk.
 
         With `prev_versions` (several proxies) each contiguous run of the
         chunk first waits for its predecessor version to land: the
@@ -1800,6 +1890,7 @@ class StorageRole:
         )
 
     async def _apply_run(self, reqs: list) -> StorageApplyReply:
+        reqs = await self._sealed(reqs)
         if reqs and self._dq is not None:
             await self._log_durably(reqs)
         rep = None
@@ -2016,6 +2107,7 @@ class StorageRole:
                 "busiest_read_tag": self.read_tags.busiest(),
                 "busiest_write_tag": self.write_tags.busiest(),
             },
+            **_encryption_status(self._enc),
         }
 
     async def get(self, req: StorageGet) -> StorageGetReply:
@@ -2026,16 +2118,26 @@ class StorageRole:
         async with cond:
             await cond.wait_for(lambda: self.version >= req.version)
         if self._lsm is not None:
-            # disk reads off the event loop: a cold read must not stall
-            # unrelated requests
+            # disk reads and the open (a decrypt, maybe a by-id KMS
+            # fetch) off the event loop: neither may stall unrelated
+            # requests
+            lsm = self._lsm
             value = await asyncio.get_event_loop().run_in_executor(
-                None, self._lsm.get, req.key, req.version
+                None, lambda: self._open(lsm.get(req.key, req.version))
             )
             return StorageGetReply(value=value)
-        return StorageGetReply(value=self._get_at(req.key, req.version))
+        value = self._get_at(req.key, req.version)
+        if value is not None and self._enc is not None:
+            # the decrypt (and a cold by-id KMS fetch) off the loop, as
+            # the LSM's reads
+            value = await asyncio.get_event_loop().run_in_executor(
+                None, self._open, value
+            )
+        return StorageGetReply(value=value)
 
     def _get_at(self, key: bytes, version: int):
-        """The newest value at or below `version` in the memory history."""
+        """The newest value at or below `version` in the memory history
+        (still sealed when encryption is on)."""
         value = None
         for v, val in self.history.get(key, []):
             if v <= version:
@@ -2060,24 +2162,39 @@ class StorageRole:
             lsm = self._lsm
 
             def read_all():
-                return [lsm.get(k, rv)
+                # reads and opens in one executor hop a batch
+                return [self._open(lsm.get(k, rv))
                         for k, rv in zip(req.keys, req.versions)]
 
             values = await asyncio.get_event_loop().run_in_executor(
                 None, read_all
             )
             return StorageGetBatchReply(values=values)
-        return StorageGetBatchReply(values=[
+        values = [
             self._get_at(k, rv) for k, rv in zip(req.keys, req.versions)
-        ])
+        ]
+        if self._enc is not None:
+            values = await asyncio.get_event_loop().run_in_executor(
+                None, lambda vs: [self._open(v) for v in vs], values
+            )
+        return StorageGetBatchReply(values=values)
 
     async def snapshot(self, req: StorageSnapshotReq) -> StorageSnapshotReply:
         cond = self._cond_lazy()
         async with cond:
             await cond.wait_for(lambda: self.version >= req.version)
         if self._lsm is not None:
+            lsm = self._lsm
+
+            def range_open():
+                # the range and every value's open in the executor: a
+                # whole dataset's decrypt on the loop would stall every
+                # other request
+                return [(k, self._open(v))
+                        for k, v in lsm.range(b"", b"", req.version)]
+
             kvs = await asyncio.get_event_loop().run_in_executor(
-                None, self._lsm.range, b"", b"", req.version
+                None, range_open
             )
             return StorageSnapshotReply(version=self.version, kvs=kvs)
         kvs = []
@@ -2088,6 +2205,13 @@ class StorageRole:
                     value = val  # the newest value at or below the version
             if value is not None:
                 kvs.append((k, value))
+        if self._enc is not None:
+            # the sealed list is built already, so the loop may change
+            # the history meanwhile
+            kvs = await asyncio.get_event_loop().run_in_executor(
+                None, lambda rows: [(k, self._open(v)) for k, v in rows],
+                kvs,
+            )
         return StorageSnapshotReply(version=self.version, kvs=kvs)
 
 
@@ -4140,9 +4264,10 @@ async def _serve_role(
     resolver's warm-up, a storage's catch-up from `tlog_address`) is
     built before the socket binds: a role that cannot serve never binds.
     A worker builds its roles later, when the controller recruits them;
-    `device` is then the device of the resolvers it builds."""
-    if encrypt:
-        raise ValueError(ENCRYPTION_NOT_PORTED)
+    `device` is then the device of the resolvers it builds. `encrypt`
+    seals a tlog's or a storage's data dir (`default_encryption`: the
+    REST KMS at FDB_TPU_KMS, else the sim KMS); without a data dir
+    nothing is at rest and it does nothing."""
     if role_name == "controller" and not trace_file:
         # a controller the monitor starts has no trace flag of its own:
         # the environment names its trace file (the recovery timeline's
@@ -4163,6 +4288,16 @@ async def _serve_role(
             sink, _tr.TraceBatch(clock=time.time, logger=sink, enabled=True)
         )
         _spans.set_exporter(_spans.SpanExporter(trace_log=sink))
+    # --encrypt is the one switch that reaches this process: spawn_role
+    # turns the launcher's ENABLE_ENCRYPTION knob into the flag (a knob
+    # read here would always be a fresh interpreter's default)
+    encryption = None
+    if encrypt and data_dir:
+        from foundationdb_tpu_torch.crypto.at_rest import default_encryption
+
+        encryption = default_encryption(
+            kms_endpoint=os.environ.get("FDB_TPU_KMS")
+        )
     tokens: dict = {}
     if role_name == "resolver":
         role = ResolverRole(backend=backend, device=device)
@@ -4173,7 +4308,7 @@ async def _serve_role(
 
         tokens[TOKEN_RESOLVER_VERSION] = rv
     elif role_name == "tlog":
-        role = TLogRole(data_dir=data_dir)
+        role = TLogRole(data_dir=data_dir, encryption=encryption)
         tokens.update({
             TOKEN_TLOG_PUSH: role.push,
             TOKEN_TLOG_PEEK: role.peek,
@@ -4183,7 +4318,9 @@ async def _serve_role(
             TOKEN_TLOG_POP: role.pop,
         })
     elif role_name == "storage":
-        role = StorageRole(data_dir=data_dir, engine=storage_engine)
+        role = StorageRole(
+            data_dir=data_dir, engine=storage_engine, encryption=encryption
+        )
         if tlog_address:
             await role.catch_up_from_tlog(tlog_address)
         tokens.update({
@@ -4328,10 +4465,8 @@ def spawn_role(
     to a resolver, `device` to a resolver and a worker (the device of the
     resolvers it builds); `peers` to a ratekeeper, `controller` to a
     worker and a ratekeeper, `worker_id` to a worker, `cluster_conf` and
-    `state_file` to a controller. `encrypt` raises ValueError before
-    anything starts."""
-    if encrypt:
-        raise ValueError(ENCRYPTION_NOT_PORTED)
+    `state_file` to a controller, `encrypt` (or the launcher's
+    ENABLE_ENCRYPTION knob) to a tlog and a storage with a data dir."""
     address = os.path.join(socket_dir, f"{name}{index}.sock")
     child_env = dict(os.environ)
     child_env.update(env or {})
@@ -4364,6 +4499,12 @@ def spawn_role(
             cmd += [flag, value]
     if storage_engine != "memory":
         cmd += ["--storage-engine", storage_engine]
+    # the child is a fresh interpreter with the default knobs, so the
+    # launcher's ENABLE_ENCRYPTION travels as the flag
+    from foundationdb_tpu_torch.utils.knobs import SERVER_KNOBS
+
+    if encrypt or SERVER_KNOBS.ENABLE_ENCRYPTION:
+        cmd += ["--encrypt"]
     proc = subprocess.Popen(cmd, env=child_env)
     return RoleProcess(name=name, address=address, proc=proc)
 
@@ -5643,7 +5784,8 @@ def main() -> None:
     ap.add_argument("--storage-engine", default="memory",
                     choices=("memory", "lsm"))
     ap.add_argument("--encrypt", action="store_true",
-                    help="encryption at rest: not ported, refused")
+                    help="tlog / storage: seal the data dir (keys from "
+                         "the REST KMS at FDB_TPU_KMS, else the sim KMS)")
     ap.add_argument("--trace-file", default=None,
                     help="a JSONL trace sink for this process")
     ap.add_argument("--peers", default=None,

@@ -75,9 +75,7 @@ class Tenant:
     """Database-like handle scoped to one tenant's keyspace.
 
     With authorization enabled on the cluster (a token verifier on
-    cluster.token_verifier, the JAX package's crypto/token_sign
-    TokenVerifier; the port has no verifier of its own yet, so a port
-    cluster runs with authorization off), every
+    cluster.token_verifier, crypto/token_sign.TokenVerifier), every
     transaction against the tenant requires a signed token granting
     this tenant — the reference's tenant authorization
     (design/authorization.md, fdbrpc/TokenSign): no token, an expired

@@ -147,6 +147,15 @@ def make_server_knobs() -> Knobs:
     # instead (make_conflict_set's gate, route_stream): the JAX
     # package's measured single-dispatch crossover, kept as its default
     k.define("RESOLVER_CUDA_MIN_BATCH", 65536)
+    # encryption at rest (fdbclient/ServerKnobs.cpp ENABLE_ENCRYPTION,
+    # fdbserver/EncryptKeyProxy.actor.cpp): the storage WAL, checkpoint
+    # and LSM values and the tlog's records are AES-256-CTR sealed under
+    # keys the EncryptKeyProxy serves. spawn_role turns it into a role
+    # process's --encrypt; not randomized (the sim's storage has no disk)
+    k.define("ENABLE_ENCRYPTION", False)
+    # encryption keys re-derive under a fresh salt after this many
+    # seconds (ServerKnobs ENCRYPT_KEY_REFRESH_INTERVAL)
+    k.define("ENCRYPT_KEY_REFRESH_INTERVAL", 600.0)
     # version-vector unicast: replies carry tpcvMap + writtenTags
     # (ResolverInterface.h:140-151); off, as in the reference
     k.define("ENABLE_VERSION_VECTOR_TLOG_UNICAST", False)

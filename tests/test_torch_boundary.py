@@ -3,7 +3,9 @@
 * no module of foundationdb_tpu_torch (its drills too), and not
   chip_smoke.py, imports jax or foundationdb_tpu (an AST scan, and an
   import in a subprocess where importing jax fails), nor `cryptography`
-  at module top (every module imports without it); no data file of the
+  at module top (every module imports without it; the encryption, token
+  and TLS slice's modules, listed, in a subprocess where importing
+  `cryptography` fails too); no data file of the
   port (the soak specs, the probe manifest) names the JAX package, JAX or
   its "tpu-force" backend;
 * `make_conflict_set(cfg)` without a card and without device="cpu"
@@ -104,6 +106,45 @@ def test_no_cryptography_at_module_top(path):
 def test_scan_covers_the_drills():
     scanned = {p.relative_to(PORT).parts[0] for p in _port_files()[:-1]}
     assert {"drills", "testing", "cluster"} <= scanned
+
+
+#: the modules of the at-rest encryption, token and TLS slice: each is in
+#: the scans above (no jax, no foundationdb_tpu, no `cryptography` at
+#: module top) and imports on a host where `cryptography` is blocked
+CRYPTO_SLICE = ("crypto/__init__.py", "crypto/blob_cipher.py",
+                "crypto/at_rest.py", "crypto/token_sign.py", "crypto/tls.py",
+                "cluster/kms.py", "cluster/encrypt_key_proxy.py",
+                "cluster/multiprocess.py", "cluster/tenant.py",
+                "cluster/monitor.py")
+
+
+def test_scan_covers_the_crypto_slice():
+    scanned = {str(p.relative_to(PORT)) for p in _port_files()[:-1]}
+    assert set(CRYPTO_SLICE) <= scanned
+
+
+def test_crypto_slice_imports_with_cryptography_blocked():
+    modules = ["foundationdb_tpu_torch." + m.removesuffix(".py").replace(
+        "/", ".").removesuffix(".__init__") for m in CRYPTO_SLICE]
+    code = f"""
+import importlib, importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cryptography"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for m in {modules!r}:
+    importlib.import_module(m)
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "foundationdb_tpu", "cryptography")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def _port_data_files():

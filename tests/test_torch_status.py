@@ -9,10 +9,10 @@ package's on the CPU.
   path, the port's "cuda" with device="cpu" against JAX "tpu-force").
   Equal, once two kinds of fields are set apart:
   - the wall clock's and the process's: `run_loop`, `census`, every
-    seconds sample (`*Seconds`, `*_seconds*`) and `compile_cache` (its
-    counters and signatures gather over every test the process ran)
-    differ between two runs of one package; they are compared by their
-    keys and types;
+    seconds sample (`*Seconds`, `*_seconds*`), `compile_cache` and the
+    kernel block's `compile_cache_hits` / `_misses` (process-wide
+    counters that gather over every test the process ran) differ between
+    two runs of one package; they are compared by their keys and types;
   - the port's differences, each named in `PORT_DIFFERENCES` and
     checked to hold: `configuration.resolver_backend` is the port's
     backend name, `resolver_kernel.*.backend` and `processes.*.kernel`
@@ -171,10 +171,15 @@ PORT_DIFFERENCES = {
 }
 
 #: the wall clock's fields, and the process's (the compile cache's
-#: counters and signatures gather over every test the process ran):
-#: compared by their keys and types only
+#: counters and signatures gather over every test the process ran, the
+#: kernel block's `compile_cache_hits` / `_misses` too: JAX's
+#: `compile_cache.stats()` and the port's `kernels.build_stats()` are
+#: process-wide, and JAX's count only once an earlier test in the
+#: process turned its persistent cache on): compared by their keys and
+#: types only
 WALL_CLOCK = re.compile(
-    r"^cluster/(run_loop|census|compile_cache)(/|$)|Seconds(/|$)|_seconds")
+    r"^cluster/(run_loop|census|compile_cache)(/|$)|Seconds(/|$)|_seconds"
+    r"|/compile_cache_(hits|misses)$")
 #: of those, the dicts whose keys are the wall clock's or the process's
 #: too (the actors that ran slow, the signatures compiled): their type
 PROCESS_DICTS = re.compile(r"^cluster/(compile_cache/"
@@ -225,6 +230,25 @@ def split(port, jax, path="", named=None, wall=None):
     return port, jax
 
 
+def first_difference(a, b, path: str = "") -> str:
+    """The first path (in sorted key order) where `a` and `b` differ,
+    with both values: the message of a whole-document assert."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=str):
+            sub = f"{path}/{k}" if path else str(k)
+            if k not in a or k not in b:
+                return (f"{sub}: only in "
+                        f"{'the first' if k in a else 'the second'}: "
+                        f"{(a.get(k) if k in a else b.get(k))!r}")
+            if a[k] != b[k]:
+                return first_difference(a[k], b[k], sub)
+    elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+    return f"{path or '<root>'}: {a!r} != {b!r}"
+
+
 def status_of(pkg: str, backend: str, scn) -> dict:
     P = SC.ns(pkg)
     kw = dict(scn.config(P), resolver_backend=backend)
@@ -257,7 +281,7 @@ def test_cluster_status_matches_jax(name, backend):
     jax, jax_served = status_of(SC.JAX, jax_backend, scn)
     named, wall = set(), set()
     p, j = split(port, jax, named=named, wall=wall)
-    assert p == j
+    assert p == j, "port != jax at " + first_difference(p, j)
     assert "cluster/run_loop/wall_seconds" in wall
     assert "cluster/configuration/resolver_backend" in named or \
         backend == "cpu"
@@ -270,7 +294,7 @@ def test_cluster_status_matches_jax(name, backend):
     # the served document is the same document, a moment later
     for doc, served in ((port, port_served), (jax, jax_served)):
         a, b = split(served, doc, named=set(), wall=set())
-        assert a == b
+        assert a == b, "served != document at " + first_difference(a, b)
 
 
 def test_status_document_shape():

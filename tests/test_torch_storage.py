@@ -13,7 +13,8 @@
   of tests/fixtures/ondisk_r4 (diskqueue, memory, lsm) to the state its
   EXPECT.json records, as the JAX roles do; ondisk_r5's encrypted store
   is refused by its marker's RuntimeError without encryption, and with
-  the not-ported ValueError when encryption is asked for.
+  `default_encryption()` the port's role serves its values at version
+  120, as the JAX role does.
 * A data dir one package writes, the other opens to the same state (the
   tlog, the memory engine, the LSM).
 
@@ -448,11 +449,20 @@ def test_prior_format_storage_lsm_opens(tmp_path):
     assert _role_get(role2, b"lsm0002", v + 10) == val
 
 
-def test_encrypted_store_is_refused(tmp_path):
+def test_encrypted_store_refused_plain_and_served_sealed(tmp_path):
     """ondisk_r5's sealed LSM: without encryption the marker refuses it
-    (RuntimeError, as the JAX role does); asking for encryption raises
-    the not-ported ValueError before anything is opened."""
-    d, _exp = _fixture("ondisk_r5", "encrypted_lsm", tmp_path)
+    (RuntimeError, in both packages); with `default_encryption()` (the
+    sim KMS, keys fetched by id in a fresh process) the port's
+    StorageRole serves EXPECT.json's values at its version, 120, as the
+    JAX role does, and the raw files stay ciphertext."""
+    pytest.importorskip("cryptography")
+    from foundationdb_tpu.crypto.at_rest import (
+        default_encryption as jax_default_encryption,
+    )
+
+    from foundationdb_tpu_torch.crypto.at_rest import default_encryption
+
+    d, exp = _fixture("ondisk_r5", "encrypted_lsm", tmp_path)
     before = sorted(os.listdir(d))
     with pytest.raises(RuntimeError, match="encryption"):
         mp.StorageRole(d, engine="lsm")
@@ -460,15 +470,26 @@ def test_encrypted_store_is_refused(tmp_path):
         JMP.StorageRole(d, engine="lsm")
     with pytest.raises(RuntimeError, match="encryption"):
         mp.TLogRole(d)
-    for make in (lambda: mp.StorageRole(d, engine="lsm", encryption=object()),
-                 lambda: mp.TLogRole(d, encryption=object()),
-                 lambda: run(mp._serve_role("storage", os.path.join(d, "x"),
-                                            "native", data_dir=d,
-                                            encrypt=True)),
-                 lambda: mp.spawn_role("tlog", d, data_dir=d, encrypt=True)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make()
     assert sorted(os.listdir(d)) == before
+    jd = str(tmp_path / "jax_copy")
+    shutil.copytree(d, jd)
+    port = mp.StorageRole(d, engine="lsm", encryption=default_encryption())
+    jax = JMP.StorageRole(jd, engine="lsm",
+                          encryption=jax_default_encryption())
+    assert port.version == jax.version == exp["version"] == 120
+    for key, val in exp["present"].items():
+        got = _role_get(port, key.encode(), port.version)
+        assert got == val.encode() == _role_get(jax, key.encode(), 120), key
+    snap = run(port.snapshot(mp.StorageSnapshotReq(version=120)))
+    assert snap.kvs == sorted((k.encode(), v.encode())
+                              for k, v in exp["present"].items())
+    needle = exp["plaintext_absent"].encode()
+    for root, _dirs, files in os.walk(d):
+        for fn in files:
+            with open(os.path.join(root, fn), "rb") as fh:
+                assert needle not in fh.read(), fn
+    port.close_disk()
+    jax.close_disk()
 
 
 # ---------------------------------------------------------------------------

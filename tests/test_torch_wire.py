@@ -10,7 +10,7 @@ the C++ skip list, held against the JAX package on the CPU.
   RpcConnection to a port RpcServer and the other way round): echo and
   concurrent calls, an unknown token and a handler error, a protocol
   version mismatch, a corrupt frame, and mutual TLS with certificates
-  from the JAX `crypto.tls.make_test_tls` (skipped without
+  from the port's `crypto.tls.make_test_tls` (skipped without
   `cryptography`).
 * ResolverRole in-process: the port's "cuda" (device="cpu"), "cpu",
   "native" and None (the knob) against the JAX role's "tpu-force",
@@ -425,9 +425,9 @@ def test_transport_corrupt_frame_dropped(tmp_path, client, server):
 def test_transport_mutual_tls(tmp_path, client, server):
     pytest.importorskip("cryptography")
     from foundationdb_tpu.crypto.tls import TLSConfig as JaxTLS
-    from foundationdb_tpu.crypto.tls import make_test_tls
 
     from foundationdb_tpu_torch.crypto.tls import TLSConfig as PortTLS
+    from foundationdb_tpu_torch.crypto.tls import make_test_tls
 
     made = make_test_tls(str(tmp_path / "pki"), organization="good-org")
 

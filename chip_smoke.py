@@ -257,9 +257,10 @@ any fault:
    recovery walk, the new resolvers' warm-up), and each resolver's
    batches, mean batch size and compute p50 / p99.
 18. the simulation ensemble on the card (cell EN): the soak seeds that
-   draw the device backend (EN_SEEDS: the classic, tiered + read dedup,
-   2-shard and sweep + spill kernels, with backup_restore and
-   knob_quorum among their faults) each through
+   draw the device backend (EN_SEEDS: the classic, tiered + read dedup
+   and sweep + spill kernels, with backup_restore among their faults;
+   the 2-shard seeds of EN_CUT are cut, and the cut is printed) each
+   through
    `testing/soak.run_seed` on the card at its spec's own shape, every
    gate of the seed passing; EN_RERUN again and EN_TRACED with the
    span-chain, census and status-probe gates; the saturation ramp
@@ -336,10 +337,31 @@ any fault:
    numbers beside them, beside the card's name and power limit, and
    fails past SE_BUDGET_S (150 s).
 
+21. the operator drills on the wire cluster (cell CH): the chaos
+   drill's cluster (`drills/chaos.py`: 2 tlogs, the sequencer, 2
+   proxies from the pre-seeded state file, a ratekeeper, one resolver
+   on the card at `commit_config()`) under its unique-key load, with a
+   proxy, the sequencer, the ratekeeper, the controller and one tlog
+   SIGKILLed in turn (CH_KILLS, one cluster: the cut is printed), each
+   held to the drill's gates (a recovered generation within 30 s, every
+   acknowledged key read back, the timeline in the controller's trace,
+   the monitor's push, 2 proxies planned, the tlog lock); then the
+   elasticity drill's ON direction at its --smoke settings on a fresh
+   cluster, a second resolver recruited live on the card. It fails
+   unless every generation's resolvers are TorchConflictSets on the card
+   whose own launches are phase 3's chain a batch, unless this process's
+   resources return to their baseline after each cluster, and past
+   CH_BUDGET_S (150 s). It prints each kill's recovery (the monitor's
+   relaunch, when a walk had its workers), goodput and p99 against the
+   drill's SLOs, the unknown and conflicted counts, the elastic scale
+   against its 1.5x gate, and the whole script's wall against
+   SCRIPT_BUDGET_S.
+
 The last lines are the streams' numbers (JSON; phases 12, 13, 14, 15,
-16, 17, 18, 19 and 20 under `pipelined_uniform`, `pipelined_classic`,
-`staging`, `resolver`, `wire`, `commit_path`, `sim_cluster`,
-`wire_cluster`, `ensemble`, `features` and `sealed`),
+16, 17, 18, 19, 20 and 21 under `pipelined_uniform`,
+`pipelined_classic`, `staging`, `resolver`, `wire`, `commit_path`,
+`sim_cluster`, `wire_cluster`, `ensemble`, `features`, `sealed` and
+`chaos`),
 the kernel ledger (JSON), the card's name and power limit, and `{"ok":
 true, "device": {...}}`. Exits non-zero without a result when no CUDA device is present.
 
@@ -416,6 +438,10 @@ ROLE_VERSION_STEP = 100_000
 
 #: the script's start on the host clock
 T_START = time.perf_counter()
+#: the whole script's wall budget, the build included, and the time
+#: limit a run of it is given
+SCRIPT_BUDGET_S = 1120.0
+SCRIPT_LIMIT_S = 1200.0
 
 
 def log(*a):
@@ -5483,15 +5509,19 @@ EN_BUDGET_S = 240.0
 #: the seeds that draw the device backend, each at its spec's own shape
 #: (testing/specs/*.toml: 64-txn batches of 256 reads and writes, 16-byte
 #: keys, a 1M or 5M-version window): api_correctness 1 classic, 6 tiered
-#: with read dedup and backup_restore, 8 on 2 shards with knob_quorum, 13
-#: classic; range_heavy 1 and 8 the sweep with spill (8 on 2 shards);
-#: ycsb_d 6 tiered, 11 classic
+#: with read dedup and backup_restore, 13 classic through a recovery;
+#: range_heavy 1 the sweep with spill; ycsb_d 6 tiered, 11 classic
 EN_SEEDS = (("api_correctness", 1), ("api_correctness", 6),
-            ("api_correctness", 8), ("api_correctness", 13),
-            ("range_heavy", 1), ("range_heavy", 8),
+            ("api_correctness", 13), ("range_heavy", 1),
             ("ycsb_d", 6), ("ycsb_d", 11))
+#: the device seeds cut from EN_SEEDS so that phase 21 fits the script's
+#: budget: the 2-shard ones (api_correctness 8 with knob_quorum,
+#: range_heavy 8 the sweep on 2 shards), whose plain-version twins took
+#: about 100 s each, the phase's whole critical path. Phase 9 keeps the
+#: sharded kernels (I, J) on the card.
+EN_CUT = (("api_correctness", 8), ("range_heavy", 8))
 #: run again on the card, in the same process: the rerun-identical check
-EN_RERUN = ("api_correctness", 8)
+EN_RERUN = ("api_correctness", 13)
 #: run on the card with the span-chain gate, the census gate and the
 #: status probe armed; its trace digest must equal the plain versions'
 EN_TRACED = ("api_correctness", 6, {"trace": True, "census": True,
@@ -5657,6 +5687,11 @@ def phase_ensemble(card: str, device=None) -> dict:
     from foundationdb_tpu_torch.testing import soak
 
     t_phase = time.perf_counter()
+    log(f"  cut: the 2-shard device seeds "
+        f"{', '.join(f'{s} {n}' for s, n in EN_CUT)} (knob_quorum, the "
+        f"sweep on 2 shards; their twins were the phase's critical path), "
+        f"so that phase 21 fits the script's budget; {'{} {}'.format(*EN_RERUN)} "
+        f"is the rerun")
     jobs = {}
     for spec, seed in EN_SEEDS:
         plan = soak.plan_for_seed(seed, spec)
@@ -7125,6 +7160,371 @@ def se_leg_a(card: str, uniform: dict) -> dict:
     return sealed
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the operator drills on the card (cell CH)
+
+#: the phase's wall budget, from its start to the second cluster's teardown
+CH_BUDGET_S = 150.0
+#: the roles SIGKILLed in turn on one cluster: the drill's kills but the
+#: resolver's (phase 17 kills one); the tlog last, since its recovery
+#: locks only the survivor and a later walk's lock would see one tlog
+CH_KILLS = ("proxy", "sequencer", "ratekeeper", "controller", "tlog")
+#: the chaos drill's --smoke load (its defaults are 24 clients and 12 s
+#: a scenario, each on a fresh cluster)
+CH_CLIENTS = 12
+CH_DURATION = 8.0
+#: seconds between two readings of the live generation's resolvers
+CH_SNAPSHOT_S = 0.5
+#: commits after the last kill, so the final generation resolves batches
+CH_CLOSING_COMMITS = 16
+
+
+def ch_confs(write, cfg, device):
+    """A drill's conf writer, with the cluster conf's `resolver_kernel`
+    (every resolver the controller recruits builds `cfg`, the workers'
+    RESOLVER_KERNEL) and, where one is given, its `device`."""
+    def confs(d: str) -> tuple:
+        mpath, ctrl = write(d)
+        cpath = os.path.join(d, "cluster.json")
+        with open(cpath) as f:
+            conf = json.load(f)
+        conf["resolver_kernel"] = repr(cfg)
+        if device is not None:
+            conf["device"] = str(device)
+        with open(cpath, "w") as f:
+            json.dump(conf, f)
+        return mpath, ctrl
+    return confs
+
+
+async def ch_snapshot(mp, client, conns: dict, snaps: dict) -> None:
+    """One reading of each resolver in the controller's topology: its
+    status (conflict set, role_kernel_launches, batches), kept under the
+    generation the resolver serves and its worker; a later reading of
+    the same pair replaces it."""
+    try:
+        topo = await client.topology()
+    except Exception:
+        return  # the controller is down or recovering: read again later
+    for e in topo["roles"].values():
+        if e["kind"] != "resolver":
+            continue
+        try:
+            rep = await mp._cached_call(conns, e["address"], mp.TOKEN_STATUS,
+                                        mp.StatusRequest(pad=0), timeout=5.0)
+        except Exception:
+            continue
+        st = json.loads(rep.payload)
+        if st.get("role") == "resolver":
+            snaps[(st["epoch"], e["address"])] = st
+
+
+async def ch_snapshots(mp, ctrl_addr: str, snaps: dict, stop) -> None:
+    """ch_snapshot every CH_SNAPSHOT_S until `stop` is set, on a client
+    and connections of its own."""
+    import asyncio
+
+    client = mp.ClusterClient(ctrl_addr)
+    conns: dict = {}
+    try:
+        while not stop.is_set():
+            await ch_snapshot(mp, client, conns, snaps)
+            try:
+                await asyncio.wait_for(stop.wait(), CH_SNAPSHOT_S)
+            except asyncio.TimeoutError:
+                pass
+        await ch_snapshot(mp, client, conns, snaps)
+    finally:
+        await mp._close_all(conns)
+        await client.close()
+
+
+async def ch_closing_commits(mp, client, prefix: bytes) -> int:
+    """CH_CLOSING_COMMITS unique-key commits through the front door (the
+    drill's transaction shape); returns the acknowledged ones."""
+    from foundationdb_tpu_torch.models.types import CommitTransaction
+    from foundationdb_tpu_torch.wire.codec import Mutation
+
+    import asyncio
+
+    done = 0
+    for i in range(CH_CLOSING_COMMITS):
+        key = b"%s%d" % (prefix, i)
+        try:
+            rv = await client.get_read_version()
+            await client.commit(CommitTransaction(
+                write_conflict_ranges=[(key, key + b"\x00")],
+                read_conflict_ranges=[(key, key + b"\x00")],
+                read_snapshot=rv, mutations=[Mutation(0, key, b"x")]))
+            done += 1
+        except (mp.NotCommittedError, mp.CommitUnknownError):
+            pass
+        except (mp.GrvThrottledError, mp.ClusterRecoveringError):
+            await asyncio.sleep(0.1)
+    return done
+
+
+def ch_generations(tag: str, snaps: dict, want_epochs, uniform: dict,
+                   on: str) -> dict:
+    """Each generation's resolvers as the last readings saw them: every
+    generation in `want_epochs` has resolvers, each a TorchConflictSet
+    on `on` whose own launches are phase 3's chain a batch
+    (lc_launch_check; a resolver that resolved nothing fails it)."""
+    gens: dict = {}
+    for (epoch, addr), st in sorted(snaps.items()):
+        gens.setdefault(epoch, {})[addr] = st
+    missing = sorted(set(want_epochs) - set(gens))
+    if missing:
+        fail(f"{tag}: no reading of the resolvers of generation(s) "
+             f"{missing} (read: {sorted(gens)})")
+    out = {}
+    for epoch in sorted(want_epochs):
+        rows = []
+        for addr, st in sorted(gens[epoch].items()):
+            row = lc_launch_check(f"{tag}: generation {epoch}'s resolver at "
+                                  f"{os.path.basename(addr)}", st, uniform,
+                                  on)
+            row["launches_per_batch"] = {
+                k: n / row["batches"] for k, n in row["launches"].items()}
+            rows.append(row)
+            log(f"    generation {epoch}: resolver at "
+                f"{os.path.basename(addr)} on {st['conflict_set']['device']}"
+                f", {row['batches']} batches ({row['compactions']} "
+                f"compactions), compute p50 {row['compute_p50_ms']:.3f} ms; "
+                f"kernel launches a batch "
+                f"{json.dumps(row['launches_per_batch'])}")
+        out[epoch] = rows
+    return out
+
+
+def ch_restart(marks: list, res: dict) -> dict:
+    """Where a kill's recovery waited, from the monitor's log lines
+    (`marks`: (wall time, line) since the kill's scenario began) and the
+    scenario's timeline: seconds from the monitor's reading of the death
+    to its relaunch of the killed process, and to the first walk of a
+    newer generation that locked the old servers (its plan had the
+    workers it needed: the drill's conf has no spare worker, so a walk
+    waits for the relaunched one to register)."""
+    died = next((t for t, m in marks if " died " in m), None)
+    if died is None:
+        return {"relaunch_s": None, "walk_planned_s": None}
+    launched = next((t for t, m in marks if t >= died and "launched" in m),
+                    None)
+    locked = next((r["time"] for r in res["timeline"]
+                   if r["status"] == "locking_old_transaction_servers"
+                   and r["epoch"] > res["epoch_before"]
+                   and r["time"] >= died), None)
+    return {"relaunch_s": None if launched is None
+            else round(launched - died, 3),
+            "walk_planned_s": None if locked is None
+            else round(locked - died, 3)}
+
+
+def ch_kill_line(res: dict, args) -> str:
+    lock = res["tlog_lock"] or {}
+    return (f"  kill -9 {res['kill']} (pid {res['killed_pid']}): recovered "
+            f"{bool(res['recovered'])} in {res['recovery_time_s']} s (the "
+            f"walk {res['recovery_walk_s']} s; bound {args.recovery_bound} "
+            f"s; from the death the monitor relaunched it in "
+            f"{res['restart']['relaunch_s']} s, a walk had its workers "
+            f"after {res['restart']['walk_planned_s']} s), "
+            f"epoch {res['epoch_before']} -> {res['epoch_after']}, "
+            f"reason {res['recovery_reason']!r}, push detected "
+            f"{bool(res['push_detected'])}; consistency "
+            f"{bool(res['consistency_ok'])} ({res['committed']} committed, "
+            f"{res['missing_keys']} missing, {res['unknown']} unknown of "
+            f"which {res['unknown_resolved_committed']} committed, "
+            f"{res['conflicted']} conflicted); timeline "
+            f"{bool(res['timeline_ok'])} "
+            f"({' > '.join(r['status'] for r in res['timeline'][-3:])}); "
+            f"proxies_planned {res['proxies_planned']}, partitioned "
+            f"{bool(res['partitioned'])}, tlog lock {lock.get('survivors')}"
+            f"/{lock.get('total')}; commit p50 {res['commit_p50_ms']} ms, "
+            f"p99 {res['commit_p99_ms']} ms (the drill's SLO "
+            f"{args.slo_p99_s * 1e3:g} ms), goodput {res['peak_txn_s']} -> "
+            f"{res['post_kill_txn_s']} txn/s, ratio {res['goodput_ratio']} "
+            f"(SLO {args.slo_goodput})")
+
+
+async def ch_chaos(card: str, cfg, device, uniform: dict, on: str) -> dict:
+    """The chaos drill's kills in turn on one cluster (chaos._Cluster at
+    the drill's topology): each through chaos._kill_under_load, held to
+    chaos.scenario_failures (the --smoke gates; the --drill SLOs are
+    printed), the resolvers of every generation read live."""
+    import asyncio
+
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.drills import chaos
+
+    args = chaos.parser().parse_args(
+        ["--clients", str(CH_CLIENTS), "--duration", str(CH_DURATION)])
+    t0 = time.perf_counter()
+    snaps: dict = {}
+    results = []
+    async with chaos._Cluster(
+            "fdbch", ch_confs(lambda d: chaos._write_confs(d, args), cfg,
+                              device),
+            recovery_timeout=args.recovery_bound) as c:
+        up_s = time.perf_counter() - t0
+        epoch0 = c.client.epoch
+        marks: list = []
+        c.mon.monitor.log = lambda *a: marks.append(
+            (time.time(), " ".join(map(str, a))))
+        log(f"  chaos cluster: the monitor, the controller and 8 workers "
+            f"(2 tlogs, storage, the sequencer, 1 resolver on {on} at "
+            f"RESOLVER_KERNEL, a ratekeeper, 2 proxies from the state file, "
+            f"a spare) recovered into generation {epoch0} {up_s:.1f} s after "
+            f"the monitor's start")
+        stop = asyncio.Event()
+        snapper = asyncio.ensure_future(
+            ch_snapshots(mp, c.ctrl_addr, snaps, stop))
+        try:
+            for segment, kind in enumerate(CH_KILLS):
+                seen = len(marks)
+                res = await chaos._kill_under_load(
+                    kind, c.client, c.mon, c.ctrl_addr, c.trace_path, args,
+                    segment=segment)
+                res["restart"] = ch_restart(marks[seen:], res)
+                results.append(res)
+                log(ch_kill_line(res, args))
+                bad = chaos.scenario_failures(kind, res, args, drill=False)
+                if bad:
+                    fail(f"operator drills: {bad}")
+            await c.client.connect()
+            closing = await ch_closing_commits(mp, c.client, b"close-")
+            if not closing:
+                fail("operator drills: no commit after the last kill")
+        finally:
+            stop.set()
+            await snapper
+    wall = time.perf_counter() - t0
+    epochs = {epoch0, *(r["epoch_after"] for r in results)}
+    gens = ch_generations("chaos", snaps, epochs, uniform, on)
+    slo = {r["kill"]: dict(
+        p99_ms=r["commit_p99_ms"], goodput_ratio=r["goodput_ratio"],
+        p99_met=r["commit_p99_ms"] <= args.slo_p99_s * 1e3,
+        goodput_met=r["goodput_ratio"] >= args.slo_goodput)
+        for r in results if r["kill"] not in ("sequencer", "controller")}
+    return dict(card=card, clients=CH_CLIENTS, duration_s=CH_DURATION,
+                cluster_up_s=up_s, wall_s=wall, closing_commits=closing,
+                kills=[{k: v for k, v in r.items() if k != "timeline"}
+                       for r in results],
+                recovery_s={r["kill"]: r["recovery_time_s"]
+                            for r in results},
+                drill_slo=slo,
+                generations={str(e): rows for e, rows in gens.items()})
+
+
+async def ch_elastic(card: str, cfg, device, uniform: dict, on: str) -> dict:
+    """The elasticity drill's ON direction at its --smoke settings on a
+    fresh cluster (elasticity._write_confs): one resolver on the card,
+    saturated by the modeled compute cost, and a second recruited live,
+    held to elasticity.on_recruit_failures (the drill's ON gates but the
+    wall-clock scale gate, which is printed against its 1.5x)."""
+    import asyncio
+
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.drills import elasticity
+
+    args = elasticity.parser().parse_args(["--smoke"])
+    elasticity.smoke_args(args)
+    t0 = time.perf_counter()
+    snaps: dict = {}
+    async with elasticity._Cluster(
+            "fdbel", ch_confs(lambda d: elasticity._write_confs(
+                d, args, elastic=True), cfg, device),
+            recovery_timeout=30.0) as c:
+        up_s = time.perf_counter() - t0
+        log(f"  elastic cluster: 1 resolver on {on} (modeled cost "
+            f"{args.compute_cost} s a transaction, streak {args.streak}), "
+            f"{args.clients} clients for {args.duration} s; recovered into "
+            f"generation {c.client.epoch} {up_s:.1f} s after the monitor's "
+            f"start")
+        stop = asyncio.Event()
+        snapper = asyncio.ensure_future(
+            ch_snapshots(mp, c.ctrl_addr, snaps, stop))
+        try:
+            res = await elasticity._drive_direction(True, args, c.client,
+                                                    c.ctrl_addr)
+        finally:
+            stop.set()
+            await snapper
+    wall = time.perf_counter() - t0
+    met = res["scale"] >= args.scale_gate
+    log(f"  elastic recruit: {bool(res['recruited'])} at t+"
+        f"{res['recruit_at_s']} s, reason {res['recovery_reason']!r}, "
+        f"resolvers planned {res['resolvers_planned']}; plateau "
+        f"{res['plateau_txn_s']} txn/s, after the recruit "
+        f"{res['post_txn_s']} txn/s: scale {res['scale']}x against the "
+        f"drill's {args.scale_gate}x gate ({'met' if met else 'NOT met'}); "
+        f"limiter resolver_busy seen {bool(res['limiter_resolver_busy'])}, "
+        f"final {res['final_limiter']!r}; consistency "
+        f"{bool(res['consistency_ok'])} ({res['committed']} committed, "
+        f"{res['missing_keys']} missing, {res['unknown']} unknown of which "
+        f"{res['unknown_resolved_committed']} committed)")
+    bad = elasticity.on_recruit_failures(res)
+    if bad:
+        fail(f"operator drills: {bad}")
+    gens: dict = {}
+    for (epoch, addr) in snaps:
+        gens.setdefault(epoch, set()).add(addr)
+    grown = sorted(e for e, addrs in gens.items() if len(addrs) > 1)
+    if not grown:
+        fail(f"operator drills: no generation with two resolvers read "
+             f"({ {e: len(a) for e, a in gens.items()} })")
+    rows = ch_generations("elasticity", snaps,
+                          {res["epoch_before"], grown[-1]}, uniform, on)
+    return dict(card=card, cluster_up_s=up_s, wall_s=wall,
+                scale_gate=args.scale_gate,
+                scale_gate_met=met, result=res,
+                generations={str(e): r for e, r in rows.items()})
+
+
+def phase_operator_drills(card: str, uniform: dict, *, kernel_cfg=None,
+                          device=None) -> dict:
+    """Cell CH: the port's operator drills on the card. (a) The chaos
+    drill's cluster (`drills/chaos.py`: 2 tlogs, the sequencer, 2
+    proxies from the state file, a ratekeeper, one resolver) with every
+    resolver a TorchConflictSet at `commit_config()`; under the drill's
+    unique-key load a proxy, the sequencer, the ratekeeper, the
+    controller and one tlog are SIGKILLed in turn, each held to the
+    drill's gates (a recovered generation, the exact-count readback, the
+    timeline in the controller's trace, the monitor's push, 2 proxies
+    planned, the tlog lock). (b) The elasticity drill's ON direction at
+    its --smoke settings: a second resolver on the card recruited live.
+    Every generation's resolvers launch phase 3's chain a batch. The
+    resource census of this process returns to its baseline after each
+    cluster, and the phase ends inside CH_BUDGET_S. The kills share one
+    cluster, where the drill starts one a scenario: the cut is printed.
+    """
+    import asyncio
+
+    from foundationdb_tpu_torch.runtime import census
+
+    cfg = kernel_cfg or commit_config()
+    on = "cuda" if device is None else str(device).split(":")[0]
+    log(f"  cut: the {len(CH_KILLS)} kills share one cluster (the drill "
+        f"starts a fresh one a scenario), at the drill's --smoke load "
+        f"({CH_CLIENTS} clients, {CH_DURATION:g} s a kill; its defaults "
+        f"24 and 12 s); the resolver kill is phase 17's; elasticity runs "
+        f"its ON direction only; RESOLVER_KERNEL={cfg!r}")
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("chaos", ch_chaos), ("elasticity", ch_elastic)):
+        pre = census.snapshot()
+        out[name] = asyncio.run(run(card, cfg, device, uniform, on))
+        post = census.snapshot()
+        leaks = census.growth(pre, post)
+        if leaks:
+            fail(f"operator drills: {name} left {leaks} in this process")
+    wall = time.perf_counter() - t0
+    out["wall_s"] = wall
+    log(f"  phase 21 took {wall:.1f} s (budget {CH_BUDGET_S:g} s)")
+    if wall > CH_BUDGET_S:
+        fail(f"operator drills took {wall:.1f} s, past {CH_BUDGET_S:g} s")
+    return out
+
+
 def survey_spans(device, uni) -> tuple:
     """The widest spans of the uniform stream: tiered (each batch against
     the delta tier an exact set holds just before it) and classic
@@ -8366,6 +8766,14 @@ def main(argv=None) -> int:
     features = phase_features(card, uniform)
     heading("20. the sealed commit path over mutual TLS, tenant tokens")
     sealed = phase_sealed(card, uniform, commit)
+    heading("21. the operator drills on the wire cluster (kill -9 of each "
+            "role, a live resolver recruit)")
+    drills = phase_operator_drills(card, uniform)
+    total = time.perf_counter() - T_START
+    log(f"== the whole run {total:.1f} s, "
+        f"{'within' if total <= SCRIPT_BUDGET_S else 'PAST'} its "
+        f"{SCRIPT_BUDGET_S:g} s budget (a run's time limit "
+        f"{SCRIPT_LIMIT_S:g} s)")
     log(f"== done in {time.perf_counter() - T_START:.1f} s; profiler "
         f"sessions taken again {len(RETAKES)}, sessions that lost spin "
         f"kernels {len(WARM_LOST)} (at most {max(WARM_LOST, default=0)} of "
@@ -8410,6 +8818,7 @@ def main(argv=None) -> int:
     streams["ensemble"] = ensemble
     streams["features"] = features
     streams["sealed"] = sealed
+    streams["chaos"] = drills
     print(json.dumps({"streams": streams, "torch_ops": torch_ops,
                       "read_spans": read_spans,
                       "profiler_retakes": RETAKES,

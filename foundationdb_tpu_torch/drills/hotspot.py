@@ -17,18 +17,21 @@ and both against the in-sim cluster (deterministic virtual clock) and
 real role processes over Unix sockets (wall clock, ratio-robust
 verdict). The resolver runs on the card, or its plain PyTorch versions
 with `--device cpu` (the wire leg's resolver process too). The exit
-status is nonzero if ANY leg lands wrong. `--perf-ledger` writes through
-`utils/perf.py`, which the port has not ported yet: it raises.
+status is nonzero if ANY leg lands wrong. Each sim leg appends one
+structural perf-ledger row (`utils/perf.hotspot_report_to_record`; the
+wire legs' sampling seeds come from the wall clock, so they stay out) to
+`--perf-ledger`, or the default ledger; a `--smoke` run with no ledger
+named (and no FDBTPU_PERF_LEDGER) writes to a temporary file. `--no-perf`
+skips the rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
-
-from foundationdb_tpu_torch.drills.soak import PERF_NOT_PORTED
 
 
 def _heat_lines(rep: dict) -> list[str]:
@@ -103,10 +106,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json-out", default=None,
                     help="append all leg reports as JSON lines")
     ap.add_argument("--perf-ledger", default=None,
-                    help="append perf-ledger rows (not ported yet)")
+                    help="append the perf-ledger rows here (default: "
+                         "utils/perf.history_path())")
+    ap.add_argument("--no-perf", action="store_true",
+                    help="skip the perf-ledger append")
     args = ap.parse_args(argv)
-    if args.perf_ledger:
-        raise NotImplementedError(PERF_NOT_PORTED)
     quick = not args.full
 
     from foundationdb_tpu_torch.testing.hotspot import (
@@ -159,6 +163,21 @@ def main(argv=None) -> int:
         with open(args.json_out, "a") as f:
             for rep in legs:
                 f.write(json.dumps(rep) + "\n")
+    sim_legs = [r for r in legs if r["path"] == "sim"]
+    if sim_legs and not args.no_perf:
+        from foundationdb_tpu_torch.utils import perf
+
+        if (quick and not args.perf_ledger
+                and "FDBTPU_PERF_LEDGER" not in os.environ):
+            import tempfile
+
+            args.perf_ledger = os.path.join(
+                tempfile.mkdtemp(prefix="hotspot_perf_"), "history.jsonl")
+        host_fp = perf.device_fingerprint()
+        for rep in sim_legs:
+            rec = perf.hotspot_report_to_record(rep, fingerprint=host_fp)
+            path = perf.append(rec, path=args.perf_ledger)
+        print(f"[perf] {len(sim_legs)} ledger row(s) appended to {path}")
     print("hotspot gate ok" if rc == 0 else "hotspot gate FAILED")
     return rc
 

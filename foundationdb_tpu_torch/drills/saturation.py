@@ -17,18 +17,20 @@ testing/specs/saturation.toml) in BOTH directions:
 
 The cluster's resolver is the port's conflict set on the card, or its
 plain PyTorch versions with `--device cpu`. The exit status is nonzero
-if either direction lands wrong. `--perf-ledger` writes through
-`utils/perf.py`, which the port has not ported yet: it raises.
+if either direction lands wrong. Each direction appends one structural
+perf-ledger row (`utils/perf.saturation_report_to_record`) to
+`--perf-ledger`, or the default ledger; a `--smoke` run with no ledger
+named (and no FDBTPU_PERF_LEDGER) writes to a temporary file, so a smoke
+run leaves the history as it was. `--no-perf` skips the rows.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
-
-from foundationdb_tpu_torch.drills.soak import PERF_NOT_PORTED
 
 
 def main(argv=None) -> int:
@@ -45,10 +47,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json-out", default=None,
                     help="append both reports as JSON lines")
     ap.add_argument("--perf-ledger", default=None,
-                    help="append perf-ledger rows (not ported yet)")
+                    help="append the perf-ledger rows here (default: "
+                         "utils/perf.history_path())")
+    ap.add_argument("--no-perf", action="store_true",
+                    help="skip the perf-ledger append")
     args = ap.parse_args(argv)
-    if args.perf_ledger:
-        raise NotImplementedError(PERF_NOT_PORTED)
     quick = not args.full
 
     from foundationdb_tpu_torch.testing.saturation import run_saturation
@@ -93,6 +96,24 @@ def main(argv=None) -> int:
         with open(args.json_out, "a") as f:
             for rep in reports:
                 f.write(json.dumps(rep) + "\n")
+    if not args.no_perf:
+        # one ledger row a direction; the ramp runs on the virtual clock,
+        # so every metric is structural
+        from foundationdb_tpu_torch.utils import perf
+
+        if (quick and not args.perf_ledger
+                and "FDBTPU_PERF_LEDGER" not in os.environ):
+            import tempfile
+
+            args.perf_ledger = os.path.join(
+                tempfile.mkdtemp(prefix="saturation_perf_"),
+                "history.jsonl",
+            )
+        host_fp = perf.device_fingerprint()
+        for rep in reports:
+            rec = perf.saturation_report_to_record(rep, fingerprint=host_fp)
+            path = perf.append(rec, path=args.perf_ledger)
+        print(f"[perf] {len(reports)} ledger row(s) appended to {path}")
     print("saturation gate ok" if rc == 0 else "saturation gate FAILED")
     return rc
 

@@ -26,13 +26,18 @@ Probe accounting: the port's whole probe manifest
 spec's `[probes].expected` list is reported, and with `--probe-gate` an
 expected-but-never-hit probe fails the run.
 
-`--perf-ledger` and `--profile-dir` write through `utils/perf.py`, which
-the port has not ported yet: they raise.
+Perf ledger: a traced sweep (`--trace`) with no failure appends one
+structural row (outcome totals over the fixed spec, seed set and
+perturbation count) through `utils/perf.py`, to `--perf-ledger` or the
+default ledger. `--profile-dir` captures a `torch.profiler` trace of the
+run there; it runs the seeds in this process (one job), since a worker
+pool's device work is invisible to the parent's profiler.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -40,8 +45,6 @@ import sys
 import time
 from concurrent.futures import ProcessPoolExecutor, as_completed
 from pathlib import Path
-
-PERF_NOT_PORTED = "utils/perf is not ported yet (ROADMAP queue 1 item 8)"
 
 MANIFEST = (Path(__file__).resolve().parents[1] / "testing"
             / "probe_manifest.json")
@@ -128,10 +131,61 @@ def _one(args):
             launches)
 
 
+def _emit_perf_row(spec_name: str, seeds: list, perturb: int,
+                   totals: dict, traced_commits: int,
+                   ledger: str = None) -> None:
+    """One perf-ledger row for a traced sweep (utils/perf.py): outcome
+    totals over a fixed (spec, seed set, perturb) plan are deterministic,
+    so they land in the structural tier and compare exactly."""
+    from foundationdb_tpu_torch.utils import perf
+
+    metrics = {
+        name: perf.metric(v, "count", direction, tier="structural")
+        for name, v, direction in (
+            ("committed", totals["committed"], "higher"),
+            ("aborted", totals["aborted"], "lower"),
+            ("read_checks", totals["read_checks"], "higher"),
+            ("api_acked", totals["api_acked"], "higher"),
+            ("traced_commits", traced_commits, "higher"),
+        )
+    }
+    rec = perf.emit(
+        "soak", metrics,
+        workload={
+            "spec": spec_name,
+            "seeds": [seeds[0], seeds[-1]] if seeds else [],
+            "n_seeds": len(seeds),
+            "perturb": perturb,
+        },
+        ledger=ledger,
+    )
+    print(f"[perf] soak ledger row appended "
+          f"(committed={rec['metrics']['committed']['value']})")
+
+
+class _InlineFuture:
+    """One work item run in this process (`--profile-dir`: a worker
+    pool's device work is invisible to the parent's profiler), with a
+    pool future's `result()`."""
+
+    def __init__(self, w):
+        try:
+            self._result, self._err = _one(w), None
+        except Exception as e:  # surfaced by result(), as from a pool
+            self._result, self._err = None, e
+
+    def result(self):
+        if self._err is not None:
+            raise self._err
+        return self._result
+
+
 def sweep(spec_name: str, seeds: list, jobs: int, probe_gate: bool,
           perturb: int = 0, trace: bool = False,
-          status_probe: bool = False, device=None) -> int:
-    """Run one spec's seed sweep; returns the number of failures."""
+          status_probe: bool = False, device=None, inline: bool = False,
+          ledger: str = None) -> int:
+    """Run one spec's seed sweep; returns the number of failures.
+    `inline` runs the seeds one by one in this process."""
     from foundationdb_tpu_torch.testing.soak import (
         plan_for_seed,
         signature_metrics,
@@ -151,17 +205,24 @@ def sweep(spec_name: str, seeds: list, jobs: int, probe_gate: bool,
     failures = []
     done = 0
     committed = aborted = rechecks = det_checked = 0
-    api_acked = api_reads = 0
+    api_acked = api_reads = traced_commits = 0
     device_seeds = 0
     # per-seed probe snapshots aggregate here, and fold into this
     # process's registry once, after the last seed
     probe_agg: dict = {}
     ctx = multiprocessing.get_context("spawn")
     for lo in range(0, len(work), CHUNK):
-        with ProcessPoolExecutor(max_workers=jobs, mp_context=ctx) as pool:
-            futs = {pool.submit(_one, w): w[0] for w in work[lo:lo + CHUNK]}
-            for fut in as_completed(futs):
-                seed = futs[fut]
+        with (contextlib.nullcontext() if inline else
+              ProcessPoolExecutor(max_workers=jobs, mp_context=ctx)) as pool:
+            if inline:
+                # lazily: each seed runs as the loop reaches it
+                pairs = ((_InlineFuture(w), w[0])
+                         for w in work[lo:lo + CHUNK])
+            else:
+                futs = {pool.submit(_one, w): w[0]
+                        for w in work[lo:lo + CHUNK]}
+                pairs = ((f, futs[f]) for f in as_completed(futs))
+            for fut, seed in pairs:
                 try:
                     s, sig, dt, det, hits, launches = fut.result()
                     sm = signature_metrics(sig)
@@ -171,6 +232,7 @@ def sweep(spec_name: str, seeds: list, jobs: int, probe_gate: bool,
                     committed += sm["committed"]
                     aborted += sm["aborted"]
                     rechecks += sm["read_checks"]
+                    traced_commits += sm.get("traced_commits", 0)
                     det_checked += int(det)
                     api_sig = sm["api"]
                     if api_sig is not None:
@@ -239,6 +301,15 @@ def sweep(spec_name: str, seeds: list, jobs: int, probe_gate: bool,
         for s, e in failures:
             tag = f"seed {s}" if isinstance(s, int) else s
             print(f"  {tag}: {e}")
+    elif trace:
+        # a traced sweep is a perf run of record: its outcome totals and
+        # traced commits land in the ledger's structural tier
+        _emit_perf_row(
+            spec_name, seeds, perturb,
+            {"committed": committed, "aborted": aborted,
+             "read_checks": rechecks, "api_acked": api_acked},
+            traced_commits, ledger=ledger,
+        )
     return len(failures)
 
 
@@ -316,13 +387,18 @@ def main(argv=None) -> int:
              "determinism signature",
     )
     ap.add_argument("--perf-ledger", default=None,
-                    help="append a perf-ledger row (not ported yet)")
+                    help="the ledger a traced sweep appends its row to "
+                         "(default: utils/perf.history_path())")
     ap.add_argument("--profile-dir", default=None,
-                    help="capture a profiler trace (not ported yet)")
+                    help="capture a torch.profiler trace of the run "
+                         "(runs the seeds in this process, one job)")
     args = ap.parse_args(argv)
-    if args.perf_ledger or args.profile_dir:
-        raise NotImplementedError(PERF_NOT_PORTED)
+    if args.profile_dir:
+        # the profiler sees this process only; a worker pool would give
+        # an empty trace that looks like a measurement
+        args.jobs = 1
 
+    from foundationdb_tpu_torch.utils import perf as _perf
     from foundationdb_tpu_torch.utils import probes as _probes
 
     # declare every probe the port declares, so one no seed reached shows
@@ -333,16 +409,20 @@ def main(argv=None) -> int:
 
         # once, here: the workers load the built libraries
         kernels.build_all()
-    if args.smoke:
-        failed = smoke(args.start, args.perturb, args.trace,
-                       args.status_probe, args.device)
-        return 1 if failed else 0
-    seeds = list(range(args.start, args.start + args.seeds))
-    failed = sweep(
-        args.spec, seeds, args.jobs, args.probe_gate, args.perturb,
-        trace=args.trace, status_probe=args.status_probe,
-        device=args.device,
-    )
+    with _perf.profile_trace(args.profile_dir):
+        if args.smoke:
+            failed = smoke(args.start, args.perturb, args.trace,
+                           args.status_probe, args.device)
+        else:
+            seeds = list(range(args.start, args.start + args.seeds))
+            failed = sweep(
+                args.spec, seeds, args.jobs, args.probe_gate, args.perturb,
+                trace=args.trace, status_probe=args.status_probe,
+                device=args.device, inline=bool(args.profile_dir),
+                ledger=args.perf_ledger,
+            )
+    if args.profile_dir:
+        print(f"[perf] torch.profiler trace captured in {args.profile_dir}")
     return 1 if failed else 0
 
 

@@ -1,8 +1,8 @@
 """The commit-path Location strings the Resolver role, the wire commit
 path, the simulated cluster's roles and its client emit, and the
 reconstructor the soak's span-chain gate runs (the port's own copy of
-the constants, `version_id`, `Timeline`, `TraceIndex`, `check_chains`
-and `check_spans` of foundationdb_tpu.utils.commit_debug).
+the constants, `version_id`, `Timeline`, `TraceIndex`, `check_chains`,
+`check_spans` and `load_jsonl` of foundationdb_tpu.utils.commit_debug).
 
 The reference debugs its commit path with `g_traceBatch` micro-events
 (name, id, Location) and contrib/commit_debug.py joins them on these
@@ -245,3 +245,18 @@ def check_spans(spans: list[dict]) -> list[str]:
                 f"span {sid} ({loc}): end {end} before begin {begin}"
             )
     return out
+
+
+def load_jsonl(paths: list[str]) -> list[dict]:
+    """Read TraceLog JSONL files (pass rolled `.1` files first for a
+    complete, time-ordered trace)."""
+    import json
+
+    records: list[dict] = []
+    for path in paths:
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if line:
+                    records.append(json.loads(line))
+    return records

@@ -91,6 +91,10 @@ def _stub_runs(monkeypatch):
 ], ids=["soak-ledger", "soak-profile", "saturation", "hotspot"])
 def test_perf_options_raise_until_ported(drill, argv, tmp_path, capsys,
                                          monkeypatch):
+    """The soak, saturation and hotspot drills' `--perf-ledger` options
+    write valid ledger rows and `--profile-dir` writes one chrome trace.
+    The name is from when these options raised, before `utils/perf.py`
+    was ported; it is kept so that the test's record stays one."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.delenv("FDBTPU_PERF_LEDGER", raising=False)
     _stub_runs(monkeypatch)
